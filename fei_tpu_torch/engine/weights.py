@@ -1,0 +1,260 @@
+"""Checkpoint loading: an HF safetensors directory -> the stacked param dict
+(counterpart of fei_tpu/engine/weights.py, eager unsharded path).
+
+Maps per-layer HF Llama / Qwen2 / Mistral / Gemma / Phi tensor names onto
+the scan-stacked layout of models/llama.py (layers on a leading axis,
+linears transposed to [in, out]). Tensors are read with
+``safetensors.torch`` one at a time and copied into preallocated stacked
+tensors on the target device, so the host never holds more than one
+layer's tensor. If ``config.json`` is present its architecture fields
+override the preset (``_merge_hf_config``). Sharded streaming and int8 /
+int4 quantization on load are later slices (C4, A8, C1).
+"""
+
+from __future__ import annotations
+
+import json
+import os
+from dataclasses import replace
+
+import torch
+
+from fei_tpu_torch.models.configs import ModelConfig
+from fei_tpu_torch.models.llama import check_supported
+from fei_tpu_torch.utils.errors import CheckpointError
+from fei_tpu_torch.utils.logging import get_logger
+
+log = get_logger("engine.weights")
+
+# our stacked name -> HF per-layer template
+_LAYER_MAP = {
+    "attn_norm": "model.layers.{i}.input_layernorm.weight",
+    "wq": "model.layers.{i}.self_attn.q_proj.weight",
+    "wk": "model.layers.{i}.self_attn.k_proj.weight",
+    "wv": "model.layers.{i}.self_attn.v_proj.weight",
+    "wo": "model.layers.{i}.self_attn.o_proj.weight",
+    "mlp_norm": "model.layers.{i}.post_attention_layernorm.weight",
+    "w_gate": "model.layers.{i}.mlp.gate_proj.weight",
+    "w_up": "model.layers.{i}.mlp.up_proj.weight",
+    "w_down": "model.layers.{i}.mlp.down_proj.weight",
+    "bq": "model.layers.{i}.self_attn.q_proj.bias",
+    "bk": "model.layers.{i}.self_attn.k_proj.bias",
+    "bv": "model.layers.{i}.self_attn.v_proj.bias",
+    "bo": "model.layers.{i}.self_attn.o_proj.bias",
+}
+_TOP_MAP = {
+    "embed": "model.embed_tokens.weight",
+    "final_norm": "model.norm.weight",
+    "lm_head": "lm_head.weight",
+}
+# Phi (PhiForCausalLM): o_proj is `dense`, the MLP is fc1/fc2 (our
+# w_gate/w_down leaves), LayerNorms carry biases, lm_head has a bias
+_PHI_LAYER_MAP = {
+    **_LAYER_MAP,
+    "wo": "model.layers.{i}.self_attn.dense.weight",
+    "bo": "model.layers.{i}.self_attn.dense.bias",
+    "attn_norm_b": "model.layers.{i}.input_layernorm.bias",
+    "w_gate": "model.layers.{i}.mlp.fc1.weight",
+    "b_gate": "model.layers.{i}.mlp.fc1.bias",
+    "w_down": "model.layers.{i}.mlp.fc2.weight",
+    "b_down": "model.layers.{i}.mlp.fc2.bias",
+}
+_PHI_TOP_MAP = {
+    **_TOP_MAP,
+    "final_norm": "model.final_layernorm.weight",
+    "final_norm_b": "model.final_layernorm.bias",
+    "lm_head_b": "lm_head.bias",
+}
+
+
+def _open_index(ckpt_dir: str) -> dict[str, str]:
+    """tensor name -> shard filename."""
+    idx_path = os.path.join(ckpt_dir, "model.safetensors.index.json")
+    if os.path.exists(idx_path):
+        with open(idx_path) as f:
+            return json.load(f)["weight_map"]
+    single = os.path.join(ckpt_dir, "model.safetensors")
+    if os.path.exists(single):
+        from safetensors import safe_open
+
+        with safe_open(single, framework="pt") as f:
+            return {name: "model.safetensors" for name in f.keys()}
+    raise CheckpointError(f"no safetensors checkpoint found in {ckpt_dir}")
+
+
+def _leaf_specs(cfg: ModelConfig) -> dict:
+    """{path: (hf name template, our per-layer shape, transpose)} for every
+    leaf of the tree; ``path`` is ("layers", key) for stacked leaves."""
+    h, d = cfg.hidden_size, cfg.head_dim_
+    H, K, I, V = cfg.num_heads, cfg.num_kv_heads, cfg.intermediate_size, cfg.vocab_size
+    lmap = _PHI_LAYER_MAP if cfg.parallel_block else _LAYER_MAP
+    tmap = _PHI_TOP_MAP if cfg.parallel_block else _TOP_MAP
+    if cfg.norm_kind == "layernorm" and not cfg.parallel_block:
+        raise CheckpointError(
+            f"layernorm family {cfg.name!r} without the Phi parallel block has "
+            "no weight-map entries for its mlp_norm bias"
+        )
+    specs = {
+        ("embed",): (tmap["embed"], (V, h), False),
+        ("final_norm",): (tmap["final_norm"], (h,), False),
+        ("layers", "attn_norm"): (lmap["attn_norm"], (h,), False),
+        ("layers", "wq"): (lmap["wq"], (h, H * d), True),
+        ("layers", "wk"): (lmap["wk"], (h, K * d), True),
+        ("layers", "wv"): (lmap["wv"], (h, K * d), True),
+        ("layers", "wo"): (lmap["wo"], (H * d, h), True),
+        ("layers", "w_gate"): (lmap["w_gate"], (h, I), True),
+        ("layers", "w_down"): (lmap["w_down"], (I, h), True),
+    }
+    if not cfg.parallel_block:
+        specs[("layers", "mlp_norm")] = (lmap["mlp_norm"], (h,), False)
+    if cfg.norm_kind == "layernorm":
+        specs[("layers", "attn_norm_b")] = (lmap["attn_norm_b"], (h,), False)
+        specs[("final_norm_b",)] = (tmap["final_norm_b"], (h,), False)
+    if cfg.attn_bias:
+        specs[("layers", "bq")] = (lmap["bq"], (H * d,), False)
+        specs[("layers", "bk")] = (lmap["bk"], (K * d,), False)
+        specs[("layers", "bv")] = (lmap["bv"], (K * d,), False)
+    if cfg.o_bias:
+        specs[("layers", "bo")] = (lmap["bo"], (h,), False)
+    if cfg.mlp_gated:
+        specs[("layers", "w_up")] = (lmap["w_up"], (h, I), True)
+    elif cfg.mlp_bias:
+        specs[("layers", "b_gate")] = (lmap["b_gate"], (I,), False)
+        specs[("layers", "b_down")] = (lmap["b_down"], (h,), False)
+    if not cfg.tie_embeddings:
+        specs[("lm_head",)] = (tmap["lm_head"], (h, V), True)
+        if cfg.lm_head_bias:
+            specs[("lm_head_b",)] = (tmap["lm_head_b"], (V,), False)
+    return specs
+
+
+def load_checkpoint(
+    ckpt_dir: str,
+    cfg: ModelConfig,
+    dtype=torch.bfloat16,
+    device: torch.device | str = "cpu",
+    quantize: str | None = None,
+) -> tuple[ModelConfig, dict]:
+    """Load an unsharded, unquantized HF safetensors dir into the stacked
+    param dict on ``device``. Returns (merged config, params)."""
+    if quantize:
+        raise NotImplementedError(
+            f"quantize={quantize!r} on load: int8 is roadmap module A8, int4 C1"
+        )
+    from safetensors import safe_open
+
+    cfg = _merge_hf_config(ckpt_dir, cfg)
+    check_supported(cfg)
+    weight_map = _open_index(ckpt_dir)
+    files: dict[str, object] = {}
+
+    def read(name: str, expect: tuple, transpose: bool) -> torch.Tensor:
+        if name not in weight_map:
+            raise CheckpointError(f"tensor {name!r} missing from checkpoint")
+        shard = weight_map[name]
+        if shard not in files:
+            files[shard] = safe_open(os.path.join(ckpt_dir, shard), framework="pt")
+        t = files[shard].get_tensor(name)
+        hf_shape = tuple(reversed(expect)) if transpose else expect
+        if tuple(t.shape) != hf_shape:
+            raise CheckpointError(
+                f"tensor {name!r} has shape {tuple(t.shape)}, config expects "
+                f"{hf_shape} — wrong model config for this checkpoint?"
+            )
+        return t.T if transpose else t
+
+    params: dict = {"layers": {}}
+    for path, (tmpl, shape, transpose) in _leaf_specs(cfg).items():
+        if path[0] == "layers":
+            out = torch.empty((cfg.num_layers, *shape), dtype=dtype, device=device)
+            for i in range(cfg.num_layers):
+                out[i].copy_(read(tmpl.format(i=i), shape, transpose))
+            params["layers"][path[1]] = out
+        else:
+            params[path[0]] = read(tmpl, shape, transpose).to(device=device, dtype=dtype)
+    log.info("loaded checkpoint from %s (%d layers)", ckpt_dir, cfg.num_layers)
+    return cfg, params
+
+
+def _merge_hf_config(ckpt_dir: str, cfg: ModelConfig) -> ModelConfig:
+    """config.json architecture fields override the preset (a copy of
+    fei_tpu.engine.weights._merge_hf_config)."""
+    path = os.path.join(ckpt_dir, "config.json")
+    if not os.path.exists(path):
+        return cfg
+    with open(path) as f:
+        hf = json.load(f)
+    fields = dict(
+        vocab_size=hf.get("vocab_size"),
+        hidden_size=hf.get("hidden_size"),
+        intermediate_size=hf.get("intermediate_size"),
+        num_layers=hf.get("num_hidden_layers"),
+        num_heads=hf.get("num_attention_heads"),
+        num_kv_heads=hf.get("num_key_value_heads"),
+        rope_theta=hf.get("rope_theta"),
+        rms_norm_eps=hf.get("rms_norm_eps"),
+        max_seq_len=hf.get("max_position_embeddings"),
+        tie_embeddings=hf.get("tie_word_embeddings"),
+        num_experts=hf.get("num_local_experts"),
+        num_experts_per_tok=hf.get("num_experts_per_tok"),
+        bos_token_id=hf.get("bos_token_id"),
+        eos_token_id=hf.get("eos_token_id"),
+        # Llama-family configs expose attention_bias (q/k/v AND o biases);
+        # Qwen2 hardcodes qkv-only biases without a config field
+        attn_bias=(
+            True if hf.get("model_type") == "qwen2" else hf.get("attention_bias")
+        ),
+        o_bias=(
+            False if hf.get("model_type") == "qwen2" else hf.get("attention_bias")
+        ),
+        head_dim=hf.get("head_dim"),
+    )
+    if hf.get("model_type") == "phi":
+        # LayerNorm + shared-norm parallel block, partial rotary
+        # (partial_rotary_factor * head_dim; absent means PhiConfig's 0.5),
+        # fc1/fc2 MLP with biases, biased qkv/dense/lm_head
+        n_heads = hf.get("num_attention_heads") or cfg.num_heads
+        head_dim = (hf.get("hidden_size") or cfg.hidden_size) // n_heads
+        factor = hf.get("partial_rotary_factor")
+        fields.update(
+            norm_kind="layernorm", parallel_block=True, mlp_gated=False,
+            mlp_bias=True, attn_bias=True, o_bias=True, lm_head_bias=True,
+            hidden_act="gelu", rms_norm_eps=hf.get("layer_norm_eps"),
+            rotary_dim=int((0.5 if factor is None else factor) * head_dim),
+            num_kv_heads=hf.get("num_key_value_heads") or n_heads,
+        )
+    if hf.get("model_type") == "gemma":
+        # zero-centered norms ((1+w)), sqrt(h)-scaled embeddings, GeGLU;
+        # GemmaConfig defaults tie_word_embeddings=True
+        act = hf.get("hidden_activation") or hf.get("hidden_act") or "gelu"
+        fields.update(
+            norm_offset=True, embed_scale=True,
+            hidden_act="gelu" if "gelu" in act else act,
+            tie_embeddings=(
+                True if hf.get("tie_word_embeddings") is None
+                else hf["tie_word_embeddings"]
+            ),
+        )
+    fields = {k: v for k, v in fields.items() if v is not None}
+    # sliding_window after the None-filter: null must be able to DISABLE a
+    # preset's window (Mistral v0.2+)
+    if hf.get("model_type") == "mistral":
+        fields["sliding_window"] = hf.get("sliding_window")
+    elif hf.get("use_sliding_window"):
+        # HF Qwen2: only layers >= max_window_layers (absent: 28) slide;
+        # the uniform-window decoder refuses partial windowing
+        n_layers = hf.get("num_hidden_layers", 0) or 0
+        mwl = hf.get("max_window_layers")
+        mwl = 28 if mwl is None else mwl
+        if mwl >= n_layers:
+            fields["sliding_window"] = None
+        elif mwl == 0:
+            fields["sliding_window"] = hf.get("sliding_window")
+        else:
+            raise CheckpointError(
+                f"per-layer sliding window (max_window_layers={mwl} < "
+                f"num_hidden_layers={n_layers}) is not representable in the "
+                "uniform-window decoder; refusing to load rather than "
+                "mis-window layers"
+            )
+    return replace(cfg, **fields)

@@ -1,0 +1,46 @@
+"""Convert the JAX package's parameter tree into the port's.
+
+``params_from_jax`` takes the tree of ``fei_tpu.models.llama.init_params``
+(or ``fei_tpu.engine.weights.load_checkpoint``) with every leaf already a
+numpy array — ``jax.tree.map(np.asarray, params)`` on the JAX side — and
+returns the port's dict of tensors. The layouts are the same (layers
+stacked on axis 0, linears [in, out]), so both packages then compute the
+same function. This module imports neither jax nor fei_tpu.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+
+def _leaf(x, path: str, dtype, device) -> torch.Tensor:
+    if isinstance(x, tuple) and hasattr(x, "_fields"):
+        # fei_tpu.ops.quant.QTensor (q, s) / QTensor4 (p, s) NamedTuples
+        raise NotImplementedError(
+            f"{path}: quantized leaf {type(x).__name__}{x._fields} — int8 "
+            "weights are roadmap module A8 and int4 C1; convert a bf16/fp32 "
+            "tree"
+        )
+    arr = np.asarray(x)
+    if arr.dtype.kind not in "fiu":
+        # ml_dtypes bfloat16 (and other extension floats): torch cannot
+        # wrap them, and the float32 round-trip is exact
+        t = torch.from_numpy(arr.astype(np.float32)).to(torch.bfloat16)
+    else:
+        t = torch.from_numpy(np.array(arr))  # a writable copy
+    if dtype is not None and t.is_floating_point():
+        t = t.to(dtype)
+    return t.to(device)
+
+
+def params_from_jax(tree: dict, dtype=None, device: torch.device | str = "cpu") -> dict:
+    """JAX param tree (numpy leaves) -> port param dict on ``device``.
+    ``dtype`` casts every floating leaf (None keeps each leaf's own)."""
+
+    def walk(node, path):
+        if isinstance(node, dict):
+            return {k: walk(v, f"{path}/{k}") for k, v in node.items()}
+        return _leaf(node, path, dtype, device)
+
+    return walk(tree, "")

@@ -1,0 +1,423 @@
+"""OpenAI-compatible serving endpoint over the PyTorch engine (counterpart
+of fei_tpu/ui/server.py, dense serving routes).
+
+``python -m fei_tpu_torch serve`` exposes the torch_local provider behind
+POST /v1/chat/completions (JSON, or SSE with ``"stream": true``), GET
+/v1/models, /health and /metrics. The paged engine's control plane
+(/kv/*, /drain) and the /debug and /v1/traces routes come with the paged
+and observability slices; until then they answer 404 like any unknown
+route. Built on stdlib http.server. Auth is optional (``--api-key`` /
+FEI_TPU_SERVER_API_KEY).
+"""
+
+from __future__ import annotations
+
+import argparse
+import hmac
+import json
+import os
+import threading
+import time
+import uuid
+from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+from urllib.parse import urlsplit
+
+from fei_tpu_torch.utils.logging import get_logger
+from fei_tpu_torch.utils.metrics import METRICS
+
+log = get_logger("ui.server")
+
+DEFAULT_PORT = 8188
+
+
+def _content_text(content) -> str:
+    """OpenAI content is a string or a parts array; extract the text."""
+    if isinstance(content, list):
+        return "".join(
+            p.get("text", "") for p in content
+            if isinstance(p, dict) and p.get("type", "text") == "text"
+        )
+    return str(content or "")
+
+
+def _from_openai_messages(raw: list[dict]) -> tuple[list[dict], str | None]:
+    """OpenAI wire messages -> (internal messages, system prompt)."""
+    if not isinstance(raw, list):
+        raise ValueError("messages must be a list of message objects")
+    msgs: list[dict] = []
+    system_parts: list[str] = []
+    for m in raw:
+        if not isinstance(m, dict):
+            raise ValueError(
+                f"each message must be an object, got {type(m).__name__}"
+            )
+        role = m.get("role", "user")
+        if role == "system":
+            system_parts.append(_content_text(m.get("content")))
+        elif role == "assistant" and m.get("tool_calls"):
+            msgs.append({
+                "role": "assistant",
+                "content": m.get("content") or "",
+                "tool_calls": [
+                    {
+                        "id": c.get("id", ""),
+                        "name": c.get("function", {}).get("name", ""),
+                        "arguments": json.loads(
+                            c.get("function", {}).get("arguments") or "{}"
+                        ),
+                    }
+                    for c in m["tool_calls"]
+                ],
+            })
+        elif role == "tool":
+            msgs.append({
+                "role": "tool",
+                "tool_call_id": m.get("tool_call_id", ""),
+                "content": _content_text(m.get("content")),
+            })
+        else:
+            msgs.append({"role": role, "content": _content_text(m.get("content"))})
+    return msgs, ("\n\n".join(system_parts) or None)
+
+
+def _from_openai_tools(raw: list[dict] | None) -> list[dict] | None:
+    if not raw:
+        return None
+    out = []
+    for t in raw:
+        fn = t.get("function", t)
+        out.append({
+            "name": fn.get("name", ""),
+            "description": fn.get("description", ""),
+            "input_schema": fn.get("parameters", {}),
+        })
+    return out
+
+
+def _gen_overrides(body: dict) -> dict:
+    """Per-request sampling knobs; explicit JSON null means 'use the
+    default' per the OpenAI spec."""
+    over: dict = {}
+    if body.get("temperature") is not None:
+        over["temperature"] = float(body["temperature"])
+    if body.get("top_p") is not None:
+        over["top_p"] = float(body["top_p"])
+    if body.get("top_k") is not None:  # non-OpenAI extension
+        over["top_k"] = int(body["top_k"])
+    if body.get("min_p") is not None:  # non-OpenAI extension (vLLM-style)
+        over["min_p"] = min(max(float(body["min_p"]), 0.0), 1.0)
+    if body.get("seed") is not None:
+        over["seed"] = int(body["seed"])
+    if body.get("ignore_eos") is not None:  # decode the full budget
+        over["ignore_eos"] = bool(body["ignore_eos"])
+    return over
+
+
+def _to_openai_response(resp, model: str, rid: str) -> dict:
+    msg: dict = {"role": "assistant", "content": resp.content}
+    finish = "stop"
+    if resp.tool_calls:
+        msg["tool_calls"] = [
+            {
+                "id": c.id,
+                "type": "function",
+                "function": {"name": c.name, "arguments": json.dumps(c.arguments)},
+            }
+            for c in resp.tool_calls
+        ]
+        finish = "tool_calls"
+    usage = resp.usage or {}
+    pt = int(usage.get("prompt_tokens", 0))
+    ct = int(usage.get("completion_tokens", 0))
+    return {
+        "id": rid,
+        "object": "chat.completion",
+        "created": int(time.time()),
+        "model": model,
+        "choices": [{"index": 0, "message": msg, "finish_reason": finish}],
+        "usage": {
+            "prompt_tokens": pt,
+            "completion_tokens": ct,
+            "total_tokens": pt + ct,
+        },
+    }
+
+
+class ServeAPI:
+    """Socket-free core so tests can drive it directly. ``provider`` is an
+    agent-layer Provider (TorchLocalProvider; MockProvider in tests)."""
+
+    def __init__(self, provider, model_name: str = "fei-tpu-torch",
+                 api_key: str | None = None):
+        self.provider = provider
+        self.model_name = model_name
+        self.api_key = api_key or ""
+
+    def authorized(self, headers: dict) -> bool:
+        if not self.api_key:
+            return True
+        provided = ""
+        for k, v in headers.items():
+            if k.lower() == "authorization":
+                provided = v.strip()
+                if provided[:7].lower() == "bearer ":  # RFC 7235 §2.1
+                    provided = provided[7:].strip()
+                break
+        # bytes comparison: compare_digest raises on non-ASCII str input
+        return hmac.compare_digest(
+            provided.encode("utf-8"), self.api_key.encode("utf-8")
+        )
+
+    def handle(self, method: str, path: str, body: dict, headers: dict) -> tuple:
+        """Route a request. Returns ``(status, payload)``; a ``str`` payload
+        is plain text (the Prometheus exposition), dicts are JSON."""
+        route = urlsplit(path).path
+        METRICS.incr("server.requests")
+        if route == "/health":
+            eng = getattr(self.provider, "engine", None)
+            device = str(getattr(eng, "device", "")) or None
+            return 200, {"status": "ok", "model": self.model_name, "device": device}
+        if route == "/metrics" and method == "GET":
+            # pre-auth like /health: scrapers don't carry bearer tokens
+            return 200, METRICS.prometheus_text()
+        if not self.authorized(headers):
+            return 401, {"error": {"message": "invalid or missing API key",
+                                   "type": "authentication_error"}}
+        if route == "/v1/models" and method == "GET":
+            return 200, {
+                "object": "list",
+                "data": [{"id": self.model_name, "object": "model",
+                          "owned_by": "fei-tpu-torch"}],
+            }
+        if route == "/v1/chat/completions" and method == "POST":
+            return self._chat(body)
+        return 404, {"error": {"message": f"no route {method} {route}",
+                               "type": "invalid_request_error"}}
+
+    def _parse_request(self, body: dict) -> dict:
+        """Decode the request into provider kwargs; raises on bad input
+        BEFORE any engine work (the streaming path validates here before
+        committing SSE headers)."""
+        msgs, system = _from_openai_messages(body.get("messages") or [])
+        mt = body.get("max_tokens")
+        if mt is None:
+            mt = body.get("max_completion_tokens")
+        mt = 1024 if mt is None else int(mt)  # 0 is a valid explicit budget
+        if mt < 0:
+            raise ValueError(f"max_tokens must be >= 0, got {mt}")
+        kw = {
+            "messages": msgs,
+            "system": system,
+            "tools": _from_openai_tools(body.get("tools")),
+            "max_tokens": mt,
+        }
+        over = _gen_overrides(body)
+        if over and getattr(self.provider, "supports_gen_overrides", False):
+            kw["gen_overrides"] = over
+        return kw
+
+    def _chat(self, body: dict) -> tuple:
+        try:
+            kw = self._parse_request(body)
+        except (ValueError, KeyError, TypeError) as exc:
+            return 400, {"error": {"message": str(exc),
+                                   "type": "invalid_request_error"}}
+        try:
+            msgs = kw.pop("messages")
+            resp = self.provider.complete(msgs, **kw)
+        except Exception as exc:  # noqa: BLE001 — surface as JSON, not a
+            # dropped socket (EngineError/ProviderError/anything)
+            log.warning("completion failed: %r", exc)
+            return 500, {"error": {"message": f"{type(exc).__name__}: {exc}",
+                                   "type": "server_error"}}
+        rid = f"chatcmpl-{uuid.uuid4().hex[:24]}"
+        return 200, _to_openai_response(resp, body.get("model") or self.model_name, rid)
+
+    def stream_chat(self, body: dict, kw: dict):
+        """Yield SSE frames (bytes). ``kw`` comes from _parse_request, so
+        the 200 + SSE headers the caller committed were safe. Errors
+        mid-stream become an error frame followed by [DONE]."""
+        rid = f"chatcmpl-{uuid.uuid4().hex[:24]}"
+        model = body.get("model") or self.model_name
+        created = int(time.time())
+
+        def frame(delta: dict, finish=None) -> bytes:
+            chunk = {
+                "id": rid,
+                "object": "chat.completion.chunk",
+                "created": created,
+                "model": model,
+                "choices": [{"index": 0, "delta": delta, "finish_reason": finish}],
+            }
+            return b"data: " + json.dumps(chunk).encode() + b"\n\n"
+
+        yield frame({"role": "assistant"})
+        resp = None
+        try:
+            kw = dict(kw)
+            msgs = kw.pop("messages")
+            gen = self.provider.stream(msgs, **kw)
+            while True:
+                try:
+                    delta = next(gen)
+                except StopIteration as fin:
+                    resp = fin.value
+                    break
+                if delta:
+                    yield frame({"content": delta})
+        except Exception as exc:  # noqa: BLE001 — headers are committed
+            log.warning("stream failed: %r", exc)
+            yield (b"data: " + json.dumps({"error": {
+                "message": f"{type(exc).__name__}: {exc}",
+                "type": "server_error",
+            }}).encode() + b"\n\n")
+            yield b"data: [DONE]\n\n"
+            return
+        finish = "stop"
+        if resp is not None and resp.tool_calls:
+            finish = "tool_calls"
+            yield frame({
+                "tool_calls": [
+                    {
+                        "index": i,
+                        "id": c.id,
+                        "type": "function",
+                        "function": {"name": c.name,
+                                     "arguments": json.dumps(c.arguments)},
+                    }
+                    for i, c in enumerate(resp.tool_calls)
+                ]
+            })
+        yield frame({}, finish=finish)
+        yield b"data: [DONE]\n\n"
+
+
+def make_handler(api: ServeAPI):
+    class Handler(BaseHTTPRequestHandler):
+        def log_message(self, fmt, *args):  # route through our logger
+            log.debug("http: " + fmt, *args)
+
+        def _json(self, status: int, payload: dict | str) -> None:
+            if isinstance(payload, str):  # Prometheus text exposition
+                data = payload.encode("utf-8")
+                ctype = "text/plain; version=0.0.4; charset=utf-8"
+            else:
+                data = json.dumps(payload).encode()
+                ctype = "application/json"
+            self.send_response(status)
+            self.send_header("Content-Type", ctype)
+            self.send_header("Content-Length", str(len(data)))
+            self.end_headers()
+            self.wfile.write(data)
+
+        def _body(self) -> dict | None:
+            """None means malformed JSON or a non-object body (-> 400),
+            {} means no body."""
+            n = int(self.headers.get("Content-Length") or 0)
+            if not n:
+                return {}
+            try:
+                data = json.loads(self.rfile.read(n))
+            except json.JSONDecodeError:
+                return None
+            return data if isinstance(data, dict) else None
+
+        def do_GET(self):  # noqa: N802
+            status, payload = api.handle("GET", self.path, {}, dict(self.headers))
+            self._json(status, payload)
+
+        def do_POST(self):  # noqa: N802
+            body = self._body()
+            if body is None:
+                self._json(400, {"error": {
+                    "message": "request body is not a JSON object",
+                    "type": "invalid_request_error"}})
+                return
+            if (
+                urlsplit(self.path).path == "/v1/chat/completions"
+                and body.get("stream")
+                and api.authorized(dict(self.headers))
+            ):
+                # validate BEFORE committing 200 + SSE headers
+                try:
+                    kw = api._parse_request(body)
+                except (ValueError, KeyError, TypeError) as exc:
+                    self._json(400, {"error": {"message": str(exc),
+                                               "type": "invalid_request_error"}})
+                    return
+                self.send_response(200)
+                self.send_header("Content-Type", "text/event-stream")
+                self.send_header("Cache-Control", "no-cache")
+                self.end_headers()
+                try:
+                    for chunk in api.stream_chat(body, kw):
+                        self.wfile.write(chunk)
+                        self.wfile.flush()
+                except (BrokenPipeError, ConnectionResetError):
+                    log.info("client disconnected mid-stream")
+                return
+            status, payload = api.handle("POST", self.path, body, dict(self.headers))
+            self._json(status, payload)
+
+    return Handler
+
+
+class ServingServer:
+    """Owns the ThreadingHTTPServer; start()/stop() for tests and the CLI."""
+
+    def __init__(self, api: ServeAPI, host: str = "127.0.0.1", port: int = 0):
+        self.api = api
+        self.httpd = ThreadingHTTPServer((host, port), make_handler(api))
+        self.port = self.httpd.server_address[1]
+        self._thread: threading.Thread | None = None
+
+    def start(self) -> None:
+        self._thread = threading.Thread(target=self.httpd.serve_forever, daemon=True)
+        self._thread.start()
+        log.info("serving OpenAI-compatible API on :%d", self.port)
+
+    def stop(self) -> None:
+        self.httpd.shutdown()
+        self.httpd.server_close()
+        if self._thread:
+            self._thread.join(timeout=5)
+
+
+def main(argv: list[str] | None = None) -> int:
+    p = argparse.ArgumentParser(
+        description="OpenAI-compatible serving endpoint over the PyTorch engine"
+    )
+    p.add_argument("--host", default="127.0.0.1")
+    p.add_argument("--port", type=int, default=DEFAULT_PORT)
+    p.add_argument("--model", default=None,
+                   help="model config name (default: [torch_local] model)")
+    p.add_argument("--api-key", default=os.environ.get("FEI_TPU_SERVER_API_KEY"))
+    args = p.parse_args(argv)
+
+    from fei_tpu_torch.agent.providers import TorchLocalProvider
+
+    provider = TorchLocalProvider(model=args.model)
+    api = ServeAPI(provider, model_name=provider.engine.cfg.name, api_key=args.api_key)
+    server = ServingServer(api, host=args.host, port=args.port)
+    server.start()
+    log.info("model %s ready on http://%s:%d/v1 (ctrl-c to stop)",
+             provider.engine.cfg.name, args.host, server.port)
+    stopping = threading.Event()
+
+    import signal
+
+    try:
+        signal.signal(signal.SIGTERM, lambda signum, frame: stopping.set())
+    except ValueError:
+        pass  # not the main thread (embedded use): no SIGTERM hook
+    try:
+        while not stopping.wait(3600):
+            pass
+    except KeyboardInterrupt:
+        pass
+    server.stop()
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())
