@@ -71,7 +71,7 @@ def main() -> int:
     from fei_tpu_torch.engine.fused_decode import ChunkDecoder
     from fei_tpu_torch.ops.kernels import build
 
-    build.build(["flash_attention_fwd"])
+    build.build("flash_attention_fwd")
     engine = InferenceEngine.from_config(
         "llama3-8b", dtype=torch.bfloat16, seed=0, max_seq_len=8192, device="cuda")
     prompt = np.random.default_rng(0).integers(8, engine.cfg.vocab_size, 1500).tolist()

@@ -202,10 +202,14 @@ class InferenceEngine:
             return set()
         return set(gen.stop_token_ids) | set(self.tokenizer.stop_token_ids)
 
-    def prefill(self, prompt_ids: Sequence[Sequence[int]], cache: KVCache):
+    def prefill(
+        self, prompt_ids: Sequence[Sequence[int]], cache: KVCache,
+        flash: bool | None = None,
+    ):
         """Pad prompts to a bucket, run one forward, fix cache lengths.
         Returns (last_valid_logits [B, V] float32, cache). Only the last
-        valid position goes through the LM head."""
+        valid position goes through the LM head. ``flash`` picks the
+        attention path (None: the kernel for prompt-sized T on the card)."""
         B = len(prompt_ids)
         lengths = [len(p) for p in prompt_ids]
         max_len = max(lengths)
@@ -219,7 +223,9 @@ class InferenceEngine:
             dtype=torch.long, device=self.device,
         )
         true_len = torch.tensor(lengths, dtype=torch.int32, device=self.device)
-        hidden, cache = forward(self.params, self.cfg, padded, cache, lm_head=False)
+        hidden, cache = forward(
+            self.params, self.cfg, padded, cache, lm_head=False, flash=flash
+        )
         # padding wrote garbage kv beyond each true length; resetting the
         # length masks it out of attention and decode overwrites it
         cache = cache._replace(length=true_len)

@@ -21,7 +21,6 @@ later slices and raise ``NotImplementedError``.
 from __future__ import annotations
 
 import functools
-import os
 from typing import NamedTuple
 
 import torch
@@ -200,15 +199,14 @@ def qkv_proj(lp, y, Hq: int, K: int, d: int):
     return q.reshape(B, T, Hq, d), k.reshape(B, T, K, d), v.reshape(B, T, K, d)
 
 
-def _attend(q, k, v, kv_length, positions, window: int = 0):
-    """Pick the attention path: the flash kernel for prefill-sized T on
-    the card, the plain path otherwise. FEI_TPU_FLASH=1 forces the flash
-    wrapper (on CPU tensors that is its plain version), =0 the plain path.
-    ``kv_length`` is the pre-write cache length [B]; keys are valid below
-    kv_length + T."""
+def _attend(q, k, v, kv_length, positions, window: int = 0, flash: bool | None = None):
+    """Pick the attention path: with ``flash`` None, the flash kernel for
+    prefill-sized T on the card and the plain path otherwise; True forces
+    the flash wrapper (on CPU tensors that is its plain version), False the
+    plain path. ``kv_length`` is the pre-write cache length [B]; keys are
+    valid below kv_length + T."""
     T = q.shape[1]
-    mode = os.environ.get("FEI_TPU_FLASH", "auto")
-    if mode == "1" or (mode == "auto" and T >= _FLASH_MIN_T and q.is_cuda):
+    if flash or (flash is None and T >= _FLASH_MIN_T and q.is_cuda):
         return flash_attention(q, k, v, kv_length, kv_length + T, window=window)
     return attention(q, k, v, positions, kv_length + T, window=window)
 
@@ -225,7 +223,7 @@ def _write_kv(buf, new, positions, live):
 
 
 def _layer(cfg: ModelConfig, x, lp, cache_k, cache_v, kv_length, positions,
-           cos, sin, live=None):
+           cos, sin, live=None, flash=None):
     """One decoder block. x: [B,T,h]; cache_k/v: this layer's [B,S,K,D],
     written in place. Returns x_out."""
     B, T, _ = x.shape
@@ -239,7 +237,7 @@ def _layer(cfg: ModelConfig, x, lp, cache_k, cache_v, kv_length, positions,
     _write_kv(cache_v, v, positions, live)
 
     attn = _attend(q, cache_k, cache_v, kv_length, positions,
-                   window=cfg.sliding_window or 0)
+                   window=cfg.sliding_window or 0, flash=flash)
     o = attn.reshape(B, T, Hq * d) @ lp["wo"]
     if "bo" in lp:
         o = o + lp["bo"]
@@ -274,6 +272,7 @@ def forward(
     cache: KVCache,
     lm_head: bool = True,
     live: torch.Tensor | None = None,
+    flash: bool | None = None,
 ) -> tuple[torch.Tensor, KVCache]:
     """Run T tokens through the model against the cache.
 
@@ -282,7 +281,8 @@ def forward(
     written into ``cache.k``/``cache.v`` in place. ``lm_head=False``
     returns the final-norm hidden states [B, T, h] instead of logits.
     ``live`` ([B] bool, optional) freezes finished rows: their KV slots
-    keep their contents and their length does not advance.
+    keep their contents and their length does not advance. ``flash``
+    picks the attention path (``_attend``): None chooses by T and device.
     """
     check_supported(cfg)
     B, T = tokens.shape
@@ -298,7 +298,7 @@ def forward(
     for i in range(cfg.num_layers):
         lp = {name: leaf[i] for name, leaf in params["layers"].items()}
         x = _layer(cfg, x, lp, cache.k[i], cache.v[i], cache.length, positions,
-                   cos, sin, live=live)
+                   cos, sin, live=live, flash=flash)
     x = _norm(x, params["final_norm"], cfg, b=params.get("final_norm_b"))
     step = T if live is None else live.to(torch.int32) * T
     new_cache = KVCache(k=cache.k, v=cache.v, length=cache.length + step)

@@ -35,6 +35,28 @@ def visible_mask(
     return mask & (s_pos < kv_length.to(q_positions.device)[:, None, None])
 
 
+def attention_probs(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    q_positions: torch.Tensor,  # [B, T]
+    kv_length: torch.Tensor | int,
+    scale: float | None = None,
+    window: int = 0,
+) -> torch.Tensor:
+    """[B, T, K, G, S] fp32 softmax weights of each query head (head
+    h = k*G + g) over the cache, with the masks applied."""
+    B, T, H, D = q.shape
+    S, K = k.shape[1], k.shape[2]
+    if scale is None:
+        scale = D ** -0.5
+    qg = q.reshape(B, T, K, H // K, D).float()
+    scores = torch.einsum("btkgd,bskd->btkgs", qg, k.float()) * scale
+    mask = visible_mask(q_positions, kv_length, S, window)[:, :, None, None, :]
+    scores = torch.where(mask, scores, torch.full_like(scores, NEG_INF))
+    probs = torch.exp(scores - scores.amax(dim=-1, keepdim=True))
+    return probs / probs.sum(dim=-1, keepdim=True)
+
+
 def attention(
     q: torch.Tensor,
     k: torch.Tensor,
@@ -45,17 +67,6 @@ def attention(
     window: int = 0,  # sliding window: 0 = full causal; w = last w positions
 ) -> torch.Tensor:
     B, T, H, D = q.shape
-    S, K = k.shape[1], k.shape[2]
-    groups = H // K
-    if scale is None:
-        scale = D ** -0.5
-
-    qg = q.reshape(B, T, K, groups, D).float()
-    scores = torch.einsum("btkgd,bskd->btkgs", qg, k.float()) * scale
-    mask = visible_mask(q_positions, kv_length, S, window)[:, :, None, None, :]
-    scores = torch.where(mask, scores, torch.full_like(scores, NEG_INF))
-
-    probs = torch.exp(scores - scores.amax(dim=-1, keepdim=True))
-    probs = probs / probs.sum(dim=-1, keepdim=True)
+    probs = attention_probs(q, k, q_positions, kv_length, scale, window)
     out = torch.einsum("btkgs,bskd->btkgd", probs, v.float())
     return out.reshape(B, T, H, D).to(q.dtype)

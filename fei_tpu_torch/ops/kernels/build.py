@@ -6,7 +6,7 @@ at the repository root, where ``<hash>`` covers the source bytes and the
 compiler flags: an edited source builds anew, an unchanged one loads the
 library already there. Nothing is built when a module is imported — only
 when a kernel is first launched, or when a caller (``chip_smoke.py``)
-asks for the builds up front, all started together.
+asks for the build up front.
 """
 
 from __future__ import annotations
@@ -61,38 +61,26 @@ def library_path(name: str) -> Path:
     return BUILD_DIR / f"lib{name}_{digest.hexdigest()[:16]}.so"
 
 
-def build(names: list[str]) -> list[BuildResult]:
-    """Compile every source in ``names`` that is not built yet, one nvcc
-    process per source, all started together; raises if any fails."""
+def build(name: str) -> BuildResult:
+    """Compile ``csrc/<name>.cu`` unless it is built already; raises with
+    nvcc's output if the compile fails."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    started = []
-    results: list[BuildResult] = []
-    for name in names:
-        out = library_path(name)
-        if out.exists():
-            results.append(BuildResult(name, out, 0.0, ""))
-            continue
-        # compile to a private name, then rename: a concurrent process
-        # never loads a half-written library
-        tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC_DIR / f"{name}.cu")]
-        proc = subprocess.Popen(
-            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
-        )
-        started.append((name, out, tmp, proc, time.perf_counter()))
-    failed = []
-    for name, out, tmp, proc, t0 in started:
-        log, _ = proc.communicate()
-        secs = time.perf_counter() - t0
-        if proc.returncode != 0:
-            failed.append(f"{name}: nvcc exited {proc.returncode}\n{log}")
-            tmp.unlink(missing_ok=True)
-            continue
-        os.replace(tmp, out)
-        results.append(BuildResult(name, out, secs, log))
-    if failed:
-        raise RuntimeError("kernel build failed:\n" + "\n".join(failed))
-    return results
+    out = library_path(name)
+    if out.exists():
+        return BuildResult(name, out, 0.0, "")
+    # compile to a private name, then rename: a concurrent process never
+    # loads a half-written library
+    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC_DIR / f"{name}.cu")]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                          text=True, check=False)
+    if proc.returncode != 0:
+        tmp.unlink(missing_ok=True)
+        raise RuntimeError(f"kernel build failed: {name}: nvcc exited "
+                           f"{proc.returncode}\n{proc.stdout}")
+    os.replace(tmp, out)
+    return BuildResult(name, out, time.perf_counter() - t0, proc.stdout)
 
 
 def load(name: str) -> ctypes.CDLL:
@@ -100,6 +88,6 @@ def load(name: str) -> ctypes.CDLL:
     with _LOCK:
         lib = _LOADED.get(name)
         if lib is None:
-            (res,) = build([name])
+            res = build(name)
             lib = _LOADED[name] = ctypes.CDLL(str(res.path))
         return lib

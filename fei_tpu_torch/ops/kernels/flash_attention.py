@@ -9,6 +9,8 @@ what bounds it and what the design does about it.
 ``flash_attention`` launches the kernel for CUDA tensors and raises when it
 cannot; it takes the plain version (``flash_attention_reference``) only for
 tensors on the CPU. ``flash_attention.launches`` counts kernel launches.
+``flash_attention_tolerance`` is the per-element bound the kernel is held
+to against the plain version.
 """
 
 from __future__ import annotations
@@ -18,7 +20,7 @@ import threading
 
 import torch
 
-from fei_tpu_torch.ops.attention import attention, visible_mask
+from fei_tpu_torch.ops.attention import attention, attention_probs, visible_mask
 from fei_tpu_torch.ops.kernels import build
 
 KERNEL = "flash_attention_fwd"
@@ -63,6 +65,36 @@ def flash_attention_reference(
     out = attention(q, k, v, positions, kv_length, scale=scale, window=window)
     live = visible_mask(positions, kv_length, k.shape[1], window).any(dim=-1)
     return torch.where(live[:, :, None, None], out, torch.zeros_like(out))
+
+
+def flash_attention_tolerance(q, k, v, q_start, kv_length, scale=None, window=0):
+    """Per-element bound [B, T, H, D] on |kernel - reference| for bf16
+    inputs, where the reference is ``flash_attention_reference`` in fp32 on
+    the same values.
+
+    The kernel differs from it by two roundings. It rounds each softmax
+    weight p_j to bf16 before the P.V product (as the Pallas kernel casts
+    p): an error of at most 2^-8 p_j |v_j| per key, independent from key
+    to key. Four times the root-sum-square of those bounds is exceeded
+    with a chance below 1e-10 per element (a rounding error is uniform,
+    hence sub-Gaussian with its own variance), and it covers the worst
+    case outright for rows of up to 16 keys. It then rounds the output to
+    bf16, half an ulp; two ulps of |reference| also cover the fp32
+    products' summation order. The bound follows each element's own size,
+    so the many small outputs of long rows are held as tightly as the
+    largest one."""
+    T = q.shape[1]
+    positions = q_start.to(torch.long)[:, None] + torch.arange(T, device=q.device)[None, :]
+    probs = attention_probs(q, k, positions, kv_length, scale, window)
+    spread = torch.einsum("btkgs,bskd->btkgd", probs.square(), v.float().square()).sqrt()
+    del probs
+    live = visible_mask(positions, kv_length, k.shape[1], window).any(dim=-1)
+    spread = spread.reshape(q.shape) * live[:, :, None, None]
+    ref = flash_attention_reference(q.float(), k.float(), v.float(), q_start, kv_length,
+                                    scale, window)
+    _, exp = torch.frexp(ref.abs().clamp_min(2.0 ** -126))
+    ulp = torch.ldexp(torch.ones_like(ref), exp - 8)  # bf16 keeps 8 significant bits
+    return 2 * ulp + 4 * 2.0 ** -8 * spread
 
 
 def _check(q, k, v, q_start, kv_length, window):

@@ -89,20 +89,19 @@ def test_forward_logits_match_jax(name, monkeypatch):
         np.testing.assert_allclose(g, w, atol=ATOL, rtol=0, err_msg=f"call {i}")
 
 
-def test_forward_flash_wrapper_path_matches_plain(monkeypatch):
-    """FEI_TPU_FLASH=1 routes the port's prefill through the flash wrapper
-    (its plain version on the CPU, no launches): same logits as auto."""
+def test_forward_flash_wrapper_path_matches_plain():
+    """flash=True routes the port's prefill through the flash wrapper (its
+    plain version on the CPU, no launches): same logits as the default."""
     from fei_tpu_torch.ops.kernels.flash_attention import flash_attention
 
     pcfg = pt_get_model_config("tiny-swa")
     params = pt_llama.init_params(pcfg, seed=3, dtype=torch.float32)
     toks = torch.from_numpy(np.random.default_rng(2).integers(0, 512, (1, 70)))
     runs = []
-    for flash in ("1", "auto"):
-        monkeypatch.setenv("FEI_TPU_FLASH", flash)
+    for flash in (True, None):
         cache = pt_llama.KVCache.create(pcfg, 1, S, torch.float32)
         before = flash_attention.launches
-        runs.append(pt_llama.forward(params, pcfg, toks, cache)[0])
+        runs.append(pt_llama.forward(params, pcfg, toks, cache, flash=flash)[0])
         assert flash_attention.launches == before
     torch.testing.assert_close(runs[0], runs[1], atol=1e-5, rtol=0)
 
