@@ -4,13 +4,16 @@
     python3 chip_profile.py
 
 Builds the kernels, makes the same llama3-8b engine as chip_smoke.py
-(full width and depth, bf16, random weights from seed 0) and traces two
-windows with torch.profiler: one ~1500-token prefill (bucket 2048) and
-32 decode steps (fused chunks of 16). For each window it prints the wall
+(full width and depth, bf16, random weights from seed 0) and traces four
+windows with torch.profiler: one ~1500-token prefill (bucket 2048), 32
+dense decode steps (fused chunks of 16), and on the paged path (a
+1025-page pool, eight rows at chip_smoke's contexts of 96 to 5000
+tokens) 8 batched decode steps and one merged dispatch (a 256-token
+prefill chunk riding a decode step). For each window it prints the wall
 time, the device's busy share (the union of kernel intervals over the
 wall time) and the kernels that took the most device time, grouped by
-name. Measurement only: nothing here is checked beyond the card being
-there.
+name; the paged windows also print their unprofiled time per step.
+Measurement only: nothing here is checked beyond the card being there.
 """
 
 from __future__ import annotations
@@ -71,7 +74,8 @@ def main() -> int:
     from fei_tpu_torch.engine.fused_decode import ChunkDecoder
     from fei_tpu_torch.ops.kernels import build
 
-    build.build("flash_attention_fwd")
+    for name in ("flash_attention_fwd", "paged_attention", "ragged_paged_attention"):
+        build.build(name)
     engine = InferenceEngine.from_config(
         "llama3-8b", dtype=torch.bfloat16, seed=0, max_seq_len=8192, device="cuda")
     prompt = np.random.default_rng(0).integers(8, engine.cfg.vocab_size, 1500).tolist()
@@ -95,7 +99,58 @@ def main() -> int:
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     kernel_summary(prof, wall, f"decode {n} steps (chunk 16) on {card}")
+    paged_windows(engine, card)
     return 0
+
+
+def paged_windows(engine, card: str) -> None:
+    """8 batched paged decode steps and one merged dispatch, at the
+    contexts of chip_smoke's paged traffic (pages assigned in order; the
+    K/V values do not change the work)."""
+    from fei_tpu_torch.engine import InferenceEngine
+    from fei_tpu_torch.models.llama import forward_paged, forward_paged_merged
+
+    paged = InferenceEngine.from_config(
+        "llama3-8b", dtype=torch.bfloat16, params=engine.params, max_seq_len=8192,
+        device="cuda", paged=True, batch_size=8)
+    pool = paged._ensure_pool()
+    lengths = [96, 160, 200, 250, 700, 1500, 3000, 5000]
+    ps, nxt = paged.page_size, 1
+    for b, n in enumerate(lengths):
+        need = -(-(n + 64) // ps)
+        pool.block_table[b, :need] = torch.arange(nxt, nxt + need, dtype=torch.int32)
+        nxt += need
+    chunk_row = torch.zeros_like(pool.block_table[:1])
+    chunk_row[0, :20] = torch.arange(nxt, nxt + 20, dtype=torch.int32)
+    base = pool._replace(lengths=torch.tensor(lengths, dtype=torch.int32, device="cuda"))
+    tok = torch.zeros((8, 1), dtype=torch.long, device="cuda")
+    chunk = torch.randint(8, paged.cfg.vocab_size, (1, 256), device="cuda")
+
+    def steps(n):
+        p = base
+        for _ in range(n):
+            logits, p = forward_paged(paged.params, paged.cfg, tok, p)
+            logits.argmax(-1)
+
+    def merged():
+        forward_paged_merged(paged.params, paged.cfg, chunk, chunk_row, 1024, tok, base)
+
+    for label, fn, n in (("paged decode, 8 rows", lambda: steps(8), 8),
+                         ("merged dispatch, 256-token chunk + 8 decode rows", merged, 1)):
+        fn()  # warm-up
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        per = (time.perf_counter() - t0) / n
+        print(f"{label}: {per * 1e3:.2f} ms per step unprofiled on {card}")
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        kernel_summary(prof, wall, f"{label} ({n} step{'s' * (n > 1)}) on {card}")
+    paged.close()
 
 
 if __name__ == "__main__":

@@ -7,21 +7,39 @@ Phases (each raises on failure, so the script exits non-zero):
 
 1. Card: ``torch.cuda.is_available()`` must be true; prints the card's name
    and power limit as ``nvidia-smi`` reports them.
-2. Build: compiles every kernel of the serving path from the sources in
-   this checkout (``fei_tpu_torch/csrc/*.cu`` -> ``build/fei_tpu_torch/``).
+2. Build: compiles every kernel of the serving paths from the sources in
+   this checkout (``fei_tpu_torch/csrc/*.cu`` -> ``build/fei_tpu_torch/``),
+   one nvcc per source, all started together.
 3. Kernels: holds each kernel against its plain PyTorch version on the card
-   at the serving path's shapes and times kernel, plain version, one
-   PyTorch library call computing the same function, and the bound.
-4. Engine: llama3-8b at full width and depth (32 layers, h=4096, 32/8
-   heads, vocab 128256), bf16, random weights from a seed, max_seq_len
-   8192. A ~1500-token prefill must launch the flash kernel once per
-   layer; its last-position logits are held against the same engine on
-   the plain attention; 128 greedy tokens decode chunked (TTFT, tok/s).
-5. Serve: the OpenAI-compatible server over the same engine answers
-   /health and three /v1/chat/completions (one streamed).
+   at the serving paths' shapes, element by element within its stated
+   tolerance, and times kernel, plain version, one PyTorch library call
+   computing the same function (a yardstick) and the bound. The paged
+   kernels are also held to their bitwise identities: a ragged decode row
+   equals the paged kernel at one query position, a ragged chunk group the
+   paged kernel's block form.
+4. Engine (dense path): llama3-8b at full width and depth (32 layers,
+   h=4096, 32/8 heads, vocab 128256), bf16, random weights from a seed,
+   max_seq_len 8192. A ~1500-token prefill must launch the flash kernel
+   once per layer; its last-position logits are held against the same
+   engine on the plain attention; 128 greedy tokens decode chunked.
+5. Serve (dense path): the OpenAI-compatible server over the same engine
+   answers /health and three /v1/chat/completions (one streamed).
+6. Paged engine (the paged path): the same weights behind
+   ``InferenceEngine(paged=True, batch_size=8)``; eight requests from eight
+   threads (short prompts through dense admission, long ones chunked and
+   merged with live decode), 128 greedy tokens each. The streams must not
+   change with the merged dispatch off or with single-step decode; a tight
+   pool must preempt and still finish every stream; chunked paged prefill
+   logits are held against the dense engine's; an int8 pool must run the
+   kernels' int8 branch.
+7. Paged serve: the server over the paged engine answers eight concurrent
+   completions (four streamed), each equal to the scheduler's own stream,
+   and answers 429 with Retry-After once the waiting queue is full.
 
-The line before the last two is the kernels' JSON record, the line before
-the last is the card, and the last line is the JSON verdict.
+Every kernel count is set to 0 just before a path is driven and read just
+after. The line before the last two is the kernels' JSON record (launches
+from the paged path), the line before the last is the card, and the last
+line is the JSON verdict.
 """
 
 from __future__ import annotations
@@ -29,8 +47,11 @@ from __future__ import annotations
 import json
 import subprocess
 import sys
+import threading
 import time
+import urllib.error
 import urllib.request
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
@@ -40,7 +61,7 @@ PEAK_BF16_FLOPS = 989e12
 PEAK_BYTES_PER_S = 3.35e12
 
 SEED = 0
-KERNELS = ["flash_attention_fwd"]
+KERNELS = ["flash_attention_fwd", "paged_attention", "ragged_paged_attention"]
 
 
 def log(msg: str) -> None:
@@ -194,6 +215,251 @@ def kernel_phase(card: str) -> dict:
         del q, k, v, out, ref
     torch.cuda.empty_cache()
     return record
+
+
+# ---------------------------------------------------------- paged kernels
+
+PAGE = 64
+
+
+def paged_pool(n_pages, K, D, int8, gen):
+    """A random pool [P, K, 64, D]: bf16 values, or int8 values with
+    per-slot scales as the engine's quantizer makes them."""
+    from fei_tpu_torch.engine.paged_cache import quant_kv_rows
+
+    k = torch.randn(n_pages, K, PAGE, D, generator=gen, device="cuda")
+    v = torch.randn(n_pages, K, PAGE, D, generator=gen, device="cuda")
+    if not int8:
+        return k.bfloat16(), v.bfloat16(), None, None
+    kq, ks = quant_kv_rows(k)
+    vq, vs = quant_kv_rows(v)
+    return kq, vq, ks[:, :, None, :].contiguous(), vs[:, :, None, :].contiguous()
+
+
+def paged_table(lengths, width, n_pages, seed):
+    """Block table of rows owning ceil(len/64) pages each, drawn from a
+    random permutation of the pool (non-contiguous pages; page 0 is the
+    null page)."""
+    rng = np.random.default_rng(seed)
+    perm = rng.permutation(np.arange(1, n_pages))
+    bt = np.zeros((len(lengths), width), dtype=np.int32)
+    used = 0
+    for b, n in enumerate(lengths):
+        need = -(-n // PAGE)
+        bt[b, :need] = perm[used:used + need]
+        used += need
+    return torch.from_numpy(bt).cuda()
+
+
+def paged_bound_ms(q, block_table, limits, q_lens, K, int8, window):
+    """Least time for one paged-attention call: the distinct live pages'
+    K/V (and int8 scales) read once plus q and o, at the memory rate,
+    against 4*D FLOP per visible (query head, key) pair at the bf16 peak;
+    the larger of the two, and which it is."""
+    Bv, R, H, D = q.shape
+    bt = block_table.cpu().numpy()
+    lim = limits.cpu().numpy().astype(np.int64)
+    ql = q_lens.cpu().numpy().astype(np.int64)
+    pages, pairs, live_rows = set(), 0, 0
+    for b in range(Bv):
+        if ql[b] <= 0:
+            continue
+        live_rows += ql[b]
+        for t in range(ql[b]):
+            hi = lim[b] + t
+            lo = max(0, hi - window) if window else 0
+            pairs += hi - lo
+        hi = lim[b] + ql[b] - 1
+        lo = max(0, lim[b] - window) if window else 0
+        for pi in range(lo // PAGE, (hi - 1) // PAGE + 1):
+            pages.add(int(bt[b, pi]))
+    per_page = 2 * K * PAGE * D * (1 if int8 else 2) + (2 * K * PAGE * 4 if int8 else 0)
+    nbytes = len(pages) * per_page + 2 * 2 * live_rows * H * D
+    flops = 4.0 * D * H * pairs
+    t_ops, t_bytes = flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES_PER_S
+    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def sdpa_yardstick(q, k_pages, v_pages, block_table, limits, q_lens, window):
+    """One ``scaled_dot_product_attention`` call computing the same rows on
+    a contiguous copy of each row's live K/V, made outside the timed
+    region (the port never calls it). Returns the timing closure."""
+    import torch.nn.functional as F
+
+    from fei_tpu_torch.ops.attention import visible_mask
+    from fei_tpu_torch.ops.kernels.paged_attention import gather_pages
+
+    Bv, R, H, D = q.shape
+    n = int(((limits + q_lens.clamp(min=1) - 1).max().item() + PAGE - 1) // PAGE)
+    kc, vc = gather_pages(k_pages, v_pages, block_table, n)
+    kt, vt = kc.transpose(1, 2).contiguous(), vc.transpose(1, 2).contiguous()
+    qt = q.transpose(1, 2).contiguous()
+    pos = (limits.long() - 1)[:, None] + torch.arange(R, device=q.device)[None, :]
+    mask = visible_mask(pos, limits.long() + R - 1, kt.shape[2], window)[:, None]
+    return lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask,
+                                                  enable_gqa=True)
+
+
+def paged_case_check(label, out, q, kp, vp, bt, limits, q_lens, ks, vs, window):
+    """Element-by-element check against the plain version in fp32 within
+    ``paged_rows_tolerance``, and proof that the bound would catch
+    attention that sees one key more per row. Returns max_abs_err."""
+    from fei_tpu_torch.ops.kernels.paged_attention import (
+        paged_rows_plain,
+        paged_rows_tolerance,
+    )
+
+    kf = kp if ks is not None else kp.float()
+    vf = vp if ks is not None else vp.float()
+    ref = paged_rows_plain(q.float(), kf, vf, bt, limits, q_lens,
+                           k_scales=ks, v_scales=vs, window=window)
+    # tolerance, element by element: the kernel rounds each softmax weight
+    # (times its v scale, for int8 pools) to bf16 before the P.V product
+    # and rounds the output to bf16 — paged_rows_tolerance bounds both by
+    # each element's own size on the gathered contiguous view
+    tol = paged_rows_tolerance(q, kp, vp, bt, limits, q_lens, k_scales=ks,
+                               v_scales=vs, window=window)
+    diff = (out.float() - ref).abs()
+    err = diff.max().item()
+    worst = (diff / tol).max().item()
+    check(torch.isfinite(out).all().item(), f"{label}: non-finite output")
+    check(worst <= 1.0, f"{label}: error exceeds its tolerance by {worst:.4g}x")
+    one_more = paged_rows_plain(q.float(), kf, vf, bt, limits + 1, q_lens,
+                                k_scales=ks, v_scales=vs,
+                                window=window + (window > 0))
+    caught = ((one_more - ref).abs() > tol).float().mean().item()
+    check(caught > 0, f"{label}: the tolerance cannot see one key more per row")
+    log(f"kernel [{label}]: max_abs_err={err:.6g}, worst err/tol {worst:.4g}; "
+        f"one key more per row breaks the tolerance at {caught:.2%} of the elements")
+    return err
+
+
+def paged_kernel_phase(card: str) -> list[dict]:
+    """K2 and K3 at the paged path's shapes; returns their records."""
+    from fei_tpu_torch.ops.kernels.paged_attention import (
+        paged_attention,
+        paged_attention_block,
+        paged_rows_plain,
+    )
+    from fei_tpu_torch.ops.kernels.ragged_paged_attention import (
+        ragged_paged_attention,
+        ragged_paged_attention_plain,
+    )
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    i32 = dict(dtype=torch.int32, device="cuda")
+    # the main shape: llama3-8b decode, B=8, H=32, K=8, D=128, a
+    # table-width-128 pool, mixed lengths over non-contiguous pages
+    B, H, K, D, width = 8, 32, 8, 128, 128
+    lengths = [100, 700, 1500, 2500, 3500, 5000, 6500, 8000]
+    n_pages = sum(-(-n // PAGE) for n in lengths) + 40
+    bt = paged_table(lengths, width, n_pages, SEED)
+    ln = torch.tensor(lengths, **i32)
+    ones = torch.ones(B, **i32)
+    q = torch.randn(B, H, D, generator=gen, device="cuda").bfloat16()
+    records = {}
+    for int8 in (False, True):
+        tag = "int8" if int8 else "bf16"
+        kp, vp, ks, vs = paged_pool(n_pages, K, D, int8, gen)
+        dec = paged_attention(q, kp, vp, bt, ln, k_scales=ks, v_scales=vs)
+        torch.cuda.synchronize()
+        err = paged_case_check(f"paged_attention main decode {tag}", dec[:, None],
+                               q[:, None], kp, vp, bt, ln, ones, ks, vs, 0)
+        ms = cuda_ms(lambda: paged_attention(q, kp, vp, bt, ln, k_scales=ks, v_scales=vs))
+        plain_ms = cuda_ms(lambda: paged_rows_plain(
+            q[:, None], kp, vp, bt, ln, None, k_scales=ks, v_scales=vs),
+            iters=5, warmup=1)
+        lib_ms = None
+        if not int8:  # int8 pools have no library yardstick
+            lib_ms = cuda_ms(sdpa_yardstick(q[:, None], kp, vp, bt, ln, ones, 0))
+        bound_ms, bound_by = paged_bound_ms(q[:, None], bt, ln, ones, K, int8, 0)
+        log(f"kernel paged_attention [main decode {tag}] B={B} H={H} K={K} D={D} "
+            f"lengths={lengths} on {card}: {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+            f"scaled_dot_product_attention {lib_ms if lib_ms is None else f'{lib_ms:.4f}'} "
+            f"ms, bound {bound_ms:.4f} ms ({bound_by})")
+        if not int8:
+            records["paged_attention"] = {
+                "name": "paged_attention", "route": "cuda",
+                "source": "fei_tpu_torch/csrc/paged_attention.cu",
+                "replaces": "fei_tpu/ops/pallas/paged_attention.py:44",
+                "launches": 0, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": lib_ms,
+            }
+        # the block form: a 256-token chunk (T=256) of the 5000-token row,
+        # and a 16-token block of the 1500-token row
+        for T, row in ((256, 5), (16, 2)):
+            qb = torch.randn(1, T, H, D, generator=gen, device="cuda").bfloat16()
+            before = torch.tensor([lengths[row] - T], **i32)
+            blk = paged_attention_block(qb, kp, vp, bt[row:row + 1], before,
+                                        k_scales=ks, v_scales=vs)
+            paged_case_check(f"paged_attention block T={T} {tag}", blk, qb, kp, vp,
+                             bt[row:row + 1], before + 1, torch.full((1,), T, **i32),
+                             ks, vs, 0)
+            if T == 256:
+                chunk_q, chunk_out = qb, blk
+        # K3: the eight decode rows plus the 256-token chunk as 32 groups of
+        # R=8 (the merged dispatch's shape)
+        R, nG = 8, 32
+        qv = torch.cat([torch.nn.functional.pad(q[:, None], (0, 0, 0, 0, 0, R - 1)),
+                        chunk_q.reshape(nG, R, H, D)]).contiguous()
+        btv = torch.cat([bt, bt[5:6].expand(nG, -1)]).contiguous()
+        limits = torch.cat([ln, lengths[5] - 256 + 1 + R * torch.arange(nG, **i32)]).int()
+        q_lens = torch.tensor([1] * B + [R] * nG, **i32)
+        modes = torch.tensor([1] * B + [0] * nG, **i32)
+        rag = ragged_paged_attention(qv, kp, vp, btv, limits, q_lens, modes,
+                                     k_scales=ks, v_scales=vs)
+        torch.cuda.synchronize()
+        rerr = paged_case_check(f"ragged_paged_attention 8 decode + 32x8 {tag}", rag,
+                                qv, kp, vp, btv, limits,
+                                torch.where(modes == 1, 1, q_lens).int(), ks, vs, 0)
+        check(torch.equal(rag[:B, 0], dec), f"{tag}: ragged decode rows != paged qt=1")
+        check(torch.equal(rag[B:].reshape(1, 256, H, D), chunk_out),
+              f"{tag}: ragged chunk groups != paged block")
+        log(f"kernel [{tag}]: ragged decode rows == paged_attention (qt=1) bitwise; "
+            f"ragged chunk groups == paged_attention_block (T=256) bitwise")
+        rms = cuda_ms(lambda: ragged_paged_attention(qv, kp, vp, btv, limits, q_lens,
+                                                     modes, k_scales=ks, v_scales=vs))
+        rplain = cuda_ms(lambda: ragged_paged_attention_plain(
+            qv, kp, vp, btv, limits, q_lens, modes, k_scales=ks, v_scales=vs),
+            iters=5, warmup=1)
+        rlib = None
+        if not int8:
+            rlib = cuda_ms(sdpa_yardstick(qv, kp, vp, btv, limits,
+                                          torch.where(modes == 1, 1, q_lens), 0))
+        rbound, rby = paged_bound_ms(qv, btv, limits, torch.where(modes == 1, 1, q_lens),
+                                     K, int8, 0)
+        log(f"kernel ragged_paged_attention [8 decode + 32 groups of 8, {tag}] on {card}: "
+            f"{rms:.4f} ms, plain {rplain:.4f} ms, scaled_dot_product_attention "
+            f"{rlib if rlib is None else f'{rlib:.4f}'} ms, bound {rbound:.4f} ms ({rby})")
+        if not int8:
+            records["ragged_paged_attention"] = {
+                "name": "ragged_paged_attention", "route": "cuda",
+                "source": "fei_tpu_torch/csrc/ragged_paged_attention.cu",
+                "replaces": "fei_tpu/ops/pallas/ragged_paged_attention.py:55",
+                "launches": 0, "max_abs_err": rerr, "ms": rms, "plain_ms": rplain,
+                "bound_ms": rbound, "bound_by": rby, "library_ms": rlib,
+            }
+        # a sliding window of 512 on the decode shape
+        wdec = paged_attention(q, kp, vp, bt, ln, k_scales=ks, v_scales=vs, window=512)
+        paged_case_check(f"paged_attention window 512 {tag}", wdec[:, None], q[:, None],
+                         kp, vp, bt, ln, ones, ks, vs, 512)
+        del kp, vp, ks, vs
+    # the other head dims the presets use
+    for label, Hd, Kd, Dd in (("D=64 qwen2-0.5b", 14, 2, 64), ("D=80 phi-2", 32, 32, 80),
+                              ("D=256 gemma-7b", 16, 16, 256)):
+        lens = [100, 900, 2000, 3000]
+        npg = sum(-(-n // PAGE) for n in lens) + 8
+        btd = paged_table(lens, 64, npg, SEED + Dd)
+        lnd = torch.tensor(lens, **i32)
+        qd = torch.randn(4, Hd, Dd, generator=gen, device="cuda").bfloat16()
+        kp, vp, _, _ = paged_pool(npg, Kd, Dd, False, gen)
+        out = paged_attention(qd, kp, vp, btd, lnd)
+        torch.cuda.synchronize()
+        paged_case_check(f"paged_attention {label}", out[:, None], qd[:, None], kp, vp,
+                         btd, lnd, torch.ones(4, **i32), None, None, 0)
+        del kp, vp
+    torch.cuda.empty_cache()
+    return [records["paged_attention"], records["ragged_paged_attention"]]
 
 
 # ----------------------------------------------------------------- engine
@@ -373,6 +639,322 @@ def serve_phase(engine, card: str) -> None:
         server.stop()
 
 
+# ------------------------------------------------------------ paged engine
+
+SHORT_LENS = (96, 160, 200, 250)  # dense admission (<= prefill_chunk 256)
+LONG_LENS = (700, 1500, 3000, 5000)  # chunked, merged with live decode
+NEW_TOKENS = 128
+
+
+def reset_counts():
+    from fei_tpu_torch.ops.kernels.flash_attention import flash_attention
+    from fei_tpu_torch.ops.kernels.paged_attention import paged_attention
+    from fei_tpu_torch.ops.kernels.ragged_paged_attention import ragged_paged_attention
+
+    for fn in (flash_attention, paged_attention, ragged_paged_attention):
+        fn.launches = 0
+        if hasattr(fn, "int8_launches"):
+            fn.int8_launches = 0
+
+
+def read_counts() -> dict:
+    from fei_tpu_torch.ops.kernels.flash_attention import flash_attention
+    from fei_tpu_torch.ops.kernels.paged_attention import paged_attention
+    from fei_tpu_torch.ops.kernels.ragged_paged_attention import ragged_paged_attention
+
+    return {"flash_attention_fwd": flash_attention.launches,
+            "paged_attention": paged_attention.launches,
+            "ragged_paged_attention": ragged_paged_attention.launches,
+            "paged_attention_int8": paged_attention.int8_launches,
+            "ragged_paged_attention_int8": ragged_paged_attention.int8_launches}
+
+
+def counter(name: str) -> float:
+    from fei_tpu_torch.utils.metrics import METRICS
+
+    return METRICS.snapshot()["counters"].get(name, 0.0)
+
+
+def traffic(engine, prompts, new_tokens: int) -> dict:
+    """Eight requests from eight threads through the scheduler: the short
+    prompts start at once, the long ones once every short stream has its
+    first token (so their chunks overlap live decode). Returns the token
+    streams, each request's TTFT and the run's wall time."""
+    from fei_tpu_torch.engine import GenerationConfig
+
+    gen = GenerationConfig(max_new_tokens=new_tokens, ignore_eos=True)
+    n = len(prompts)
+    n_short = sum(1 for p in prompts if len(p) <= engine.scheduler.prefill_chunk)
+    streams, ttft, errors = [None] * n, [None] * n, []
+    firsts = threading.Semaphore(0)
+
+    def worker(i):
+        try:
+            if len(prompts[i]) > engine.scheduler.prefill_chunk:
+                for _ in range(n_short):
+                    firsts.acquire(timeout=600)
+            t0 = time.perf_counter()
+            out = []
+            for tok in engine.scheduler.stream(prompts[i], gen):
+                if not out:
+                    ttft[i] = time.perf_counter() - t0
+                    if len(prompts[i]) <= engine.scheduler.prefill_chunk:
+                        for _ in range(n - n_short):
+                            firsts.release()
+                out.append(tok)
+            streams[i] = out
+        except BaseException as exc:  # noqa: BLE001 — re-raised below
+            errors.append(exc)
+            for _ in range(n):
+                firsts.release()
+
+    t0 = time.perf_counter()
+    threads = [threading.Thread(target=worker, args=(i,)) for i in range(n)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    if errors:
+        raise errors[0]
+    return {"streams": streams, "ttft": ttft, "wall": wall}
+
+
+def paged_decode_bound(cfg, prompts, new_tokens: int) -> float:
+    """Most aggregate decode tok/s for this traffic: each step reads the
+    weights once plus every row's live KV at its mean context, and yields
+    one token per row."""
+    h, d, L = cfg.hidden_size, cfg.head_dim_, cfg.num_layers
+    H, K, I, V = cfg.num_heads, cfg.num_kv_heads, cfg.intermediate_size, cfg.vocab_size
+    weight_bytes = 2 * (L * (h * H * d + 2 * h * K * d + H * d * h + 3 * h * I) + h * V)
+    kv_bytes = sum(2 * 2 * L * K * d * (len(p) + new_tokens / 2) for p in prompts)
+    return len(prompts) * PEAK_BYTES_PER_S / (weight_bytes + kv_bytes)
+
+
+def chunked_paged_logits(engine, prompt):
+    """Last-position logits of a chunked paged prefill (256-token chunks
+    through forward_paged_block on a one-row pool)."""
+    from fei_tpu_torch.engine.paged_cache import PagedKVCache
+    from fei_tpu_torch.models.llama import _logits, forward_paged_block
+
+    n, C = len(prompt), 256
+    width = -(-engine.max_seq_len // PAGE)
+    need = -(-(n + C) // PAGE)
+    pool = PagedKVCache.create(engine.cfg, need + 1, 1, width, page_size=PAGE,
+                               dtype=torch.bfloat16, device="cuda")
+    row = torch.zeros((1, width), dtype=torch.int32, device="cuda")
+    row[0, :need] = torch.arange(1, need + 1, dtype=torch.int32)
+    pool = pool._replace(block_table=row)
+    last = None
+    for lo in range(0, n, C):
+        toks = torch.zeros((1, C), dtype=torch.long)
+        toks[0, : min(C, n - lo)] = torch.tensor(prompt[lo:lo + C])
+        pool = pool._replace(lengths=torch.tensor([lo], dtype=torch.int32, device="cuda"))
+        hidden, _ = forward_paged_block(engine.params, engine.cfg, toks.cuda(), pool,
+                                        lm_head=False)
+        if lo + C >= n:
+            i = n - 1 - lo
+            last = _logits(hidden[:, i:i + 1], engine.params, engine.cfg)[:, 0]
+    return last
+
+
+def first_divergence(dense, prompt, want, got):
+    """(position, logit gap) where two streams first differ: the gap is
+    logit(want's token) - logit(got's token) at that position, from the
+    dense engine's prefill of the common prefix."""
+    j = next(i for i, (a, b) in enumerate(zip(want, got)) if a != b)
+    logits, _ = dense.prefill([list(prompt) + list(want[:j])], dense.new_cache(1))
+    return j, (logits[0, want[j]] - logits[0, got[j]]).item()
+
+
+def paged_engine_phase(dense, card: str) -> tuple:
+    """The paged path on the card. Returns (the roomy paged engine, the
+    kernel launches of the main run)."""
+    from fei_tpu_torch.engine import GenerationConfig, InferenceEngine
+
+    cfg = dense.cfg
+    rng = np.random.default_rng(SEED + 1)
+    prompts = [rng.integers(8, cfg.vocab_size, size=n).tolist()
+               for n in SHORT_LENS + LONG_LENS]
+
+    def paged(**kw):
+        return InferenceEngine.from_config(
+            "llama3-8b", dtype=torch.bfloat16, params=dense.params, max_seq_len=8192,
+            device="cuda", paged=True, batch_size=8, page_size=PAGE, **kw)
+
+    eng = paged()
+    # the main path starts here: every kernel count from 0
+    reset_counts()
+    merged0, pre0 = counter("engine.ragged_dispatches"), counter("scheduler.preemptions")
+    main = traffic(eng, prompts, NEW_TOKENS)
+    launches = read_counts()
+    merged = counter("engine.ragged_dispatches") - merged0
+    preempted = counter("scheduler.preemptions") - pre0
+    streams = main["streams"]
+    check(all(len(s) == NEW_TOKENS for s in streams), "a paged stream came up short")
+    check(all(0 <= t < cfg.vocab_size for s in streams for t in s), "token id out of range")
+    total = sum(len(s) for s in streams)
+    bound = paged_decode_bound(cfg, prompts, NEW_TOKENS)
+    log(f"paged engine: {cfg.name} batch_size=8 page_size=64 pool 1025 pages on {card}")
+    for p, t in zip(prompts, main["ttft"]):
+        log(f"paged engine: prompt {len(p)} tokens: TTFT {t * 1e3:.1f} ms")
+    log(f"paged engine: 8 x {NEW_TOKENS} greedy tokens in {main['wall']:.3f} s: aggregate "
+        f"{total / main['wall']:.2f} tok/s (decode bound {bound:.1f} tok/s), "
+        f"merged dispatches {merged:.0f}, preemptions {preempted:.0f}, launches {launches}")
+    check(launches["paged_attention"] > 0, "the paged path never launched paged_attention")
+    check(launches["ragged_paged_attention"] > 0,
+          "the paged path never launched ragged_paged_attention")
+    check(launches["flash_attention_fwd"] > 0,
+          "the paged path's dense admission never launched flash_attention_fwd")
+    check(merged > 0, "no chunk merged with live decode")
+
+    # (a) the merged dispatch off, (b) single-step decode: same streams
+    eng.scheduler.ragged_attention = False
+    check(traffic(eng, prompts, NEW_TOKENS)["streams"] == streams,
+          "streams changed with ragged_attention=False")
+    eng.scheduler.ragged_attention = True
+    log("paged engine: ragged_attention=False gives the same eight streams")
+    eng.scheduler.multistep = 1
+    check(traffic(eng, prompts, NEW_TOKENS)["streams"] == streams,
+          "streams changed with multistep=1")
+    eng.scheduler.multistep = 8
+    log("paged engine: multistep=1 gives the same eight streams")
+
+    # (d) a tight pool: the 5128-token request fits alone, all eight do not
+    tight = paged(num_pages=129)
+    pre0 = counter("scheduler.preemptions")
+    t_run = traffic(tight, prompts, NEW_TOKENS)
+    pre = counter("scheduler.preemptions") - pre0
+    check(pre >= 1, "the tight pool never preempted")
+    check(all(len(s) == NEW_TOKENS for s in t_run["streams"]),
+          "the tight pool did not finish every stream")
+    same = [a == b for a, b in zip(t_run["streams"], streams)]
+    log(f"paged engine: tight pool (129 pages): {pre:.0f} preemptions, all eight "
+        f"streams finished in {t_run['wall']:.3f} s; equal to the roomy run: {same}")
+    for i, ok in enumerate(same):
+        if not ok:
+            j, gap = first_divergence(dense, prompts[i], streams[i], t_run["streams"][i])
+            log(f"paged engine: tight stream {i} (prompt {len(prompts[i])}) first "
+                f"differs at token {j}; logit gap there {gap:.6g}")
+    tight.close()
+    del tight
+
+    # (e) chunked paged prefill logits against the dense engine's
+    p1500 = prompts[SHORT_LENS.__len__() + 1]
+    pl = chunked_paged_logits(eng, p1500)
+    dl, _ = dense.prefill([p1500], dense.new_cache(1))
+    rel = ((pl - dl).norm() / dl.norm()).item()
+    log(f"paged engine: 1500-token chunked paged prefill vs dense prefill logits: "
+        f"rel_l2={rel:.6g} (tol 3e-2), argmax {int(pl.argmax())} vs {int(dl.argmax())}")
+    check(rel <= 3e-2, f"paged vs dense prefill logits rel_l2 {rel} > 3e-2")
+
+    # (f) an int8 pool: four streams x 32 tokens through the int8 branch
+    q8 = paged(kv_quant="int8")
+    before = read_counts()
+    four = [prompts[0], prompts[1], prompts[4], prompts[5]]
+    r8 = traffic(q8, four, 32)
+    after = read_counts()
+    d8 = {k: after[k] - before[k] for k in after}
+    check(all(len(s) == 32 and all(0 <= t < cfg.vocab_size for t in s)
+              for s in r8["streams"]), "int8 pool streams malformed")
+    check(d8["paged_attention_int8"] > 0 and d8["ragged_paged_attention_int8"] > 0,
+          f"the int8 pool did not run the kernels' int8 branch: {d8}")
+    agree = sum(a == b for s8, s in zip(r8["streams"], [streams[0], streams[1],
+                                                         streams[4], streams[5]])
+                for a, b in zip(s8, s))
+    log(f"paged engine: int8 pool, 4 x 32 tokens in {r8['wall']:.3f} s, int8 launches "
+        f"{d8['paged_attention_int8']} (K2) / {d8['ragged_paged_attention_int8']} (K3); "
+        f"{agree}/128 tokens equal to the bf16 pool's")
+    q8.close()
+    del q8
+    torch.cuda.empty_cache()
+    return eng, launches
+
+
+def paged_serve_phase(eng, card: str) -> None:
+    """Eight concurrent completions (four SSE) over the paged engine, each
+    equal to the scheduler's own greedy stream; then 429 on a full queue."""
+    from fei_tpu_torch.agent.providers import TorchLocalProvider
+    from fei_tpu_torch.engine import GenerationConfig
+    from fei_tpu_torch.ui.server import ServeAPI, ServingServer
+
+    tok = eng.tokenizer
+    # byte tokenizer over llama3-8b's vocab: the serve phase of the dense
+    # path already zeroed the LM head past the tokenizer's ids (shared params)
+    check(bool((eng.params["lm_head"][:, tok.vocab_size:] == 0).all()),
+          "expected the LM head zeroed past the byte tokenizer's ids")
+    api = ServeAPI(TorchLocalProvider(engine=eng), model_name=eng.cfg.name)
+    server = ServingServer(api, host="127.0.0.1", port=0)
+    server.start()
+    base = f"http://127.0.0.1:{server.port}"
+    words = "pages tables kernels streams batches tokens heads warps".split()
+    bodies = []
+    for i in range(8):
+        text = " ".join(words[(i + j) % len(words)] for j in range(12 + 90 * (i % 4)))
+        bodies.append({"messages": [{"role": "user", "content": text}],
+                       "max_tokens": 24, "ignore_eos": True, "stream": i % 2 == 1,
+                       "model": eng.cfg.name})
+
+    def post(body):
+        req = urllib.request.Request(base + "/v1/chat/completions",
+                                     data=json.dumps(body).encode(),
+                                     headers={"Content-Type": "application/json"},
+                                     method="POST")
+        with urllib.request.urlopen(req, timeout=600) as r:
+            return r.status, r.read()
+
+    try:
+        t0 = time.perf_counter()
+        with ThreadPoolExecutor(8) as ex:
+            results = list(ex.map(post, bodies))
+        dt = time.perf_counter() - t0
+        for i, (body, (status, raw)) in enumerate(zip(bodies, results)):
+            check(status == 200, f"request {i}: HTTP {status}")
+            if body["stream"]:
+                frames = [ln[6:] for ln in raw.decode().split("\n") if ln.startswith("data: ")]
+                check(frames and frames[-1] == "[DONE]", f"request {i}: no [DONE]")
+                chunks = [json.loads(f) for f in frames[:-1]]
+                check(all("error" not in c for c in chunks), f"request {i}: {chunks}")
+                content = "".join(c["choices"][0]["delta"].get("content", "") for c in chunks)
+            else:
+                content = json.loads(raw)["choices"][0]["message"]["content"]
+            ids = tok.apply_chat_template(body["messages"], add_generation_prompt=True)
+            want = list(eng.scheduler.stream(
+                ids, GenerationConfig(max_new_tokens=24, ignore_eos=True)))
+            want_text = tok.decode(want).strip()
+            check(len(content.strip()) > 0, f"request {i}: empty completion")
+            check(content.strip() == want_text,
+                  f"request {i}: served {content.strip()!r}, scheduler says {want_text!r}")
+        log(f"paged serve: 8 concurrent completions (4 SSE, prompts "
+            f"{[len(tok.apply_chat_template(b['messages'], add_generation_prompt=True)) for b in bodies]}"
+            f" tokens) in {dt * 1e3:.1f} ms on {card}, each equal to the scheduler's stream")
+
+        # backpressure: 8 running + 1 queued fill a queue capped at 1
+        sched = eng.scheduler
+        hold = [sched.submit([5] * 64, GenerationConfig(max_new_tokens=512, ignore_eos=True))
+                for _ in range(9)]
+        deadline = time.perf_counter() + 120
+        while time.perf_counter() < deadline and not (
+                len(sched._waiting) >= 1 and all(s is not None for s in sched._slots)):
+            time.sleep(0.01)
+        sched.max_queue = 1
+        try:
+            post(dict(bodies[0], stream=False))
+            status, headers = 200, {}
+        except urllib.error.HTTPError as exc:
+            status, headers = exc.code, dict(exc.headers)
+        for s in hold:
+            sched.cancel(s)
+        sched.max_queue = 0
+        check(status == 429, f"a request over the queue cap got HTTP {status}, not 429")
+        check("Retry-After" in headers, "429 without Retry-After")
+        log(f"paged serve: queue capped at 1 with 8 running + 1 queued: HTTP 429, "
+            f"Retry-After {headers['Retry-After']}")
+    finally:
+        server.stop()
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this script "
@@ -388,23 +970,36 @@ def main() -> int:
     from fei_tpu_torch.ops.kernels import build
 
     t0 = time.perf_counter()
-    for name in KERNELS:
-        res = build.build(name)
-        regs = [ln.strip() for ln in res.log.splitlines() if "registers" in ln]
-        log(f"build: {res.name} -> {res.path.name} in {res.seconds:.1f} s; {regs}")
+    with ThreadPoolExecutor(len(KERNELS)) as pool:  # one nvcc per source
+        for res in pool.map(build.build, KERNELS):
+            regs = [ln.strip() for ln in res.log.splitlines() if "registers" in ln]
+            log(f"build: {res.name} -> {res.path.name} in {res.seconds:.1f} s; {regs}")
     log(f"build: {time.perf_counter() - t0:.1f} s")
 
-    record = kernel_phase(card)
+    records = [kernel_phase(card)] + paged_kernel_phase(card)
 
     from fei_tpu_torch.ops.kernels.flash_attention import flash_attention
 
-    engine = engine_phase(card)
+    # the dense path (engine, then serve) and the paged path (paged engine,
+    # then paged serve): each with its counts set to 0 just before it
+    engine = engine_phase(card)  # zeroes the flash count itself
+    dense_launches = flash_attention.launches
+    paged_engine, launches = paged_engine_phase(engine, card)
+    reset_counts()
     serve_phase(engine, card)
-    record["launches"] = flash_attention.launches
-    check(record["launches"] > 0, "the main path never launched flash_attention_fwd")
-    log(f"main path: flash_attention_fwd launched {record['launches']} times")
+    dense_launches += flash_attention.launches
+    check(dense_launches > 0, "the dense path never launched flash_attention_fwd")
+    log(f"dense path: flash_attention_fwd launched {dense_launches} times")
+    reset_counts()
+    paged_serve_phase(paged_engine, card)
+    log(f"paged serve: launches {read_counts()}")
+    paged_engine.close()
+    for rec in records:
+        rec["launches"] = launches[rec["name"]]
+        check(rec["launches"] > 0, f"the paged path never launched {rec['name']}")
+    log(f"paged path (main run): launches {launches}")
 
-    print(json.dumps({"kernels": [record]}))
+    print(json.dumps({"kernels": records}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

@@ -5,7 +5,9 @@ The provider contract is the JAX package's: (messages, system, tools) →
 (text, tool_calls). Implementations here:
 
 - ``TorchLocalProvider`` — the counterpart of ``JaxLocalProvider``: an
-  ``InferenceEngine`` decoding on the local GPU. Tool calls are emitted as
+  ``InferenceEngine`` decoding on the local GPU; with ``[torch_local]
+  paged = true`` the paged engine, whose scheduler batches concurrent
+  requests. Tool calls are emitted as
   ``<tool_call>{json}</tool_call>`` blocks and parsed after generation
   (``[torch_local] constrain_tools = false``). Grammar-enforced tool calls
   (fei_tpu/engine/grammar.py) are not ported yet: with tools and
@@ -194,8 +196,8 @@ class TorchLocalProvider(Provider):
                     "FEI_TPU_TORCH_LOCAL_CHECKPOINT_DIR) to a local HF "
                     "safetensors directory.", model,
                 )
-            # settings pass through unfiltered: options of later slices
-            # (paged, quantize, ...) surface the engine's own loud error
+            # settings pass through unfiltered: an option of a later slice
+            # (quantize) surfaces the engine's own loud error
             self.engine = InferenceEngine.from_config(
                 model,
                 dtype=torch.bfloat16,

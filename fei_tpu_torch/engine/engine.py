@@ -14,9 +14,13 @@
   valid length per sequence; prompt padding is never attended and is
   overwritten slot by slot during decode.
 
+- **Paged** (``paged=True``): a shared page pool with continuous batching
+  (engine/scheduler.py ``PagedScheduler``); every generation call goes
+  through the scheduler, and concurrent callers share one batched decode.
+
 The engine runs on ``device`` ("cuda" unless the caller asks for "cpu") and
-raises ``EngineError`` when CUDA is asked for and missing. Paged engines,
-quantized weights and the tool grammar are later slices.
+raises ``EngineError`` when CUDA is asked for and missing. Quantized weights
+and the tool grammar are later slices.
 """
 
 from __future__ import annotations
@@ -35,7 +39,13 @@ from fei_tpu_torch.engine.fused_decode import (
 from fei_tpu_torch.engine.sampling import sample_logits
 from fei_tpu_torch.engine.tokenizer import load_tokenizer
 from fei_tpu_torch.models.configs import ModelConfig, get_model_config
-from fei_tpu_torch.models.llama import KVCache, _logits, forward, init_params
+from fei_tpu_torch.models.llama import (
+    KVCache,
+    _logits,
+    check_supported,
+    forward,
+    init_params,
+)
 from fei_tpu_torch.utils.errors import EngineError
 from fei_tpu_torch.utils.metrics import METRICS
 
@@ -110,6 +120,11 @@ class InferenceEngine:
         batch_size: int = 1,
         dtype=torch.bfloat16,
         device: torch.device | str = "cuda",
+        paged: bool = False,
+        page_size: int = 64,
+        num_pages: int | None = None,
+        kv_quant: str | None = None,
+        prefix_cache: bool = False,
     ):
         self.cfg = model_cfg
         self.params = params
@@ -118,6 +133,27 @@ class InferenceEngine:
         self.batch_size = batch_size
         self.dtype = dtype
         self.device = resolve_device(device)
+        self.paged = paged
+        self.page_size = page_size
+        self.num_pages = num_pages  # None: worst case for batch_size sequences
+        # "int8": paged pools store int8 + per-slot scales (half the KV bytes)
+        if kv_quant not in (None, "int8"):
+            raise EngineError(f"unsupported kv_quant mode: {kv_quant!r}")
+        if kv_quant and not paged:
+            raise EngineError("kv_quant requires paged=True (the contiguous "
+                              "KVCache path has no quantized layout)")
+        if prefix_cache and not paged:
+            raise EngineError("prefix_cache requires paged=True (prefixes are "
+                              "reused as shared pages of the paged pool)")
+        self.kv_quant = kv_quant
+        self.prefix_cache = prefix_cache
+        self._pool = None  # lazy PagedKVCache
+        self._allocator = None
+        self._scheduler = None
+        if paged:
+            from fei_tpu_torch.engine.scheduler import PagedScheduler
+
+            self._scheduler = PagedScheduler(self)
 
     # -- construction -------------------------------------------------------
 
@@ -134,28 +170,28 @@ class InferenceEngine:
         batch_size: int = 1,
         device: torch.device | str = "cuda",
         paged: bool = False,
+        page_size: int = 64,
+        num_pages: int | None = None,
         quantize: str | None = None,
         kv_quant: str | None = None,
         prefix_cache: bool = False,
+        params: dict | None = None,
         **overrides,
     ) -> "InferenceEngine":
-        """Random-init (from ``seed``, on ``device``) or checkpoint weights.
-        ``quantize``, ``kv_quant``, ``prefix_cache`` and ``paged`` name
-        later slices and raise."""
+        """Random-init (from ``seed``, on ``device``) or checkpoint weights;
+        ``params`` hands over an existing parameter dict instead (engines
+        sharing weights). ``quantize`` names a later slice and raises."""
         if quantize:
             raise NotImplementedError(
                 f"quantize={quantize!r}: weight-only int8 is roadmap module "
                 "A8 and int4 is C1"
             )
-        if paged or kv_quant or prefix_cache:
-            raise EngineError(
-                "paged / kv_quant / prefix_cache need the paged engine, which "
-                "is not ported yet — roadmap slice B"
-            )
         dev = resolve_device(device)
         cfg = get_model_config(name, **overrides)
         tok = load_tokenizer(tokenizer)
-        if checkpoint_dir:
+        if params is not None:
+            check_supported(cfg)
+        elif checkpoint_dir:
             from fei_tpu_torch.engine.weights import load_checkpoint
 
             cfg, params = load_checkpoint(checkpoint_dir, cfg, dtype=dtype, device=dev)
@@ -163,8 +199,45 @@ class InferenceEngine:
             params = init_params(cfg, seed=seed, dtype=dtype, device=dev)
         return cls(
             cfg, params, tok, max_seq_len=max_seq_len, batch_size=batch_size,
-            dtype=dtype, device=dev,
+            dtype=dtype, device=dev, paged=paged, page_size=page_size,
+            num_pages=num_pages, kv_quant=kv_quant, prefix_cache=prefix_cache,
         )
+
+    # -- paged pool ---------------------------------------------------------
+
+    def _ensure_pool(self):
+        """Lazily create the shared page pool + allocator (paged mode). The
+        default pool holds ``batch_size`` full-length sequences plus the
+        null page; ``num_pages`` sizes it to a memory budget instead."""
+        from fei_tpu_torch.engine.paged_cache import PageAllocator, PagedKVCache
+
+        table_width = -(-self.max_seq_len // self.page_size)
+        num_pages = self.num_pages or (self.batch_size * table_width + 1)
+        if self._pool is None:
+            self._pool = PagedKVCache.create(
+                self.cfg, num_pages, self.batch_size, table_width,
+                page_size=self.page_size, dtype=self.dtype, kv_quant=self.kv_quant,
+                device=self.device,
+            )
+        if self._allocator is None:
+            self._allocator = PageAllocator(num_pages, self.page_size)
+        return self._pool
+
+    @property
+    def scheduler(self):
+        """The continuous-batching scheduler; all paged generation runs
+        through it."""
+        if self._scheduler is None:
+            raise EngineError(
+                "this engine was not constructed with paged=True; the decode "
+                "scheduler only exists for paged engines"
+            )
+        return self._scheduler
+
+    def close(self) -> None:
+        """Stop the paged scheduler's loop thread (a dense engine has none)."""
+        if self._scheduler is not None:
+            self._scheduler.close()
 
     # -- device programs ----------------------------------------------------
 
@@ -276,6 +349,11 @@ class InferenceEngine:
         loop, since the mask needs every token on the host. Unmasked
         decoding is fused-chunked (``gen.chunk``; 1 = per-token loop)."""
         gen = gen or GenerationConfig()
+        if self.paged:
+            # continuous batching: the scheduler admits this request into a
+            # batch slot; concurrent streams share the pool and the steps
+            yield from self.scheduler.stream(prompt_ids, gen, logit_mask_fn)
+            return
         if logit_mask_fn is None and resolve_chunk(gen.chunk) > 1:
             yield from self._stream_chunked(prompt_ids, gen, resolve_chunk(gen.chunk))
             return
@@ -354,8 +432,11 @@ class InferenceEngine:
         chunk: int = 64,
     ) -> GenerationResult:
         """Chunked high-throughput generation: one host sync per ``chunk``
-        decoded tokens, the fused scan the streaming path uses."""
+        decoded tokens, the fused scan the streaming path uses. A paged
+        engine decodes through the scheduler (its multi-step scan)."""
         gen = gen or GenerationConfig()
+        if self.paged:
+            return self.generate(prompt_ids, gen)
         return self._collect(
             self._stream_chunked(prompt_ids, gen, max(1, chunk)), len(prompt_ids)
         )

@@ -1,0 +1,112 @@
+"""Deterministic fault injection for the paged scheduler (a copy of
+fei_tpu/engine/faults.py, cut to the points the port's scheduler has).
+
+Named injection points sit at the seams the failure-domain design cares
+about, and an armed fault raises a typed exception (utils.errors taxonomy)
+exactly ``count`` times, then disarms. Arm it from code:
+``FAULTS.arm("delivery.detok", "request", count=1, match=lambda ctx: ...)``
+— ``match`` filters on the call-site context (e.g. the victim sequence),
+so a test can doom one request out of a concurrent batch with no race
+against the scheduler thread. (The port reads no environment variable:
+the JAX package's ``FEI_TPU_FAULT`` arming has no counterpart here.)
+
+Points:
+- ``admission.prefill``  — before a prefill/chunk dispatch
+- ``decode.dispatch``    — before a batched decode dispatch
+- ``delivery.detok``     — per-token delivery
+- ``pool.alloc``         — inside the scheduler's page-allocation seam
+
+Kinds: ``request`` → RequestError, ``device`` → DeviceError,
+``exhausted``/``transient`` → PoolPressure (``pool.alloc``: the
+scheduler's pressure handler swallows it like a real exhaustion, so a
+test forces preemption on a roomy pool).
+"""
+
+from __future__ import annotations
+
+import threading
+from typing import Callable
+
+from fei_tpu_torch.utils.errors import (
+    DeviceError,
+    EngineError,
+    PoolPressure,
+    RequestError,
+)
+from fei_tpu_torch.utils.logging import get_logger
+
+log = get_logger("faults")
+
+POINTS = ("admission.prefill", "decode.dispatch", "delivery.detok", "pool.alloc")
+KINDS = ("request", "device", "exhausted", "transient")
+
+
+def _make_exc(kind: str, point: str) -> BaseException:
+    msg = f"injected {kind} fault at {point}"
+    if kind == "request":
+        return RequestError(msg)
+    if kind == "device":
+        return DeviceError(msg)
+    if kind in ("exhausted", "transient"):
+        return PoolPressure(msg)
+    raise EngineError(f"unknown fault kind {kind!r} (one of {KINDS})")
+
+
+class _Fault:
+    __slots__ = ("kind", "count", "match")
+
+    def __init__(self, kind: str, count: int, match: Callable[[dict], bool] | None):
+        self.kind = kind
+        self.count = count
+        self.match = match
+
+
+class FaultInjector:
+    """Process-wide registry of armed faults; thread-safe (the scheduler
+    loop and submitter threads both check points)."""
+
+    def __init__(self):
+        self._lock = threading.Lock()
+        self._armed: dict[str, _Fault] = {}
+        self._fired: dict[str, int] = {}
+
+    def arm(self, point: str, kind: str = "request", count: int = 1,
+            match: Callable[[dict], bool] | None = None) -> None:
+        if point not in POINTS:
+            raise EngineError(f"unknown fault point {point!r} (one of {POINTS})")
+        _make_exc(kind, point)  # validate the kind eagerly
+        with self._lock:
+            self._armed[point] = _Fault(kind, max(1, int(count)), match)
+
+    def disarm(self, point: str | None = None) -> None:
+        with self._lock:
+            if point is None:
+                self._armed.clear()
+                self._fired.clear()
+            else:
+                self._armed.pop(point, None)
+
+    def check(self, point: str, **ctx) -> None:
+        """Raise the armed fault for ``point`` (if any). A non-matching
+        context does not consume the count."""
+        with self._lock:
+            fault = self._armed.get(point)
+            if fault is None:
+                return
+            if fault.match is not None and not fault.match(ctx):
+                return
+            fault.count -= 1
+            if fault.count <= 0:
+                self._armed.pop(point, None)
+            self._fired[point] = self._fired.get(point, 0) + 1
+            kind = fault.kind
+        log.warning("firing injected %s fault at %s", kind, point)
+        raise _make_exc(kind, point)
+
+    def fired(self, point: str) -> int:
+        """How many times ``point`` has fired since the last full disarm()."""
+        with self._lock:
+            return self._fired.get(point, 0)
+
+
+FAULTS = FaultInjector()

@@ -61,6 +61,31 @@ def filter_logits(
     return logits
 
 
+def sample_logits_dynamic(
+    logits: torch.Tensor,  # [B, V] float32
+    generators: list,  # [B] torch.Generator (None for greedy rows)
+    temperatures: list[float],
+    top_ks: list[int],
+    top_ps: list[float],
+    min_ps: list[float],
+) -> torch.Tensor:
+    """Per-row sampling for the continuous-batching scheduler: each row has
+    its own knobs and its own generator. The knobs live on the host, so the
+    rows split there: greedy rows (temperature 0) take the argmax and draw
+    no noise; a sampled row runs ``sample_logits`` on its own [1, V] row —
+    exactly the draw the dense engine makes for that request at B=1, so a
+    seeded request gives the same tokens through the scheduler as through
+    the dense engine. Returns token ids [B] (int32)."""
+    out = torch.argmax(logits, dim=-1).to(torch.int32)
+    for b, temp in enumerate(temperatures):
+        if temp > 0.0:
+            out[b] = sample_logits(
+                logits[b:b + 1], generators[b], temperature=temp,
+                top_k=top_ks[b], top_p=top_ps[b], min_p=min_ps[b],
+            )[0]
+    return out
+
+
 def stop_mask(tokens: torch.Tensor, stop_ids: torch.Tensor) -> torch.Tensor:
     """[B] bool: membership of each sampled token in ``stop_ids`` ([S]
     int32; S may be 0 → all False)."""

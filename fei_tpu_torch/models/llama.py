@@ -305,3 +305,178 @@ def forward(
     if not lm_head:
         return x, new_cache
     return _logits(x, params, cfg), new_cache
+
+
+# ---------------------------------------------------------------- paged
+
+
+def _paged_dtype(params: dict, cache):
+    """Activations run in the pool's dtype, or the weights' for int8 pools."""
+    return params["embed"].dtype if cache.k_scales is not None else cache.k_pages.dtype
+
+
+def _layer_pools(cache, i: int):
+    ks = None if cache.k_scales is None else cache.k_scales[i]
+    vs = None if cache.v_scales is None else cache.v_scales[i]
+    return cache.k_pages[i], cache.v_pages[i], ks, vs
+
+
+def _paged_rope_tables(cfg: ModelConfig, cache):
+    max_pos = cache.block_table.shape[1] * cache.page_size
+    return _rope_tables(cfg.rope_dim_, max_pos, float(cfg.rope_theta),
+                        str(cache.k_pages.device))
+
+
+def _qkv_roped(cfg: ModelConfig, lp, x, positions, cos, sin):
+    """attention norm, q/k/v projections and rope for one side's tokens."""
+    y = _norm(x, lp["attn_norm"], cfg, b=lp.get("attn_norm_b"))
+    q, k, v = qkv_proj(lp, y, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim_)
+    q = _rope(q, cos, sin, positions, cfg.rope_dim_)
+    k = _rope(k, cos, sin, positions, cfg.rope_dim_)
+    return y, q, k, v
+
+
+def _block_tail(cfg: ModelConfig, lp, x, y, attn):
+    """Output projection, residual and MLP of one decoder block."""
+    B, T = x.shape[:2]
+    o = attn.reshape(B, T, cfg.num_heads * cfg.head_dim_) @ lp["wo"]
+    if "bo" in lp:
+        o = o + lp["bo"]
+    if cfg.parallel_block:  # Phi: x + attn(ln x) + mlp(ln x)
+        return x + o + _mlp_dense(cfg, y, lp)
+    x = x + o
+    y = _norm(x, lp["mlp_norm"], cfg, b=lp.get("mlp_norm_b"))
+    return x + _mlp_dense(cfg, y, lp)
+
+
+@torch.no_grad()
+def forward_paged(params: dict, cfg: ModelConfig, tokens: torch.Tensor, cache):
+    """Single-token decode against a paged KV cache (``PagedKVCache``,
+    engine/paged_cache.py): the T = 1 case of ``forward_paged_block``.
+    Returns (logits [B, 1, V], cache with lengths += 1)."""
+    return forward_paged_block(params, cfg, tokens, cache)
+
+
+@torch.no_grad()
+def forward_paged_block(
+    params: dict,
+    cfg: ModelConfig,
+    tokens: torch.Tensor,  # [B, T] int
+    cache,  # PagedKVCache
+    lm_head: bool = True,
+):
+    """T tokens per row through the model against the paged pool: K/V of
+    all T positions are written into the rows' pages (one indexed write
+    per pool and layer), then attention reads through the block table —
+    the paged decode kernel (K2) with one query position for T = 1, its
+    block form for T > 1. ``lm_head=False`` returns the final-normed
+    hidden states [B, T, h] (the chunk body of paged-native prefill).
+    Returns (out, cache with lengths += T); the pools change in place."""
+    from fei_tpu_torch.engine.paged_cache import write_token_kv
+    from fei_tpu_torch.ops.kernels.paged_attention import (
+        paged_attention,
+        paged_attention_block,
+    )
+
+    check_supported(cfg)
+    B, T = tokens.shape
+    dev = cache.k_pages.device
+    tokens = tokens.to(device=dev, dtype=torch.long)
+    positions = cache.lengths.long()[:, None] + torch.arange(T, device=dev)[None, :]
+    cos, sin = _paged_rope_tables(cfg, cache)
+    win = cfg.sliding_window or 0
+    limits = (cache.lengths + 1).to(torch.int32)
+    x = embed_tokens(params, cfg, tokens, _paged_dtype(params, cache))
+    for i in range(cfg.num_layers):
+        lp = {name: leaf[i] for name, leaf in params["layers"].items()}
+        kp, vp, ks, vs = _layer_pools(cache, i)
+        y, q, k, v = _qkv_roped(cfg, lp, x, positions, cos, sin)
+        write_token_kv(kp, vp, k, v, cache.block_table, cache.lengths, ks, vs)
+        if T == 1:
+            attn = paged_attention(q[:, 0], kp, vp, cache.block_table, limits,
+                                   k_scales=ks, v_scales=vs, window=win)[:, None]
+        else:
+            attn = paged_attention_block(q, kp, vp, cache.block_table, cache.lengths,
+                                         k_scales=ks, v_scales=vs, window=win)
+        x = _block_tail(cfg, lp, x, y, attn)
+    x = _norm(x, params["final_norm"], cfg, b=params.get("final_norm_b"))
+    new_cache = cache._replace(lengths=(cache.lengths + T).to(torch.int32))
+    return (_logits(x, params, cfg) if lm_head else x), new_cache
+
+
+@torch.no_grad()
+def forward_paged_merged(
+    params: dict,
+    cfg: ModelConfig,
+    chunk_toks: torch.Tensor,  # [1, C] one prefill chunk
+    chunk_row: torch.Tensor,  # [1, max_pages] the admitting slot's table row
+    chunk_pos: int,  # the chunk's absolute start position
+    dec_tokens: torch.Tensor,  # [B, 1] one decode token per slot
+    cache,  # PagedKVCache under the LIVE table/lengths
+    rows: int = 8,
+):
+    """One dispatch serves a prefill chunk AND a decode step. Per layer the
+    chunk's [1, C] tokens and the decode batch's [B, 1] tokens each keep
+    their own projections, norms and MLP at the shapes of the solo paths
+    (the same GEMM calls), and only the two attention calls merge into one
+    ragged kernel launch (K3) over ``B + ceil(C/rows)`` virtual rows —
+    decode rows at q_len 1 against the live table, the chunk split into
+    ``rows``-position groups against the admitting slot's row. Each query
+    row's arithmetic is that of the solo kernels, so the step is
+    token-identical to the two solo programs.
+
+    Writes commute: chunk K/V land in the admitting slot's pages (its LIVE
+    row is still zero, so no decode row reads them), decode K/V in each
+    armed slot's own pages. Returns ``(chunk_hidden [1, C, h] final-normed,
+    dec_logits [B, 1, V], cache with lengths += 1)``."""
+    from fei_tpu_torch.engine.paged_cache import write_token_kv
+    from fei_tpu_torch.ops.kernels.ragged_paged_attention import ragged_paged_attention
+
+    check_supported(cfg)
+    B = dec_tokens.shape[0]
+    C = chunk_toks.shape[1]
+    dev = cache.k_pages.device
+    Hq, d = cfg.num_heads, cfg.head_dim_
+    R = rows
+    nG = -(-C // R)  # chunk groups of R query positions
+    Cp = nG * R
+    ar = torch.arange(nG, device=dev, dtype=torch.int32)
+    chunk_start = torch.full((1,), chunk_pos, dtype=torch.int32, device=dev)
+    chunk_positions = chunk_pos + torch.arange(C, device=dev)[None, :]
+    dec_positions = cache.lengths.long()[:, None]
+    cos, sin = _paged_rope_tables(cfg, cache)
+    win = cfg.sliding_window or 0
+
+    # per-virtual-row metadata: decode rows, then chunk groups
+    btv = torch.cat([cache.block_table, chunk_row.expand(nG, -1)]).contiguous()
+    limits = torch.cat([cache.lengths + 1, chunk_pos + 1 + ar * R]).to(torch.int32)
+    q_lens = torch.cat([torch.ones(B, dtype=torch.int32, device=dev),
+                        (C - ar * R).clamp(0, R)]).to(torch.int32)
+    modes = torch.cat([torch.ones(B, dtype=torch.int32, device=dev),
+                       torch.zeros(nG, dtype=torch.int32, device=dev)])
+
+    dtype = _paged_dtype(params, cache)
+    xc = embed_tokens(params, cfg, chunk_toks.to(device=dev, dtype=torch.long), dtype)
+    xd = embed_tokens(params, cfg, dec_tokens.to(device=dev, dtype=torch.long), dtype)
+    for i in range(cfg.num_layers):
+        lp = {name: leaf[i] for name, leaf in params["layers"].items()}
+        kp, vp, ks, vs = _layer_pools(cache, i)
+        yc, qc, kc, vc = _qkv_roped(cfg, lp, xc, chunk_positions, cos, sin)
+        yd, qd, kd, vd = _qkv_roped(cfg, lp, xd, dec_positions, cos, sin)
+        # chunk writes first, then the decode rows' — page-disjoint
+        write_token_kv(kp, vp, kc, vc, chunk_row, chunk_start, ks, vs)
+        write_token_kv(kp, vp, kd, vd, cache.block_table, cache.lengths, ks, vs)
+        qv = torch.cat([
+            F.pad(qd, (0, 0, 0, 0, 0, R - 1)),
+            F.pad(qc, (0, 0, 0, 0, 0, Cp - C)).reshape(nG, R, Hq, d),
+        ])  # [B + nG, R, Hq, d]
+        av = ragged_paged_attention(qv, kp, vp, btv, limits, q_lens, modes,
+                                    k_scales=ks, v_scales=vs, window=win)
+        dec_attn = av[:B, :1]
+        chunk_attn = av[B:].reshape(1, Cp, Hq, d)[:, :C]
+        xc = _block_tail(cfg, lp, xc, yc, chunk_attn)
+        xd = _block_tail(cfg, lp, xd, yd, dec_attn)
+    xc = _norm(xc, params["final_norm"], cfg, b=params.get("final_norm_b"))
+    xd = _norm(xd, params["final_norm"], cfg, b=params.get("final_norm_b"))
+    new_cache = cache._replace(lengths=(cache.lengths + 1).to(torch.int32))
+    return xc, _logits(xd, params, cfg), new_cache

@@ -2,8 +2,8 @@
 
 Each source ``fei_tpu_torch/csrc/<name>.cu`` exposes a plain C interface
 and is compiled on its own into ``build/fei_tpu_torch/lib<name>_<hash>.so``
-at the repository root, where ``<hash>`` covers the source bytes and the
-compiler flags: an edited source builds anew, an unchanged one loads the
+at the repository root, where ``<hash>`` covers the source bytes, the
+shared headers beside it and the compiler flags: an edited source builds anew, an unchanged one loads the
 library already there. Nothing is built when a module is imported — only
 when a kernel is first launched, or when a caller (``chip_smoke.py``)
 asks for the build up front.
@@ -56,8 +56,12 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = CSRC_DIR / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    """The library's path; its hash covers the source, every shared header
+    in csrc/ (``*.cuh``) and the flags."""
+    digest = hashlib.sha256((CSRC_DIR / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC_DIR.glob("*.cuh")):
+        digest.update(header.read_bytes())
+    digest.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{name}_{digest.hexdigest()[:16]}.so"
 
 

@@ -22,6 +22,11 @@ import uuid
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from urllib.parse import urlsplit
 
+from fei_tpu_torch.utils.errors import (
+    DeadlineExceededError,
+    EngineDegradedError,
+    QueueFullError,
+)
 from fei_tpu_torch.utils.logging import get_logger
 from fei_tpu_torch.utils.metrics import METRICS
 
@@ -169,14 +174,22 @@ class ServeAPI:
         )
 
     def handle(self, method: str, path: str, body: dict, headers: dict) -> tuple:
-        """Route a request. Returns ``(status, payload)``; a ``str`` payload
-        is plain text (the Prometheus exposition), dicts are JSON."""
+        """Route a request. Returns ``(status, payload)`` or ``(status,
+        payload, headers)``; a ``str`` payload is plain text (the Prometheus
+        exposition), dicts are JSON."""
         route = urlsplit(path).path
         METRICS.incr("server.requests")
         if route == "/health":
             eng = getattr(self.provider, "engine", None)
             device = str(getattr(eng, "device", "")) or None
-            return 200, {"status": "ok", "model": self.model_name, "device": device}
+            out = {"status": "ok", "model": self.model_name, "device": device}
+            sched = getattr(eng, "_scheduler", None)
+            if sched is not None:
+                out.update(queue_depth=len(sched._waiting), slots=sched.B,
+                           running=sum(1 for s in sched._slots if s is not None))
+                if sched.degraded():
+                    return 503, dict(out, status="degraded"), {"Retry-After": "5"}
+            return 200, out
         if route == "/metrics" and method == "GET":
             # pre-auth like /health: scrapers don't carry bearer tokens
             return 200, METRICS.prometheus_text()
@@ -225,6 +238,15 @@ class ServeAPI:
         try:
             msgs = kw.pop("messages")
             resp = self.provider.complete(msgs, **kw)
+        except QueueFullError as exc:
+            # backpressure, not failure: tell the client when to come back
+            return 429, {"error": {"message": str(exc),
+                                   "type": "overloaded_error"}}, _retry_after(exc)
+        except EngineDegradedError as exc:
+            return 503, {"error": {"message": str(exc),
+                                   "type": "overloaded_error"}}, _retry_after(exc)
+        except DeadlineExceededError as exc:
+            return 504, {"error": {"message": str(exc), "type": "timeout_error"}}
         except Exception as exc:  # noqa: BLE001 — surface as JSON, not a
             # dropped socket (EngineError/ProviderError/anything)
             log.warning("completion failed: %r", exc)
@@ -267,9 +289,16 @@ class ServeAPI:
                     yield frame({"content": delta})
         except Exception as exc:  # noqa: BLE001 — headers are committed
             log.warning("stream failed: %r", exc)
+            # the status line is sent, but the frame keeps the category so
+            # a client can still back off
+            etype = "server_error"
+            if isinstance(exc, (QueueFullError, EngineDegradedError)):
+                etype = "overloaded_error"
+            elif isinstance(exc, DeadlineExceededError):
+                etype = "timeout_error"
             yield (b"data: " + json.dumps({"error": {
                 "message": f"{type(exc).__name__}: {exc}",
-                "type": "server_error",
+                "type": etype,
             }}).encode() + b"\n\n")
             yield b"data: [DONE]\n\n"
             return
@@ -292,12 +321,17 @@ class ServeAPI:
         yield b"data: [DONE]\n\n"
 
 
+def _retry_after(exc) -> dict:
+    return {"Retry-After": str(max(1, round(getattr(exc, "retry_after_s", 1.0))))}
+
+
 def make_handler(api: ServeAPI):
     class Handler(BaseHTTPRequestHandler):
         def log_message(self, fmt, *args):  # route through our logger
             log.debug("http: " + fmt, *args)
 
-        def _json(self, status: int, payload: dict | str) -> None:
+        def _json(self, status: int, payload: dict | str,
+                  headers: dict | None = None) -> None:
             if isinstance(payload, str):  # Prometheus text exposition
                 data = payload.encode("utf-8")
                 ctype = "text/plain; version=0.0.4; charset=utf-8"
@@ -307,6 +341,8 @@ def make_handler(api: ServeAPI):
             self.send_response(status)
             self.send_header("Content-Type", ctype)
             self.send_header("Content-Length", str(len(data)))
+            for k, v in (headers or {}).items():
+                self.send_header(k, v)
             self.end_headers()
             self.wfile.write(data)
 
@@ -323,8 +359,7 @@ def make_handler(api: ServeAPI):
             return data if isinstance(data, dict) else None
 
         def do_GET(self):  # noqa: N802
-            status, payload = api.handle("GET", self.path, {}, dict(self.headers))
-            self._json(status, payload)
+            self._json(*api.handle("GET", self.path, {}, dict(self.headers)))
 
         def do_POST(self):  # noqa: N802
             body = self._body()
@@ -356,8 +391,7 @@ def make_handler(api: ServeAPI):
                 except (BrokenPipeError, ConnectionResetError):
                     log.info("client disconnected mid-stream")
                 return
-            status, payload = api.handle("POST", self.path, body, dict(self.headers))
-            self._json(status, payload)
+            self._json(*api.handle("POST", self.path, body, dict(self.headers)))
 
     return Handler
 

@@ -38,7 +38,12 @@ def test_port_imports_without_jax_or_fei_tpu():
     for name in (
         "fei_tpu_torch.models.llama", "fei_tpu_torch.models.convert",
         "fei_tpu_torch.ops.kernels.flash_attention",
+        "fei_tpu_torch.ops.kernels.paged_attention",
+        "fei_tpu_torch.ops.kernels.ragged_paged_attention",
         "fei_tpu_torch.engine.engine", "fei_tpu_torch.engine.weights",
+        "fei_tpu_torch.engine.paged_cache", "fei_tpu_torch.engine.scheduler",
+        "fei_tpu_torch.engine.sched_admission", "fei_tpu_torch.engine.sched_decode",
+        "fei_tpu_torch.engine.tenancy", "fei_tpu_torch.engine.faults",
         "fei_tpu_torch.agent.providers", "fei_tpu_torch.ui.server",
         "fei_tpu_torch.__main__",
     ):

@@ -121,3 +121,46 @@ def test_serving_server_over_http(apis):
         assert out["usage"]["completion_tokens"] == 12
     finally:
         server.stop()
+
+
+def test_full_queue_answers_429_with_retry_after(apis):
+    """Over a paged engine whose waiting queue is full, a completion is
+    shed with 429 and Retry-After (JSON over ServeAPI and over HTTP), and
+    a degraded engine answers /health with 503."""
+    import urllib.error
+    import urllib.request
+
+    _, api = apis
+    eng = InferenceEngine.from_config(
+        "tiny", params=api.provider.engine.params, paged=True, batch_size=1,
+        page_size=16, device="cpu", dtype=torch.float32, max_seq_len=128)
+    paged = ServeAPI(TorchLocalProvider(engine=eng))
+    sched = eng.scheduler
+    from fei_tpu_torch.engine.engine import GenerationConfig
+
+    hold = [sched.submit([5] * 8, GenerationConfig(max_new_tokens=100, ignore_eos=True))
+            for _ in range(2)]
+    sched.max_queue = 1  # one slot busy (or about to be), one request queued
+    server = ServingServer(paged, host="127.0.0.1", port=0)
+    server.start()
+    try:
+        out = paged.handle("POST", "/v1/chat/completions", dict(BODY), {})
+        assert out[0] == 429 and out[1]["error"]["type"] == "overloaded_error"
+        assert out[2]["Retry-After"] == "1"
+        req = urllib.request.Request(
+            f"http://127.0.0.1:{server.port}/v1/chat/completions",
+            data=json.dumps(BODY).encode(), method="POST",
+            headers={"Content-Type": "application/json"},
+        )
+        with pytest.raises(urllib.error.HTTPError) as err:
+            urllib.request.urlopen(req, timeout=60)
+        assert err.value.code == 429 and err.value.headers["Retry-After"] == "1"
+        sched._degraded_until = float("inf")
+        status, health, headers = paged.handle("GET", "/health", {}, {})
+        assert status == 503 and health["status"] == "degraded" and "Retry-After" in headers
+    finally:
+        sched.reset_degraded()
+        server.stop()
+        for s in hold:
+            sched.cancel(s)
+        eng.close()
