@@ -9,15 +9,19 @@ windows with torch.profiler: one ~1500-token prefill (bucket 2048), 32
 dense decode steps (fused chunks of 16), and on the paged path (a
 1025-page pool, eight rows at chip_smoke's contexts of 96 to 5000
 tokens) 8 batched decode steps and one merged dispatch (a 256-token
-prefill chunk riding a decode step). For each window it prints the wall
-time, the device's busy share (the union of kernel intervals over the
-wall time) and the kernels that took the most device time, grouped by
-name; the paged windows also print their unprofiled time per step.
-Measurement only: nothing here is checked beyond the card being there.
+prefill chunk riding a decode step). Then, with int4 weights (the same
+seed), it traces the prefill and one paged decode step again and reports
+the int4 kernel's (K4's) share of kernel time. For each window it prints
+the wall time, the device's busy share (the union of kernel intervals
+over the wall time) and the kernels that took the most device time,
+grouped by name; the paged windows also print their unprofiled time per
+step. Measurement only: nothing here is checked beyond the card being
+there.
 """
 
 from __future__ import annotations
 
+import gc
 import subprocess
 import sys
 import time
@@ -31,7 +35,10 @@ from torch.profiler import ProfilerActivity, profile
 TOP = 12
 
 
-def kernel_summary(prof, wall_s: float, label: str) -> None:
+def kernel_summary(prof, wall_s: float, label: str, share: str | None = None) -> None:
+    """Print the window's kernel time, launches, busy share and top
+    kernels; ``share`` names a kernel (a substring of its symbol) whose
+    share of the kernel time is printed too."""
     kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
     if not kernels:
         print(f"{label}: wall {wall_s * 1e3:.2f} ms; device time not traced")
@@ -58,6 +65,11 @@ def kernel_summary(prof, wall_s: float, label: str) -> None:
           f"({100 * busy / 1e6 / wall_s:.1f}% of wall)")
     for name, (us, n) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:TOP]:
         print(f"  {us / 1e3:9.3f} ms {100 * us / total:5.1f}% x{n:<5d} {name[:110]}")
+    if share:
+        us = sum(v[0] for k, v in by_name.items() if share in k)
+        n = sum(v[1] for k, v in by_name.items() if share in k)
+        print(f"  {share}: {us / 1e3:.3f} ms over {n} launches, {100 * us / total:.1f}% of "
+              "kernel time")
 
 
 def main() -> int:
@@ -74,7 +86,8 @@ def main() -> int:
     from fei_tpu_torch.engine.fused_decode import ChunkDecoder
     from fei_tpu_torch.ops.kernels import build
 
-    for name in ("flash_attention_fwd", "paged_attention", "ragged_paged_attention"):
+    for name in ("flash_attention_fwd", "paged_attention", "ragged_paged_attention",
+                 "int4_matmul"):
         build.build(name)
     engine = InferenceEngine.from_config(
         "llama3-8b", dtype=torch.bfloat16, seed=0, max_seq_len=8192, device="cuda")
@@ -100,13 +113,31 @@ def main() -> int:
         wall = time.perf_counter() - t0
     kernel_summary(prof, wall, f"decode {n} steps (chunk 16) on {card}")
     paged_windows(engine, card)
+
+    # int4 weights: the prefill and one paged decode step, K4's share
+    del engine, dec, cache, tok, generator, logits
+    gc.collect()
+    torch.cuda.empty_cache()
+    engine = InferenceEngine.from_config(
+        "llama3-8b", dtype=torch.bfloat16, seed=0, max_seq_len=8192, device="cuda",
+        quantize="int4")
+    engine.prefill([prompt], engine.new_cache(1))  # warm-up
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        engine.prefill([prompt], engine.new_cache(1))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    kernel_summary(prof, wall, f"int4 prefill {len(prompt)} tokens (bucket 2048) on {card}",
+                   share="int4_mm_kernel")
+    paged_windows(engine, card, "int4 ", merged=False)  # K4 at the decode batch's 8 rows
     return 0
 
 
-def paged_windows(engine, card: str) -> None:
-    """8 batched paged decode steps and one merged dispatch, at the
-    contexts of chip_smoke's paged traffic (pages assigned in order; the
-    K/V values do not change the work)."""
+def paged_windows(engine, card: str, tag: str = "", merged: bool = True) -> None:
+    """8 batched paged decode steps and (with ``merged``) one merged
+    dispatch, at the contexts of chip_smoke's paged traffic (pages
+    assigned in order; the K/V values do not change the work)."""
     from fei_tpu_torch.engine import InferenceEngine
     from fei_tpu_torch.models.llama import forward_paged, forward_paged_merged
 
@@ -132,11 +163,13 @@ def paged_windows(engine, card: str) -> None:
             logits, p = forward_paged(paged.params, paged.cfg, tok, p)
             logits.argmax(-1)
 
-    def merged():
+    def merged_step():
         forward_paged_merged(paged.params, paged.cfg, chunk, chunk_row, 1024, tok, base)
 
-    for label, fn, n in (("paged decode, 8 rows", lambda: steps(8), 8),
-                         ("merged dispatch, 256-token chunk + 8 decode rows", merged, 1)):
+    windows = [(f"{tag}paged decode, 8 rows", lambda: steps(8), 8)]
+    if merged:
+        windows.append(("merged dispatch, 256-token chunk + 8 decode rows", merged_step, 1))
+    for label, fn, n in windows:
         fn()  # warm-up
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -149,7 +182,8 @@ def paged_windows(engine, card: str) -> None:
             fn()
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
-        kernel_summary(prof, wall, f"{label} ({n} step{'s' * (n > 1)}) on {card}")
+        kernel_summary(prof, wall, f"{label} ({n} step{'s' * (n > 1)}) on {card}",
+                       share="int4_mm_kernel" if tag else None)
     paged.close()
 
 

@@ -36,14 +36,34 @@ Phases (each raises on failure, so the script exits non-zero):
    completions (four streamed), each equal to the scheduler's own stream,
    and answers 429 with Retry-After once the waiting queue is full.
 
+Phase 3 also holds the int4 matmul kernel (K4) against its plain version
+at llama3-8b's four linear shapes and M = 1/8/256/2048, shows that two
+mutants (lo and hi planes swapped; each group read with the next group's
+scale) break that bound, and that row 0 is bitwise the same at every M.
+After the bf16 engines are released:
+
+8. Quantized dense path: llama3-8b with int4 weights (random, the same
+   seed): ``param_bytes``; a ~1500-token prefill launches K4 exactly 7
+   times per layer and its logits are held against the same weights
+   dequantized to bf16 and multiplied plainly; 128 greedy tokens. Then
+   int8 weights: ``param_bytes``, 32 greedy tokens, no K4 launch.
+9. Quantized paged path: the int4 weights behind the paged engine, four
+   requests from threads; each stream must equal the dense int4 engine's,
+   and must not change with the merged dispatch off or in a tight pool
+   that preempts.
+10. Provider: ``TorchLocalProvider`` built from the configuration with
+    quantize = int4 answers one completion through the server.
+
 Every kernel count is set to 0 just before a path is driven and read just
 after. The line before the last two is the kernels' JSON record (launches
-from the paged path), the line before the last is the card, and the last
-line is the JSON verdict.
+from the paged paths: K1-K3 from the bf16 run, K4 from the int4 run), the
+line before the last is the card, and the last line is the JSON verdict.
 """
 
 from __future__ import annotations
 
+import gc
+import itertools
 import json
 import subprocess
 import sys
@@ -61,7 +81,7 @@ PEAK_BF16_FLOPS = 989e12
 PEAK_BYTES_PER_S = 3.35e12
 
 SEED = 0
-KERNELS = ["flash_attention_fwd", "paged_attention", "ragged_paged_attention"]
+KERNELS = ["flash_attention_fwd", "paged_attention", "ragged_paged_attention", "int4_matmul"]
 
 
 def log(msg: str) -> None:
@@ -462,20 +482,138 @@ def paged_kernel_phase(card: str) -> list[dict]:
     return [records["paged_attention"], records["ragged_paged_attention"]]
 
 
+# ------------------------------------------------------------- int4 kernel
+
+# llama3-8b's linears (label, K, N) and the row counts the serving paths
+# give them: dense decode, the paged decode batch, a chunk, the prefill
+INT4_LINEARS = (("wq/wo", 4096, 4096), ("wk/wv", 4096, 1024),
+                ("w_gate/w_up", 4096, 14336), ("w_down", 14336, 4096))
+INT4_MS = (1, 8, 256, 2048)
+INT4_MAIN = ("w_gate/w_up", 8)  # the record's shape: the paged decode batch
+L2_BYTES = 128 * 2 ** 20  # more than the card's 50 MB L2: timed weights arrive cold
+
+
+def int4_bound_ms(M: int, K: int, N: int) -> tuple[float, str]:
+    """Least time for one int4 product: packed bytes, scales, x and the
+    output moved once at the memory rate, against 2*M*K*N operations at
+    the bf16 peak; the larger of the two, and which it is."""
+    nbytes = (K // 2) * N + (K // 128) * N * 4 + 2 * M * K + 2 * M * N
+    t_ops, t_bytes = 2.0 * M * K * N / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES_PER_S
+    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def copies(make, nbytes: int) -> list:
+    """Enough copies of an input (``make()`` each) to exceed the L2 cache,
+    so a timing loop that cycles through them reads each from device
+    memory, as a decode step reads each layer's weights."""
+    return [make() for _ in range(max(1, -(-L2_BYTES // nbytes)))]
+
+
+def int4_kernel_phase(card: str) -> dict:
+    """K4 at llama3-8b's four linear shapes x M in {1, 8, 256, 2048}: held
+    element by element against its plain version within
+    ``int4_mm_tolerance``, two mutants shown to break that bound, row 0
+    bitwise the same at every M, and timed beside the plain version, one
+    ``torch.matmul`` on the dequantized weight (a yardstick the port never
+    calls) and the bound. Returns the main shape's record."""
+    from fei_tpu_torch.ops.kernels.int4_matmul import (
+        int4_mm,
+        int4_mm_reference,
+        int4_mm_tolerance,
+    )
+    from fei_tpu_torch.ops.quant import QTensor4, dequantize, quantize4
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    record = None
+    for label, K, N in INT4_LINEARS:
+        w = quantize4((torch.randn(K, N, generator=gen, device="cuda") * K ** -0.5).bfloat16())
+        x_all = torch.randn(max(INT4_MS), K, generator=gen, device="cuda").bfloat16()
+        # the mutants: lo and hi planes swapped; each group read with the
+        # next group's scale
+        mutants = {
+            "planes swapped": QTensor4(((w.p & 0xF) << 4) | ((w.p >> 4) & 0xF), w.s),
+            "next group's scale": QTensor4(w.p, torch.roll(w.s, -1, dims=0)),
+        }
+        w_copies = copies(lambda: QTensor4(w.p.clone(), w.s.clone()),
+                          w.p.numel() + 4 * w.s.numel())
+        deq = dequantize(w, torch.bfloat16)
+        deq_copies = copies(deq.clone, 2 * deq.numel())
+        rows0 = {}
+        for M in INT4_MS:
+            x = x_all[:M]
+            out = int4_mm(x, w)
+            torch.cuda.synchronize()
+            ref = int4_mm_reference(x.float(), w)  # the plain version, fp32 sum
+            # tolerance, element by element: one bf16 ulp of each output
+            # (the kernel rounds its fp32 sum to bf16) plus K*2^-24*sum|x w|
+            # for the two fp32 summation orders; the weights are the same
+            # bf16 values on both sides (int4_mm_tolerance's docstring)
+            tol = int4_mm_tolerance(x, w)
+            diff = (out.float() - ref).abs()
+            err = diff.max().item()
+            worst = (diff / tol).max().item()
+            check(torch.isfinite(out).all().item(), f"int4 {label} M={M}: non-finite output")
+            check(worst <= 1.0, f"int4 {label} M={M}: error exceeds its tolerance by {worst:.4g}x")
+            caught = {name: ((int4_mm_reference(x.float(), m) - ref).abs() > tol)
+                      .float().mean().item() for name, m in mutants.items()}
+            for name, share in caught.items():
+                check(share > 0, f"int4 {label} M={M}: the tolerance cannot see {name}")
+            rows0[M] = out[0]
+            ws, ds = itertools.cycle(w_copies), itertools.cycle(deq_copies)
+            ms = cuda_ms(lambda: int4_mm(x, next(ws)))
+            plain_ms = cuda_ms(lambda: int4_mm_reference(x, w), iters=3, warmup=1)
+            lib_ms = cuda_ms(lambda: torch.matmul(x, next(ds)))
+            bound_ms, bound_by = int4_bound_ms(M, K, N)
+            log(f"kernel int4_matmul [{label} M={M}] K={K} N={N} on {card}: "
+                f"max_abs_err={err:.6g}, worst err/tol {worst:.4g}; "
+                + ", ".join(f"{k} breaks the tolerance at {v:.2%}" for k, v in caught.items())
+                + f"; {ms:.4f} ms, plain {plain_ms:.4f} ms, matmul on the dequantized "
+                f"weight {lib_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by})")
+            if (label, M) == INT4_MAIN:
+                record = {
+                    "name": "int4_matmul", "route": "cuda",
+                    "source": "fei_tpu_torch/csrc/int4_matmul.cu",
+                    "replaces": "fei_tpu/ops/pallas/int4_matmul.py:75",
+                    "launches": 0, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                    "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": lib_ms,
+                }
+            del out, ref, tol, diff
+        # row invariance: row 0's k-order does not follow M
+        for M in INT4_MS[1:]:
+            check(torch.equal(rows0[M], rows0[1]),
+                  f"int4 {label}: row 0 at M={M} differs from the M=1 call")
+        log(f"kernel int4_matmul [{label}]: row 0 bitwise equal at M = {INT4_MS}")
+        del w, x_all, mutants, w_copies, deq, deq_copies
+        torch.cuda.empty_cache()
+    return record
+
+
 # ----------------------------------------------------------------- engine
 
-def serving_bounds(cfg, prompt_len: int, new_tokens: int) -> tuple[float, float]:
+def weight_stream_bytes(params) -> int:
+    """Bytes of the weights one decode step reads: every leaf but the
+    embedding table, which is gathered a row at a time."""
+    from fei_tpu_torch.ops.quant import param_bytes
+
+    return param_bytes(params) - param_bytes(params["embed"])
+
+
+def serving_bounds(cfg, prompt_len: int, new_tokens: int,
+                   weight_bytes: int | None = None) -> tuple[float, float]:
     """The card's limits for this run's work, at the bf16 and memory peaks:
     the least TTFT (ms) — the larger of the prefill's operations (linear
     layers over the prompt's tokens, causal attention, the LM head for one
     position) and one read of the weights — and the most decode tok/s — one
     read of the weights (not the embedding table, which is gathered) and of
-    the live KV per token, at the run's mean context."""
+    the live KV per token, at the run's mean context. ``weight_bytes``
+    gives a quantized tree's bytes (``weight_stream_bytes``); None counts
+    bf16 linears."""
     h, d, L = cfg.hidden_size, cfg.head_dim_, cfg.num_layers
     H, K, I, V = cfg.num_heads, cfg.num_kv_heads, cfg.intermediate_size, cfg.vocab_size
     per_layer = h * H * d + 2 * h * K * d + H * d * h + 3 * h * I
     head = h * V
-    weight_bytes = 2 * (L * per_layer + head)
+    if weight_bytes is None:
+        weight_bytes = 2 * (L * per_layer + head)
     flops = (2 * L * per_layer * prompt_len
              + 4 * d * H * L * prompt_len * (prompt_len + 1) / 2 + 2 * head)
     ttft_s = max(flops / PEAK_BF16_FLOPS, weight_bytes / PEAK_BYTES_PER_S)
@@ -648,10 +786,11 @@ NEW_TOKENS = 128
 
 def reset_counts():
     from fei_tpu_torch.ops.kernels.flash_attention import flash_attention
+    from fei_tpu_torch.ops.kernels.int4_matmul import int4_mm
     from fei_tpu_torch.ops.kernels.paged_attention import paged_attention
     from fei_tpu_torch.ops.kernels.ragged_paged_attention import ragged_paged_attention
 
-    for fn in (flash_attention, paged_attention, ragged_paged_attention):
+    for fn in (flash_attention, paged_attention, ragged_paged_attention, int4_mm):
         fn.launches = 0
         if hasattr(fn, "int8_launches"):
             fn.int8_launches = 0
@@ -659,12 +798,14 @@ def reset_counts():
 
 def read_counts() -> dict:
     from fei_tpu_torch.ops.kernels.flash_attention import flash_attention
+    from fei_tpu_torch.ops.kernels.int4_matmul import int4_mm
     from fei_tpu_torch.ops.kernels.paged_attention import paged_attention
     from fei_tpu_torch.ops.kernels.ragged_paged_attention import ragged_paged_attention
 
     return {"flash_attention_fwd": flash_attention.launches,
             "paged_attention": paged_attention.launches,
             "ragged_paged_attention": ragged_paged_attention.launches,
+            "int4_matmul": int4_mm.launches,
             "paged_attention_int8": paged_attention.int8_launches,
             "ragged_paged_attention_int8": ragged_paged_attention.int8_launches}
 
@@ -760,12 +901,16 @@ def chunked_paged_logits(engine, prompt):
 
 
 def first_divergence(dense, prompt, want, got):
-    """(position, logit gap) where two streams first differ: the gap is
-    logit(want's token) - logit(got's token) at that position, from the
-    dense engine's prefill of the common prefix."""
+    """(position, logit gap, bf16 ulp) where two streams first differ: the
+    gap is logit(want's token) - logit(got's token) at that position, from
+    the dense engine's prefill of the common prefix, and the ulp is a bf16
+    step at the larger of the two logits (the LM head's product is bf16,
+    so its logits sit on that grid)."""
     j = next(i for i, (a, b) in enumerate(zip(want, got)) if a != b)
     logits, _ = dense.prefill([list(prompt) + list(want[:j])], dense.new_cache(1))
-    return j, (logits[0, want[j]] - logits[0, got[j]]).item()
+    pair = logits[0, [want[j], got[j]]]
+    _, exp = torch.frexp(pair.abs().max())
+    return j, (pair[0] - pair[1]).item(), 2.0 ** (exp.item() - 8)
 
 
 def paged_engine_phase(dense, card: str) -> tuple:
@@ -834,9 +979,9 @@ def paged_engine_phase(dense, card: str) -> tuple:
         f"streams finished in {t_run['wall']:.3f} s; equal to the roomy run: {same}")
     for i, ok in enumerate(same):
         if not ok:
-            j, gap = first_divergence(dense, prompts[i], streams[i], t_run["streams"][i])
+            j, gap, ulp = first_divergence(dense, prompts[i], streams[i], t_run["streams"][i])
             log(f"paged engine: tight stream {i} (prompt {len(prompts[i])}) first "
-                f"differs at token {j}; logit gap there {gap:.6g}")
+                f"differs at token {j}; logit gap there {gap:.6g} ({gap / ulp:.3g} bf16 ulps)")
     tight.close()
     del tight
 
@@ -955,6 +1100,215 @@ def paged_serve_phase(eng, card: str) -> None:
         server.stop()
 
 
+# ------------------------------------------------------ quantized weights
+
+QUANT_LENS = (96, 250, 700, 1500)  # two dense admissions, two chunked
+QUANT_NEW = 64
+
+
+def quant_dense_phase(card: str, bf16_bytes: int):
+    """llama3-8b at full width and depth with int4 weights (K4 in every big
+    linear), then with int8 weights. Returns the int4 engine."""
+    from fei_tpu_torch.engine import GenerationConfig, InferenceEngine
+    from fei_tpu_torch.ops.quant import QTensor4, dequantize_params, param_bytes
+
+    t0 = time.perf_counter()
+    eng = InferenceEngine.from_config(
+        "llama3-8b", dtype=torch.bfloat16, seed=SEED, max_seq_len=8192, device="cuda",
+        quantize="int4")
+    torch.cuda.synchronize()
+    cfg, L = eng.cfg, eng.cfg.num_layers
+    nbytes = param_bytes(eng.params)
+    log(f"int4 engine: {cfg.name}, param_bytes {nbytes / 1e9:.3f} GB (bf16 "
+        f"{bf16_bytes / 1e9:.3f} GB), weights a decode step reads "
+        f"{weight_stream_bytes(eng.params) / 1e9:.3f} GB; random init in "
+        f"{time.perf_counter() - t0:.1f} s")
+    check(nbytes < 0.4 * bf16_bytes, "int4 params are not smaller than 40% of bf16's")
+    prompt = np.random.default_rng(SEED).integers(8, cfg.vocab_size, size=1500).tolist()
+
+    # the int4 dense path starts here: every kernel count from 0
+    reset_counts()
+    logits, _ = eng.prefill([prompt], eng.new_cache(1))
+    torch.cuda.synchronize()
+    counts = read_counts()
+    check(counts["int4_matmul"] == 7 * L,
+          f"int4 prefill launched int4_matmul {counts['int4_matmul']} times, expected {7 * L}")
+    check(counts["flash_attention_fwd"] == L, f"int4 prefill: flash launches {counts}")
+    check(torch.isfinite(logits).all().item(), "int4 prefill logits not finite")
+    log(f"int4 engine: prefill of {len(prompt)} tokens launched int4_matmul "
+        f"{counts['int4_matmul']} times (7 linears x {L} layers), flash {counts['flash_attention_fwd']}")
+
+    # the same weights with every QTensor4 dequantized to bf16 and
+    # multiplied plainly (cuBLAS); the int8 LM head stays as it is
+    deq = InferenceEngine.from_config(
+        "llama3-8b", dtype=torch.bfloat16, max_seq_len=8192, device="cuda",
+        params=dequantize_params(eng.params, torch.bfloat16, only=(QTensor4,)))
+    reset_counts()
+    plain, _ = deq.prefill([prompt], deq.new_cache(1))
+    torch.cuda.synchronize()
+    check(read_counts()["int4_matmul"] == 0, "the dequantized engine launched int4_matmul")
+    del deq
+    torch.cuda.empty_cache()
+    rel = ((logits - plain).norm() / plain.norm()).item()
+    # tolerance: the two runs multiply the same bf16 weight values and
+    # round each product to bf16; only the fp32 summation order differs,
+    # and 32 layers of such perturbations stay within a few percent of the
+    # logits' norm, as the bf16 engine's flash-vs-plain gap above does
+    log(f"int4 engine: last-position prefill logits vs the dequantized weights: "
+        f"max_abs_diff={(logits - plain).abs().max().item():.6g}, rel_l2={rel:.6g} "
+        f"(tol 3e-2), argmax {int(logits.argmax())} vs {int(plain.argmax())}")
+    check(rel <= 3e-2, f"int4 vs dequantized prefill logits rel_l2 {rel} > 3e-2")
+    del plain
+
+    res = eng.generate(prompt, GenerationConfig(max_new_tokens=128, ignore_eos=True, chunk=16))
+    check(len(res.token_ids) == 128, f"int4 decoded {len(res.token_ids)} tokens, expected 128")
+    check(all(0 <= t < cfg.vocab_size for t in res.token_ids), "int4 token id out of range")
+    ttft_bound, tok_s_bound = serving_bounds(cfg, len(prompt), 128, weight_stream_bytes(eng.params))
+    log(f"int4 engine: {len(prompt)}-token prompt, 128 greedy tokens (chunk 16) on {card}: "
+        f"TTFT {res.ttft_s * 1e3:.1f} ms (bound {ttft_bound:.1f} ms), decode "
+        f"{res.decode_tokens_per_s:.2f} tok/s (bound {tok_s_bound:.1f} tok/s at int4 bytes)")
+
+    t0 = time.perf_counter()
+    eng8 = InferenceEngine.from_config(
+        "llama3-8b", dtype=torch.bfloat16, seed=SEED, max_seq_len=8192, device="cuda",
+        quantize="int8")
+    torch.cuda.synchronize()
+    init8 = time.perf_counter() - t0
+    reset_counts()
+    res8 = eng8.generate(prompt, GenerationConfig(max_new_tokens=32, ignore_eos=True, chunk=16))
+    check(read_counts()["int4_matmul"] == 0, "the int8 engine launched int4_matmul")
+    check(len(res8.token_ids) == 32, f"int8 decoded {len(res8.token_ids)} tokens, expected 32")
+    ttft8, tok8 = serving_bounds(cfg, len(prompt), 32, weight_stream_bytes(eng8.params))
+    log(f"int8 engine: param_bytes {param_bytes(eng8.params) / 1e9:.3f} GB (init {init8:.1f} s); "
+        f"{len(prompt)}-token prompt, 32 greedy tokens on {card}: TTFT {res8.ttft_s * 1e3:.1f} ms "
+        f"(bound {ttft8:.1f} ms), decode {res8.decode_tokens_per_s:.2f} tok/s (bound "
+        f"{tok8:.1f} tok/s at int8 bytes; each int8 product casts its weight to a bf16 copy "
+        f"first), int4_matmul launches 0")
+    del eng8
+    torch.cuda.empty_cache()
+    return eng
+
+
+def quant_paged_phase(dense4, card: str) -> dict:
+    """The int4 weights behind the paged engine: four requests from
+    threads, each stream held against the dense int4 engine's greedy
+    stream, then ragged off and a tight pool. Returns the main run's
+    kernel launches."""
+    from fei_tpu_torch.engine import GenerationConfig, InferenceEngine
+
+    cfg = dense4.cfg
+    rng = np.random.default_rng(SEED + 2)
+    prompts = [rng.integers(8, cfg.vocab_size, size=n).tolist() for n in QUANT_LENS]
+    gen = GenerationConfig(max_new_tokens=QUANT_NEW, ignore_eos=True)
+    want = [dense4.generate(p, gen).token_ids for p in prompts]
+
+    def paged(**kw):
+        return InferenceEngine.from_config(
+            "llama3-8b", dtype=torch.bfloat16, params=dense4.params, max_seq_len=8192,
+            device="cuda", paged=True, batch_size=8, page_size=PAGE, **kw)
+
+    eng = paged()
+    # the int4 paged path starts here: every kernel count from 0
+    reset_counts()
+    main = traffic(eng, prompts, QUANT_NEW)
+    launches = read_counts()
+    streams = main["streams"]
+    log(f"int4 paged engine: prompts {QUANT_LENS} x {QUANT_NEW} greedy tokens in "
+        f"{main['wall']:.3f} s on {card}, TTFT "
+        f"{[round(t * 1e3, 1) for t in main['ttft']]} ms, launches {launches}")
+    for name in ("int4_matmul", "paged_attention", "ragged_paged_attention"):
+        check(launches[name] > 0, f"the int4 paged path never launched {name}")
+    # against the dense int4 engine: the two decode through different
+    # attention arithmetic (dense: the plain fp32 path; paged: K2/K3, which
+    # round the softmax weights to bf16), and their logits are bf16 values
+    # (the LM head's product), so two candidates can tie exactly. A stream
+    # must equal the dense one, or first leave it where the two tokens'
+    # dense logits are within 2 bf16 ulps — a tie broken the other way.
+    # A wrong product would leave it at a clear gap, within a few tokens.
+    same = [a == b for a, b in zip(streams, want)]
+    log(f"int4 paged engine: streams equal to the dense int4 engine's: {same}")
+    for i, ok in enumerate(same):
+        if not ok:
+            j, gap, ulp = first_divergence(dense4, prompts[i], want[i], streams[i])
+            log(f"int4 paged engine: stream {i} (prompt {len(prompts[i])}) first differs "
+                f"from the dense stream at token {j}; dense logit gap there {gap:.6g} "
+                f"({gap / ulp:.3g} bf16 ulps)")
+            check(abs(gap) <= 2 * ulp, f"int4 paged stream {i} leaves the dense stream at "
+                  f"token {j} with a logit gap of {gap / ulp:.3g} bf16 ulps, not a tie")
+
+    eng.scheduler.ragged_attention = False
+    check(traffic(eng, prompts, QUANT_NEW)["streams"] == streams,
+          "int4 paged streams changed with ragged_attention=False")
+    eng.close()
+    # the 1564-token request fits alone (25 pages), all four do not (45)
+    tight = paged(num_pages=30)
+    pre0 = counter("scheduler.preemptions")
+    t_run = traffic(tight, prompts, QUANT_NEW)
+    pre = counter("scheduler.preemptions") - pre0
+    tight.close()
+    check(pre >= 1, "the int4 tight pool never preempted")
+    check(t_run["streams"] == streams, "int4 tight-pool streams differ from the roomy run's")
+    log(f"int4 paged engine: ragged_attention=False gives the same streams; tight pool "
+        f"(30 pages): {pre:.0f} preemptions in {t_run['wall']:.3f} s, the same streams")
+    torch.cuda.empty_cache()
+    return launches
+
+
+def quant_provider_phase(dense4, card: str) -> None:
+    """``TorchLocalProvider`` built from the configuration ([torch_local]
+    quantize = int4, here through its FEI_TPU_TORCH_LOCAL_* variables)
+    answers one completion through the server, equal to its engine's own
+    greedy stream."""
+    import os
+    from unittest import mock
+
+    from fei_tpu_torch.agent.providers import TorchLocalProvider
+    from fei_tpu_torch.engine import GenerationConfig
+    from fei_tpu_torch.ops.quant import QTensor4
+    from fei_tpu_torch.ui.server import ServeAPI, ServingServer
+
+    env = {"FEI_TPU_TORCH_LOCAL_MODEL": "llama3-8b", "FEI_TPU_TORCH_LOCAL_QUANTIZE": "int4",
+           "FEI_TPU_TORCH_LOCAL_MAX_SEQ_LEN": "2048", "FEI_TPU_TORCH_LOCAL_TOKENIZER": "byte"}
+    with mock.patch.dict(os.environ, env):
+        provider = TorchLocalProvider()
+    engine = provider.engine
+    check(isinstance(engine.params["layers"]["wq"], QTensor4), "the provider's engine is not int4")
+    check(torch.equal(engine.params["layers"]["wq"].p, dense4.params["layers"]["wq"].p),
+          "the provider's int4 weights differ from the same seed's")
+    # as in the serve phase: an LM head zeroed past the byte tokenizer's
+    # ids (the int8 head's values) makes the random model's picks text
+    tok = engine.tokenizer
+    engine.params["lm_head"].q[:, tok.vocab_size:] = 0
+    api = ServeAPI(provider, model_name=engine.cfg.name)
+    server = ServingServer(api, host="127.0.0.1", port=0)
+    server.start()
+    try:
+        body = {"messages": [{"role": "user", "content": "Pack two int4 weights per byte."}],
+                "max_tokens": 16, "ignore_eos": True, "model": engine.cfg.name}
+        reset_counts()
+        req = urllib.request.Request(
+            f"http://127.0.0.1:{server.port}/v1/chat/completions",
+            data=json.dumps(body).encode(), headers={"Content-Type": "application/json"},
+            method="POST")
+        t0 = time.perf_counter()
+        with urllib.request.urlopen(req, timeout=300) as r:
+            status, raw = r.status, r.read()
+        dt = time.perf_counter() - t0
+        launched = read_counts()["int4_matmul"]
+        check(status == 200, f"int4 provider: HTTP {status}")
+        content = json.loads(raw)["choices"][0]["message"]["content"].strip()
+        ids = tok.apply_chat_template(body["messages"], add_generation_prompt=True)
+        want = tok.decode(engine.generate(ids, GenerationConfig(
+            max_new_tokens=16, ignore_eos=True)).token_ids).strip()
+        check(len(content) > 0, "int4 provider: empty completion")
+        check(content == want, f"int4 provider: served {content!r}, engine says {want!r}")
+        check(launched > 0, "the int4 provider's request never launched int4_matmul")
+        log(f"int4 provider: [torch_local] quantize=int4 -> 200 in {dt * 1e3:.1f} ms on {card}, "
+            f"{len(content)} chars {content!r}, int4_matmul launches {launched}")
+    finally:
+        server.stop()
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this script "
@@ -977,6 +1331,7 @@ def main() -> int:
     log(f"build: {time.perf_counter() - t0:.1f} s")
 
     records = [kernel_phase(card)] + paged_kernel_phase(card)
+    int4_record = int4_kernel_phase(card)
 
     from fei_tpu_torch.ops.kernels.flash_attention import flash_attention
 
@@ -998,6 +1353,20 @@ def main() -> int:
         rec["launches"] = launches[rec["name"]]
         check(rec["launches"] > 0, f"the paged path never launched {rec['name']}")
     log(f"paged path (main run): launches {launches}")
+
+    # the quantized paths, after the bf16 engines are released
+    from fei_tpu_torch.ops.quant import param_bytes
+
+    bf16_bytes = param_bytes(engine.params)
+    del engine, paged_engine
+    gc.collect()
+    torch.cuda.empty_cache()
+    dense4 = quant_dense_phase(card, bf16_bytes)
+    launches4 = quant_paged_phase(dense4, card)
+    quant_provider_phase(dense4, card)
+    int4_record["launches"] = launches4["int4_matmul"]
+    records.append(int4_record)
+    log(f"int4 paged path (main run): launches {launches4}")
 
     print(json.dumps({"kernels": records}))
     print(card)

@@ -196,8 +196,8 @@ class TorchLocalProvider(Provider):
                     "FEI_TPU_TORCH_LOCAL_CHECKPOINT_DIR) to a local HF "
                     "safetensors directory.", model,
                 )
-            # settings pass through unfiltered: an option of a later slice
-            # (quantize) surfaces the engine's own loud error
+            # settings pass through unfiltered: a bad mode surfaces the
+            # engine's own loud error
             self.engine = InferenceEngine.from_config(
                 model,
                 dtype=torch.bfloat16,

@@ -18,9 +18,13 @@
   (engine/scheduler.py ``PagedScheduler``); every generation call goes
   through the scheduler, and concurrent callers share one batched decode.
 
+- **Weight-only int8 / int4** (``quantize``): the big linears are
+  quantized at init or while a checkpoint is read (``ops.quant``); int4
+  products run the K4 kernel, dense and paged alike.
+
 The engine runs on ``device`` ("cuda" unless the caller asks for "cpu") and
-raises ``EngineError`` when CUDA is asked for and missing. Quantized weights
-and the tool grammar are later slices.
+raises ``EngineError`` when CUDA is asked for and missing. The tool grammar
+is a later slice.
 """
 
 from __future__ import annotations
@@ -40,6 +44,7 @@ from fei_tpu_torch.engine.sampling import sample_logits
 from fei_tpu_torch.engine.tokenizer import load_tokenizer
 from fei_tpu_torch.models.configs import ModelConfig, get_model_config
 from fei_tpu_torch.models.llama import (
+    QUANT_MODES,
     KVCache,
     _logits,
     check_supported,
@@ -176,16 +181,21 @@ class InferenceEngine:
         kv_quant: str | None = None,
         prefix_cache: bool = False,
         params: dict | None = None,
+        int4_lm_head: bool = False,
+        quant_embed: bool = False,
         **overrides,
     ) -> "InferenceEngine":
         """Random-init (from ``seed``, on ``device``) or checkpoint weights;
         ``params`` hands over an existing parameter dict instead (engines
-        sharing weights). ``quantize`` names a later slice and raises."""
-        if quantize:
-            raise NotImplementedError(
-                f"quantize={quantize!r}: weight-only int8 is roadmap module "
-                "A8 and int4 is C1"
+        sharing weights). ``quantize`` ("int8" or "int4") quantizes the big
+        linears as they are made or read; ``int4_lm_head`` puts the LM head
+        in int4 too and ``quant_embed`` row-quantizes the embedding table."""
+        if quantize not in QUANT_MODES:
+            raise EngineError(
+                f"unsupported quantize mode {quantize!r}; one of "
+                f"{[m for m in QUANT_MODES if m]} (or unset)"
             )
+        qkw = dict(quantize=quantize, int4_lm_head=int4_lm_head, quant_embed=quant_embed)
         dev = resolve_device(device)
         cfg = get_model_config(name, **overrides)
         tok = load_tokenizer(tokenizer)
@@ -194,9 +204,10 @@ class InferenceEngine:
         elif checkpoint_dir:
             from fei_tpu_torch.engine.weights import load_checkpoint
 
-            cfg, params = load_checkpoint(checkpoint_dir, cfg, dtype=dtype, device=dev)
+            cfg, params = load_checkpoint(checkpoint_dir, cfg, dtype=dtype, device=dev,
+                                          **qkw)
         else:
-            params = init_params(cfg, seed=seed, dtype=dtype, device=dev)
+            params = init_params(cfg, seed=seed, dtype=dtype, device=dev, **qkw)
         return cls(
             cfg, params, tok, max_seq_len=max_seq_len, batch_size=batch_size,
             dtype=dtype, device=dev, paged=paged, page_size=page_size,

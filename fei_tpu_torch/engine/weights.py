@@ -7,8 +7,11 @@ linears transposed to [in, out]). Tensors are read with
 ``safetensors.torch`` one at a time and copied into preallocated stacked
 tensors on the target device, so the host never holds more than one
 layer's tensor. If ``config.json`` is present its architecture fields
-override the preset (``_merge_hf_config``). Sharded streaming and int8 /
-int4 quantization on load are later slices (C4, A8, C1).
+override the preset (``_merge_hf_config``). ``quantize="int8"|"int4"``
+quantizes the big linears while they are read, one layer at a time, from
+the checkpoint's stored values in fp32 (numpy copies of the JAX package's
+``_quant_host`` / ``_quant4_host``, so the bytes are the JAX loader's).
+Sharded streaming is a later slice (C4).
 """
 
 from __future__ import annotations
@@ -16,11 +19,21 @@ from __future__ import annotations
 import json
 import os
 from dataclasses import replace
+from types import SimpleNamespace
 
+import numpy as np
 import torch
 
 from fei_tpu_torch.models.configs import ModelConfig
-from fei_tpu_torch.models.llama import check_supported
+from fei_tpu_torch.models.llama import QUANT_MODES, check_supported
+from fei_tpu_torch.ops.quant import (
+    INT4_GROUP,
+    QUANT_KEYS,
+    QTensor,
+    QTensor4,
+    _int4_ok,
+    stack_layers,
+)
 from fei_tpu_torch.utils.errors import CheckpointError
 from fei_tpu_torch.utils.logging import get_logger
 
@@ -128,19 +141,58 @@ def _leaf_specs(cfg: ModelConfig) -> dict:
     return specs
 
 
+def _quant_host(w: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
+    """Symmetric int8 over contraction axis -2 (ops.quant.quantize); the
+    divisions stay float32 so the rounding decisions are the same."""
+    w = w.astype(np.float32)
+    amax = np.abs(w).max(axis=-2, keepdims=True)
+    s = np.where(amax == 0.0, np.float32(1.0), amax / np.float32(127.0))
+    q = np.clip(np.round(w / s), -127, 127).astype(np.int8)
+    return q, s.astype(np.float32)
+
+
+def _quant4_host(w: np.ndarray, group: int = INT4_GROUP) -> tuple[np.ndarray, np.ndarray]:
+    """Symmetric int4 (ops.quant.quantize4): ±7 per (group, out channel),
+    nibble pairs (k, k + K/2) packed into int8, float32 divisions."""
+    K = w.shape[-2]
+    G = K // group
+    w = w.astype(np.float32)
+    grouped = w.reshape(*w.shape[:-2], G, group, w.shape[-1])
+    amax = np.abs(grouped).max(axis=-2)
+    s = np.where(amax == 0.0, np.float32(1.0), amax / np.float32(7.0))
+    q = np.clip(np.round(grouped / s[..., :, None, :]), -7, 7).astype(np.int8).reshape(w.shape)
+    lo, hi = q[..., : K // 2, :], q[..., K // 2 :, :]
+    return ((hi << 4) | (lo & 0xF)).astype(np.int8), s.astype(np.float32)
+
+
+def _quant_embed_host(w: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
+    """Row-quantized int8 embedding table (ops.quant.quantize_embed)."""
+    w = w.astype(np.float32)
+    amax = np.abs(w).max(axis=-1, keepdims=True)
+    s = np.where(amax == 0.0, np.float32(1.0), amax / np.float32(127.0))
+    q = np.clip(np.round(w / s), -127, 127).astype(np.int8)
+    return q, s.astype(np.float32)
+
+
 def load_checkpoint(
     ckpt_dir: str,
     cfg: ModelConfig,
     dtype=torch.bfloat16,
     device: torch.device | str = "cpu",
     quantize: str | None = None,
+    int4_lm_head: bool = False,
+    quant_embed: bool = False,
 ) -> tuple[ModelConfig, dict]:
-    """Load an unsharded, unquantized HF safetensors dir into the stacked
-    param dict on ``device``. Returns (merged config, params)."""
-    if quantize:
-        raise NotImplementedError(
-            f"quantize={quantize!r} on load: int8 is roadmap module A8, int4 C1"
-        )
+    """Load an unsharded HF safetensors dir into the stacked param dict on
+    ``device``. Returns (merged config, params).
+
+    ``quantize="int8"``: the big linears land as ``QTensor``.
+    ``quantize="int4"``: the leaves ``ops.quant._int4_ok`` allows (not
+    lm_head unless ``int4_lm_head``; contraction divisible by 256) land as
+    ``QTensor4``, the rest as int8 ``QTensor``. ``quant_embed`` (with a
+    mode) row-quantizes the embedding table."""
+    if quantize not in QUANT_MODES:
+        raise CheckpointError(f"unsupported quantize mode: {quantize!r}")
     from safetensors import safe_open
 
     cfg = _merge_hf_config(ckpt_dir, cfg)
@@ -163,16 +215,39 @@ def load_checkpoint(
             )
         return t.T if transpose else t
 
+    def quantizer(key: str, shape: tuple):
+        """The host quantizer of a leaf and the NamedTuple it fills, or None
+        for a leaf that loads plainly."""
+        if quantize and key == "embed" and quant_embed:
+            return _quant_embed_host, QTensor
+        if quantize is None or key not in QUANT_KEYS:
+            return None
+        if quantize == "int4" and _int4_ok(key, SimpleNamespace(shape=shape), cfg.is_moe,
+                                          int4_lm_head):
+            return _quant4_host, QTensor4
+        return _quant_host, QTensor
+
+    def quantized(name: str, shape: tuple, transpose: bool, quant, kind):
+        fields = quant(read(name, shape, transpose).float().numpy())
+        return kind(*(torch.from_numpy(f).to(device) for f in fields))
+
     params: dict = {"layers": {}}
     for path, (tmpl, shape, transpose) in _leaf_specs(cfg).items():
-        if path[0] == "layers":
+        how = quantizer(path[-1], shape)
+        if path[0] == "layers" and how is None:
             out = torch.empty((cfg.num_layers, *shape), dtype=dtype, device=device)
             for i in range(cfg.num_layers):
                 out[i].copy_(read(tmpl.format(i=i), shape, transpose))
             params["layers"][path[1]] = out
-        else:
+        elif path[0] == "layers":  # quantized one layer at a time
+            params["layers"][path[1]] = stack_layers(
+                cfg.num_layers, lambda i: quantized(tmpl.format(i=i), shape, transpose, *how))
+        elif how is None:
             params[path[0]] = read(tmpl, shape, transpose).to(device=device, dtype=dtype)
-    log.info("loaded checkpoint from %s (%d layers)", ckpt_dir, cfg.num_layers)
+        else:
+            params[path[0]] = quantized(tmpl, shape, transpose, *how)
+    log.info("loaded checkpoint from %s (%d layers%s)", ckpt_dir, cfg.num_layers,
+             f", {quantize}" if quantize else "")
     return cfg, params
 
 

@@ -4,8 +4,10 @@
 (or ``fei_tpu.engine.weights.load_checkpoint``) with every leaf already a
 numpy array — ``jax.tree.map(np.asarray, params)`` on the JAX side — and
 returns the port's dict of tensors. The layouts are the same (layers
-stacked on axis 0, linears [in, out]), so both packages then compute the
-same function. This module imports neither jax nor fei_tpu.
+stacked on axis 0, linears [in, out]; quantized leaves as ``QTensor``
+(q, s) and ``QTensor4`` (p, s) NamedTuples with the same fields), so both
+packages then compute the same function. This module imports neither jax
+nor fei_tpu.
 """
 
 from __future__ import annotations
@@ -13,15 +15,12 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from fei_tpu_torch.ops.quant import QTensor, QTensor4
 
-def _leaf(x, path: str, dtype, device) -> torch.Tensor:
-    if isinstance(x, tuple) and hasattr(x, "_fields"):
-        # fei_tpu.ops.quant.QTensor (q, s) / QTensor4 (p, s) NamedTuples
-        raise NotImplementedError(
-            f"{path}: quantized leaf {type(x).__name__}{x._fields} — int8 "
-            "weights are roadmap module A8 and int4 C1; convert a bf16/fp32 "
-            "tree"
-        )
+_QUANT_LEAVES = {("q", "s"): QTensor, ("p", "s"): QTensor4}
+
+
+def _tensor(x, dtype, device) -> torch.Tensor:
     arr = np.asarray(x)
     if arr.dtype.kind not in "fiu":
         # ml_dtypes bfloat16 (and other extension floats): torch cannot
@@ -34,9 +33,24 @@ def _leaf(x, path: str, dtype, device) -> torch.Tensor:
     return t.to(device)
 
 
+def _leaf(x, path: str, dtype, device):
+    if isinstance(x, tuple) and hasattr(x, "_fields"):
+        # fei_tpu.ops.quant.QTensor / QTensor4: the int8 values and the
+        # fp32 scales keep their own dtypes (``dtype`` is the model's)
+        kind = _QUANT_LEAVES.get(tuple(x._fields))
+        if kind is None:
+            raise NotImplementedError(
+                f"{path}: quantized leaf {type(x).__name__}{x._fields} has no "
+                "counterpart in fei_tpu_torch.ops.quant"
+            )
+        return kind(*(_tensor(f, None, device) for f in x))
+    return _tensor(x, dtype, device)
+
+
 def params_from_jax(tree: dict, dtype=None, device: torch.device | str = "cpu") -> dict:
     """JAX param tree (numpy leaves) -> port param dict on ``device``.
-    ``dtype`` casts every floating leaf (None keeps each leaf's own)."""
+    ``dtype`` casts every plain floating leaf (None keeps each leaf's own);
+    quantized leaves keep their int8 values and fp32 scales."""
 
     def walk(node, path):
         if isinstance(node, dict):

@@ -14,13 +14,16 @@ cache with the advanced length.
 
 Covered here: GQA, q/k/v/o biases, the Phi parallel block with LayerNorm
 and partial rotary, tied and biased LM heads, sliding windows, the Gemma
-norm offset / GeGLU / scaled embeddings. MoE and quantized weights are
-later slices and raise ``NotImplementedError``.
+norm offset / GeGLU / scaled embeddings, and weight-only int8 / int4
+linears (``ops.quant``: every big linear goes through ``mm``, int4 leaves
+through the K4 kernel). MoE is a later slice and raises
+``NotImplementedError``.
 """
 
 from __future__ import annotations
 
 import functools
+from types import SimpleNamespace
 from typing import NamedTuple
 
 import torch
@@ -29,6 +32,18 @@ import torch.nn.functional as F
 from fei_tpu_torch.models.configs import ModelConfig
 from fei_tpu_torch.ops.attention import attention
 from fei_tpu_torch.ops.kernels.flash_attention import flash_attention
+from fei_tpu_torch.ops.quant import (
+    QTensor,
+    QTensor4,
+    _int4_ok,
+    embed_lookup,
+    mm,
+    quantize as _quantize8,
+    quantize4 as _quantize4,
+    quantize_embed,
+    stack_layers,
+    tied_logits,
+)
 from fei_tpu_torch.ops.rmsnorm import rms_norm
 from fei_tpu_torch.ops.rope import apply_rope, compute_rope_freqs
 
@@ -64,29 +79,55 @@ def check_supported(cfg: ModelConfig) -> None:
         )
 
 
+QUANT_MODES = (None, "int8", "int4")
+
+
 def init_params(
     cfg: ModelConfig,
     seed: int = 0,
     dtype=torch.bfloat16,
     device: torch.device | str = "cpu",
+    quantize: str | None = None,
+    int4_lm_head: bool = False,
+    quant_embed: bool = False,
 ) -> dict:
     """Random-init parameter dict (layers stacked on axis 0), made on
     ``device`` from ``seed``: normal(0, fan_in^-1/2) linears and embeddings,
     identity norms, zero biases — the JAX package's scheme, not its numbers
-    (the two generators differ; tests share weights via convert)."""
+    (the two generators differ; tests share weights via convert).
+
+    ``quantize="int8"|"int4"`` quantizes each big linear as it is drawn
+    (drawn in fp32, rounded to ``dtype``, then quantized, one layer at a
+    time so the fp32 transient stays one layer big): int4 where
+    ``ops.quant._int4_ok`` allows it (``int4_lm_head`` opts the LM head
+    in), int8 elsewhere. ``quant_embed`` (with a mode) row-quantizes the
+    embedding table to int8."""
     check_supported(cfg)
+    if quantize not in QUANT_MODES:
+        raise ValueError(f"unsupported quantize mode {quantize!r}; one of {QUANT_MODES}")
     gen = torch.Generator(device=device).manual_seed(seed)
     h, d = cfg.hidden_size, cfg.head_dim_
     H, K, I, L = cfg.num_heads, cfg.num_kv_heads, cfg.intermediate_size, cfg.num_layers
 
-    def init(shape, fan_in):
-        # one layer at a time: the fp32 transient stays one slice big
-        out = torch.empty(shape, dtype=dtype, device=device)
-        for i in range(shape[0]):
-            out[i] = torch.randn(
-                shape[1:], generator=gen, dtype=torch.float32, device=device
-            ) * (fan_in ** -0.5)
-        return out
+    def draw(shape, fan_in):
+        return (torch.randn(shape, generator=gen, dtype=torch.float32, device=device)
+                * (fan_in ** -0.5)).to(dtype)
+
+    def init(shape, fan_in, name=None):
+        """A leaf drawn one slice at a time (the fp32 transient stays one
+        slice big), quantized when ``name`` is a big linear and a mode is
+        set; the draws are the same in every mode."""
+        quant = None
+        if name is not None and quantize is not None:
+            int4 = quantize == "int4" and _int4_ok(
+                name, SimpleNamespace(shape=shape), cfg.is_moe, int4_lm_head)
+            quant = _quantize4 if int4 else _quantize8
+        if quant is None or len(shape) == 2:
+            out = torch.empty(shape, dtype=dtype, device=device)
+            for i in range(shape[0]):
+                out[i] = draw(shape[1:], fan_in)
+            return out if quant is None else quant(out)
+        return stack_layers(shape[0], lambda i: quant(draw(shape[1:], fan_in)))
 
     def const(shape, value):
         return torch.full(shape, value, dtype=dtype, device=device)
@@ -94,10 +135,10 @@ def init_params(
     norm = 0.0 if cfg.norm_offset else 1.0  # Gemma multiplies by (1 + w)
     layers = {
         "attn_norm": const((L, h), norm),
-        "wq": init((L, h, H * d), h),
-        "wk": init((L, h, K * d), h),
-        "wv": init((L, h, K * d), h),
-        "wo": init((L, H * d, h), H * d),
+        "wq": init((L, h, H * d), h, "wq"),
+        "wk": init((L, h, K * d), h, "wk"),
+        "wv": init((L, h, K * d), h, "wv"),
+        "wo": init((L, H * d, h), H * d, "wo"),
     }
     if not cfg.parallel_block:
         layers["mlp_norm"] = const((L, h), norm)
@@ -112,21 +153,22 @@ def init_params(
         )
     if cfg.o_bias:
         layers["bo"] = const((L, h), 0.0)
-    layers["w_gate"] = init((L, h, I), h)
+    layers["w_gate"] = init((L, h, I), h, "w_gate")
     if cfg.mlp_gated:
-        layers["w_up"] = init((L, h, I), h)
+        layers["w_up"] = init((L, h, I), h, "w_up")
     elif cfg.mlp_bias:
         layers.update(b_gate=const((L, I), 0.0), b_down=const((L, h), 0.0))
-    layers["w_down"] = init((L, I, h), I)
+    layers["w_down"] = init((L, I, h), I, "w_down")
+    embed = init((cfg.vocab_size, h), h)
     params = {
-        "embed": init((cfg.vocab_size, h), h),
+        "embed": quantize_embed(embed) if quantize and quant_embed else embed,
         "layers": layers,
         "final_norm": const((h,), norm),
     }
     if cfg.norm_kind == "layernorm":
         params["final_norm_b"] = const((h,), 0.0)
     if not cfg.tie_embeddings:
-        params["lm_head"] = init((h, cfg.vocab_size), h)
+        params["lm_head"] = init((h, cfg.vocab_size), h, "lm_head")
         if cfg.lm_head_bias:
             params["lm_head_b"] = const((cfg.vocab_size,), 0.0)
     return params
@@ -169,21 +211,37 @@ def _mlp_dense(cfg: ModelConfig, y, lp):
     """Gated MLP (w_gate*w_up -> w_down), or Phi's fc1 -> act -> fc2 with
     biases (cfg.mlp_gated=False; fc1/fc2 live in the w_gate/w_down leaves)."""
     if not cfg.mlp_gated:
-        a = y @ lp["w_gate"]
+        a = mm(y, lp["w_gate"])
         if "b_gate" in lp:
             a = a + lp["b_gate"]
-        out = _mlp_act(cfg, a.float()).to(y.dtype) @ lp["w_down"]
+        out = mm(_mlp_act(cfg, a.float()).to(y.dtype), lp["w_down"])
         if "b_down" in lp:
             out = out + lp["b_down"]
         return out
-    act = _mlp_act(cfg, (y @ lp["w_gate"]).float()).to(y.dtype)
-    return (act * (y @ lp["w_up"])) @ lp["w_down"]
+    act = _mlp_act(cfg, mm(y, lp["w_gate"]).float()).to(y.dtype)
+    return mm(act * mm(y, lp["w_up"]), lp["w_down"])
+
+
+def model_dtype(params: dict):
+    """The compute dtype, read from a leaf that is never quantized (a
+    row-quantized embed table's ``dtype`` is its fp32 scale's)."""
+    return params["layers"]["attn_norm"].dtype
+
+
+def layer_params(params: dict, i: int) -> dict:
+    """Layer i's leaves; a quantized leaf is sliced field by field (indexing
+    the NamedTuple itself would pick a field, not a layer)."""
+    return {
+        name: type(leaf)(*(f[i] for f in leaf)) if isinstance(leaf, (QTensor, QTensor4))
+        else leaf[i]
+        for name, leaf in params["layers"].items()
+    }
 
 
 def embed_tokens(params: dict, cfg: ModelConfig, tokens, dtype):
-    """Embedding lookup; Gemma scales by sqrt(hidden_size) in the compute
-    dtype."""
-    x = params["embed"][tokens].to(dtype)
+    """Embedding lookup (plain or row-quantized table); Gemma scales by
+    sqrt(hidden_size) in the compute dtype."""
+    x = embed_lookup(params["embed"], tokens, dtype)
     if cfg.embed_scale:
         x = x * torch.tensor(cfg.hidden_size ** 0.5, dtype=dtype)
     return x
@@ -193,7 +251,7 @@ def qkv_proj(lp, y, Hq: int, K: int, d: int):
     """y -> (q [B,T,Hq,d], k [B,T,K,d], v [B,T,K,d]) with the qkv biases
     when the layer carries them."""
     B, T, _ = y.shape
-    q, k, v = y @ lp["wq"], y @ lp["wk"], y @ lp["wv"]
+    q, k, v = mm(y, lp["wq"]), mm(y, lp["wk"]), mm(y, lp["wv"])
     if "bq" in lp:
         q, k, v = q + lp["bq"], k + lp["bk"], v + lp["bv"]
     return q.reshape(B, T, Hq, d), k.reshape(B, T, K, d), v.reshape(B, T, K, d)
@@ -238,7 +296,7 @@ def _layer(cfg: ModelConfig, x, lp, cache_k, cache_v, kv_length, positions,
 
     attn = _attend(q, cache_k, cache_v, kv_length, positions,
                    window=cfg.sliding_window or 0, flash=flash)
-    o = attn.reshape(B, T, Hq * d) @ lp["wo"]
+    o = mm(attn.reshape(B, T, Hq * d), lp["wo"])
     if "bo" in lp:
         o = o + lp["bo"]
     if cfg.parallel_block:  # Phi: x + attn(ln x) + mlp(ln x)
@@ -249,11 +307,11 @@ def _layer(cfg: ModelConfig, x, lp, cache_k, cache_v, kv_length, positions,
 
 
 def _logits(x, params, cfg: ModelConfig) -> torch.Tensor:
-    """LM head in fp32: tied (through the embed table) or its own, biased
-    for Phi."""
+    """LM head in fp32: tied (through the plain or row-quantized embed
+    table) or its own, biased for Phi."""
     if cfg.tie_embeddings:
-        return (x @ params["embed"].T.to(x.dtype)).float()
-    out = (x @ params["lm_head"]).float()
+        return tied_logits(x, params["embed"])
+    out = mm(x, params["lm_head"]).float()
     if "lm_head_b" in params:
         out = out + params["lm_head_b"].float()
     return out
@@ -296,7 +354,7 @@ def forward(
     )
     x = embed_tokens(params, cfg, tokens, cache.k.dtype)
     for i in range(cfg.num_layers):
-        lp = {name: leaf[i] for name, leaf in params["layers"].items()}
+        lp = layer_params(params, i)
         x = _layer(cfg, x, lp, cache.k[i], cache.v[i], cache.length, positions,
                    cos, sin, live=live, flash=flash)
     x = _norm(x, params["final_norm"], cfg, b=params.get("final_norm_b"))
@@ -312,7 +370,7 @@ def forward(
 
 def _paged_dtype(params: dict, cache):
     """Activations run in the pool's dtype, or the weights' for int8 pools."""
-    return params["embed"].dtype if cache.k_scales is not None else cache.k_pages.dtype
+    return model_dtype(params) if cache.k_scales is not None else cache.k_pages.dtype
 
 
 def _layer_pools(cache, i: int):
@@ -339,7 +397,7 @@ def _qkv_roped(cfg: ModelConfig, lp, x, positions, cos, sin):
 def _block_tail(cfg: ModelConfig, lp, x, y, attn):
     """Output projection, residual and MLP of one decoder block."""
     B, T = x.shape[:2]
-    o = attn.reshape(B, T, cfg.num_heads * cfg.head_dim_) @ lp["wo"]
+    o = mm(attn.reshape(B, T, cfg.num_heads * cfg.head_dim_), lp["wo"])
     if "bo" in lp:
         o = o + lp["bo"]
     if cfg.parallel_block:  # Phi: x + attn(ln x) + mlp(ln x)
@@ -388,7 +446,7 @@ def forward_paged_block(
     limits = (cache.lengths + 1).to(torch.int32)
     x = embed_tokens(params, cfg, tokens, _paged_dtype(params, cache))
     for i in range(cfg.num_layers):
-        lp = {name: leaf[i] for name, leaf in params["layers"].items()}
+        lp = layer_params(params, i)
         kp, vp, ks, vs = _layer_pools(cache, i)
         y, q, k, v = _qkv_roped(cfg, lp, x, positions, cos, sin)
         write_token_kv(kp, vp, k, v, cache.block_table, cache.lengths, ks, vs)
@@ -459,7 +517,7 @@ def forward_paged_merged(
     xc = embed_tokens(params, cfg, chunk_toks.to(device=dev, dtype=torch.long), dtype)
     xd = embed_tokens(params, cfg, dec_tokens.to(device=dev, dtype=torch.long), dtype)
     for i in range(cfg.num_layers):
-        lp = {name: leaf[i] for name, leaf in params["layers"].items()}
+        lp = layer_params(params, i)
         kp, vp, ks, vs = _layer_pools(cache, i)
         yc, qc, kc, vc = _qkv_roped(cfg, lp, xc, chunk_positions, cos, sin)
         yd, qd, kd, vd = _qkv_roped(cfg, lp, xd, dec_positions, cos, sin)

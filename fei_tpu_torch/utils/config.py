@@ -102,13 +102,12 @@ CONFIG_SCHEMA: dict[str, dict[str, ConfigValue]] = {
         "batch_size": ConfigValue(int, 1, description="concurrent decode slots (paged)"),
         # modes validated by the engine (loud EngineError); no choices here
         # so a blank INI line means unset rather than a ConfigError
-        "quantize": ConfigValue(str, None, description="weight-only int8 ('int8')"),
+        "quantize": ConfigValue(str, None, description="weight-only 'int8' or 'int4'"),
         "kv_quant": ConfigValue(str, None, description="int8 KV pages ('int8', paged)"),
         "prefix_cache": ConfigValue(bool, False, description="reuse shared prompt-prefix pages (paged)"),
     },
     # the PyTorch/CUDA engine (fei_tpu_torch.agent.providers.TorchLocalProvider):
-    # the same options as [jax_local]; paged / quantize / kv_quant /
-    # prefix_cache raise in the engine until their slices are ported
+    # the same options as [jax_local]
     "torch_local": {
         "model": ConfigValue(str, "llama3-1b", description="engine model config name"),
         "checkpoint_dir": ConfigValue(str, None, description="HF safetensors dir"),
@@ -116,7 +115,7 @@ CONFIG_SCHEMA: dict[str, dict[str, ConfigValue]] = {
         "max_seq_len": ConfigValue(int, 8192),
         "paged": ConfigValue(bool, False, description="paged pool + continuous batching"),
         "batch_size": ConfigValue(int, 1, description="concurrent decode slots (paged)"),
-        "quantize": ConfigValue(str, None, description="weight-only int8 ('int8')"),
+        "quantize": ConfigValue(str, None, description="weight-only 'int8' or 'int4'"),
         "kv_quant": ConfigValue(str, None, description="int8 KV pages ('int8', paged)"),
         "prefix_cache": ConfigValue(bool, False, description="reuse shared prompt-prefix pages (paged)"),
     },

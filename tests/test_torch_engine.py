@@ -154,8 +154,10 @@ def test_cuda_default_raises_without_card():
 
 
 def test_later_slices_raise():
-    with pytest.raises(NotImplementedError, match="A8"):
-        InferenceEngine.from_config("tiny", device="cpu", quantize="int8")
+    """MoE is a later slice; weight quantization is ported (int8/int4) and
+    only a mode that does not exist raises."""
+    with pytest.raises(EngineError, match="unsupported quantize mode"):
+        InferenceEngine.from_config("tiny", device="cpu", quantize="int2")
     with pytest.raises(NotImplementedError, match="C2"):
         InferenceEngine.from_config("tiny-moe", device="cpu")
 

@@ -40,6 +40,7 @@ def test_port_imports_without_jax_or_fei_tpu():
         "fei_tpu_torch.ops.kernels.flash_attention",
         "fei_tpu_torch.ops.kernels.paged_attention",
         "fei_tpu_torch.ops.kernels.ragged_paged_attention",
+        "fei_tpu_torch.ops.quant", "fei_tpu_torch.ops.kernels.int4_matmul",
         "fei_tpu_torch.engine.engine", "fei_tpu_torch.engine.weights",
         "fei_tpu_torch.engine.paged_cache", "fei_tpu_torch.engine.scheduler",
         "fei_tpu_torch.engine.sched_admission", "fei_tpu_torch.engine.sched_decode",

@@ -121,12 +121,32 @@ def test_forward_live_mask_freezes_rows():
 
 
 def test_convert_rejects_quantized_leaves():
-    from fei_tpu.ops.quant import quantize
+    """Quantized leaves the port knows (QTensor, QTensor4) convert with
+    their int8 values and fp32 scales untouched by ``dtype``; any other
+    NamedTuple leaf is refused."""
+    from typing import NamedTuple
 
-    w = quantize(jnp.ones((4, 8), jnp.float32))
-    tree = {"layers": {"wq": jax.tree.map(np.asarray, w)}}
-    with pytest.raises(NotImplementedError, match="A8"):
-        params_from_jax(tree)
+    from fei_tpu.ops.quant import quantize, quantize4
+    from fei_tpu_torch.ops.quant import QTensor, QTensor4
+
+    w = jnp.linspace(-1.0, 1.0, 512 * 8, dtype=jnp.float32).reshape(512, 8)
+    tree = jax.tree.map(np.asarray, {"layers": {"wq": quantize(w), "wo": quantize4(w)},
+                                     "norm": jnp.ones((4,), jnp.float32)})
+    out = params_from_jax(tree, dtype=torch.bfloat16)
+    wq, wo = out["layers"]["wq"], out["layers"]["wo"]
+    assert isinstance(wq, QTensor) and isinstance(wo, QTensor4)
+    assert (wq.q.dtype, wq.s.dtype, wo.p.dtype, wo.s.dtype) == (
+        torch.int8, torch.float32, torch.int8, torch.float32)
+    assert out["norm"].dtype == torch.bfloat16
+    np.testing.assert_array_equal(wo.p.numpy(), tree["layers"]["wo"].p)
+    np.testing.assert_array_equal(wq.s.numpy(), tree["layers"]["wq"].s)
+
+    class Other(NamedTuple):
+        a: np.ndarray
+        b: np.ndarray
+
+    with pytest.raises(NotImplementedError, match="no counterpart"):
+        params_from_jax({"layers": {"wq": Other(np.ones(2), np.ones(2))}})
 
 
 def test_convert_keeps_bf16():
