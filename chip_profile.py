@@ -11,7 +11,10 @@ dense decode steps (fused chunks of 16), and on the paged path (a
 tokens) 8 batched decode steps and one merged dispatch (a 256-token
 prefill chunk riding a decode step). Then, with int4 weights (the same
 seed), it traces the prefill and one paged decode step again and reports
-the int4 kernel's (K4's) share of kernel time. For each window it prints
+the int4 kernel's (K4's) share of kernel time. Last, with those engines
+released, it traces one training step of llama3-8b at full depth (bf16,
+one sequence of 2049 ids, remat) and reports the flash kernels' shares (K1,
+K5a, K5b). For each window it prints
 the wall time, the device's busy share (the union of kernel intervals
 over the wall time) and the kernels that took the most device time,
 grouped by name; the paged windows also print their unprofiled time per
@@ -35,10 +38,11 @@ from torch.profiler import ProfilerActivity, profile
 TOP = 12
 
 
-def kernel_summary(prof, wall_s: float, label: str, share: str | None = None) -> None:
+def kernel_summary(prof, wall_s: float, label: str,
+                   share: str | tuple[str, ...] | None = None) -> None:
     """Print the window's kernel time, launches, busy share and top
-    kernels; ``share`` names a kernel (a substring of its symbol) whose
-    share of the kernel time is printed too."""
+    kernels; ``share`` names kernels (substrings of their symbols) whose
+    shares of the kernel time are printed too."""
     kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
     if not kernels:
         print(f"{label}: wall {wall_s * 1e3:.2f} ms; device time not traced")
@@ -65,10 +69,10 @@ def kernel_summary(prof, wall_s: float, label: str, share: str | None = None) ->
           f"({100 * busy / 1e6 / wall_s:.1f}% of wall)")
     for name, (us, n) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:TOP]:
         print(f"  {us / 1e3:9.3f} ms {100 * us / total:5.1f}% x{n:<5d} {name[:110]}")
-    if share:
-        us = sum(v[0] for k, v in by_name.items() if share in k)
-        n = sum(v[1] for k, v in by_name.items() if share in k)
-        print(f"  {share}: {us / 1e3:.3f} ms over {n} launches, {100 * us / total:.1f}% of "
+    for part in (share,) if isinstance(share, str) else share or ():
+        us = sum(v[0] for k, v in by_name.items() if part in k)
+        n = sum(v[1] for k, v in by_name.items() if part in k)
+        print(f"  {part}: {us / 1e3:.3f} ms over {n} launches, {100 * us / total:.1f}% of "
               "kernel time")
 
 
@@ -86,8 +90,8 @@ def main() -> int:
     from fei_tpu_torch.engine.fused_decode import ChunkDecoder
     from fei_tpu_torch.ops.kernels import build
 
-    for name in ("flash_attention_fwd", "paged_attention", "ragged_paged_attention",
-                 "int4_matmul"):
+    for name in ("flash_attention_fwd", "flash_attention_bwd", "paged_attention",
+                 "ragged_paged_attention", "int4_matmul"):
         build.build(name)
     engine = InferenceEngine.from_config(
         "llama3-8b", dtype=torch.bfloat16, seed=0, max_seq_len=8192, device="cuda")
@@ -131,7 +135,51 @@ def main() -> int:
     kernel_summary(prof, wall, f"int4 prefill {len(prompt)} tokens (bucket 2048) on {card}",
                    share="int4_mm_kernel")
     paged_windows(engine, card, "int4 ", merged=False)  # K4 at the decode batch's 8 rows
+
+    del engine
+    gc.collect()
+    torch.cuda.empty_cache()
+    train_window(card)
     return 0
+
+
+def train_window(card: str) -> None:
+    """One training step of llama3-8b (full depth, bf16, T = 2048, remat),
+    traced after a warm-up step: the flash kernels' shares of kernel time."""
+    from fei_tpu_torch.engine.train import TrainConfig, loss_and_grads, make_train_step
+    from fei_tpu_torch.models.configs import get_model_config
+    from fei_tpu_torch.models.llama import init_params
+
+    cfg = get_model_config("llama3-8b")
+    params = init_params(cfg, seed=0, dtype=torch.bfloat16, device="cuda")
+    opt, step = make_train_step(cfg, TrainConfig(remat=True))
+    state = opt.init(params)
+    tokens = torch.from_numpy(np.random.default_rng(3).integers(8, cfg.vocab_size, (1, 2049)))
+    params, state, _ = step(params, state, tokens)  # warm-up: allocator, cuBLAS heuristics
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    params, state, _ = step(params, state, tokens)
+    torch.cuda.synchronize()
+    print(f"train step: {(time.perf_counter() - t0) * 1e3:.2f} ms unprofiled on {card}, "
+          f"peak memory {torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+    # the step's two halves on the host clock: forward + backward, then the update
+    t0 = time.perf_counter()
+    _, grads = loss_and_grads(params, cfg, tokens, remat=True)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    opt.update(params, grads, state)
+    torch.cuda.synchronize()
+    print(f"train step halves: forward + backward {(t1 - t0) * 1e3:.2f} ms, optimizer update "
+          f"{(time.perf_counter() - t1) * 1e3:.2f} ms on {card}")
+    del grads
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        params, state, _ = step(params, state, tokens)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    kernel_summary(prof, wall, f"train step, {cfg.num_layers} layers, T=2048 on {card}",
+                   share=("flash_fwd_kernel", "flash_bwd_dq_kernel", "flash_bwd_dkv_kernel",
+                          "nvjet", "elementwise_kernel", "reduce_kernel"))
 
 
 def paged_windows(engine, card: str, tag: str = "", merged: bool = True) -> None:

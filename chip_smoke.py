@@ -7,7 +7,7 @@ Phases (each raises on failure, so the script exits non-zero):
 
 1. Card: ``torch.cuda.is_available()`` must be true; prints the card's name
    and power limit as ``nvidia-smi`` reports them.
-2. Build: compiles every kernel of the serving paths from the sources in
+2. Build: compiles every kernel of the serving and training paths from the sources in
    this checkout (``fei_tpu_torch/csrc/*.cu`` -> ``build/fei_tpu_torch/``),
    one nvcc per source, all started together.
 3. Kernels: holds each kernel against its plain PyTorch version on the card
@@ -54,10 +54,28 @@ After the bf16 engines are released:
 10. Provider: ``TorchLocalProvider`` built from the configuration with
     quantize = int4 answers one completion through the server.
 
+Phase 3 also holds the flash backward: K1 with its logsumexp output
+(``out`` bitwise the primal's, lse against the plain version, +inf for rows
+with no live key), K5a (dq) and K5b (dk/dv) against the plain backward in
+fp32 within ``flash_attention_bwd_tolerance`` at the training shape, a
+ragged batch, unaligned lengths, a window, MHA and the other head dims, two
+mutants shown to break the bound, two runs bitwise equal. After the
+quantized engines are released:
+
+11. Training (the training path): llama3-8b at full width and depth, bf16,
+    random weights from the seed, ``TrainConfig(remat=True)``, one sequence
+    of 2049 ids: three steps on the same batch (finite loss near ln V,
+    lower at the third step; K1 twice per layer and step, K5a and K5b once).
+    Then at two layers and full width: one step's gradients through the
+    kernels against ``flash=False`` (autograd through the plain attention),
+    and ``save_checkpoint`` -> ``restore_checkpoint`` -> one more step
+    bitwise equal to the uninterrupted run's.
+
 Every kernel count is set to 0 just before a path is driven and read just
 after. The line before the last two is the kernels' JSON record (launches
-from the paged paths: K1-K3 from the bf16 run, K4 from the int4 run), the
-line before the last is the card, and the last line is the JSON verdict.
+from the paged paths: K1-K3 from the bf16 run, K4 from the int4 run, K5a and
+K5b from the three training steps), the line before the last is the card,
+and the last line is the JSON verdict.
 """
 
 from __future__ import annotations
@@ -65,8 +83,10 @@ from __future__ import annotations
 import gc
 import itertools
 import json
+import math
 import subprocess
 import sys
+import tempfile
 import threading
 import time
 import urllib.error
@@ -81,7 +101,8 @@ PEAK_BF16_FLOPS = 989e12
 PEAK_BYTES_PER_S = 3.35e12
 
 SEED = 0
-KERNELS = ["flash_attention_fwd", "paged_attention", "ragged_paged_attention", "int4_matmul"]
+KERNELS = ["flash_attention_fwd", "flash_attention_bwd", "paged_attention",
+           "ragged_paged_attention", "int4_matmul"]
 
 
 def log(msg: str) -> None:
@@ -137,10 +158,15 @@ def flash_inputs(B, T, H, K, D, S, q_start, kv_length, gen):
     return q, k, v, qs, kl
 
 
-def flash_bound_ms(q, k, q_start, kv_length, window):
+def flash_bound_ms(q, k, q_start, kv_length, window, products=2, q_like=2, kv_like=2,
+                   kv_out=0, stats=0):
     """Least time for this call's work: live (query, key) pairs times
-    4*D FLOP per head at the bf16 peak, against q + o + the live k/v rows
-    at the memory rate; the larger of the two, and which it is."""
+    2*D FLOP per head and product at the bf16 peak, against the bytes moved
+    once at the memory rate; the larger of the two, and which it is. The
+    forward (the defaults) does two products and moves q, o and the live
+    k/v rows; the backward kernels do three (dq) or four (dk/dv) and move
+    ``q_like`` tensors shaped like q, ``kv_like`` live k/v inputs,
+    ``kv_out`` whole k/v-shaped outputs and ``stats`` fp32 [B,H,T] rows."""
     from fei_tpu_torch.ops.attention import visible_mask
 
     B, T, H, D = q.shape
@@ -149,8 +175,9 @@ def flash_bound_ms(q, k, q_start, kv_length, window):
     vis = visible_mask(pos, kv_length, S, window)  # [B, T, S]
     pairs = int(vis.sum())
     live_keys = int(vis.any(dim=1).sum())
-    flops = 4.0 * D * H * pairs
-    nbytes = 2.0 * (2 * q.numel() + 2 * live_keys * K * D)
+    flops = 2.0 * products * D * H * pairs
+    nbytes = (2.0 * (q_like * q.numel() + kv_like * live_keys * K * D + kv_out * k.numel())
+              + 4.0 * stats * B * H * T)
     t_ops, t_bytes = flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES_PER_S
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
 
@@ -235,6 +262,160 @@ def kernel_phase(card: str) -> dict:
         del q, k, v, out, ref
     torch.cuda.empty_cache()
     return record
+
+
+# ---------------------------------------------------------- flash backward
+
+def flash_bwd_cases():
+    """(label, B, T, H, K, D, S, q_start, kv_length, window): the training
+    shape (llama3-8b, one sequence of 2048), a ragged batch offset into a
+    longer buffer, unaligned lengths, a window that bites at mistral-7b's
+    widths, MHA at D=64, the other head dims, and a batch row with no live
+    key at all."""
+    return [
+        ("train llama3-8b", 1, 2048, 32, 8, 128, 2048, [0], [2048], 0),
+        ("ragged B=2", 2, 512, 32, 8, 128, 1024, [0, 256], [512, 700], 0),
+        ("unaligned", 1, 333, 8, 2, 128, 555, [100], [433], 0),
+        ("window 1024 mistral-7b widths", 1, 4096, 32, 8, 128, 4096, [0], [4096], 1024),
+        ("MHA D=64", 1, 512, 16, 16, 64, 512, [0], [512], 0),
+        ("D=80 phi-2", 1, 512, 32, 32, 80, 512, [0], [512], 0),
+        ("D=256 gemma-7b", 1, 512, 16, 16, 256, 512, [0], [512], 0),
+        ("dead row", 2, 256, 8, 2, 128, 512, [0, 0], [256, 0], 0),
+    ]
+
+
+def flash_bwd_kernel_phase(card: str) -> list[dict]:
+    """K1 with its logsumexp output, K5a and K5b at ``flash_bwd_cases``;
+    returns K5a's and K5b's records, timed at the training shape."""
+    import torch.nn.functional as F
+
+    from fei_tpu_torch.ops.kernels.flash_attention import (
+        flash_attention,
+        flash_attention_bwd,
+        flash_attention_bwd_dkv,
+        flash_attention_bwd_dq,
+        flash_attention_bwd_reference,
+        flash_attention_bwd_tolerance,
+        flash_attention_fwd,
+        flash_attention_reference,
+    )
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 5)
+    records = []
+    for label, B, T, H, K, D, S, qs_l, kl_l, window in flash_bwd_cases():
+        q, k, v, qs, kl = flash_inputs(B, T, H, K, D, S, qs_l, kl_l, gen)
+        dout = torch.randn(B, T, H, D, generator=gen, device="cuda").to(torch.bfloat16)
+        # K1 with the logsumexp: the primal's output bitwise; lse within 1e-4
+        # of the plain version's (values near 10 in fp32: sums in another
+        # order, exp2 and log against exp and logsumexp) and +inf exactly
+        # where no key is live
+        out, lse = flash_attention_fwd(q, k, v, qs, kl, window=window)
+        torch.cuda.synchronize()
+        check(torch.equal(out, flash_attention(q, k, v, qs, kl, window=window)),
+              f"{label}: K1 with lse does not give the primal's output bitwise")
+        _, lse_ref = flash_attention_reference(q.float(), k.float(), v.float(), qs, kl,
+                                               window=window, return_lse=True)
+        check(torch.equal(torch.isposinf(lse), torch.isposinf(lse_ref)),
+              f"{label}: lse is +inf at other rows than the plain version's")
+        finite = torch.isfinite(lse_ref)
+        lse_err = (lse[finite] - lse_ref[finite]).abs().max().item()
+        check(lse_err <= 1e-4, f"{label}: lse differs by {lse_err:.3g} > 1e-4")
+        n_inf = int(torch.isposinf(lse).sum())
+        if label == "dead row":
+            check(n_inf == H * T, f"dead row: {n_inf} +inf rows, expected {H * T}")
+
+        grads = flash_attention_bwd(q, k, v, qs, kl, out, lse, dout, window=window)
+        torch.cuda.synchronize()
+        # the plain backward in fp32 on the same bf16 values and the same
+        # residuals. Tolerance, element by element: the kernels round ds
+        # (dq, dk) and p (dv) to bf16 before the products, as the Pallas
+        # kernels do, and the results to bf16; flash_attention_bwd_tolerance
+        # bounds both by each element's own size (its docstring gives the
+        # reason)
+        f32 = (q.float(), k.float(), v.float(), qs, kl, out.float(), lse, dout.float())
+        refs = flash_attention_bwd_reference(*f32, window=window)
+        tols = flash_attention_bwd_tolerance(q, k, v, qs, kl, out, lse, dout, window=window)
+        errs, worsts = {}, {}
+        for name, g, r, tol in zip(("dq", "dk", "dv"), grads, refs, tols):
+            check(torch.isfinite(g).all().item(), f"{label}: non-finite {name}")
+            diff = (g.float() - r).abs()
+            errs[name], worsts[name] = diff.max().item(), (diff / tol).max().item()
+            check(worsts[name] <= 1.0,
+                  f"{label}: {name} exceeds its tolerance by {worsts[name]:.4g}x, at "
+                  f"{(diff > tol).float().mean().item():.3%} of the elements")
+        if label == "dead row":
+            check(not (grads[0][1].any() or grads[1][1].any() or grads[2][1].any()),
+                  "dead row: a row with no live key has non-zero gradients")
+        if kl_l[0] < S:  # keys past kv_length get zero dk and dv
+            check(not (grads[1][0, kl_l[0]:].any() or grads[2][0, kl_l[0]:].any()),
+                  f"{label}: keys past kv_length have non-zero dk or dv")
+        # the bound must see a wrong backward: ds without the row-sum term
+        # (dq and dk; dv does not read it), and one key more per row
+        caught = {}
+        for mutant, leaves in (("no_dsum", (0, 1)), ("one_more", (0, 1, 2))):
+            wrong = flash_attention_bwd_reference(*f32, window=window, mutant=mutant)
+            caught[mutant] = min(((wrong[i] - refs[i]).abs() > tols[i]).float().mean().item()
+                                 for i in leaves)
+            del wrong
+            check(caught[mutant] > 0, f"{label}: the tolerance cannot see {mutant}")
+        again = flash_attention_bwd(q, k, v, qs, kl, out, lse, dout, window=window)
+        check(all(torch.equal(a, b) for a, b in zip(grads, again)),
+              f"{label}: two runs of the backward differ")
+        log(f"kernel flash_attention_bwd [{label}] B={B} T={T} H={H} K={K} D={D} S={S} "
+            f"q_start={qs_l} kv_length={kl_l} window={window}: lse max_abs_err={lse_err:.3g} "
+            f"({n_inf} +inf rows); max_abs_err dq/dk/dv "
+            f"{errs['dq']:.4g}/{errs['dk']:.4g}/{errs['dv']:.4g}, worst err/tol "
+            f"{worsts['dq']:.4g}/{worsts['dk']:.4g}/{worsts['dv']:.4g}; mutants break the "
+            f"tolerance at {caught['no_dsum']:.2%} (no row-sum term) and "
+            f"{caught['one_more']:.2%} (one key more) of the elements at least; two runs "
+            "bitwise equal")
+        del refs, tols, again, f32, lse_ref
+        if not records:  # the training shape: time it
+            dsum = (dout.float() * out.float()).sum(-1).permute(0, 2, 1).contiguous()
+            kargs = (q, k, v, qs, kl, lse, dsum, dout)
+            dq_ms = cuda_ms(lambda: flash_attention_bwd_dq(*kargs, window=window))
+            dkv_ms = cuda_ms(lambda: flash_attention_bwd_dkv(*kargs, window=window))
+            both_ms = cuda_ms(lambda: flash_attention_bwd(q, k, v, qs, kl, out, lse, dout,
+                                                          window=window))
+            lse_ms = cuda_ms(lambda: flash_attention_fwd(q, k, v, qs, kl, window=window))
+            fwd_ms = cuda_ms(lambda: flash_attention(q, k, v, qs, kl, window=window))
+            # the plain version computes dq, dk and dv in one pass
+            plain_ms = cuda_ms(lambda: flash_attention_bwd_reference(
+                q, k, v, qs, kl, out, lse, dout, window=window), iters=3, warmup=1)
+            # yardstick only (never called by the port): the backward of SDPA
+            # on head-major copies made outside the timed region; one call
+            # gives all three gradients
+            qt, kt, vt = (t.transpose(1, 2).contiguous().requires_grad_(True)
+                          for t in (q, k, v))
+            dot = dout.transpose(1, 2).contiguous()
+            o = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True, enable_gqa=True)
+            lib_ms = cuda_ms(lambda: torch.autograd.grad(o, (qt, kt, vt), dot,
+                                                         retain_graph=True))
+            del o, qt, kt, vt, dot
+            dq_bound = flash_bound_ms(q, k, qs, kl, window, products=3, q_like=3,
+                                      kv_like=2, stats=2)
+            dkv_bound = flash_bound_ms(q, k, qs, kl, window, products=4, q_like=2,
+                                       kv_like=2, kv_out=2, stats=2)
+            log(f"kernel flash_attention_bwd [{label}] on {card}: dq {dq_ms:.4f} ms (bound "
+                f"{dq_bound[0]:.4f} ms, {dq_bound[1]}), dk/dv {dkv_ms:.4f} ms (bound "
+                f"{dkv_bound[0]:.4f} ms, {dkv_bound[1]}), the whole backward with its row sums "
+                f"{both_ms:.4f} ms; plain backward {plain_ms:.4f} ms; backward of "
+                f"scaled_dot_product_attention {lib_ms:.4f} ms; K1 with lse {lse_ms:.4f} ms "
+                f"against {fwd_ms:.4f} ms without")
+            for name, line, ms, bound, err in (
+                    ("flash_attention_bwd_dq", 275, dq_ms, dq_bound, errs["dq"]),
+                    ("flash_attention_bwd_dkv", 345, dkv_ms, dkv_bound,
+                     max(errs["dk"], errs["dv"]))):
+                records.append({
+                    "name": name, "route": "cuda",
+                    "source": "fei_tpu_torch/csrc/flash_attention_bwd.cu",
+                    "replaces": f"fei_tpu/ops/pallas/flash_attention.py:{line}",
+                    "launches": 0, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                    "bound_ms": bound[0], "bound_by": bound[1], "library_ms": lib_ms,
+                })
+        del q, k, v, dout, out, lse, grads
+        torch.cuda.empty_cache()
+    return records
 
 
 # ---------------------------------------------------------- paged kernels
@@ -785,7 +966,7 @@ NEW_TOKENS = 128
 
 
 def reset_counts():
-    from fei_tpu_torch.ops.kernels.flash_attention import flash_attention
+    from fei_tpu_torch.ops.kernels.flash_attention import flash_attention, flash_attention_bwd
     from fei_tpu_torch.ops.kernels.int4_matmul import int4_mm
     from fei_tpu_torch.ops.kernels.paged_attention import paged_attention
     from fei_tpu_torch.ops.kernels.ragged_paged_attention import ragged_paged_attention
@@ -794,10 +975,11 @@ def reset_counts():
         fn.launches = 0
         if hasattr(fn, "int8_launches"):
             fn.int8_launches = 0
+    flash_attention_bwd.launches_dq = flash_attention_bwd.launches_dkv = 0
 
 
 def read_counts() -> dict:
-    from fei_tpu_torch.ops.kernels.flash_attention import flash_attention
+    from fei_tpu_torch.ops.kernels.flash_attention import flash_attention, flash_attention_bwd
     from fei_tpu_torch.ops.kernels.int4_matmul import int4_mm
     from fei_tpu_torch.ops.kernels.paged_attention import paged_attention
     from fei_tpu_torch.ops.kernels.ragged_paged_attention import ragged_paged_attention
@@ -806,6 +988,8 @@ def read_counts() -> dict:
             "paged_attention": paged_attention.launches,
             "ragged_paged_attention": ragged_paged_attention.launches,
             "int4_matmul": int4_mm.launches,
+            "flash_attention_bwd_dq": flash_attention_bwd.launches_dq,
+            "flash_attention_bwd_dkv": flash_attention_bwd.launches_dkv,
             "paged_attention_int8": paged_attention.int8_launches,
             "ragged_paged_attention_int8": ragged_paged_attention.int8_launches}
 
@@ -1309,6 +1493,150 @@ def quant_provider_phase(dense4, card: str) -> None:
         server.stop()
 
 
+# ---------------------------------------------------------------- training
+
+TRAIN_LAYERS = 32  # llama3-8b's full depth
+TRAIN_TOKENS = 2049  # one sequence: T = 2048 positions to predict from
+TRAIN_STEPS = 3
+
+
+def train_step_bound_ms(cfg, T: int, param_bytes: int) -> float:
+    """The card's least time for one remat'd step on T positions: four
+    times the forward's operations (forward, recompute, and a backward of
+    twice the forward: every linear layer, the LM head and the causal
+    attention) at the bf16 peak, plus the optimizer's seven passes over the
+    parameters' bytes (read p, g, mu, nu; write p, mu, nu) at the memory
+    rate."""
+    h, d, L = cfg.hidden_size, cfg.head_dim_, cfg.num_layers
+    H, K, I, V = cfg.num_heads, cfg.num_kv_heads, cfg.intermediate_size, cfg.vocab_size
+    per_layer = h * H * d + 2 * h * K * d + H * d * h + 3 * h * I
+    fwd = 2.0 * T * (L * per_layer + h * V) + 4.0 * d * H * L * T * (T + 1) / 2
+    return (4.0 * fwd / PEAK_BF16_FLOPS + 7.0 * param_bytes / PEAK_BYTES_PER_S) * 1e3
+
+
+def train_phase(card: str) -> dict:
+    """The training path on the card; returns the kernel launches of the
+    three full-width steps."""
+    from fei_tpu_torch.engine import restore_checkpoint, save_checkpoint
+    from fei_tpu_torch.engine.train import TrainConfig, loss_and_grads, make_train_step
+    from fei_tpu_torch.models.configs import get_model_config
+    from fei_tpu_torch.models.llama import init_params
+    from fei_tpu_torch.ops.quant import param_bytes
+    from fei_tpu_torch.utils.tree import flatten, tree_map
+
+    cfg = get_model_config("llama3-8b", num_layers=TRAIN_LAYERS)
+    L = cfg.num_layers
+    tokens = torch.from_numpy(
+        np.random.default_rng(SEED + 3).integers(8, cfg.vocab_size, size=(1, TRAIN_TOKENS)))
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = init_params(cfg, seed=SEED, dtype=torch.bfloat16, device="cuda")
+    opt, step = make_train_step(cfg, TrainConfig(remat=True))
+    state = opt.init(params)
+    torch.cuda.synchronize()
+    nbytes = param_bytes(params)
+    log(f"train: {cfg.name} L={L} h={cfg.hidden_size} H={cfg.num_heads} K={cfg.num_kv_heads} "
+        f"I={cfg.intermediate_size} V={cfg.vocab_size}, bf16, {nbytes / 1e9:.3f} GB of "
+        f"parameters, two moments beside them; init in {time.perf_counter() - t0:.1f} s, "
+        f"{torch.cuda.memory_allocated() / 1e9:.2f} GB allocated before the first step")
+
+    # the training path starts here: every kernel count from 0
+    reset_counts()
+    losses, step_ms, per_step = [], [], []
+    for i in range(TRAIN_STEPS):
+        before = read_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, state, loss = step(params, state, tokens)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(float(loss))
+        after = read_counts()
+        per_step.append({k: after[k] - before[k] for k in after})
+    launches = read_counts()
+    peak = torch.cuda.max_memory_allocated()
+    bound = train_step_bound_ms(cfg, TRAIN_TOKENS - 1, nbytes)
+    ln_v = math.log(cfg.vocab_size)
+    log(f"train: {TRAIN_STEPS} steps on one sequence of {TRAIN_TOKENS} ids on {card}: loss "
+        f"{[round(x, 4) for x in losses]} (ln V = {ln_v:.2f}), step "
+        f"{[round(x, 1) for x in step_ms]} ms (bound {bound:.1f} ms), "
+        f"{(TRAIN_TOKENS - 1) / (min(step_ms) / 1e3):.1f} training tokens/s at the fastest "
+        f"step, peak memory {peak / 1e9:.2f} GB, launches per step "
+        f"{[(d['flash_attention_fwd'], d['flash_attention_bwd_dq'], d['flash_attention_bwd_dkv']) for d in per_step]} "
+        "(K1, K5a, K5b)")
+    check(all(math.isfinite(x) for x in losses), f"a training loss is not finite: {losses}")
+    # random weights: logits are ~N(0, 1), so the loss starts near ln V + 1/2
+    check(abs(losses[0] - ln_v) < 1.5, f"the first loss {losses[0]} is not near ln V {ln_v:.2f}")
+    check(losses[-1] < losses[0], f"the loss did not fall: {losses}")
+    for d in per_step:
+        got = (d["flash_attention_fwd"], d["flash_attention_bwd_dq"],
+               d["flash_attention_bwd_dkv"])
+        check(got == (2 * L, L, L), f"a step launched K1/K5a/K5b {got}, expected "
+              f"{(2 * L, L, L)} (forward and recompute; one backward each)")
+    check(all(t.dtype == torch.bfloat16 for t in flatten(state["mu"]).values()),
+          "the moments are not in the parameters' dtype")
+    del params, state, opt, step
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # two layers, full width: one step's gradients through the kernels
+    # against autograd through the plain attention (flash=False)
+    cfg2 = get_model_config("llama3-8b", num_layers=2)
+    params = init_params(cfg2, seed=SEED, dtype=torch.bfloat16, device="cuda")
+    before = read_counts()
+    loss_k, grads_k = loss_and_grads(params, cfg2, tokens, remat=True)
+    d = {k: v - before[k] for k, v in read_counts().items()}
+    check((d["flash_attention_fwd"], d["flash_attention_bwd_dq"],
+           d["flash_attention_bwd_dkv"]) == (4, 2, 2), f"two-layer step launches {d}")
+    before = read_counts()
+    loss_p, grads_p = loss_and_grads(params, cfg2, tokens, remat=True, flash=False)
+    check(read_counts() == before, "flash=False launched a flash kernel")
+    # tolerance: the two backwards differ by the bf16 roundings of the
+    # attention outputs, of p and of ds (2^-8 relative each, independent
+    # from element to element), which reach every leaf through at most two
+    # layers: a few parts in a thousand of a leaf's norm. 5e-2 leaves room
+    # for the small leaves (norm weights) and is far below a wrong
+    # backward's O(1)
+    worst = ("", 0.0)
+    for (path, gk), gp in zip(flatten(grads_k).items(), flatten(grads_p).values()):
+        rel = ((gk.float() - gp.float()).norm() / gp.float().norm().clamp_min(1e-30)).item()
+        log(f"train: 2 layers, d loss / d {path}: kernels vs plain attention rel_l2={rel:.4g} "
+            f"(|g| {gp.float().norm().item():.4g})")
+        check(math.isfinite(rel) and rel <= 5e-2, f"gradient of {path}: rel_l2 {rel} > 5e-2")
+        worst = max(worst, (path, rel), key=lambda x: x[1])
+    log(f"train: 2 layers, loss {float(loss_k):.6f} (kernels) vs {float(loss_p):.6f} (plain "
+        f"attention); worst gradient rel_l2 {worst[1]:.4g} at {worst[0]} (tol 5e-2)")
+    check(abs(float(loss_k) - float(loss_p)) <= 1e-2, "kernel and plain losses differ")
+    del grads_k, grads_p
+
+    # checkpoint: two steps, save, a third step; restore, one step: bitwise
+    # the uninterrupted run's loss, parameters and moments
+    opt, step = make_train_step(cfg2, TrainConfig(remat=True))
+    state = opt.init(params)
+    for _ in range(2):
+        params, state, _ = step(params, state, tokens)
+    with tempfile.TemporaryDirectory() as ckpt:
+        t0 = time.perf_counter()
+        save_checkpoint(ckpt, 2, params, opt_state=state)
+        t_save = time.perf_counter() - t0
+        params, state, loss_a = step(params, state, tokens)
+        t0 = time.perf_counter()
+        out = restore_checkpoint(ckpt, target={"params": params, "opt_state": state})
+        t_load = time.perf_counter() - t0
+    p2, s2, loss_b = step(out["params"], out["opt_state"], tokens)
+    torch.cuda.synchronize()
+    check(torch.equal(loss_a, loss_b), f"resumed loss {float(loss_b)} != {float(loss_a)}")
+    same = tree_map(torch.equal, {"p": params, "mu": state["mu"], "nu": state["nu"]},
+                    {"p": p2, "mu": s2["mu"], "nu": s2["nu"]})
+    check(all(flatten(same).values()),
+          f"resumed step differs at {[k for k, v in flatten(same).items() if not v]}")
+    check(int(s2["count"]) == int(state["count"]) == 3, "optimizer count after the resume")
+    log(f"train: checkpoint of 2 layers at full width ({3 * param_bytes(params) / 1e9:.2f} GB "
+        f"with the moments) saved in {t_save:.1f} s, restored in {t_load:.1f} s; the resumed "
+        f"third step is bitwise the uninterrupted one (loss {float(loss_a):.6f})")
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this script "
@@ -1331,6 +1659,7 @@ def main() -> int:
     log(f"build: {time.perf_counter() - t0:.1f} s")
 
     records = [kernel_phase(card)] + paged_kernel_phase(card)
+    bwd_records = flash_bwd_kernel_phase(card)
     int4_record = int4_kernel_phase(card)
 
     from fei_tpu_torch.ops.kernels.flash_attention import flash_attention
@@ -1367,6 +1696,17 @@ def main() -> int:
     int4_record["launches"] = launches4["int4_matmul"]
     records.append(int4_record)
     log(f"int4 paged path (main run): launches {launches4}")
+
+    # the training path, after the quantized engines are released
+    del dense4
+    gc.collect()
+    torch.cuda.empty_cache()
+    launches_t = train_phase(card)
+    for rec in bwd_records:
+        rec["launches"] = launches_t[rec["name"]]
+        check(rec["launches"] > 0, f"the training path never launched {rec['name']}")
+    records.extend(bwd_records)
+    log(f"training path ({TRAIN_STEPS} steps): launches {launches_t}")
 
     print(json.dumps({"kernels": records}))
     print(card)

@@ -1,15 +1,20 @@
-// Flash-attention forward for Hopper (sm_90a), inference primal only.
+// Flash-attention forward for Hopper (sm_90a): the inference primal and,
+// with a logsumexp output, the forward of the training path.
 //
 // Replaces: fei_tpu/ops/pallas/flash_attention.py, the Pallas TPU kernel
 // `_fwd_kernel` (:52) reached through `_fwd_impl` (:195) and the public
-// `flash_attention` (:598), with save_lse=False. The logsumexp output and
-// the backward kernels come with the training slice.
+// `flash_attention` (:598), with save_lse=False (lse pointer null) and
+// save_lse=True. The backward kernels are in flash_attention_bwd.cu.
 //
 // Contract: q [B,T,H,D], k/v [B,S,K,D] (the whole cache buffer), bf16;
 // q_start[B], kv_length[B] int32. Key s is visible to the query at
 // absolute position p = q_start + t iff s <= p, s < kv_length and, with a
 // window, s > p - window. GQA: kv_head = h / (H / K). fp32 online softmax;
-// a query row with no live key writes zeros. Output [B,T,H,D] bf16.
+// a query row with no live key writes zeros. Output [B,T,H,D] bf16. With a
+// non-null `lse` [B,H,T] fp32 the kernel also writes each row's logsumexp
+// of its scaled, masked scores in natural-log units (m + log l), and +inf
+// for a row with no live key, so that the backward's exp(s - L) is 0
+// there. The output's arithmetic does not depend on the pointer.
 //
 // What bounds it on the H100: at the serving path's prefill shape
 // (T = 2048 causal from position 0, H = 32, D = 128) the work is about
@@ -45,12 +50,14 @@ constexpr int NUM_THREADS = NUM_WARPS * 32;
 constexpr int PAD = 8;                       // bf16 of padding per smem row
 constexpr float NEG_INF = -1e30f;            // the Pallas kernel's mask value
 constexpr float LOG2E = 1.4426950408889634f;
+constexpr float LN2 = 0.6931471805599453f;
 
 struct Params {
   const __nv_bfloat16* q;
   const __nv_bfloat16* k;
   const __nv_bfloat16* v;
   __nv_bfloat16* o;
+  float* lse;  // [B,H,T] or null
   const int* q_start;
   const int* kv_length;
   int B, T, H, S, K;
@@ -274,6 +281,11 @@ __global__ void __launch_bounds__(NUM_THREADS)
         *reinterpret_cast<uint32_t*>(orow + n * 8) =
             pack_bf16(acc[n][2 * r] * inv, acc[n][2 * r + 1] * inv);
       }
+      if (p.lse != nullptr && tig == 0) {
+        // the running max is in the log2 domain: back to natural-log units
+        p.lse[((long long)b * p.H + h) * p.T + t] =
+            l_r[r] > 0.f ? m_r[r] * LN2 + logf(l_r[r]) : __int_as_float(0x7f800000);
+      }
     }
   }
 }
@@ -294,7 +306,7 @@ cudaError_t launch(const Params& p, cudaStream_t stream) {
 }  // namespace
 
 extern "C" int fei_flash_attention_fwd(
-    const void* q, const void* k, const void* v, void* o,
+    const void* q, const void* k, const void* v, void* o, void* lse,
     const int* q_start, const int* kv_length,
     int B, int T, int H, int S, int K, int D,
     long long q_sb, long long q_st, long long q_sh,
@@ -307,6 +319,7 @@ extern "C" int fei_flash_attention_fwd(
   p.k = static_cast<const __nv_bfloat16*>(k);
   p.v = static_cast<const __nv_bfloat16*>(v);
   p.o = static_cast<__nv_bfloat16*>(o);
+  p.lse = static_cast<float*>(lse);
   p.q_start = q_start;
   p.kv_length = kv_length;
   p.B = B; p.T = T; p.H = H; p.S = S; p.K = K;

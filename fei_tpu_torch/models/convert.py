@@ -6,8 +6,10 @@ numpy array — ``jax.tree.map(np.asarray, params)`` on the JAX side — and
 returns the port's dict of tensors. The layouts are the same (layers
 stacked on axis 0, linears [in, out]; quantized leaves as ``QTensor``
 (q, s) and ``QTensor4`` (p, s) NamedTuples with the same fields), so both
-packages then compute the same function. This module imports neither jax
-nor fei_tpu.
+packages then compute the same function. ``opt_state_from_jax`` does the
+same for the state of the JAX package's optimizer (``optax.chain(
+clip_by_global_norm, adamw)``), so both packages continue one training
+run. This module imports neither jax nor fei_tpu (nor optax).
 """
 
 from __future__ import annotations
@@ -58,3 +60,32 @@ def params_from_jax(tree: dict, dtype=None, device: torch.device | str = "cpu") 
         return _leaf(node, path, dtype, device)
 
     return walk(tree, "")
+
+
+def _find_adam(node):
+    """The ``ScaleByAdamState`` (fields count, mu, nu) inside optax's
+    nested tuples of states, found by its fields."""
+    fields = getattr(node, "_fields", ())
+    if {"count", "mu", "nu"} <= set(fields):
+        return node
+    if isinstance(node, (tuple, list)):
+        for child in node:
+            found = _find_adam(child)
+            if found is not None:
+                return found
+    return None
+
+
+def opt_state_from_jax(state, dtype=None, device: torch.device | str = "cpu") -> dict:
+    """The JAX train step's optimizer state (numpy leaves:
+    ``jax.tree.map(np.asarray, opt_state)``) -> the port's ``{"count",
+    "mu", "nu"}`` on ``device``. The clip and the decay stages of the chain
+    carry no state; the Adam stage's step count and moment trees do."""
+    adam = _find_adam(state)
+    if adam is None:
+        raise ValueError("no Adam state (count, mu, nu) in the given optimizer state")
+    return {
+        "count": torch.tensor(int(np.asarray(adam.count)), dtype=torch.int32, device=device),
+        "mu": params_from_jax(adam.mu, dtype, device),
+        "nu": params_from_jax(adam.nu, dtype, device),
+    }

@@ -10,7 +10,10 @@ The KV cache is a fixed [L, B, S, K, D] buffer with a per-sequence valid
 length; prefill and decode are the same code path with different T. Where
 JAX returns an updated cache (donated, so updated in place in HBM), this
 forward writes the new K/V into the cache tensors in place and returns a
-cache with the advanced length.
+cache with the advanced length. ``forward_train`` is the cache-free,
+differentiable forward of the training path: attention over the
+projections themselves, through the flash kernels' autograd function on
+the card, each layer recomputed in the backward when ``remat`` is set.
 
 Covered here: GQA, q/k/v/o biases, the Phi parallel block with LayerNorm
 and partial rotary, tied and biased LM heads, sliding windows, the Gemma
@@ -28,6 +31,7 @@ from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from fei_tpu_torch.models.configs import ModelConfig
 from fei_tpu_torch.ops.attention import attention
@@ -46,6 +50,7 @@ from fei_tpu_torch.ops.quant import (
 )
 from fei_tpu_torch.ops.rmsnorm import rms_norm
 from fei_tpu_torch.ops.rope import apply_rope, compute_rope_freqs
+from fei_tpu_torch.utils.errors import TrainingError
 
 _FLASH_MIN_T = 64  # below this, the plain path (decode is T = 1)
 
@@ -225,12 +230,17 @@ def _mlp_dense(cfg: ModelConfig, y, lp):
 def model_dtype(params: dict):
     """The compute dtype, read from a leaf that is never quantized (a
     row-quantized embed table's ``dtype`` is its fp32 scale's)."""
-    return params["layers"]["attn_norm"].dtype
+    layers = params["layers"]
+    return (layers[0] if isinstance(layers, (list, tuple)) else layers)["attn_norm"].dtype
 
 
 def layer_params(params: dict, i: int) -> dict:
     """Layer i's leaves; a quantized leaf is sliced field by field (indexing
-    the NamedTuple itself would pick a field, not a layer)."""
+    the NamedTuple itself would pick a field, not a layer). ``layers`` may
+    also be a list of per-layer dicts already (the train step's autograd
+    leaves over the stacked storage)."""
+    if isinstance(params["layers"], (list, tuple)):
+        return params["layers"][i]
     return {
         name: type(leaf)(*(f[i] for f in leaf)) if isinstance(leaf, (QTensor, QTensor4))
         else leaf[i]
@@ -283,7 +293,8 @@ def _write_kv(buf, new, positions, live):
 def _layer(cfg: ModelConfig, x, lp, cache_k, cache_v, kv_length, positions,
            cos, sin, live=None, flash=None):
     """One decoder block. x: [B,T,h]; cache_k/v: this layer's [B,S,K,D],
-    written in place. Returns x_out."""
+    written in place, or None for the cache-free training path (attention
+    over the [B,T,K,D] projections themselves). Returns x_out."""
     B, T, _ = x.shape
     K, d, Hq = cfg.num_kv_heads, cfg.head_dim_, cfg.num_heads
 
@@ -291,8 +302,11 @@ def _layer(cfg: ModelConfig, x, lp, cache_k, cache_v, kv_length, positions,
     q, k, v = qkv_proj(lp, y, Hq, K, d)
     q = _rope(q, cos, sin, positions, cfg.rope_dim_)
     k = _rope(k, cos, sin, positions, cfg.rope_dim_)
-    _write_kv(cache_k, k, positions, live)
-    _write_kv(cache_v, v, positions, live)
+    if cache_k is None:
+        cache_k, cache_v = k, v
+    else:
+        _write_kv(cache_k, k, positions, live)
+        _write_kv(cache_v, v, positions, live)
 
     attn = _attend(q, cache_k, cache_v, kv_length, positions,
                    window=cfg.sliding_window or 0, flash=flash)
@@ -363,6 +377,56 @@ def forward(
     if not lm_head:
         return x, new_cache
     return _logits(x, params, cfg), new_cache
+
+
+def check_trainable(node, path: str = "params") -> None:
+    """Quantized leaves carry no gradient (int8 values, as JAX's ``grad``
+    refuses them too): raise naming the first one found."""
+    if isinstance(node, (QTensor, QTensor4)):
+        raise TrainingError(
+            f"{path} is a {type(node).__name__}: quantized weights carry no "
+            "gradient; train the unquantized parameters")
+    if isinstance(node, dict):
+        for key, leaf in node.items():
+            check_trainable(leaf, f"{path}[{key!r}]")
+    elif isinstance(node, (list, tuple)):
+        for i, leaf in enumerate(node):
+            check_trainable(leaf, f"{path}[{i}]")
+
+
+def forward_train(
+    params: dict,
+    cfg: ModelConfig,
+    tokens: torch.Tensor,  # [B, T] int
+    remat: bool = True,
+    flash: bool | None = None,
+) -> torch.Tensor:
+    """Cache-free forward for training and fine-tuning: full causal
+    attention over the sequence at positions ``arange(T)``, differentiable
+    in every leaf of ``params``. ``remat`` recomputes each layer in the
+    backward (``torch.utils.checkpoint``) instead of keeping its
+    activations. ``flash`` picks the attention path (``_attend``): None
+    takes the flash kernels' autograd function for T >= 64 on the card.
+    Returns logits [B, T, V] fp32."""
+    check_supported(cfg)
+    check_trainable(params)
+    B, T = tokens.shape
+    dtype = model_dtype(params)
+    dev = params["final_norm"].device
+    tokens = tokens.to(device=dev, dtype=torch.long)
+    positions = torch.arange(T, device=dev)[None, :].expand(B, T)
+    cos, sin = _rope_tables(cfg.rope_dim_, T, float(cfg.rope_theta), str(dev))
+    kv_length = torch.zeros((B,), dtype=torch.int32, device=dev)
+    x = embed_tokens(params, cfg, tokens, dtype)
+    for i in range(cfg.num_layers):
+        args = (cfg, x, layer_params(params, i), None, None, kv_length, positions,
+                cos, sin, None, flash)
+        if remat:  # the layer draws no random numbers: no generator state to carry
+            x = checkpoint(_layer, *args, use_reentrant=False, preserve_rng_state=False)
+        else:
+            x = _layer(*args)
+    x = _norm(x, params["final_norm"], cfg, b=params.get("final_norm_b"))
+    return _logits(x, params, cfg)
 
 
 # ---------------------------------------------------------------- paged

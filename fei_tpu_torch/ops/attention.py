@@ -35,6 +35,32 @@ def visible_mask(
     return mask & (s_pos < kv_length.to(q_positions.device)[:, None, None])
 
 
+def acc(x: torch.Tensor) -> torch.Tensor:
+    """The accumulation type of the plain paths: fp32, or fp64 for fp64
+    inputs (a gradient check in double precision)."""
+    return x if x.dtype == torch.float64 else x.float()
+
+
+def attention_scores(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    q_positions: torch.Tensor,  # [B, T]
+    kv_length: torch.Tensor | int,
+    scale: float | None = None,
+    window: int = 0,
+) -> torch.Tensor:
+    """[B, T, K, G, S] fp32 scaled scores of each query head (head
+    h = k*G + g) against the cache, NEG_INF where a key is not visible."""
+    B, T, H, D = q.shape
+    S, K = k.shape[1], k.shape[2]
+    if scale is None:
+        scale = D ** -0.5
+    qg = acc(q.reshape(B, T, K, H // K, D))
+    scores = torch.einsum("btkgd,bskd->btkgs", qg, acc(k)) * scale
+    mask = visible_mask(q_positions, kv_length, S, window)[:, :, None, None, :]
+    return torch.where(mask, scores, torch.full_like(scores, NEG_INF))
+
+
 def attention_probs(
     q: torch.Tensor,
     k: torch.Tensor,
@@ -43,16 +69,9 @@ def attention_probs(
     scale: float | None = None,
     window: int = 0,
 ) -> torch.Tensor:
-    """[B, T, K, G, S] fp32 softmax weights of each query head (head
-    h = k*G + g) over the cache, with the masks applied."""
-    B, T, H, D = q.shape
-    S, K = k.shape[1], k.shape[2]
-    if scale is None:
-        scale = D ** -0.5
-    qg = q.reshape(B, T, K, H // K, D).float()
-    scores = torch.einsum("btkgd,bskd->btkgs", qg, k.float()) * scale
-    mask = visible_mask(q_positions, kv_length, S, window)[:, :, None, None, :]
-    scores = torch.where(mask, scores, torch.full_like(scores, NEG_INF))
+    """[B, T, K, G, S] fp32 softmax weights of each query head over the
+    cache, with the masks applied."""
+    scores = attention_scores(q, k, q_positions, kv_length, scale, window)
     probs = torch.exp(scores - scores.amax(dim=-1, keepdim=True))
     return probs / probs.sum(dim=-1, keepdim=True)
 
@@ -68,5 +87,5 @@ def attention(
 ) -> torch.Tensor:
     B, T, H, D = q.shape
     probs = attention_probs(q, k, q_positions, kv_length, scale, window)
-    out = torch.einsum("btkgs,bskd->btkgd", probs, v.float())
+    out = torch.einsum("btkgs,bskd->btkgd", probs, acc(v))
     return out.reshape(B, T, H, D).to(q.dtype)

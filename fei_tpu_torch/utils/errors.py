@@ -104,6 +104,12 @@ class CheckpointError(EngineError):
     """Weight loading / checkpoint save-restore failure."""
 
 
+class TrainingError(EngineError):
+    """The training path was given something it cannot differentiate
+    (quantized parameter leaves) or an optimizer state that does not fit
+    the parameters."""
+
+
 class KVTierError(EngineError):
     """Tiered KV store failure (missing/corrupt/mismatched page entry,
     tier I/O error, incompatible migration blob). Always recoverable at

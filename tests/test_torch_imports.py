@@ -46,7 +46,8 @@ def test_port_imports_without_jax_or_fei_tpu():
         "fei_tpu_torch.engine.sched_admission", "fei_tpu_torch.engine.sched_decode",
         "fei_tpu_torch.engine.tenancy", "fei_tpu_torch.engine.faults",
         "fei_tpu_torch.agent.providers", "fei_tpu_torch.ui.server",
-        "fei_tpu_torch.__main__",
+        "fei_tpu_torch.engine.train", "fei_tpu_torch.engine.checkpoint",
+        "fei_tpu_torch.utils.tree", "fei_tpu_torch.__main__",
     ):
         assert name in got["imported"], name
     assert got["jax"] == [], got["jax"]
