@@ -39,7 +39,7 @@ def main() -> None:
     params = init_params(cfg, seed=0, dtype=dtype, device=args.device)
     opt = make_optimizer(tc)
     opt_state = opt.init(params)
-    _, train_step = make_train_step(cfg, tc)
+    _, train_step = make_train_step(cfg, tc, device=args.device)
 
     gen = torch.Generator().manual_seed(1)
     data = torch.randint(0, cfg.vocab_size, (4, 65), generator=gen)
@@ -54,7 +54,8 @@ def main() -> None:
                 print("  checkpointed at step 2")
 
         restored = restore_checkpoint(
-            ckpt_dir, target={"params": params, "opt_state": opt_state})
+            ckpt_dir, target={"params": params, "opt_state": opt_state},
+            device=args.device)
         print(f"restored step-2 checkpoint (optimizer count "
               f"{int(restored['opt_state']['count'])}); resume with "
               "train_step(restored['params'], restored['opt_state'], ...)")

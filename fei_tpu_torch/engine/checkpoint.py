@@ -20,6 +20,7 @@ from typing import Any
 
 import torch
 
+from fei_tpu_torch.engine.engine import resolve_device
 from fei_tpu_torch.utils.errors import CheckpointError
 from fei_tpu_torch.utils.logging import get_logger
 from fei_tpu_torch.utils.tree import flatten, unflatten
@@ -143,17 +144,21 @@ def restore_checkpoint(
     step: int | None = None,
     target: Any = None,
     shardings: Any = None,
+    device: torch.device | str = "cuda",
 ) -> dict[str, Any]:
     """Restore a composite checkpoint: ``{"params": ..., "opt_state": ...}``
     with the components that were saved.
 
     - ``step=None`` restores the latest step.
-    - ``target``: a composite of trees matching what was saved; each tensor
-      is checked against its target's shape and lands in its target's dtype
-      and on its device. Without it the tensors come back as saved, on the
-      CPU."""
+    - ``device``: where the restored tensors live — the card unless the
+      caller asks for the CPU; without a card the default raises.
+    - ``target``: a composite of trees matching what was saved, on
+      ``device``; each tensor is checked against its target's shape and
+      lands in its target's dtype. Without it the tensors come back in the
+      dtypes they were saved in."""
     from safetensors.torch import load_file
 
+    device = resolve_device(device)
     if shardings is not None:
         raise NotImplementedError(
             "sharded restore comes with the parallelism slice (roadmap C4)")
@@ -183,9 +188,15 @@ def restore_checkpoint(
                     raise CheckpointError(
                         f"{name}/{path}: saved {tuple(flat[path].shape)}, "
                         f"target {tuple(like.shape)}")
+                if like.device.type != device.type:
+                    raise CheckpointError(
+                        f"{name}/{path}: the target is on {like.device}, the restore "
+                        f"on {device}; pass device={str(like.device.type)!r}")
                 # a copy into memory of the target's kind: the loaded tensor may
                 # sit unaligned in the file's buffer, where CPU kernels sum in
                 # another order than on the allocator's own memory
                 flat[path] = torch.empty_like(like).copy_(flat[path])
+        else:
+            flat = {path: t.to(device) for path, t in flat.items()}
         out[name] = unflatten(flat)
     return out

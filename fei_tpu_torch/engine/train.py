@@ -9,6 +9,12 @@ JAX package's ``optax.chain(clip_by_global_norm, adamw)``: global-norm clip,
 then Adam moments with bias correction, decoupled weight decay and the
 learning rate (eps 1e-8, moments in the parameters' dtype).
 
+Like the port's other entry points the step runs on the card unless the
+caller passes ``device="cpu"``: without a card the default raises, and so
+do parameters that lie on another device than the step's (they would
+otherwise train on the CPU through the plain attention, no kernel
+launched, without a word).
+
 Where JAX donates the parameters and the optimizer state to a pure
 function, this step updates both in place and returns them. Memory is the
 constraint on one card — parameters, gradients and two moments of an 8B
@@ -32,6 +38,7 @@ from dataclasses import dataclass
 import torch
 import torch.nn.functional as F
 
+from fei_tpu_torch.engine.engine import resolve_device
 from fei_tpu_torch.models.configs import ModelConfig
 from fei_tpu_torch.models.llama import check_supported, check_trainable, forward_train
 from fei_tpu_torch.utils.errors import TrainingError
@@ -118,36 +125,55 @@ def make_optimizer(tc: TrainConfig) -> AdamW:
     return AdamW(tc)
 
 
-def _autograd_leaves(params: dict, grads: dict, num_layers: int) -> dict:
-    """The parameter tree as autograd leaves over the same storage, each
-    layer's leaves on their own (``layers`` becomes a list of per-layer
-    dicts), every leaf's ``.grad`` a view of ``grads``: the backward then
-    accumulates each gradient in place into the one stacked buffer, with no
-    stacked-size temporary per layer."""
+def _autograd_leaves(params: dict, grads: dict, num_layers: int):
+    """``(top, layer_leaves)``: the parameters as autograd leaves over the
+    same storage — the leaves outside ``layers`` in a tree like ``params``
+    (its ``layers`` the stacked tensors as they are, no leaves), and one
+    dict of leaves per layer — every leaf's ``.grad`` a view of ``grads``:
+    the backward then accumulates each gradient in place into the one
+    stacked buffer, with no stacked-size temporary per layer."""
     def leaf(t, g):
         x = t.detach().requires_grad_(True)
         x.grad = g
         return x
 
-    out = {k: leaf(v, grads[k]) for k, v in params.items() if k != "layers"}
-    out["layers"] = [
+    top = {k: v if k == "layers" else leaf(v, grads[k]) for k, v in params.items()}
+    layer_leaves = [
         {name: leaf(t[i], grads["layers"][name][i]) for name, t in params["layers"].items()}
         for i in range(num_layers)
     ]
-    return out
+    return top, layer_leaves
+
+
+def _check_on_device(params: dict, device: torch.device) -> None:
+    """Training follows no tensor to another device than the one asked for:
+    parameters made or restored on the CPU would otherwise train there
+    through the plain attention without a word."""
+    for name, leaf in flatten(params).items():
+        if leaf.device.type != device.type or (
+                device.index is not None and leaf.device.index != device.index):
+            raise TrainingError(
+                f"params[{name}] is on {leaf.device}, the train step runs on {device}: "
+                f"move the parameters there, or pass device={str(leaf.device.type)!r}")
 
 
 def loss_and_grads(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
-                   remat: bool = True, flash: bool | None = None):
+                   remat: bool = True, flash: bool | None = None,
+                   device: torch.device | str = "cuda"):
     """``(loss, grads)``: the mean next-token cross-entropy (fp32) of
-    ``tokens`` [B, T] and its gradient, a new tree shaped like ``params``."""
+    ``tokens`` [B, T] and its gradient, a new tree shaped like ``params``.
+    ``device`` is where the step runs (the card unless the caller asks for
+    the CPU): without a card the default raises, and so do parameters that
+    lie elsewhere."""
+    device = resolve_device(device)
     check_supported(cfg)
     check_trainable(params)
-    device = params["final_norm"].device
-    tokens = tokens.to(device=device, dtype=torch.long)
+    _check_on_device(params, device)
+    tokens = tokens.to(device=params["final_norm"].device, dtype=torch.long)
     grads = tree_map(torch.zeros_like, params)
-    leaves = _autograd_leaves(params, grads, cfg.num_layers)
-    logits = forward_train(leaves, cfg, tokens[:, :-1], remat=remat, flash=flash)
+    top, layer_leaves = _autograd_leaves(params, grads, cfg.num_layers)
+    logits = forward_train(top, cfg, tokens[:, :-1], remat=remat, flash=flash,
+                           layer_leaves=layer_leaves)
     loss = F.cross_entropy(logits.reshape(-1, logits.shape[-1]), tokens[:, 1:].reshape(-1))
     del logits
     loss.backward()
@@ -155,18 +181,23 @@ def loss_and_grads(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
 
 
 def make_train_step(cfg: ModelConfig, tc: TrainConfig | None = None,
-                    flash: bool | None = None):
+                    flash: bool | None = None, device: torch.device | str = "cuda"):
     """Return ``(optimizer, train_step)``.
 
     ``train_step(params, opt_state, tokens[B, T]) -> (params, opt_state,
     loss)``; ``params`` and ``opt_state`` are updated in place and handed
     back. ``flash`` is ``forward_train``'s (None: the flash kernels for
-    T >= 64 on the card)."""
+    T >= 64 on the card). ``device`` is where the step runs: the card by
+    default, which raises ``EngineError`` here when there is none;
+    ``train_step`` raises ``TrainingError`` for parameters that lie
+    elsewhere (pass ``device="cpu"`` to train on the CPU)."""
+    device = resolve_device(device)
     tc = tc or TrainConfig()
     opt = make_optimizer(tc)
 
     def train_step(params, opt_state, tokens):
-        loss, grads = loss_and_grads(params, cfg, tokens, remat=tc.remat, flash=flash)
+        loss, grads = loss_and_grads(params, cfg, tokens, remat=tc.remat, flash=flash,
+                                     device=device)
         opt.update(params, grads, opt_state)
         return params, opt_state, loss
 

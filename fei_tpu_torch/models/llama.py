@@ -230,17 +230,12 @@ def _mlp_dense(cfg: ModelConfig, y, lp):
 def model_dtype(params: dict):
     """The compute dtype, read from a leaf that is never quantized (a
     row-quantized embed table's ``dtype`` is its fp32 scale's)."""
-    layers = params["layers"]
-    return (layers[0] if isinstance(layers, (list, tuple)) else layers)["attn_norm"].dtype
+    return params["layers"]["attn_norm"].dtype
 
 
 def layer_params(params: dict, i: int) -> dict:
     """Layer i's leaves; a quantized leaf is sliced field by field (indexing
-    the NamedTuple itself would pick a field, not a layer). ``layers`` may
-    also be a list of per-layer dicts already (the train step's autograd
-    leaves over the stacked storage)."""
-    if isinstance(params["layers"], (list, tuple)):
-        return params["layers"][i]
+    the NamedTuple itself would pick a field, not a layer)."""
     return {
         name: type(leaf)(*(f[i] for f in leaf)) if isinstance(leaf, (QTensor, QTensor4))
         else leaf[i]
@@ -389,9 +384,6 @@ def check_trainable(node, path: str = "params") -> None:
     if isinstance(node, dict):
         for key, leaf in node.items():
             check_trainable(leaf, f"{path}[{key!r}]")
-    elif isinstance(node, (list, tuple)):
-        for i, leaf in enumerate(node):
-            check_trainable(leaf, f"{path}[{i}]")
 
 
 def forward_train(
@@ -400,6 +392,7 @@ def forward_train(
     tokens: torch.Tensor,  # [B, T] int
     remat: bool = True,
     flash: bool | None = None,
+    layer_leaves=None,
 ) -> torch.Tensor:
     """Cache-free forward for training and fine-tuning: full causal
     attention over the sequence at positions ``arange(T)``, differentiable
@@ -407,6 +400,9 @@ def forward_train(
     backward (``torch.utils.checkpoint``) instead of keeping its
     activations. ``flash`` picks the attention path (``_attend``): None
     takes the flash kernels' autograd function for T >= 64 on the card.
+    ``layer_leaves`` (a sequence of one dict per layer) stands in for
+    ``layer_params(params, i)``: the train step passes each layer's leaves
+    as autograd leaves of their own over the stacked storage.
     Returns logits [B, T, V] fp32."""
     check_supported(cfg)
     check_trainable(params)
@@ -419,8 +415,8 @@ def forward_train(
     kv_length = torch.zeros((B,), dtype=torch.int32, device=dev)
     x = embed_tokens(params, cfg, tokens, dtype)
     for i in range(cfg.num_layers):
-        args = (cfg, x, layer_params(params, i), None, None, kv_length, positions,
-                cos, sin, None, flash)
+        lp = layer_params(params, i) if layer_leaves is None else layer_leaves[i]
+        args = (cfg, x, lp, None, None, kv_length, positions, cos, sin, None, flash)
         if remat:  # the layer draws no random numbers: no generator state to carry
             x = checkpoint(_layer, *args, use_reentrant=False, preserve_rng_state=False)
         else:

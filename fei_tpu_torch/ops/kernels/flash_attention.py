@@ -216,7 +216,7 @@ def flash_attention_bwd_reference(
 
 
 def flash_attention_bwd_tolerance(q, k, v, q_start, kv_length, out, lse, dout,
-                                  scale=None, window=0):
+                                  scale=None, window=0, return_cancel=False):
     """Per-element bounds ``(tol_dq, tol_dk, tol_dv)`` on |kernel -
     reference| for bf16 inputs, where the reference is
     ``flash_attention_bwd_reference`` in fp32 on the same values (the same
@@ -238,9 +238,13 @@ def flash_attention_bwd_tolerance(q, k, v, q_start, kv_length, out, lse, dout,
     terms' sizes, and for a row with few keys (p near 1, out near v) the
     true difference is near zero while that error is not. It enters dq and
     dk through the same products, bounded term by term (no cancellation
-    assumed); it is about a hundredth of the other terms elsewhere. Each
+    assumed); on average it supplies 0.7-6.8% of a dq or dk bound at the
+    shapes ``chip_smoke.py`` checks (H100, T up to 4096), most at long rows
+    and wide heads. Each
     bound follows its element's own size, so a gradient that is wrong only
-    where it is small still fails."""
+    where it is small still fails. ``return_cancel`` also hands back that
+    last term alone, ``(tols, cancels)``, so that a caller can state the
+    share of each bound it supplies."""
     D = q.shape[-1]
     if scale is None:
         scale = D ** -0.5
@@ -258,8 +262,9 @@ def flash_attention_bwd_tolerance(q, k, v, q_start, kv_length, out, lse, dout,
     sums *= p
     sums *= D * 2.0 ** -24
     cancel = _bwd_products(f[0].abs(), f[1].abs(), f[7], torch.zeros_like(p), sums, scale)
-    return tuple(2 * _bf16_ulp(r) + 4 * 2.0 ** -8 * s.sqrt() + c
+    tols = tuple(2 * _bf16_ulp(r) + 4 * 2.0 ** -8 * s.sqrt() + c
                  for r, s, c in zip(refs, spreads, cancel))
+    return (tols, cancel) if return_cancel else tols
 
 
 def _check(q, k, v, q_start, kv_length, window):

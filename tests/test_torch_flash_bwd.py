@@ -210,7 +210,8 @@ def test_tolerance_holds_kernel_roundings_and_catches_mutants(window):
         wrong = flash_attention_bwd_reference(*args, window=window, mutant=mutant)
         for w, r, tol, leaf in zip(wrong, refs, tols, "qkv"):
             if leaf in seen_in:
-                assert ((w - r).abs() > tol).any(), f"{mutant} not seen in d{leaf}"
+                share = ((w - r).abs() > tol).float().mean().item()
+                assert share >= 0.05, f"{mutant} seen at {share:.2%} of d{leaf} only"
 
 
 # ---------------------------------------------------------------- on the card
@@ -310,3 +311,28 @@ def test_train_step_runs_the_kernels_on_the_card(cuda_device):
              flash_attention_bwd.launches_dkv)
     assert tuple(a - b for a, b in zip(after, before)) == (12, 6, 6)
     assert all(np.isfinite(losses)) and losses[-1] < losses[0]
+
+
+@pytest.mark.cuda
+def test_cpu_params_raise_on_the_card_unless_the_cpu_is_asked_for(cuda_device, tmp_path):
+    """With a card the train step and the restore default to it: parameters
+    left on the CPU raise instead of training there through the plain
+    attention; ``device="cpu"`` asks for the CPU."""
+    from fei_tpu_torch.engine import restore_checkpoint, save_checkpoint
+    from fei_tpu_torch.engine.train import loss_and_grads, make_train_step
+    from fei_tpu_torch.models.configs import get_model_config
+    from fei_tpu_torch.models.llama import init_params
+    from fei_tpu_torch.utils.errors import TrainingError
+
+    cfg = get_model_config("tiny")
+    params = init_params(cfg, seed=0, dtype=torch.float32)  # on the CPU
+    toks = torch.from_numpy(np.random.default_rng(1).integers(0, cfg.vocab_size, (1, 9)))
+    _, step = make_train_step(cfg)
+    with pytest.raises(TrainingError, match="is on cpu.*runs on cuda"):
+        step(params, {}, toks)
+    loss, _ = loss_and_grads(params, cfg, toks, device="cpu")
+    assert torch.isfinite(loss)
+    save_checkpoint(str(tmp_path), 0, params)
+    restored = restore_checkpoint(str(tmp_path))["params"]
+    assert restored["embed"].is_cuda
+    assert torch.equal(restored["embed"].cpu(), params["embed"])

@@ -44,7 +44,7 @@ from fei_tpu_torch.models import llama as pt_llama
 from fei_tpu_torch.models.configs import get_model_config as pt_get_model_config
 from fei_tpu_torch.models.convert import opt_state_from_jax, params_from_jax
 from fei_tpu_torch.ops.quant import quantize_params
-from fei_tpu_torch.utils.errors import CheckpointError, TrainingError
+from fei_tpu_torch.utils.errors import CheckpointError, EngineError, TrainingError
 from fei_tpu_torch.utils.tree import flatten, tree_map
 
 REPO = Path(__file__).resolve().parents[1]
@@ -108,8 +108,8 @@ def test_remat_on_equals_off(name):
     pcfg = pt_get_model_config(name)
     params = pt_llama.init_params(pcfg, seed=2, dtype=torch.float32)
     toks = torch.from_numpy(_tokens(pcfg, 2, 17))
-    loss_a, grads_a = loss_and_grads(params, pcfg, toks, remat=True)
-    loss_b, grads_b = loss_and_grads(params, pcfg, toks, remat=False)
+    loss_a, grads_a = loss_and_grads(params, pcfg, toks, remat=True, device="cpu")
+    loss_b, grads_b = loss_and_grads(params, pcfg, toks, remat=False, device="cpu")
     assert torch.equal(loss_a, loss_b)
     for (path, a), b in zip(flatten(grads_a).items(), flatten(grads_b).values()):
         assert torch.equal(a, b), path
@@ -136,7 +136,7 @@ def test_grads_accumulate_into_the_stacked_buffer():
     pcfg = pt_get_model_config("tiny-bias")
     params = pt_llama.init_params(pcfg, seed=4, dtype=torch.float32)
     toks = torch.from_numpy(_tokens(pcfg, 2, 12)).long()
-    loss, grads = loss_and_grads(params, pcfg, toks, remat=False)
+    loss, grads = loss_and_grads(params, pcfg, toks, remat=False, device="cpu")
     leaves = tree_map(lambda t: t.clone().requires_grad_(True), params)
     logits = pt_llama.forward_train(leaves, pcfg, toks[:, :-1], remat=False)
     want = torch.nn.functional.cross_entropy(
@@ -168,8 +168,8 @@ def test_train_steps_match_jax(name, weight_decay):
     jclipped, _ = optax.clip_by_global_norm(1.0).update(jgrads, optax.EmptyState())
 
     pparams = params_from_jax(host)
-    opt, step = make_train_step(pcfg, TrainConfig(**kw))
-    loss, grads = loss_and_grads(pparams, pcfg, torch.from_numpy(toks))
+    opt, step = make_train_step(pcfg, TrainConfig(**kw), device="cpu")
+    loss, grads = loss_and_grads(pparams, pcfg, torch.from_numpy(toks), device="cpu")
     np.testing.assert_allclose(float(loss), float(jloss), atol=ATOL, rtol=0)
     _assert_tree_close(grads, jgrads, ATOL, "gradients")
     gnorm = opt.global_norm(grads)
@@ -212,7 +212,7 @@ def test_opt_state_from_jax_continues_the_run():
     pstate = opt_state_from_jax(jax.tree.map(np.asarray, jstate))
     assert int(pstate["count"]) == 1 and set(pstate) == {"count", "mu", "nu"}
     assert flatten(pstate["mu"]).keys() == flatten(pparams).keys()
-    _, step = make_train_step(pcfg, TrainConfig(**kw))
+    _, step = make_train_step(pcfg, TrainConfig(**kw), device="cpu")
     pparams, pstate, pl = step(pparams, pstate, torch.from_numpy(toks))
     jparams, jstate, jl = jstep(jparams, jstate, jnp.asarray(toks))
     np.testing.assert_allclose(float(pl), float(jl), atol=ATOL, rtol=0)
@@ -226,7 +226,7 @@ def test_loss_falls():
     """The port's twin of test_train_step_reduces_loss_sharded, unsharded."""
     pcfg = pt_get_model_config("tiny")
     params = pt_llama.init_params(pcfg, seed=0, dtype=torch.float32)
-    opt, step = make_train_step(pcfg, TrainConfig(learning_rate=1e-2))
+    opt, step = make_train_step(pcfg, TrainConfig(learning_rate=1e-2), device="cpu")
     state = opt.init(params)
     toks = torch.from_numpy(_tokens(pcfg, 4, 16, seed=3))
     losses = []
@@ -240,7 +240,7 @@ def test_loss_falls():
 def test_bf16_moments_keep_the_params_dtype():
     pcfg = pt_get_model_config("tiny")
     params = pt_llama.init_params(pcfg, seed=0, dtype=torch.bfloat16)
-    opt, step = make_train_step(pcfg, TrainConfig(learning_rate=1e-2))
+    opt, step = make_train_step(pcfg, TrainConfig(learning_rate=1e-2), device="cpu")
     state = opt.init(params)
     before = params["layers"]["wq"].clone()
     params, state, loss = step(params, state, torch.from_numpy(_tokens(pcfg, 2, 16)))
@@ -259,9 +259,50 @@ def test_quantized_params_raise(bits, leaf):
     toks = torch.from_numpy(_tokens(pcfg, 1, 8))
     with pytest.raises(TrainingError, match=rf"params\['layers'\]\['wq'\] is a {leaf}\b"):
         pt_llama.forward_train(params, pcfg, toks)
-    _, step = make_train_step(pcfg)
+    _, step = make_train_step(pcfg, device="cpu")
     with pytest.raises(TrainingError, match="quantized weights carry no gradient"):
         step(params, {}, toks)
+
+
+needs_no_card = pytest.mark.skipif(torch.cuda.is_available(),
+                                   reason="checks what happens without a card")
+
+
+@needs_no_card
+def test_training_defaults_to_the_card_and_raises_without_one(tmp_path):
+    """The training entry points run on the card unless the caller asks
+    for the CPU: without a card the defaults raise instead of training on
+    the CPU through the plain attention."""
+    pcfg = pt_get_model_config("tiny")
+    params = pt_llama.init_params(pcfg, seed=0, dtype=torch.float32)
+    toks = torch.from_numpy(_tokens(pcfg, 1, 8))
+    with pytest.raises(EngineError, match="CUDA is not available"):
+        make_train_step(pcfg)
+    with pytest.raises(EngineError, match="CUDA is not available"):
+        loss_and_grads(params, pcfg, toks)
+    save_checkpoint(str(tmp_path), 0, params)
+    with pytest.raises(EngineError, match="CUDA is not available"):
+        restore_checkpoint(str(tmp_path))
+
+
+def test_params_off_the_step_device_raise(tmp_path):
+    """Parameters that lie on another device than the step's raise, naming
+    the leaf; ``device="cpu"`` is how the CPU is asked for. The meta device
+    stands for "elsewhere" here, where there is no card."""
+    pcfg = pt_get_model_config("tiny")
+    params = pt_llama.init_params(pcfg, seed=0, dtype=torch.float32)
+    toks = torch.from_numpy(_tokens(pcfg, 1, 8))
+    loss, _ = loss_and_grads(params, pcfg, toks, device="cpu")
+    assert torch.isfinite(loss)
+    with pytest.raises(TrainingError, match=r"params\[embed\] is on cpu.*runs on meta"):
+        loss_and_grads(params, pcfg, toks, device="meta")
+    elsewhere = tree_map(lambda t: t.to("meta"), params)
+    _, step = make_train_step(pcfg, device="cpu")
+    with pytest.raises(TrainingError, match="is on meta.*runs on cpu"):
+        step(elsewhere, {}, toks)
+    save_checkpoint(str(tmp_path), 0, params)
+    with pytest.raises(CheckpointError, match="target is on meta"):
+        restore_checkpoint(str(tmp_path), target={"params": elsewhere}, device="cpu")
 
 
 def test_moe_raises_naming_its_roadmap_module():
@@ -299,18 +340,19 @@ class TestCheckpoint:
     def test_save_restore_params(self, tmp_path, cfg_params):
         _, params = cfg_params
         save_checkpoint(str(tmp_path / "ckpt"), 0, params)
-        out = restore_checkpoint(str(tmp_path / "ckpt"), target={"params": params})
+        out = restore_checkpoint(str(tmp_path / "ckpt"), target={"params": params},
+                                 device="cpu")
         assert set(out) == {"params"}
         _assert_trees_equal(out["params"], params)
 
     def test_save_restore_opt_state_and_bf16(self, tmp_path):
         pcfg = pt_get_model_config("tiny", num_layers=2)
         params = pt_llama.init_params(pcfg, seed=1, dtype=torch.bfloat16)
-        opt, step = make_train_step(pcfg, TrainConfig(learning_rate=1e-2))
+        opt, step = make_train_step(pcfg, TrainConfig(learning_rate=1e-2), device="cpu")
         state = opt.init(params)
         params, state, _ = step(params, state, torch.from_numpy(_tokens(pcfg, 2, 12)))
         save_checkpoint(str(tmp_path), 7, params, opt_state=state)
-        out = restore_checkpoint(str(tmp_path))  # no target: as saved, on the CPU
+        out = restore_checkpoint(str(tmp_path), device="cpu")  # no target: dtypes as saved
         assert set(out) == {"params", "opt_state"}
         _assert_trees_equal(out["params"], params)
         _assert_trees_equal(out["opt_state"], state)
@@ -325,15 +367,15 @@ class TestCheckpoint:
             save_checkpoint(d, s, params, max_to_keep=2)
         assert latest_step(d) == 5
         assert sorted(p.name for p in (tmp_path / "ckpt").iterdir()) == ["4", "5"]
-        assert restore_checkpoint(d, target={"params": params}) is not None
+        assert restore_checkpoint(d, target={"params": params}, device="cpu") is not None
         with pytest.raises(CheckpointError, match="step 1"):
-            restore_checkpoint(d, step=1, target={"params": params})
+            restore_checkpoint(d, step=1, target={"params": params}, device="cpu")
         with pytest.raises(CheckpointError, match="already saved"):
             save_checkpoint(d, 5, params)
 
     def test_missing_dir_raises(self, tmp_path):
         with pytest.raises(CheckpointError, match="no checkpoints found"):
-            restore_checkpoint(str(tmp_path / "nope"))
+            restore_checkpoint(str(tmp_path / "nope"), device="cpu")
 
     def test_target_mismatch_raises(self, tmp_path, cfg_params):
         _, params = cfg_params
@@ -341,10 +383,10 @@ class TestCheckpoint:
         wider = pt_llama.init_params(pt_get_model_config("tiny", num_layers=3), seed=0,
                                      dtype=torch.float32)
         with pytest.raises(CheckpointError, match="saved .* target"):
-            restore_checkpoint(str(tmp_path), target={"params": wider})
+            restore_checkpoint(str(tmp_path), target={"params": wider}, device="cpu")
         fewer = {k: v for k, v in params.items() if k != "final_norm"}
         with pytest.raises(CheckpointError, match="final_norm"):
-            restore_checkpoint(str(tmp_path), target={"params": fewer})
+            restore_checkpoint(str(tmp_path), target={"params": fewer}, device="cpu")
 
     def test_cache_shardings_and_quantized_leaves_wait(self, tmp_path, cfg_params):
         """What the port's checkpoints do not cover yet raises, naming the
@@ -354,7 +396,7 @@ class TestCheckpoint:
             save_checkpoint(str(tmp_path), 0, params, cache=object())
         save_checkpoint(str(tmp_path), 0, params)
         with pytest.raises(NotImplementedError, match="C4"):
-            restore_checkpoint(str(tmp_path), shardings={})
+            restore_checkpoint(str(tmp_path), shardings={}, device="cpu")
         pcfg = pt_get_model_config("tiny", hidden_size=512, intermediate_size=1024,
                                    num_heads=8, num_kv_heads=4)
         q = quantize_params(pt_llama.init_params(pcfg, seed=0, dtype=torch.float32))
@@ -368,7 +410,7 @@ class TestCheckpoint:
         more: bitwise the same loss and parameters (the JAX twin allows
         1e-5; the port's step is deterministic)."""
         pcfg, params = cfg_params
-        opt, step = make_train_step(pcfg, TrainConfig(remat=False))
+        opt, step = make_train_step(pcfg, TrainConfig(remat=False), device="cpu")
         toks = torch.from_numpy(_tokens(pcfg, 2, 16, seed=7))
         dup = lambda t: tree_map(torch.clone, t)
 
@@ -381,7 +423,7 @@ class TestCheckpoint:
             p2, s2, _ = step(p2, s2, toks)
         d = str(tmp_path / "resume")
         save_checkpoint(d, 2, p2, opt_state=s2)
-        out = restore_checkpoint(d, target={"params": p2, "opt_state": s2})
+        out = restore_checkpoint(d, target={"params": p2, "opt_state": s2}, device="cpu")
         p3, s3 = out["params"], out["opt_state"]
         for _ in range(2):
             p3, s3, loss_b = step(p3, s3, toks)
