@@ -36,6 +36,8 @@ from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
 TOP = 12
+# K4's kernels: the decode split of K and its ordered reduction, the prefill pipeline
+K4_NAMES = ("int4_mm_split", "int4_mm_reduce", "int4_mm_pipe")
 
 
 def kernel_summary(prof, wall_s: float, label: str,
@@ -104,7 +106,8 @@ def main() -> int:
         logits, _ = engine.prefill([prompt], engine.new_cache(1))
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    kernel_summary(prof, wall, f"prefill {len(prompt)} tokens (bucket 2048) on {card}")
+    kernel_summary(prof, wall, f"prefill {len(prompt)} tokens (bucket 2048) on {card}",
+                   share="flash_fwd")
 
     tok, cache, generator = engine._prefill_sample(prompt, gen)
     torch.cuda.synchronize()
@@ -133,7 +136,7 @@ def main() -> int:
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     kernel_summary(prof, wall, f"int4 prefill {len(prompt)} tokens (bucket 2048) on {card}",
-                   share="int4_mm_kernel")
+                   share=K4_NAMES + ("flash_fwd",))
     paged_windows(engine, card, "int4 ", merged=False)  # K4 at the decode batch's 8 rows
 
     del engine
@@ -178,7 +181,7 @@ def train_window(card: str) -> None:
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     kernel_summary(prof, wall, f"train step, {cfg.num_layers} layers, T=2048 on {card}",
-                   share=("flash_fwd_kernel", "flash_bwd_dq_kernel", "flash_bwd_dkv_kernel",
+                   share=("flash_fwd", "flash_bwd_dq_kernel", "flash_bwd_dkv_kernel",
                           "nvjet", "elementwise_kernel", "reduce_kernel"))
 
 
@@ -231,7 +234,7 @@ def paged_windows(engine, card: str, tag: str = "", merged: bool = True) -> None
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
         kernel_summary(prof, wall, f"{label} ({n} step{'s' * (n > 1)}) on {card}",
-                       share="int4_mm_kernel" if tag else None)
+                       share=K4_NAMES if tag else None)
     paged.close()
 
 

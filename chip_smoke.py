@@ -16,7 +16,11 @@ Phases (each raises on failure, so the script exits non-zero):
    computing the same function (a yardstick) and the bound. The paged
    kernels are also held to their bitwise identities: a ragged decode row
    equals the paged kernel at one query position, a ragged chunk group the
-   paged kernel's block form.
+   paged kernel's block form. K1 is also held to row invariance (rows
+   [0, 1024) of the main prefill equal a T = 1024 prefill; each row of a
+   ragged batch equals itself run alone) and timed at D = 128 and D = 64,
+   naming the design each head dim dispatches to; its difference from
+   K2's block form on the same keys is measured and held to its tolerance.
 4. Engine (dense path): llama3-8b at full width and depth (32 layers,
    h=4096, 32/8 heads, vocab 128256), bf16, random weights from a seed,
    max_seq_len 8192. A ~1500-token prefill must launch the flash kernel
@@ -39,7 +43,9 @@ Phases (each raises on failure, so the script exits non-zero):
 Phase 3 also holds the int4 matmul kernel (K4) against its plain version
 at llama3-8b's four linear shapes and M = 1/8/256/2048, shows that two
 mutants (lo and hi planes swapped; each group read with the next group's
-scale) break that bound, and that row 0 is bitwise the same at every M.
+scale) break that bound, that two runs are bitwise equal and that row 0 is
+bitwise the same at every M (the decode split of K and the prefill
+pipeline sum in one order).
 After the bf16 engines are released:
 
 8. Quantized dense path: llama3-8b with int4 weights (random, the same
@@ -130,6 +136,35 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
+def graph_ms(calls, reps: int = 5) -> float:
+    """Mean device time of one of ``calls`` (closures, each one launch of
+    the timed function), from replays of a CUDA graph that holds them all:
+    the host's Python and launch overhead, which ``cuda_ms`` includes and
+    which dominates calls of a few microseconds, is left out."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):  # warm-up outside the capture
+        for call in calls:
+            call()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for call in calls:
+            call()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    ms = start.elapsed_time(end) / (reps * len(calls))
+    del graph
+    return ms
+
+
 # ---------------------------------------------------------------- kernels
 
 def flash_cases():
@@ -189,10 +224,12 @@ def kernel_phase(card: str) -> dict:
         flash_attention,
         flash_attention_reference,
         flash_attention_tolerance,
+        kernel_design,
     )
 
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     record = None
+    ms_by_d = {}
     for label, B, T, H, K, D, S, qs_l, kl_l, window in flash_cases():
         q, k, v, qs, kl = flash_inputs(B, T, H, K, D, S, qs_l, kl_l, gen)
         out = flash_attention(q, k, v, qs, kl, window=window)
@@ -225,8 +262,15 @@ def kernel_phase(card: str) -> dict:
         log(f"kernel flash_attention_fwd [{label}]: one key more per row "
             f"breaks the tolerance at {caught:.2%} of the elements")
         del one_more, tol, diff
+        row_invariance(label, out, q, k, v, qs, kl, window)
+        if label.startswith("D=64"):  # the other head dim of the wgmma design
+            ms_by_d[64] = (cuda_ms(lambda: flash_attention(q, k, v, qs, kl, window=window)),
+                           graph_ms([lambda: flash_attention(q, k, v, qs, kl, window=window)] * 20))
+            log(f"kernel flash_attention_fwd [{label}] on {card}: {ms_by_d[64][0]:.4f} ms "
+                f"({ms_by_d[64][1]:.4f} ms device time, CUDA graph), design {kernel_design(D)}")
         if record is None:  # the main shape: time it
             ms = cuda_ms(lambda: flash_attention(q, k, v, qs, kl, window=window))
+            device_ms = graph_ms([lambda: flash_attention(q, k, v, qs, kl, window=window)] * 20)
             plain_ms = cuda_ms(
                 lambda: flash_attention_reference(q, k, v, qs, kl, window=window),
                 iters=5, warmup=1,
@@ -241,11 +285,15 @@ def kernel_phase(card: str) -> dict:
             vt = v[:, :L].transpose(1, 2).contiguous()
             lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
                 qt, kt, vt, is_causal=True, enable_gqa=True))
+            lib_device_ms = graph_ms([lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, is_causal=True, enable_gqa=True)] * 20)
             bound_ms, bound_by = flash_bound_ms(q, k, qs, kl, window)
-            log(f"kernel flash_attention_fwd [{label}] on {card}: "
-                f"{ms:.4f} ms, plain {plain_ms:.4f} ms, "
-                f"scaled_dot_product_attention {lib_ms:.4f} ms, "
-                f"bound {bound_ms:.4f} ms ({bound_by})")
+            ms_by_d[128] = (ms, device_ms)
+            log(f"kernel flash_attention_fwd [{label}] on {card}: design {kernel_design(D)}, "
+                f"{ms:.4f} ms ({device_ms:.4f} ms device time, CUDA graph), "
+                f"plain {plain_ms:.4f} ms, "
+                f"scaled_dot_product_attention {lib_ms:.4f} ms ({lib_device_ms:.4f} ms "
+                f"device time), bound {bound_ms:.4f} ms ({bound_by})")
             record = {
                 "name": "flash_attention_fwd",
                 "route": "cuda",
@@ -258,10 +306,43 @@ def kernel_phase(card: str) -> dict:
                 "bound_ms": bound_ms,
                 "bound_by": bound_by,
                 "library_ms": lib_ms,
+                # "ms" and "library_ms" are eager, as for every kernel; these
+                # two are device time from CUDA-graph replays
+                "device_ms": device_ms,
+                "library_device_ms": lib_device_ms,
+                "design": kernel_design(D),
             }
         del q, k, v, out, ref
     torch.cuda.empty_cache()
+    record["designs"] = {str(d): kernel_design(d) for d in (64, 80, 128, 256)}
+    record["ms_d64"], record["device_ms_d64"] = ms_by_d[64]
+    log(f"kernel flash_attention_fwd: D=128 {ms_by_d[128][0]:.4f} ms ({kernel_design(128)}), "
+        f"D=64 {ms_by_d[64][0]:.4f} ms ({kernel_design(64)}); D=80 and D=256 run "
+        f"{kernel_design(80)}")
     return record
+
+
+def row_invariance(label, out, q, k, v, qs, kl, window):
+    """K1's rows must not depend on T or on the other rows of the batch:
+    rows [0, 1024) of the main prefill equal a 1024-token prefill on the
+    same cache, and each row of a ragged batch equals that row run alone."""
+    from fei_tpu_torch.ops.kernels.flash_attention import flash_attention
+
+    if label.startswith("main"):
+        half = flash_attention(q[:, :1024].contiguous(), k, v, qs,
+                               torch.full_like(kl, 1024), window=window)
+        check(torch.equal(half, out[:, :1024]),
+              f"{label}: rows [0, 1024) differ from a T = 1024 call on the same cache")
+        log(f"kernel flash_attention_fwd [{label}]: rows [0, 1024) bitwise equal to a "
+            f"T = 1024 prefill on the same cache")
+    elif label.startswith("ragged"):
+        for b in range(q.shape[0]):
+            alone = flash_attention(q[b:b + 1], k[b:b + 1], v[b:b + 1], qs[b:b + 1],
+                                    kl[b:b + 1], window=window)
+            check(torch.equal(alone, out[b:b + 1]),
+                  f"{label}: batch row {b} differs from the same row run alone")
+        log(f"kernel flash_attention_fwd [{label}]: every batch row bitwise equal to "
+            f"itself run alone with B = 1")
 
 
 # ---------------------------------------------------------- flash backward
@@ -502,10 +583,12 @@ def paged_bound_ms(q, block_table, limits, q_lens, K, int8, window):
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
 
 
-def sdpa_yardstick(q, k_pages, v_pages, block_table, limits, q_lens, window):
+def sdpa_yardstick(q, k_pages, v_pages, block_table, limits, q_lens, window,
+                   k_scales=None, v_scales=None):
     """One ``scaled_dot_product_attention`` call computing the same rows on
-    a contiguous copy of each row's live K/V, made outside the timed
-    region (the port never calls it). Returns the timing closure."""
+    a contiguous bf16 copy of each row's live K/V (dequantized, for an int8
+    pool), made outside the timed region (the port never calls it).
+    Returns the timing closure."""
     import torch.nn.functional as F
 
     from fei_tpu_torch.ops.attention import visible_mask
@@ -513,8 +596,8 @@ def sdpa_yardstick(q, k_pages, v_pages, block_table, limits, q_lens, window):
 
     Bv, R, H, D = q.shape
     n = int(((limits + q_lens.clamp(min=1) - 1).max().item() + PAGE - 1) // PAGE)
-    kc, vc = gather_pages(k_pages, v_pages, block_table, n)
-    kt, vt = kc.transpose(1, 2).contiguous(), vc.transpose(1, 2).contiguous()
+    kc, vc = gather_pages(k_pages, v_pages, block_table, n, k_scales, v_scales)
+    kt, vt = (c.to(q.dtype).transpose(1, 2).contiguous() for c in (kc, vc))
     qt = q.transpose(1, 2).contiguous()
     pos = (limits.long() - 1)[:, None] + torch.arange(R, device=q.device)[None, :]
     mask = visible_mask(pos, limits.long() + R - 1, kt.shape[2], window)[:, None]
@@ -556,6 +639,41 @@ def paged_case_check(label, out, q, kp, vp, bt, limits, q_lens, ks, vs, window):
     return err
 
 
+def k1_against_k2(q, blk, k_pages, v_pages, table, before: int) -> None:
+    """K1 against K2's block form on the same keys: the T queries of a
+    chunk at positions [before, before + T) over a contiguous copy of the
+    row's pages. The wgmma K1 and the mma.sync K2 may round apart, so this
+    measures their difference (the scheduler never mixes the two routes in
+    one sequence's K/V) and holds it to K1's tolerance."""
+    from fei_tpu_torch.ops.kernels.flash_attention import (
+        flash_attention,
+        flash_attention_tolerance,
+    )
+    from fei_tpu_torch.ops.kernels.paged_attention import gather_pages
+
+    T = q.shape[1]
+    kc, vc = gather_pages(k_pages, v_pages, table, -(-(before + T) // PAGE))
+    kc, vc = kc.contiguous(), vc.contiguous()
+    qs = torch.tensor([before], dtype=torch.int32, device="cuda")
+    k1 = flash_attention(q, kc, vc, qs, qs + T)
+    diff = (k1.float() - blk.float()).abs()
+    _, exp = torch.frexp(torch.maximum(k1.float().abs(), blk.float().abs()).clamp_min(2.0 ** -126))
+    ulps = diff / torch.ldexp(torch.ones_like(diff), exp - 8)
+    tol = flash_attention_tolerance(q, kc, vc, qs, qs + T)
+    check(bool((diff <= tol).all()), f"K1 against K2's block form (T={T}): "
+          f"a difference beyond K1's tolerance (max {diff.max().item():.6g})")
+    rows = int((diff.amax(dim=(2, 3)) > 0).sum())
+    n_diff = int((diff > 0).sum())
+    one_ulp = int(((diff > 0) & (ulps <= 1)).sum())
+    log(f"kernel K1 against paged_attention_block (T={T}, the same keys): "
+        f"{'bitwise equal' if rows == 0 else 'differ'}; {n_diff} of {diff.numel()} "
+        f"elements in {rows} of {T} rows differ, {one_ulp} of them by one bf16 ulp of "
+        f"the element; max |diff| {diff.max().item():.6g}, at most "
+        f"{ulps.max().item():.3g} ulps of an element, {(diff / tol).max().item():.4g} "
+        f"of K1's tolerance")
+    del kc, vc, k1, diff, ulps, tol
+
+
 def paged_kernel_phase(card: str) -> list[dict]:
     """K2 and K3 at the paged path's shapes; returns their records."""
     from fei_tpu_torch.ops.kernels.paged_attention import (
@@ -591,14 +709,13 @@ def paged_kernel_phase(card: str) -> list[dict]:
         plain_ms = cuda_ms(lambda: paged_rows_plain(
             q[:, None], kp, vp, bt, ln, None, k_scales=ks, v_scales=vs),
             iters=5, warmup=1)
-        lib_ms = None
-        if not int8:  # int8 pools have no library yardstick
-            lib_ms = cuda_ms(sdpa_yardstick(q[:, None], kp, vp, bt, ln, ones, 0))
+        # for an int8 pool the yardstick reads a dequantized bf16 copy: no
+        # single library call attends over int8 K/V with per-slot scales
+        lib_ms = cuda_ms(sdpa_yardstick(q[:, None], kp, vp, bt, ln, ones, 0, ks, vs))
         bound_ms, bound_by = paged_bound_ms(q[:, None], bt, ln, ones, K, int8, 0)
         log(f"kernel paged_attention [main decode {tag}] B={B} H={H} K={K} D={D} "
             f"lengths={lengths} on {card}: {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-            f"scaled_dot_product_attention {lib_ms if lib_ms is None else f'{lib_ms:.4f}'} "
-            f"ms, bound {bound_ms:.4f} ms ({bound_by})")
+            f"scaled_dot_product_attention {lib_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by})")
         if not int8:
             records["paged_attention"] = {
                 "name": "paged_attention", "route": "cuda",
@@ -619,6 +736,8 @@ def paged_kernel_phase(card: str) -> list[dict]:
                              ks, vs, 0)
             if T == 256:
                 chunk_q, chunk_out = qb, blk
+        if not int8:
+            k1_against_k2(chunk_q, chunk_out, kp, vp, bt[5:6], lengths[5] - 256)
         # K3: the eight decode rows plus the 256-token chunk as 32 groups of
         # R=8 (the merged dispatch's shape)
         R, nG = 8, 32
@@ -644,15 +763,13 @@ def paged_kernel_phase(card: str) -> list[dict]:
         rplain = cuda_ms(lambda: ragged_paged_attention_plain(
             qv, kp, vp, btv, limits, q_lens, modes, k_scales=ks, v_scales=vs),
             iters=5, warmup=1)
-        rlib = None
-        if not int8:
-            rlib = cuda_ms(sdpa_yardstick(qv, kp, vp, btv, limits,
-                                          torch.where(modes == 1, 1, q_lens), 0))
+        rlib = cuda_ms(sdpa_yardstick(qv, kp, vp, btv, limits,
+                                      torch.where(modes == 1, 1, q_lens), 0, ks, vs))
         rbound, rby = paged_bound_ms(qv, btv, limits, torch.where(modes == 1, 1, q_lens),
                                      K, int8, 0)
         log(f"kernel ragged_paged_attention [8 decode + 32 groups of 8, {tag}] on {card}: "
             f"{rms:.4f} ms, plain {rplain:.4f} ms, scaled_dot_product_attention "
-            f"{rlib if rlib is None else f'{rlib:.4f}'} ms, bound {rbound:.4f} ms ({rby})")
+            f"{rlib:.4f} ms, bound {rbound:.4f} ms ({rby})")
         if not int8:
             records["ragged_paged_attention"] = {
                 "name": "ragged_paged_attention", "route": "cuda",
@@ -711,6 +828,24 @@ def copies(make, nbytes: int) -> list:
     return [make() for _ in range(max(1, -(-L2_BYTES // nbytes)))]
 
 
+def split_scratch_refused(x, w) -> None:
+    """K4's entry point refuses split-K scratch of another size than its
+    own plan's (the wrapper sizes it from ``split_plan``): one segment
+    short, it returns an error and launches nothing."""
+    from fei_tpu_torch.ops.kernels.int4_matmul import _kernel, split_plan
+
+    fn, _ = _kernel()
+    M, K = x.shape
+    N = w.p.shape[1]
+    out = torch.empty((M, N), dtype=torch.bfloat16, device="cuda")
+    short = torch.empty(((len(split_plan(K)) - 1) * M * N,), dtype=torch.float32, device="cuda")
+    err = fn(x.data_ptr(), x.stride(0), w.p.data_ptr(), w.s.data_ptr(), out.data_ptr(),
+             short.data_ptr(), short.numel(), M, N, K, w.group_size,
+             torch.cuda.current_stream().cuda_stream)
+    check(err != 0, "int4_matmul took split scratch one segment short of its plan")
+    log(f"kernel int4_matmul: scratch one segment short of the plan refused (error {err})")
+
+
 def int4_kernel_phase(card: str) -> dict:
     """K4 at llama3-8b's four linear shapes x M in {1, 8, 256, 2048}: held
     element by element against its plain version within
@@ -740,7 +875,7 @@ def int4_kernel_phase(card: str) -> dict:
                           w.p.numel() + 4 * w.s.numel())
         deq = dequantize(w, torch.bfloat16)
         deq_copies = copies(deq.clone, 2 * deq.numel())
-        rows0 = {}
+        outs = {}
         for M in INT4_MS:
             x = x_all[:M]
             out = int4_mm(x, w)
@@ -760,17 +895,25 @@ def int4_kernel_phase(card: str) -> dict:
                       .float().mean().item() for name, m in mutants.items()}
             for name, share in caught.items():
                 check(share > 0, f"int4 {label} M={M}: the tolerance cannot see {name}")
-            rows0[M] = out[0]
-            ws, ds = itertools.cycle(w_copies), itertools.cycle(deq_copies)
+            check(torch.equal(int4_mm(x, w), out), f"int4 {label} M={M}: two runs differ")
+            outs[M] = out
+            ws = itertools.cycle(w_copies)
             ms = cuda_ms(lambda: int4_mm(x, next(ws)))
+            # device time: one graph of a call per weight copy (each copy
+            # arrives cold, as a layer's weights do in a decode step)
+            device_ms = graph_ms([lambda wc=wc: int4_mm(x, wc) for wc in w_copies])
             plain_ms = cuda_ms(lambda: int4_mm_reference(x, w), iters=3, warmup=1)
+            ds = itertools.cycle(deq_copies)
             lib_ms = cuda_ms(lambda: torch.matmul(x, next(ds)))
+            lib_device_ms = graph_ms([lambda dc=dc: torch.matmul(x, dc) for dc in deq_copies])
             bound_ms, bound_by = int4_bound_ms(M, K, N)
             log(f"kernel int4_matmul [{label} M={M}] K={K} N={N} on {card}: "
                 f"max_abs_err={err:.6g}, worst err/tol {worst:.4g}; "
                 + ", ".join(f"{k} breaks the tolerance at {v:.2%}" for k, v in caught.items())
-                + f"; {ms:.4f} ms, plain {plain_ms:.4f} ms, matmul on the dequantized "
-                f"weight {lib_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by})")
+                + f"; two runs bitwise equal; {ms:.4f} ms ({device_ms:.4f} ms device time, "
+                f"CUDA graph), plain {plain_ms:.4f} ms, matmul on the dequantized weight "
+                f"{lib_ms:.4f} ms ({lib_device_ms:.4f} ms device time), "
+                f"bound {bound_ms:.4f} ms ({bound_by})")
             if (label, M) == INT4_MAIN:
                 record = {
                     "name": "int4_matmul", "route": "cuda",
@@ -778,14 +921,23 @@ def int4_kernel_phase(card: str) -> dict:
                     "replaces": "fei_tpu/ops/pallas/int4_matmul.py:75",
                     "launches": 0, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                     "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": lib_ms,
+                    "device_ms": device_ms, "library_device_ms": lib_device_ms,
+                    # M <= 16 takes the split of K, larger M the pipeline:
+                    # wgmma in both
+                    "design": "wgmma",
                 }
             del out, ref, tol, diff
-        # row invariance: row 0's k-order does not follow M
-        for M in INT4_MS[1:]:
-            check(torch.equal(rows0[M], rows0[1]),
-                  f"int4 {label}: row 0 at M={M} differs from the M=1 call")
-        log(f"kernel int4_matmul [{label}]: row 0 bitwise equal at M = {INT4_MS}")
-        del w, x_all, mutants, w_copies, deq, deq_copies
+        # row invariance: a row's k-order does not follow M or the kernel
+        # (M <= 16 splits K; larger M runs the pipeline): every row of each
+        # call equals the same row of every larger call
+        for a, b in itertools.combinations(INT4_MS, 2):
+            same = (outs[b][:a] == outs[a]).all(dim=1)
+            check(bool(same.all()), f"int4 {label}: rows {(~same).nonzero().flatten()[:8].tolist()} "
+                  f"of the M={a} call differ from the M={b} call's")
+        log(f"kernel int4_matmul [{label}]: every row bitwise equal across M = {INT4_MS}")
+        if label == INT4_MAIN[0]:
+            split_scratch_refused(x_all[:1], w)
+        del w, x_all, mutants, w_copies, deq, deq_copies, outs
         torch.cuda.empty_cache()
     return record
 

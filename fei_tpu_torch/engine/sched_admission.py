@@ -13,9 +13,15 @@ Two prefill routes:
   ``ragged_attention`` and live decode, a chunk is deferred to ride the
   next decode dispatch as one merged program.
 
-A resumed (preempted) sequence prefills only its prompt positions through
-the chunks and then replays its generated suffix through the decode-shaped
-[B, 1] forward, so its rebuilt KV is bitwise what the decode steps wrote.
+A resumed (preempted) sequence prefills only its prompt positions, by the
+route recorded when it was admitted (``_Seq.dense_admitted``: a densely
+admitted prompt through one dense forward again, never through a prefix
+match; any other through the chunks: the dense flash kernel and the paged
+kernels round differently), and then replays its generated suffix through
+the decode-shaped [B, 1] forward, so its rebuilt KV is bitwise what
+admission and the decode steps wrote. A chunked prompt whose prefix-cache
+pages were evicted before it resumes recomputes those positions through
+the chunks, which may round apart from the pages it had shared.
 The JAX package's dense-staging chunked route, its sp admission, the KV
 tier and its fallbacks for a kernel Mosaic rejects have no counterpart
 here: a kernel failure fails the requests, it is never rerouted.
@@ -74,7 +80,8 @@ class AdmissionMixin:
                 alloc = self.engine._allocator
                 ids = self._prefill_ids(seq)
                 if seq.prefix_match is None:
-                    seq.prefix_match = self._prefix.match(ids) if self._prefix else []
+                    seq.prefix_match = (self._prefix.match(ids)
+                                        if self._prefix and not seq.dense_admitted else [])
                 prefix = seq.prefix_match
                 if prefix:
                     # pin the matched pages so eviction below cannot free them
@@ -222,15 +229,21 @@ class AdmissionMixin:
         if self._alloc_pages(seq, slot, need) is None:
             raise PoolPressure(f"no viable victim could free {need} pages for "
                                f"{seq.rid} at admission")
+        last_logits, dense = self._dense_prefill(ids)
+        seq.dense_admitted = True
+        self._complete_admission(seq, slot, dense, last_logits)
+
+    def _dense_prefill(self, ids: list[int]):
+        """One bucketed dense forward of ``ids``: (last logits, the dense
+        cache of the prompt's bucket, not of max_seq_len)."""
         from fei_tpu_torch.engine.engine import _next_bucket
         from fei_tpu_torch.models.llama import KVCache
 
-        # a cache of the prompt's bucket, not of max_seq_len
+        eng = self.engine
         bucket = min(_next_bucket(len(ids)), eng.max_seq_len)
         dense = KVCache.create(eng.cfg, 1, bucket, dtype=eng.dtype, device=eng.device)
         with METRICS.span("prefill"):
-            last_logits, dense = eng.prefill([ids], dense)
-        self._complete_admission(seq, slot, dense, last_logits)
+            return eng.prefill([ids], dense)
 
     def _complete_admission(self, seq, slot: int, dense, last_logits) -> None:
         """Dense-path tail: sample the first token, scatter the prompt's
@@ -363,6 +376,15 @@ class AdmissionMixin:
             # the decode-shaped [B, 1] forward, so the rebuilt KV is
             # bitwise what the decode steps wrote
             end = min(n, max(len(seq.prompt_ids), st["prefix"] * eng.page_size))
+            if seq.dense_admitted and lo == 0:
+                # the prompt was admitted through the dense route (and so
+                # matched no prefix here): rebuild its K/V the same way
+                # (this call's one-chunk budget)
+                _, dense = self._dense_prefill(seq.prompt_ids)
+                pages = eng._allocator.pages_for(st["slot"])
+                self._scatter_dense(dense, pages[:eng._allocator.pages_needed(end)])
+                st["pos"] = end
+                return
             if lo >= end:
                 if lo < n:
                     hi = min(lo + max(1, self.multistep), n)

@@ -98,6 +98,9 @@ class _Seq:
     prefilling: bool = False  # chunked admission in progress (no decode yet)
     # prefix-cache match memo: None = not yet probed; [] = miss
     prefix_match: list[int] | None = None
+    # the prompt was admitted through the dense route: a resume rebuilds
+    # its K/V through that route, never through a prefix match and chunks
+    dense_admitted: bool = False
     # rolling-buffer SWA: leading pages already released to the pool
     released_pages: int = 0
     rid: str = ""

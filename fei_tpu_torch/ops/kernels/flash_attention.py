@@ -6,9 +6,11 @@ Counterpart of fei_tpu/ops/pallas/flash_attention.py: ``flash_attention``
 and its ``custom_vjp`` (``_fwd_impl(save_lse=True)``, ``_bwd_impl`` over
 ``_dq_kernel`` and ``_dkv_kernel``). The kernels are
 ``fei_tpu_torch/csrc/flash_attention_fwd.cu`` (K1, with an optional
-logsumexp output) and ``fei_tpu_torch/csrc/flash_attention_bwd.cu`` (K5a dq,
-K5b dk/dv): CUDA C++ for sm_90a, mma.sync tensor-core tiles, live tiles
-only; their headers say what bounds them and what the design does about it.
+logsumexp output: wgmma with a cp.async producer warpgroup at D 64 and 128,
+mma.sync tiles at D 80 and 256, as ``DESIGNS`` says) and
+``fei_tpu_torch/csrc/flash_attention_bwd.cu`` (K5a dq, K5b dk/dv, mma.sync
+tiles): CUDA C++ for sm_90a, live tiles only; their headers say what bounds
+them and what the design does about it.
 
 ``flash_attention`` launches K1 for CUDA tensors and raises when it cannot;
 it takes the plain version (``flash_attention_reference``) only for tensors
@@ -42,6 +44,8 @@ from fei_tpu_torch.ops.kernels import build
 KERNEL = "flash_attention_fwd"
 KERNEL_BWD = "flash_attention_bwd"
 HEAD_DIMS = (64, 80, 128, 256)
+# K1's design for each head dim (the switch in fei_flash_attention_fwd)
+DESIGNS = {64: "wgmma", 80: "mma.sync", 128: "wgmma", 256: "mma.sync"}
 
 _FN = None
 _FN_BWD = None
@@ -81,6 +85,14 @@ def _kernel_bwd():
         dq.restype = dkv.restype = ctypes.c_int
         _FN_BWD = (dq, dkv, _error_string(lib))
     return _FN_BWD
+
+
+def kernel_design(D: int) -> str:
+    """The K1 design a head dim dispatches to: ``"wgmma"`` (the Hopper
+    pipeline) or ``"mma.sync"`` (the first, simpler kernel)."""
+    if D not in DESIGNS:
+        raise ValueError(f"head dim {D} is not one the kernel is built for {HEAD_DIMS}")
+    return DESIGNS[D]
 
 
 def _positions(q_start: torch.Tensor, T: int) -> torch.Tensor:

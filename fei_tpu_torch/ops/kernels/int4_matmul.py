@@ -2,22 +2,25 @@
 
 Counterpart of fei_tpu/ops/pallas/int4_matmul.py (``int4_mm`` over
 ``_int4_mm_kernel`` and ``_kernel``). The kernel is
-``fei_tpu_torch/csrc/int4_matmul.cu`` (CUDA C++ for sm_90a: a cp.async
-pipeline of packed bytes, scales and x tiles, one dequantization per stage
-into bf16 tiles, mma.sync tensor-core products); its header says what
-bounds it and what the design does about it.
+``fei_tpu_torch/csrc/int4_matmul.cu`` (CUDA C++ for sm_90a, wgmma in every
+product: for M <= 16 a fixed split of K into segments with an ordered
+reduction, for larger M a loader warpgroup that dequantizes a cp.async ring
+of packed bytes while two warpgroups multiply); its header says what bounds
+it and what the design does about it.
 
 ``int4_mm`` launches the kernel for CUDA tensors and raises, naming the
 shape or the type, where the kernel cannot take them — there is no
 fallback on the card. Tensors on the CPU take the plain version
 (``int4_mm_reference``). ``int4_mm.launches`` counts kernel launches.
 ``int4_mm_tolerance`` is the per-element bound the kernel is held to
-against the plain version.
+against the plain version. ``split_plan`` is the kernel's cut of the
+contraction into segments, summed in order, which depends on K alone.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 import threading
 
 import torch
@@ -26,6 +29,8 @@ from fei_tpu_torch.ops.kernels import build
 from fei_tpu_torch.ops.quant import QTensor4, unpack4
 
 KERNEL = "int4_matmul"
+SEGMENT = 256  # packed rows per segment of the contraction (csrc/int4_matmul.cu SEG)
+SPLIT_MAX_M = 16  # up to this many rows the kernel splits K across blocks
 
 _FN = None
 _COUNT_LOCK = threading.Lock()  # concurrent requests launch from threads
@@ -39,7 +44,8 @@ def _kernel():
         lib = build.load(KERNEL)
         fn = lib.fei_int4_matmul
         vp, i32 = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [vp, ctypes.c_longlong, vp, vp, vp, i32, i32, i32, i32, vp]
+        i64 = ctypes.c_longlong
+        fn.argtypes = [vp, i64, vp, vp, vp, vp, i64, i32, i32, i32, i32, vp]
         fn.restype = ctypes.c_int
         lib.fei_cuda_error_string.argtypes = [ctypes.c_int]
         lib.fei_cuda_error_string.restype = ctypes.c_char_p
@@ -92,6 +98,19 @@ def int4_mm_tolerance(x: torch.Tensor, w: QTensor4) -> torch.Tensor:
     return ulp + 2 * K2 * 2.0 ** -24 * absdot
 
 
+@functools.lru_cache(maxsize=None)
+def split_plan(K: int) -> tuple[tuple[int, int], ...]:
+    """The kernel's segments of the packed contraction rows, ``((start,
+    stop), ...)`` over ``range(K // 2)``: each output element sums every
+    segment in a fresh fp32 accumulator (16-row steps from its first row,
+    the low plane's step before the high plane's) and adds the segments
+    into a total that starts at 0, in this order. A function of K alone, so
+    that a row's sum does not depend on M or on which kernel the call
+    takes; for M <= ``SPLIT_MAX_M`` the segments run on separate blocks."""
+    K2 = K // 2
+    return tuple((a, min(a + SEGMENT, K2)) for a in range(0, K2, SEGMENT))
+
+
 def _check(x2d: torch.Tensor, w: QTensor4) -> None:
     """Raise, naming the shape or type, on anything the kernel does not take."""
     M, K = x2d.shape
@@ -139,10 +158,16 @@ def int4_mm(x: torch.Tensor, w: QTensor4) -> torch.Tensor:
     if M == 0:
         return out.reshape(*lead, N).to(x.dtype)
     fn, err_str = _kernel()
+    # the split's fp32 partial sums, one [M, N] slab per segment (the kernel
+    # refuses scratch of any other size than its own plan's)
+    part = (torch.empty((len(split_plan(K)), M, N), dtype=torch.float32, device=x.device)
+            if M <= SPLIT_MAX_M else None)
+    part_elems = 0 if part is None else part.numel()
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = fn(x2d.data_ptr(), x2d.stride(0), w.p.data_ptr(), w.s.data_ptr(),
-                 out.data_ptr(), M, N, K, w.group_size, stream)
+                 out.data_ptr(), None if part is None else part.data_ptr(), part_elems,
+                 M, N, K, w.group_size, stream)
     if err != 0:
         raise RuntimeError(f"int4_matmul launch failed: {err_str(err).decode()} ({err})")
     with _COUNT_LOCK:

@@ -16,9 +16,11 @@ import torch
 
 from fei_tpu_torch.ops.attention import NEG_INF, visible_mask
 from fei_tpu_torch.ops.kernels.flash_attention import (
+    HEAD_DIMS,
     flash_attention,
     flash_attention_reference,
     flash_attention_tolerance,
+    kernel_design,
 )
 
 CASES = {
@@ -105,6 +107,17 @@ def test_tolerance_holds_kernel_roundings_and_catches_one_key():
         if w:
             wider = flash_attention_reference(q, k, v, qs, kl, window=w + 1)
             assert ((wider - ref).abs() > tol).any()
+
+
+def test_head_dim_dispatch_names_a_design():
+    """K1's dispatch on D: every head dim the kernel is built for names a
+    design (the Hopper wgmma pipeline at 64 and 128, the mma.sync kernel at
+    80 and 256), and any other D is refused."""
+    assert {D: kernel_design(D) for D in HEAD_DIMS} == {
+        64: "wgmma", 80: "mma.sync", 128: "wgmma", 256: "mma.sync"}
+    for D in (32, 96, 112, 160, 512):
+        with pytest.raises(ValueError, match=f"head dim {D}"):
+            kernel_design(D)
 
 
 @pytest.fixture

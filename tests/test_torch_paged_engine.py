@@ -10,6 +10,7 @@ failure fails the in-flight requests through ``_fail_all`` and is never
 rerouted; a host fault at delivery fails only its own request."""
 
 import concurrent.futures as cf
+import dataclasses
 import time
 
 import jax
@@ -149,6 +150,58 @@ def test_tight_pool_preempts_and_resumes_identically(dense, sampled):
     assert tight._allocator.free_pages == tight._allocator.num_pages - 1
     roomy.close()
     tight.close()
+
+
+def test_resume_rebuilds_a_dense_prompt_densely(dense):
+    """A preempted prompt that was admitted through the dense route is
+    rebuilt through it on resume (prompt positions only; the generated
+    suffix replays through decode), so its K/V are what admission wrote
+    whatever the dense and paged attention kernels round."""
+    prompts = _prompts(4, (20, 60, 33, 90))
+    tight = _paged(dense, num_pages=14)
+    calls = []
+    dense_prefill = tight.scheduler._dense_prefill
+    tight.scheduler._dense_prefill = lambda ids: calls.append(list(ids)) or dense_prefill(ids)
+    before = _counter("scheduler.preemptions")
+    _concurrent(tight, prompts, [_gen(40)] * 4)
+    assert _counter("scheduler.preemptions") > before
+    assert all(ids in prompts for ids in calls)  # prompts only, never a generated suffix
+    assert any(calls.count(ids) > 1 for ids in calls)  # admitted, then resumed, densely
+    tight.close()
+
+
+@dataclasses.dataclass(frozen=True)
+class _PriorityGen(GenerationConfig):
+    """A request with a priority class (the scheduler reads ``gen.priority``)."""
+
+    priority: int = 0
+
+
+def test_prefix_cache_resume_rebuilds_a_dense_prompt_densely(dense):
+    """With the prefix cache on, a densely admitted prompt that a higher-
+    priority request preempts still finds its own registered page when it
+    resumes; it is rebuilt through the dense route all the same (no prefix
+    match, no chunks), and its stream equals the dense engine's."""
+    eng = _paged(dense, prefix_cache=True, batch_size=1)
+    sched = eng.scheduler
+    low, high = _prompts(2, (24, 13))
+    want = list(dense.generate_stream(low, _gen(120)))
+    calls = []
+    dense_prefill = sched._dense_prefill
+    sched._dense_prefill = lambda ids: calls.append(list(ids)) or dense_prefill(ids)
+    hits, preempted = _counter("prefix.hits"), _counter("scheduler.priority_preemptions")
+    seq = sched.submit(low, _gen(120))
+    deadline = time.time() + 30
+    while not seq.generated and time.time() < deadline:
+        time.sleep(0.0005)
+    urgent = sched.submit(high, _PriorityGen(max_new_tokens=8, ignore_eos=True, priority=1))
+    assert list(sched.drain(urgent)) == list(dense.generate_stream(high, _gen(8)))
+    assert list(sched.drain(seq)) == want
+    assert _counter("scheduler.priority_preemptions") > preempted
+    assert calls.count(low) == 2  # admitted, then resumed, densely
+    assert _counter("prefix.hits") == hits  # the resume probed no prefix
+    assert len(sched._prefix.match(low)) == 1  # though its page was there to match
+    eng.close()
 
 
 def test_prefix_cache_hit_reuses_pages(dense):

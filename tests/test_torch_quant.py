@@ -209,6 +209,59 @@ def test_tolerance_holds_rounding_and_catches_mutants():
         assert caught > 0.5, caught
 
 
+def _segmented(x: torch.Tensor, w: pq.QTensor4) -> torch.Tensor:
+    """K4's summation order emulated on the CPU: per segment of
+    ``split_plan`` a fresh fp32 accumulator takes the segment's 16-row
+    steps in order, the low plane's before the high plane's (each product
+    exact in fp32, added one at a time); the segments go into a total that
+    starts at 0, in order; the total is rounded to bf16. Element by element,
+    so no row's arithmetic can see another row."""
+    K2 = w.p.shape[0]
+    w_lo, w_hi = (plane.float() for plane in k4._planes(w))
+    xb = x.to(torch.bfloat16).float()
+    x_lo, x_hi = xb[:, :K2], xb[:, K2:]
+    total = torch.zeros(x.shape[0], w.p.shape[1])
+    for a, b in k4.split_plan(2 * K2):
+        acc = torch.zeros_like(total)
+        for k0 in range(a, b, 16):
+            for xs, ws in ((x_lo, w_lo), (x_hi, w_hi)):
+                for k in range(k0, k0 + 16):
+                    acc.addcmul_(xs[:, k:k + 1], ws[k:k + 1])
+        total += acc
+    return total.bfloat16()
+
+
+@pytest.mark.parametrize("K", [512, 2048, 4096, 14336])
+def test_split_plan_depends_on_k_alone(K):
+    """The segments cover the packed rows in order, 256 at a time (the last
+    may be shorter, a multiple of 128), and are the plan for any M: the
+    function sees K only, and the wrapper sizes the decode scratch from
+    it."""
+    import inspect
+
+    assert list(inspect.signature(k4.split_plan).parameters) == ["K"]
+    plan = k4.split_plan(K)
+    assert plan[0][0] == 0 and plan[-1][1] == K // 2
+    assert all(b == c for (_, b), (c, _) in zip(plan, plan[1:]))
+    assert all(b - a == k4.SEGMENT for a, b in plan[:-1])
+    assert (plan[-1][1] - plan[-1][0]) % 128 == 0
+    assert k4.split_plan(K) == plan  # the same for an M = 1 and an M = 2048 call
+
+
+@pytest.mark.parametrize("M,K,N", [(1, 2048, 256), (33, 4096, 512)])
+def test_segmented_order_within_tolerance_and_row_invariant(M, K, N):
+    """The kernel's segmented fp32 order, emulated, stays within
+    ``int4_mm_tolerance`` of ``int4_mm_reference`` at the CPU test shapes,
+    and a row's result is bitwise the same at M = 1 and at M = 64."""
+    w = pq.quantize4(torch.from_numpy(_w((K, N), seed=M)))
+    x = torch.from_numpy(np.random.default_rng(M + 1).standard_normal((64, K))
+                         .astype(np.float32)).bfloat16()
+    got = _segmented(x[:M], w)
+    ref = int4_mm_reference(x[:M].float(), w)
+    assert ((got.float() - ref).abs() <= int4_mm_tolerance(x[:M], w)).all()
+    assert torch.equal(_segmented(x, w)[:1], _segmented(x[:1], w))
+
+
 def test_leaf_selection_matches_jax(monkeypatch):
     """``quantize_params`` picks the same leaves as the JAX package: int4
     where the contraction divides by 256, int8 for an ineligible one and
