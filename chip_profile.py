@@ -9,9 +9,11 @@ windows with torch.profiler: one ~1500-token prefill (bucket 2048), 32
 dense decode steps (fused chunks of 16), and on the paged path (a
 1025-page pool, eight rows at chip_smoke's contexts of 96 to 5000
 tokens) 8 batched decode steps and one merged dispatch (a 256-token
-prefill chunk riding a decode step). Then, with int4 weights (the same
-seed), it traces the prefill and one paged decode step again and reports
-the int4 kernel's (K4's) share of kernel time. Last, with those engines
+prefill chunk riding a decode step), with the paged kernels' (K2's in
+decode, K3's in the merged dispatch) shares of kernel time. Then, with int4
+weights (the same seed), it traces the prefill, the paged decode steps and
+the merged dispatch again and reports the int4 kernel's (K4's) share of
+kernel time beside K2's and K3's. Last, with those engines
 released, it traces one training step of llama3-8b at full depth (bf16,
 one sequence of 2049 ids, remat) and reports the flash kernels' shares (K1,
 K5a, K5b). For each window it prints
@@ -38,6 +40,10 @@ from torch.profiler import ProfilerActivity, profile
 TOP = 12
 # K4's kernels: the decode split of K and its ordered reduction, the prefill pipeline
 K4_NAMES = ("int4_mm_split", "int4_mm_reduce", "int4_mm_pipe")
+# K2's and K3's kernels (one body in two libraries): the segments of a row's
+# keys and their ordered combine. A paged decode window launches only K2, a
+# merged dispatch only K3.
+PAGED_NAMES = ("paged_attn_seg", "paged_attn_combine")
 
 
 def kernel_summary(prof, wall_s: float, label: str,
@@ -137,7 +143,7 @@ def main() -> int:
         wall = time.perf_counter() - t0
     kernel_summary(prof, wall, f"int4 prefill {len(prompt)} tokens (bucket 2048) on {card}",
                    share=K4_NAMES + ("flash_fwd",))
-    paged_windows(engine, card, "int4 ", merged=False)  # K4 at the decode batch's 8 rows
+    paged_windows(engine, card, "int4 ")  # K4 at the decode batch's 8 rows
 
     del engine
     gc.collect()
@@ -185,10 +191,10 @@ def train_window(card: str) -> None:
                           "nvjet", "elementwise_kernel", "reduce_kernel"))
 
 
-def paged_windows(engine, card: str, tag: str = "", merged: bool = True) -> None:
-    """8 batched paged decode steps and (with ``merged``) one merged
-    dispatch, at the contexts of chip_smoke's paged traffic (pages
-    assigned in order; the K/V values do not change the work)."""
+def paged_windows(engine, card: str, tag: str = "") -> None:
+    """8 batched paged decode steps and one merged dispatch, at the
+    contexts of chip_smoke's paged traffic (pages assigned in order; the
+    K/V values do not change the work)."""
     from fei_tpu_torch.engine import InferenceEngine
     from fei_tpu_torch.models.llama import forward_paged, forward_paged_merged
 
@@ -217,9 +223,8 @@ def paged_windows(engine, card: str, tag: str = "", merged: bool = True) -> None
     def merged_step():
         forward_paged_merged(paged.params, paged.cfg, chunk, chunk_row, 1024, tok, base)
 
-    windows = [(f"{tag}paged decode, 8 rows", lambda: steps(8), 8)]
-    if merged:
-        windows.append(("merged dispatch, 256-token chunk + 8 decode rows", merged_step, 1))
+    windows = [(f"{tag}paged decode, 8 rows", lambda: steps(8), 8),
+               (f"{tag}merged dispatch, 256-token chunk + 8 decode rows", merged_step, 1)]
     for label, fn, n in windows:
         fn()  # warm-up
         torch.cuda.synchronize()
@@ -234,7 +239,7 @@ def paged_windows(engine, card: str, tag: str = "", merged: bool = True) -> None
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
         kernel_summary(prof, wall, f"{label} ({n} step{'s' * (n > 1)}) on {card}",
-                       share=K4_NAMES if tag else None)
+                       share=PAGED_NAMES + (K4_NAMES if tag else ()))
     paged.close()
 
 

@@ -16,7 +16,12 @@ Phases (each raises on failure, so the script exits non-zero):
    computing the same function (a yardstick) and the bound. The paged
    kernels are also held to their bitwise identities: a ragged decode row
    equals the paged kernel at one query position, a ragged chunk group the
-   paged kernel's block form. K1 is also held to row invariance (rows
+   paged kernel's block form, every position of a block the paged kernel
+   at one query position there (what a resumed sequence relies on); their
+   split of each row's keys into segments is shown to matter (a combine
+   that drops a row's last segment breaks the tolerance), held at lengths
+   on either side of a segment boundary and timed at several segment
+   lengths. K1 is also held to row invariance (rows
    [0, 1024) of the main prefill equal a T = 1024 prefill; each row of a
    ragged batch equals itself run alone) and timed at D = 128 and D = 64,
    naming the design each head dim dispatches to; its difference from
@@ -76,6 +81,10 @@ quantized engines are released:
     kernels against ``flash=False`` (autograd through the plain attention),
     and ``save_checkpoint`` -> ``restore_checkpoint`` -> one more step
     bitwise equal to the uninterrupted run's.
+
+``python3 chip_smoke.py --paged-times`` only builds K2/K3 and times them at
+every shape of phase 3 through their public wrappers; a copy of this file
+run from an older tree's root times that tree's kernels.
 
 Every kernel count is set to 0 just before a path is driven and read just
 after. The line before the last two is the kernels' JSON record (launches
@@ -608,9 +617,11 @@ def sdpa_yardstick(q, k_pages, v_pages, block_table, limits, q_lens, window,
 def paged_case_check(label, out, q, kp, vp, bt, limits, q_lens, ks, vs, window):
     """Element-by-element check against the plain version in fp32 within
     ``paged_rows_tolerance``, and proof that the bound would catch
-    attention that sees one key more per row. Returns max_abs_err."""
+    attention that sees one key more per row and a split whose combine
+    drops each row's last segment. Returns max_abs_err."""
     from fei_tpu_torch.ops.kernels.paged_attention import (
         paged_rows_plain,
+        paged_rows_split,
         paged_rows_tolerance,
     )
 
@@ -634,9 +645,51 @@ def paged_case_check(label, out, q, kp, vp, bt, limits, q_lens, ks, vs, window):
                                 window=window + (window > 0))
     caught = ((one_more - ref).abs() > tol).float().mean().item()
     check(caught > 0, f"{label}: the tolerance cannot see one key more per row")
+    # the split's mutant: each row's last segment left out of the combine,
+    # judged on the rows whose keys span several segments (where there are any)
+    dropped = paged_rows_split(q.float(), kf, vf, bt, limits, q_lens, k_scales=ks,
+                               v_scales=vs, window=window, mutant="drop_last")
+    multi = multi_segment_rows(limits, q_lens, q.shape[1], bt.shape[1], window)
+    broken = ((dropped - ref).abs() > tol)[multi if multi.any() else slice(None)]
+    dropped_caught = broken.float().mean().item()
+    check(dropped_caught > 0, f"{label}: the tolerance cannot see a dropped segment")
     log(f"kernel [{label}]: max_abs_err={err:.6g}, worst err/tol {worst:.4g}; "
-        f"one key more per row breaks the tolerance at {caught:.2%} of the elements")
+        f"one key more per row breaks the tolerance at {caught:.2%} of the elements; "
+        f"a dropped last segment at {dropped_caught:.2%} of the elements of the "
+        f"{int(multi.sum())} rows that span several segments")
     return err
+
+
+def multi_segment_rows(limits, q_lens, R: int, width: int, window: int):
+    """[B, R] bool: live query rows whose visible keys span more than one
+    segment of the kernels' split."""
+    from fei_tpu_torch.ops.kernels.paged_attention import SEGMENT_PAGES
+
+    t = torch.arange(R, device=limits.device)[None, :]
+    hi = (limits.long()[:, None] + t).clamp(max=width * PAGE)
+    lo = (hi - window).clamp(min=0) if window else torch.zeros_like(hi)
+    span = PAGE * SEGMENT_PAGES
+    live = (t < q_lens.long()[:, None]) & (hi > lo)
+    return live & ((hi - 1) // span > lo // span)
+
+
+def decode_equals_block_rows(label, blk, qb, kp, vp, bt_row, before, ks, vs, window=0):
+    """R invariance: every position p of a block (K2's block form) is
+    bitwise the decode kernel (K2 at qt = 1) run for one query at p, as a
+    preempted sequence rebuilt through chunks relies on. One decode call
+    takes the block's T positions as T rows of the same table row."""
+    from fei_tpu_torch.ops.kernels.paged_attention import paged_attention
+
+    T = qb.shape[1]
+    lengths = (before + 1 + torch.arange(T, device="cuda")).int()
+    one = paged_attention(qb[0], kp, vp, bt_row.expand(T, -1).contiguous(), lengths,
+                          k_scales=ks, v_scales=vs, window=window)
+    same = (one == blk[0]).flatten(1).all(dim=1)
+    check(bool(same.all()), f"{label}: positions {(~same).nonzero().flatten()[:8].tolist()} "
+          "of the block differ from the decode kernel at the same position")
+    segs = multi_segment_rows(lengths, torch.ones_like(lengths), 1, bt_row.shape[1], window)
+    log(f"kernel [{label}]: each of the {T} positions bitwise the decode kernel at that "
+        f"position ({int(segs.sum())} of them span several segments)")
 
 
 def k1_against_k2(q, blk, k_pages, v_pages, table, before: int) -> None:
@@ -674,9 +727,45 @@ def k1_against_k2(q, blk, k_pages, v_pages, table, before: int) -> None:
     del kc, vc, k1, diff, ulps, tol
 
 
+# the paged kernels' shapes: llama3-8b decode, B=8, H=32, K=8, D=128, a
+# table-width-128 pool, mixed lengths over non-contiguous pages; the other
+# head dims the presets use; decode rows one below, at and one above the
+# kernels' segment boundaries (SEGMENT_PAGES pages of 64 keys)
+PAGED_SHAPE = dict(B=8, H=32, K=8, D=128, width=128)
+PAGED_LENGTHS = [100, 700, 1500, 2500, 3500, 5000, 6500, 8000]
+PAGED_HEAD_DIMS = (("D=64 qwen2-0.5b", 14, 2, 64), ("D=80 phi-2", 32, 32, 80),
+                   ("D=256 gemma-7b", 16, 16, 256))
+PAGED_OTHER_LENGTHS = [100, 900, 2000, 3000]
+SEG_SWEEP = (4, 8, 16, 32, 128)  # segment lengths timed beside the one in use
+
+
+def boundary_lengths() -> list[int]:
+    from fei_tpu_torch.ops.kernels.paged_attention import SEGMENT_PAGES
+
+    edge = SEGMENT_PAGES * PAGE
+    return [edge - 1, edge, edge + 1, 2 * edge - 1, 2 * edge, 2 * edge + 1, PAGE, 1]
+
+
+def merged_inputs(q, chunk_q, bt, ln, row: int, chunk_start: int, R: int = 8):
+    """K3's merged-dispatch shape: the decode rows plus a chunk of row
+    ``row`` starting at ``chunk_start``, in groups of R (the scheduler's)."""
+    B, H, D = q.shape
+    nG = chunk_q.shape[1] // R
+    i32 = dict(dtype=torch.int32, device="cuda")
+    qv = torch.cat([torch.nn.functional.pad(q[:, None], (0, 0, 0, 0, 0, R - 1)),
+                    chunk_q.reshape(nG, R, H, D)]).contiguous()
+    btv = torch.cat([bt, bt[row:row + 1].expand(nG, -1)]).contiguous()
+    limits = torch.cat([ln, chunk_start + 1 + R * torch.arange(nG, **i32)]).int()
+    q_lens = torch.tensor([1] * B + [R] * nG, **i32)
+    modes = torch.tensor([1] * B + [0] * nG, **i32)
+    return qv, btv, limits, q_lens, modes
+
+
 def paged_kernel_phase(card: str) -> list[dict]:
     """K2 and K3 at the paged path's shapes; returns their records."""
     from fei_tpu_torch.ops.kernels.paged_attention import (
+        SEGMENT_PAGES,
+        launch,
         paged_attention,
         paged_attention_block,
         paged_rows_plain,
@@ -688,10 +777,8 @@ def paged_kernel_phase(card: str) -> list[dict]:
 
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     i32 = dict(dtype=torch.int32, device="cuda")
-    # the main shape: llama3-8b decode, B=8, H=32, K=8, D=128, a
-    # table-width-128 pool, mixed lengths over non-contiguous pages
-    B, H, K, D, width = 8, 32, 8, 128, 128
-    lengths = [100, 700, 1500, 2500, 3500, 5000, 6500, 8000]
+    B, H, K, D, width = (PAGED_SHAPE[k] for k in ("B", "H", "K", "D", "width"))
+    lengths = PAGED_LENGTHS
     n_pages = sum(-(-n // PAGE) for n in lengths) + 40
     bt = paged_table(lengths, width, n_pages, SEED)
     ln = torch.tensor(lengths, **i32)
@@ -705,27 +792,36 @@ def paged_kernel_phase(card: str) -> list[dict]:
         torch.cuda.synchronize()
         err = paged_case_check(f"paged_attention main decode {tag}", dec[:, None],
                                q[:, None], kp, vp, bt, ln, ones, ks, vs, 0)
-        ms = cuda_ms(lambda: paged_attention(q, kp, vp, bt, ln, k_scales=ks, v_scales=vs))
+        check(torch.equal(paged_attention(q, kp, vp, bt, ln, k_scales=ks, v_scales=vs), dec),
+              f"paged_attention main decode {tag}: two runs differ")
+        call = lambda: paged_attention(q, kp, vp, bt, ln, k_scales=ks, v_scales=vs)
+        ms = cuda_ms(call)
+        device_ms = graph_ms([call] * 20)
         plain_ms = cuda_ms(lambda: paged_rows_plain(
             q[:, None], kp, vp, bt, ln, None, k_scales=ks, v_scales=vs),
             iters=5, warmup=1)
         # for an int8 pool the yardstick reads a dequantized bf16 copy: no
         # single library call attends over int8 K/V with per-slot scales
-        lib_ms = cuda_ms(sdpa_yardstick(q[:, None], kp, vp, bt, ln, ones, 0, ks, vs))
+        lib = sdpa_yardstick(q[:, None], kp, vp, bt, ln, ones, 0, ks, vs)
+        lib_ms, lib_device_ms = cuda_ms(lib), graph_ms([lib] * 20)
         bound_ms, bound_by = paged_bound_ms(q[:, None], bt, ln, ones, K, int8, 0)
         log(f"kernel paged_attention [main decode {tag}] B={B} H={H} K={K} D={D} "
-            f"lengths={lengths} on {card}: {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-            f"scaled_dot_product_attention {lib_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by})")
-        if not int8:
-            records["paged_attention"] = {
-                "name": "paged_attention", "route": "cuda",
-                "source": "fei_tpu_torch/csrc/paged_attention.cu",
-                "replaces": "fei_tpu/ops/pallas/paged_attention.py:44",
-                "launches": 0, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-                "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": lib_ms,
-            }
+            f"lengths={lengths} on {card}: two runs bitwise equal; {ms:.4f} ms "
+            f"({device_ms:.4f} ms device time, CUDA graph), plain {plain_ms:.4f} ms, "
+            f"scaled_dot_product_attention {lib_ms:.4f} ms ({lib_device_ms:.4f} ms device "
+            f"time), bound {bound_ms:.4f} ms ({bound_by})")
+        records[f"paged_attention {tag}"] = {
+            "name": "paged_attention", "route": "cuda",
+            "source": "fei_tpu_torch/csrc/paged_attention.cu",
+            "replaces": "fei_tpu/ops/pallas/paged_attention.py:44",
+            "launches": 0, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": lib_ms,
+            "device_ms": device_ms, "library_device_ms": lib_device_ms,
+            "seg_pages": SEGMENT_PAGES,
+        }
         # the block form: a 256-token chunk (T=256) of the 5000-token row,
-        # and a 16-token block of the 1500-token row
+        # and a 16-token block of the 1500-token row; each position bitwise
+        # the decode kernel at that position
         for T, row in ((256, 5), (16, 2)):
             qb = torch.randn(1, T, H, D, generator=gen, device="cuda").bfloat16()
             before = torch.tensor([lengths[row] - T], **i32)
@@ -734,59 +830,112 @@ def paged_kernel_phase(card: str) -> list[dict]:
             paged_case_check(f"paged_attention block T={T} {tag}", blk, qb, kp, vp,
                              bt[row:row + 1], before + 1, torch.full((1,), T, **i32),
                              ks, vs, 0)
+            decode_equals_block_rows(f"paged_attention block T={T} {tag}", blk, qb, kp, vp,
+                                     bt[row:row + 1], before, ks, vs)
+            bcall = lambda qb=qb, row=row, before=before: paged_attention_block(
+                qb, kp, vp, bt[row:row + 1], before, k_scales=ks, v_scales=vs)
+            log(f"kernel paged_attention [block T={T} {tag}] on {card}: "
+                f"{cuda_ms(bcall):.4f} ms ({graph_ms([bcall] * 10):.4f} ms device time)")
             if T == 256:
                 chunk_q, chunk_out = qb, blk
         if not int8:
             k1_against_k2(chunk_q, chunk_out, kp, vp, bt[5:6], lengths[5] - 256)
         # K3: the eight decode rows plus the 256-token chunk as 32 groups of
         # R=8 (the merged dispatch's shape)
-        R, nG = 8, 32
-        qv = torch.cat([torch.nn.functional.pad(q[:, None], (0, 0, 0, 0, 0, R - 1)),
-                        chunk_q.reshape(nG, R, H, D)]).contiguous()
-        btv = torch.cat([bt, bt[5:6].expand(nG, -1)]).contiguous()
-        limits = torch.cat([ln, lengths[5] - 256 + 1 + R * torch.arange(nG, **i32)]).int()
-        q_lens = torch.tensor([1] * B + [R] * nG, **i32)
-        modes = torch.tensor([1] * B + [0] * nG, **i32)
+        qv, btv, limits, q_lens, modes = merged_inputs(q, chunk_q, bt, ln, 5, lengths[5] - 256)
         rag = ragged_paged_attention(qv, kp, vp, btv, limits, q_lens, modes,
                                      k_scales=ks, v_scales=vs)
         torch.cuda.synchronize()
+        eff = torch.where(modes == 1, 1, q_lens).int()
         rerr = paged_case_check(f"ragged_paged_attention 8 decode + 32x8 {tag}", rag,
-                                qv, kp, vp, btv, limits,
-                                torch.where(modes == 1, 1, q_lens).int(), ks, vs, 0)
+                                qv, kp, vp, btv, limits, eff, ks, vs, 0)
         check(torch.equal(rag[:B, 0], dec), f"{tag}: ragged decode rows != paged qt=1")
         check(torch.equal(rag[B:].reshape(1, 256, H, D), chunk_out),
               f"{tag}: ragged chunk groups != paged block")
+        check(torch.equal(ragged_paged_attention(qv, kp, vp, btv, limits, q_lens, modes,
+                                                 k_scales=ks, v_scales=vs), rag),
+              f"ragged {tag}: two runs differ")
         log(f"kernel [{tag}]: ragged decode rows == paged_attention (qt=1) bitwise; "
-            f"ragged chunk groups == paged_attention_block (T=256) bitwise")
-        rms = cuda_ms(lambda: ragged_paged_attention(qv, kp, vp, btv, limits, q_lens,
-                                                     modes, k_scales=ks, v_scales=vs))
+            f"ragged chunk groups == paged_attention_block (T=256) bitwise; two runs "
+            "bitwise equal")
+        rcall = lambda: ragged_paged_attention(qv, kp, vp, btv, limits, q_lens, modes,
+                                               k_scales=ks, v_scales=vs)
+        rms, rdevice_ms = cuda_ms(rcall), graph_ms([rcall] * 10)
         rplain = cuda_ms(lambda: ragged_paged_attention_plain(
             qv, kp, vp, btv, limits, q_lens, modes, k_scales=ks, v_scales=vs),
             iters=5, warmup=1)
-        rlib = cuda_ms(sdpa_yardstick(qv, kp, vp, btv, limits,
-                                      torch.where(modes == 1, 1, q_lens), 0, ks, vs))
-        rbound, rby = paged_bound_ms(qv, btv, limits, torch.where(modes == 1, 1, q_lens),
-                                     K, int8, 0)
+        rlib = sdpa_yardstick(qv, kp, vp, btv, limits, eff, 0, ks, vs)
+        rlib_ms, rlib_device_ms = cuda_ms(rlib), graph_ms([rlib] * 10)
+        rbound, rby = paged_bound_ms(qv, btv, limits, eff, K, int8, 0)
         log(f"kernel ragged_paged_attention [8 decode + 32 groups of 8, {tag}] on {card}: "
-            f"{rms:.4f} ms, plain {rplain:.4f} ms, scaled_dot_product_attention "
-            f"{rlib:.4f} ms, bound {rbound:.4f} ms ({rby})")
-        if not int8:
-            records["ragged_paged_attention"] = {
-                "name": "ragged_paged_attention", "route": "cuda",
-                "source": "fei_tpu_torch/csrc/ragged_paged_attention.cu",
-                "replaces": "fei_tpu/ops/pallas/ragged_paged_attention.py:55",
-                "launches": 0, "max_abs_err": rerr, "ms": rms, "plain_ms": rplain,
-                "bound_ms": rbound, "bound_by": rby, "library_ms": rlib,
-            }
+            f"{rms:.4f} ms ({rdevice_ms:.4f} ms device time), plain {rplain:.4f} ms, "
+            f"scaled_dot_product_attention {rlib_ms:.4f} ms ({rlib_device_ms:.4f} ms "
+            f"device time), bound {rbound:.4f} ms ({rby})")
+        records[f"ragged_paged_attention {tag}"] = {
+            "name": "ragged_paged_attention", "route": "cuda",
+            "source": "fei_tpu_torch/csrc/ragged_paged_attention.cu",
+            "replaces": "fei_tpu/ops/pallas/ragged_paged_attention.py:55",
+            "launches": 0, "max_abs_err": rerr, "ms": rms, "plain_ms": rplain,
+            "bound_ms": rbound, "bound_by": rby, "library_ms": rlib_ms,
+            "device_ms": rdevice_ms, "library_device_ms": rlib_device_ms,
+            "seg_pages": SEGMENT_PAGES,
+        }
+        # what the segment length costs: device time at each of SEG_SWEEP
+        # (the decode, the T=256 block, the merged shape), through the
+        # launch path that takes it as an argument
+        sweep = []
+        for seg in SEG_SWEEP:
+            calls = (
+                lambda: launch("paged_attention", "fei_paged_attention", q[:, None], kp, vp,
+                               bt, [("lengths", ln)], None, ks, vs, 0, seg_pages=seg),
+                lambda: launch("paged_attention", "fei_paged_attention", chunk_q, kp, vp,
+                               bt[5:6], [("limits", limits[B:B + 1])], None, ks, vs, 0,
+                               seg_pages=seg),
+                lambda: launch("ragged_paged_attention", "fei_ragged_paged_attention", qv, kp,
+                               vp, btv, [("limits", limits), ("q_lens", q_lens),
+                                         ("modes", modes)], None, ks, vs, 0, seg_pages=seg),
+            )
+            sweep.append(f"{seg}: " + " / ".join(f"{graph_ms([c] * 10):.4f}" for c in calls))
+        log(f"kernel paged [{tag}] device ms by segment pages (decode / block T=256 / "
+            f"merged) on {card}: " + "; ".join(sweep) + f" (in use: {SEGMENT_PAGES})")
         # a sliding window of 512 on the decode shape
         wdec = paged_attention(q, kp, vp, bt, ln, k_scales=ks, v_scales=vs, window=512)
         paged_case_check(f"paged_attention window 512 {tag}", wdec[:, None], q[:, None],
                          kp, vp, bt, ln, ones, ks, vs, 512)
+        wcall = lambda: paged_attention(q, kp, vp, bt, ln, k_scales=ks, v_scales=vs,
+                                        window=512)
+        log(f"kernel paged_attention [window 512 {tag}] on {card}: {cuda_ms(wcall):.4f} ms "
+            f"({graph_ms([wcall] * 20):.4f} ms device time)")
+        # decode rows one below, at and one above segment boundaries, a
+        # 16-position block across the first boundary, and the merged form
+        blens = boundary_lengths()
+        bbt = paged_table(blens, width, n_pages, SEED + 1)
+        bln = torch.tensor(blens, **i32)
+        qd = torch.randn(len(blens), H, D, generator=gen, device="cuda").bfloat16()
+        bdec = paged_attention(qd, kp, vp, bbt, bln, k_scales=ks, v_scales=vs)
+        torch.cuda.synchronize()
+        paged_case_check(f"paged_attention segment boundaries {blens} {tag}", bdec[:, None],
+                         qd[:, None], kp, vp, bbt, bln, torch.ones_like(bln), ks, vs, 0)
+        qb = torch.randn(1, 16, H, D, generator=gen, device="cuda").bfloat16()
+        before = torch.tensor([blens[1] - 8], **i32)
+        bblk = paged_attention_block(qb, kp, vp, bbt[4:5], before, k_scales=ks, v_scales=vs)
+        paged_case_check(f"paged_attention block T=16 across a boundary {tag}", bblk, qb,
+                         kp, vp, bbt[4:5], before + 1, torch.full((1,), 16, **i32), ks, vs, 0)
+        decode_equals_block_rows(f"paged_attention block T=16 across a boundary {tag}", bblk,
+                                 qb, kp, vp, bbt[4:5], before, ks, vs)
+        bv = merged_inputs(qd, qb, bbt, bln, 4, blens[1] - 8)
+        brag = ragged_paged_attention(*bv[:1], kp, vp, *bv[1:], k_scales=ks, v_scales=vs)
+        check(torch.equal(brag[:len(blens), 0], bdec) and
+              torch.equal(brag[len(blens):].reshape(1, 16, H, D), bblk),
+              f"{tag}: ragged rows at the segment boundaries != paged")
+        bcall = lambda: paged_attention(qd, kp, vp, bbt, bln, k_scales=ks, v_scales=vs)
+        log(f"kernel [{tag}] at the segment boundaries: ragged decode rows and chunk groups "
+            f"bitwise paged; decode {cuda_ms(bcall):.4f} ms ({graph_ms([bcall] * 20):.4f} ms "
+            "device time)")
         del kp, vp, ks, vs
     # the other head dims the presets use
-    for label, Hd, Kd, Dd in (("D=64 qwen2-0.5b", 14, 2, 64), ("D=80 phi-2", 32, 32, 80),
-                              ("D=256 gemma-7b", 16, 16, 256)):
-        lens = [100, 900, 2000, 3000]
+    for label, Hd, Kd, Dd in PAGED_HEAD_DIMS:
+        lens = PAGED_OTHER_LENGTHS
         npg = sum(-(-n // PAGE) for n in lens) + 8
         btd = paged_table(lens, 64, npg, SEED + Dd)
         lnd = torch.tensor(lens, **i32)
@@ -796,9 +945,104 @@ def paged_kernel_phase(card: str) -> list[dict]:
         torch.cuda.synchronize()
         paged_case_check(f"paged_attention {label}", out[:, None], qd[:, None], kp, vp,
                          btd, lnd, torch.ones(4, **i32), None, None, 0)
+        dcall = lambda: paged_attention(qd, kp, vp, btd, lnd)
+        log(f"kernel paged_attention [{label}] on {card}: {cuda_ms(dcall):.4f} ms "
+            f"({graph_ms([dcall] * 20):.4f} ms device time)")
         del kp, vp
+    scratch_refused(q, bt, ln)
     torch.cuda.empty_cache()
-    return [records["paged_attention"], records["ragged_paged_attention"]]
+    # the int8 pools' records (the kernels line holds the bf16 ones)
+    log("kernel records [int8]: " + json.dumps(
+        [{k: v for k, v in records[f"{n} int8"].items() if k != "launches"}
+         for n in ("paged_attention", "ragged_paged_attention")]))
+    return [records["paged_attention bf16"], records["ragged_paged_attention bf16"]]
+
+
+def paged_times(card: str) -> None:
+    """``--paged-times``: K2's and K3's time at every shape of the paged
+    kernel phase (eager and CUDA-graph device time), through the public
+    wrappers alone and with nothing checked, so that the same function
+    times an older tree's kernels: run a copy of this file from that tree's
+    root."""
+    from fei_tpu_torch.ops.kernels.paged_attention import (
+        paged_attention,
+        paged_attention_block,
+    )
+    from fei_tpu_torch.ops.kernels.ragged_paged_attention import ragged_paged_attention
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    i32 = dict(dtype=torch.int32, device="cuda")
+    B, H, K, D, width = (PAGED_SHAPE[k] for k in ("B", "H", "K", "D", "width"))
+    lengths = PAGED_LENGTHS
+    n_pages = sum(-(-n // PAGE) for n in lengths) + 40
+    bt = paged_table(lengths, width, n_pages, SEED)
+    ln = torch.tensor(lengths, **i32)
+    q = torch.randn(B, H, D, generator=gen, device="cuda").bfloat16()
+    blens = [1023, 1024, 1025, 2047, 2048, 2049, PAGE, 1]  # SEGMENT_PAGES = 16's
+    bbt = paged_table(blens, width, n_pages, SEED + 1)
+    bln = torch.tensor(blens, **i32)
+    qd = torch.randn(len(blens), H, D, generator=gen, device="cuda").bfloat16()
+    qb = {T: torch.randn(1, T, H, D, generator=gen, device="cuda").bfloat16()
+          for T in (256, 16)}
+
+    def timed(label, call, reps):
+        log(f"paged times [{label}] on {card}: {cuda_ms(call):.4f} ms "
+            f"({graph_ms([call] * reps):.4f} ms device time)")
+
+    for int8 in (False, True):
+        tag = "int8" if int8 else "bf16"
+        kp, vp, ks, vs = paged_pool(n_pages, K, D, int8, gen)
+        kw = dict(k_scales=ks, v_scales=vs)
+        timed(f"paged_attention main decode {tag}",
+              lambda: paged_attention(q, kp, vp, bt, ln, **kw), 20)
+        for T, row in ((256, 5), (16, 2)):
+            before = torch.tensor([lengths[row] - T], **i32)
+            timed(f"paged_attention block T={T} {tag}",
+                  lambda: paged_attention_block(qb[T], kp, vp, bt[row:row + 1], before, **kw),
+                  10)
+        qv, btv, limits, q_lens, modes = merged_inputs(q, qb[256], bt, ln, 5,
+                                                       lengths[5] - 256)
+        timed(f"ragged_paged_attention 8 decode + 32x8 {tag}",
+              lambda: ragged_paged_attention(qv, kp, vp, btv, limits, q_lens, modes, **kw), 10)
+        timed(f"paged_attention window 512 {tag}",
+              lambda: paged_attention(q, kp, vp, bt, ln, window=512, **kw), 20)
+        timed(f"paged_attention segment boundaries {tag}",
+              lambda: paged_attention(qd, kp, vp, bbt, bln, **kw), 20)
+        del kp, vp, ks, vs
+    for label, Hd, Kd, Dd in PAGED_HEAD_DIMS:
+        lens = PAGED_OTHER_LENGTHS
+        npg = sum(-(-n // PAGE) for n in lens) + 8
+        btd = paged_table(lens, 64, npg, SEED + Dd)
+        lnd = torch.tensor(lens, **i32)
+        qh = torch.randn(4, Hd, Dd, generator=gen, device="cuda").bfloat16()
+        kp, vp, _, _ = paged_pool(npg, Kd, Dd, False, gen)
+        timed(f"paged_attention {label}", lambda: paged_attention(qh, kp, vp, btd, lnd), 20)
+        del kp, vp
+
+
+def scratch_refused(q, bt, ln) -> None:
+    """K2's entry point refuses partials' scratch of another size than its
+    plan's (the wrapper sizes it from ``scratch_elems``): one segment
+    short, it returns an error and launches nothing."""
+    from fei_tpu_torch.ops.kernels.paged_attention import (
+        SEGMENT_PAGES,
+        kernel_fn,
+        scratch_elems,
+    )
+
+    B, H, D = q.shape
+    K = PAGED_SHAPE["K"]
+    kp = torch.zeros(2, K, PAGE, D, dtype=torch.bfloat16, device="cuda")
+    out = torch.empty_like(q)
+    n = scratch_elems(B, 1, H, D, bt.shape[1]) - B * H * (D + 2)
+    short = torch.empty(n, dtype=torch.float32, device="cuda")
+    fn, _ = kernel_fn("paged_attention", "fei_paged_attention", 1)
+    err = fn(q.data_ptr(), kp.data_ptr(), kp.data_ptr(), None, None, out.data_ptr(),
+             short.data_ptr(), n, bt.data_ptr(), bt.stride(0), ln.data_ptr(),
+             B, 1, H, K, D, bt.shape[1], H * D, H * D, D, H * D, H * D, D,
+             0, D ** -0.5, 0, SEGMENT_PAGES, torch.cuda.current_stream().cuda_stream)
+    check(err != 0, "paged_attention took scratch one segment short of its plan")
+    log(f"kernel paged_attention: scratch one segment short of the plan refused (error {err})")
 
 
 # ------------------------------------------------------------- int4 kernel
@@ -1823,6 +2067,12 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
 
     from fei_tpu_torch.ops.kernels import build
+
+    if sys.argv[1:] == ["--paged-times"]:
+        with ThreadPoolExecutor(2) as pool:
+            list(pool.map(build.build, ["paged_attention", "ragged_paged_attention"]))
+        paged_times(card)
+        return 0
 
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(KERNELS)) as pool:  # one nvcc per source

@@ -18,22 +18,32 @@ version (``paged_rows_plain``). ``paged_attention.launches`` counts kernel
 launches of both (``int8_launches`` those over int8 pools).
 ``paged_rows_tolerance`` is the per-element bound the kernel is held to
 against the plain version.
+
+The kernel splits each row's keys over blocks in fixed segments of
+``SEGMENT_PAGES`` pages (``segment_plan``, ``row_segments``: a function of
+absolute key positions alone) and adds a row's segments in index order;
+``paged_rows_split`` is that split in plain PyTorch. The partials go
+through fp32 scratch that ``launch`` sizes from the table width
+(``scratch_elems``).
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
+import math
 import threading
 
 import torch
 
-from fei_tpu_torch.ops.attention import attention, visible_mask
+from fei_tpu_torch.ops.attention import attention, attention_scores, visible_mask
 from fei_tpu_torch.ops.kernels import build
 from fei_tpu_torch.ops.kernels.flash_attention import flash_attention_tolerance
 
 KERNEL = "paged_attention"
 PAGE_SIZE = 64  # the page size the kernel is compiled for
 HEAD_DIMS = (64, 80, 128, 256)
+SEGMENT_PAGES = 16  # pages per key segment of a row (one block each)
 
 _FNS: dict[str, tuple] = {}
 _COUNT_LOCK = threading.Lock()  # concurrent requests launch from threads
@@ -48,9 +58,10 @@ def kernel_fn(name: str, symbol: str, n_row_arrays: int):
         lib = build.load(name)
         fn = getattr(lib, symbol)
         vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        fn.argtypes = (  # ... B, R, H, K, D, max_pages, strides, window, ...
-            [vp] * 7 + [i64] + [vp] * n_row_arrays + [i32] * 6
-            + [i64] * 6 + [i32, ctypes.c_float, i32, vp]
+        fn.argtypes = (  # q k v ks vs o part, part_elems, table, its stride,
+            # row arrays, B R H K D max_pages, strides, window scale int8 seg
+            [vp] * 7 + [i64, vp, i64] + [vp] * n_row_arrays + [i32] * 6
+            + [i64] * 6 + [i32, ctypes.c_float, i32, i32, vp]
         )
         fn.restype = ctypes.c_int
         lib.fei_cuda_error_string.argtypes = [ctypes.c_int]
@@ -130,6 +141,99 @@ def paged_rows_tolerance(q, k_pages, v_pages, block_table, limits, q_lens=None,
                                      kv_len, scale, window)
 
 
+# ------------------------------------------------------- the key segments
+
+@functools.lru_cache(maxsize=None)
+def segment_plan(max_pages: int, seg_pages: int = SEGMENT_PAGES) -> tuple[tuple[int, int], ...]:
+    """The kernel's segments of a table row, ``((first_page, stop_page),
+    ...)`` over ``range(max_pages)``: page ``pi`` lies in segment ``pi //
+    seg_pages``. A function of the table width alone, so that a query
+    row's split does not depend on R, the batch or the other rows."""
+    return tuple((a, min(a + seg_pages, max_pages)) for a in range(0, max_pages, seg_pages))
+
+
+def row_segments(key_lo: int, key_hi: int, max_pages: int, page_size: int = PAGE_SIZE,
+                 seg_pages: int = SEGMENT_PAGES) -> list[tuple[int, int, int]]:
+    """The segments a query row whose visible keys are ``[key_lo, key_hi)``
+    reads, in the order the combine adds them: ``(segment, first_page,
+    stop_page)`` with the row's live pages of that segment. Keys past the
+    table width are not there; a row with no visible key reads none."""
+    key_hi = min(key_hi, max_pages * page_size)
+    if key_hi <= key_lo:
+        return []
+    first, last = key_lo // page_size, (key_hi - 1) // page_size
+    out = []
+    for s, (a, z) in enumerate(segment_plan(max_pages, seg_pages)):
+        if a <= last and z > first:
+            out.append((s, max(a, first), min(z, last + 1)))
+    return out
+
+
+def scratch_elems(B: int, R: int, H: int, D: int, max_pages: int,
+                  seg_pages: int = SEGMENT_PAGES) -> int:
+    """fp32 elements of a call's partials: (m, l) and D accumulators for
+    every (row, position, head, segment). The kernel refuses any other."""
+    return B * R * H * len(segment_plan(max_pages, seg_pages)) * (D + 2)
+
+
+def paged_rows_split(q, k_pages, v_pages, block_table, limits, q_lens=None, scale=None,
+                     k_scales=None, v_scales=None, window=0, seg_pages=SEGMENT_PAGES,
+                     mutant=None) -> torch.Tensor:
+    """The kernel's split in plain PyTorch, in q's accumulation type: for
+    every segment of ``segment_plan`` a row sees, the softmax state of its
+    keys there (m_s the max score in the log2 domain, l_s = sum 2^(s - m_s),
+    acc_s = sum 2^(s - m_s) v), then the segments added in index order, each
+    sum starting from its first segment's term: m = max m_s, l = sum l_s
+    2^(m_s - m), acc likewise, out = acc / l. Positions t >= q_len and rows
+    with no visible key are zeros. ``mutant="drop_last"`` leaves out each
+    row's last segment (it must break ``paged_rows_tolerance``). Returns
+    [B, R, H, D]."""
+    B, R, H, D = q.shape
+    ps = k_pages.shape[2]
+    if q_lens is None:
+        q_lens = torch.full((B,), R, dtype=torch.int32, device=q.device)
+    n = _live_pages(limits, q_lens, R, ps, block_table.shape[1])
+    kc, vc = gather_pages(k_pages, v_pages, block_table, n, k_scales, v_scales)
+    K = kc.shape[2]
+    t = torch.arange(R, device=q.device)
+    pos = (limits.long() - 1)[:, None] + t[None, :]
+    kv_len = limits.long() + R - 1
+    s = attention_scores(q, kc, pos, kv_len, scale, window) * math.log2(math.e)
+    vis = visible_mask(pos, kv_len, kc.shape[1], window)[:, :, None, None, :]
+    vis = vis & (t[None, :] < q_lens.long()[:, None])[:, :, None, None, None]
+    vf = vc.to(s.dtype)
+    segs = [(a * ps, min(z, n) * ps) for a, z in segment_plan(block_table.shape[1], seg_pages)
+            if a < n]
+    states = []
+    for a, z in segs:
+        sv = vis[..., a:z]
+        m_s = torch.where(sv, s[..., a:z], -torch.inf).amax(dim=-1)  # -inf: no key here
+        p = torch.where(sv, torch.exp2(s[..., a:z] - m_s[..., None]), 0.0)
+        states.append((sv.any(dim=-1), m_s, p.sum(dim=-1),
+                       torch.einsum("btkgs,bskd->btkgd", p, vf[:, a:z])))
+    if mutant == "drop_last":
+        # a segment is a row's last when no later segment holds its keys
+        later = torch.zeros_like(states[0][0])
+        for i in range(len(states) - 1, -1, -1):
+            has, m_s, l_s, acc_s = states[i]
+            states[i] = (has & later, m_s, l_s, acc_s)
+            later = later | has
+    elif mutant is not None:
+        raise ValueError(f"unknown mutant {mutant!r}")
+    m = torch.stack([torch.where(h, m_s, -torch.inf) for h, m_s, _, _ in states]).amax(dim=0)
+    started = torch.zeros_like(states[0][0])
+    l = torch.zeros_like(m)
+    acc = torch.zeros(*m.shape, D, dtype=s.dtype, device=q.device)
+    for has, m_s, l_s, acc_s in states:
+        w = torch.where(has, torch.exp2(m_s - torch.where(has, m, 0.0)), 0.0)
+        l = torch.where(has & ~started, l_s * w, torch.where(has, l + l_s * w, l))
+        acc = torch.where((has & ~started)[..., None], acc_s * w[..., None],
+                          torch.where(has[..., None], acc + acc_s * w[..., None], acc))
+        started = started | has
+    out = torch.where(started[..., None], acc / torch.where(started, l, 1.0)[..., None], 0.0)
+    return out.reshape(B, R, H, D).to(q.dtype)
+
+
 # ------------------------------------------------------------------ kernel
 
 def check_inputs(q, k_pages, v_pages, block_table, row_arrays, k_scales, v_scales,
@@ -180,13 +284,26 @@ def check_inputs(q, k_pages, v_pages, block_table, row_arrays, k_scales, v_scale
 
 
 def launch(name: str, symbol: str, q, k_pages, v_pages, block_table, row_arrays,
-           scale, k_scales, v_scales, window) -> torch.Tensor:
-    """Check, allocate the output and launch ``symbol`` on the current
-    stream; raises if the launch fails."""
+           scale, k_scales, v_scales, window, scratch=None,
+           seg_pages: int = SEGMENT_PAGES) -> torch.Tensor:
+    """Check, allocate the output (and the partials' scratch, unless one of
+    exactly ``scratch_elems`` fp32 elements is given) and launch ``symbol``
+    on the current stream; raises if the launch fails. ``seg_pages`` is the
+    segment length of the split: the wrappers keep ``SEGMENT_PAGES``, other
+    values serve to measure what the length costs."""
     check_inputs(q, k_pages, v_pages, block_table, row_arrays, k_scales, v_scales,
                  window)
     B, R, H, D = q.shape
     K = k_pages.shape[1]
+    elems = scratch_elems(B, R, H, D, block_table.shape[1], seg_pages)
+    if scratch is None:
+        scratch = torch.empty(elems, dtype=torch.float32, device=q.device)
+    elif (scratch.numel() != elems or scratch.dtype != torch.float32
+          or scratch.device != q.device or not scratch.is_contiguous()):
+        raise ValueError(f"scratch must be {elems} contiguous float32 elements on "
+                         f"{q.device} (the plan of a table {block_table.shape[1]} pages "
+                         f"wide in segments of {seg_pages}); got {scratch.numel()} "
+                         f"{scratch.dtype} on {scratch.device}")
     out = torch.empty_like(q)
     if B == 0 or R == 0:
         return out
@@ -198,12 +315,13 @@ def launch(name: str, symbol: str, q, k_pages, v_pages, block_table, row_arrays,
             q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
             k_scales.data_ptr() if int8 else None,
             v_scales.data_ptr() if int8 else None,
-            out.data_ptr(), block_table.data_ptr(), block_table.stride(0),
+            out.data_ptr(), scratch.data_ptr(), scratch.numel(),
+            block_table.data_ptr(), block_table.stride(0),
             *[t.data_ptr() for _, t in row_arrays],
             B, R, H, K, D, block_table.shape[1],
             *q.stride()[:3], *out.stride()[:3],
             int(window), float(D ** -0.5 if scale is None else scale), int(int8),
-            stream,
+            int(seg_pages), stream,
         )
     if err != 0:
         raise RuntimeError(f"{name} launch failed: {err_str(err).decode()} ({err})")
