@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Where the port's serving time goes on one NVIDIA GPU.
 
-    python3 chip_profile.py
+    python3 chip_profile.py [--train]
 
 Builds the kernels, makes the same llama3-8b engine as chip_smoke.py
 (full width and depth, bf16, random weights from seed 0) and traces four
@@ -20,8 +20,9 @@ K5a, K5b). For each window it prints
 the wall time, the device's busy share (the union of kernel intervals
 over the wall time) and the kernels that took the most device time,
 grouped by name; the paged windows also print their unprofiled time per
-step. Measurement only: nothing here is checked beyond the card being
-there.
+step. ``--train`` traces only the training step; a copy of this file run
+from an older tree's root profiles that tree's kernels. Measurement only:
+nothing here is checked beyond the card being there.
 """
 
 from __future__ import annotations
@@ -101,6 +102,9 @@ def main() -> int:
     for name in ("flash_attention_fwd", "flash_attention_bwd", "paged_attention",
                  "ragged_paged_attention", "int4_matmul"):
         build.build(name)
+    if sys.argv[1:] == ["--train"]:
+        train_window(card)
+        return 0
     engine = InferenceEngine.from_config(
         "llama3-8b", dtype=torch.bfloat16, seed=0, max_seq_len=8192, device="cuda")
     prompt = np.random.default_rng(0).integers(8, engine.cfg.vocab_size, 1500).tolist()
@@ -187,7 +191,7 @@ def train_window(card: str) -> None:
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     kernel_summary(prof, wall, f"train step, {cfg.num_layers} layers, T=2048 on {card}",
-                   share=("flash_fwd", "flash_bwd_dq_kernel", "flash_bwd_dkv_kernel",
+                   share=("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv",
                           "nvjet", "elementwise_kernel", "reduce_kernel"))
 
 

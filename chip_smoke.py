@@ -70,8 +70,12 @@ Phase 3 also holds the flash backward: K1 with its logsumexp output
 with no live key), K5a (dq) and K5b (dk/dv) against the plain backward in
 fp32 within ``flash_attention_bwd_tolerance`` at the training shape, a
 ragged batch, unaligned lengths, a window, MHA and the other head dims, two
-mutants shown to break the bound, two runs bitwise equal. After the
-quantized engines are released:
+mutants shown to break the bound, two runs bitwise equal, each row of the
+ragged batch bitwise equal to itself run alone. It names the design each
+head dim dispatches to (wgmma at D 64/128, mma.sync at 80/256), times K5a,
+K5b and the pair eager and as device time (CUDA graph) at the training
+shape and at D = 64 beside the SDPA backward, and prints K5b's q-tile steps
+per block (largest and mean). After the quantized engines are released:
 
 11. Training (the training path): llama3-8b at full width and depth, bf16,
     random weights from the seed, ``TrainConfig(remat=True)``, one sequence
@@ -83,8 +87,9 @@ quantized engines are released:
     bitwise equal to the uninterrupted run's.
 
 ``python3 chip_smoke.py --paged-times`` only builds K2/K3 and times them at
-every shape of phase 3 through their public wrappers; a copy of this file
-run from an older tree's root times that tree's kernels.
+every shape of phase 3 through their public wrappers; ``--bwd-times`` does
+the same for K5a, K5b and the pair at the training shape and at D = 64. A
+copy of this file run from an older tree's root times that tree's kernels.
 
 Every kernel count is set to 0 just before a path is driven and read just
 after. The line before the last two is the kernels' JSON record (launches
@@ -377,24 +382,72 @@ def flash_bwd_cases():
     ]
 
 
-def flash_bwd_kernel_phase(card: str) -> list[dict]:
-    """K1 with its logsumexp output, K5a and K5b at ``flash_bwd_cases``;
-    returns K5a's and K5b's records, timed at the training shape."""
-    import torch.nn.functional as F
-
+def flash_bwd_times(q, k, v, qs, kl, out, lse, dout, window=0) -> dict:
+    """Eager ``ms`` (CUDA events around back-to-back calls) and
+    ``device_ms`` (CUDA-graph replays) of K5a, K5b and the pair (both
+    kernels and the row sums: ``flash_attention_bwd``) through the public
+    wrappers, which an older tree has too."""
     from fei_tpu_torch.ops.kernels.flash_attention import (
-        flash_attention,
         flash_attention_bwd,
         flash_attention_bwd_dkv,
         flash_attention_bwd_dq,
+    )
+
+    dsum = (dout.float() * out).sum(-1).permute(0, 2, 1).contiguous()
+    kargs = (q, k, v, qs, kl, lse, dsum, dout)
+    calls = {"dq": lambda: flash_attention_bwd_dq(*kargs, window=window),
+             "dkv": lambda: flash_attention_bwd_dkv(*kargs, window=window),
+             "pair": lambda: flash_attention_bwd(q, k, v, qs, kl, out, lse, dout,
+                                                 window=window)}
+    times = {}
+    for name, call in calls.items():
+        times[f"{name}_ms"] = cuda_ms(call)
+        times[f"{name}_device_ms"] = graph_ms([call] * 10)
+    return times
+
+
+def sdpa_bwd_times(q, k, v, dout) -> tuple[float, float]:
+    """The yardstick (never called by the port): the backward of causal
+    SDPA on head-major copies made outside the timed region; one call gives
+    dq, dk and dv. Eager: ``autograd.grad`` on a retained forward. Device
+    time: CUDA-graph replays of forward + backward less those of the
+    forward alone (a graph cannot hold a backward without its forward)."""
+    import torch.nn.functional as F
+
+    qt, kt, vt = (t.transpose(1, 2).contiguous().requires_grad_(True) for t in (q, k, v))
+    dot = dout.transpose(1, 2).contiguous()
+
+    def fwd():
+        return F.scaled_dot_product_attention(qt, kt, vt, is_causal=True, enable_gqa=True)
+
+    o = fwd()
+    eager = cuda_ms(lambda: torch.autograd.grad(o, (qt, kt, vt), dot, retain_graph=True))
+    del o
+    both = graph_ms([lambda: torch.autograd.grad(fwd(), (qt, kt, vt), dot)] * 10)
+    with torch.no_grad():
+        alone = graph_ms([fwd] * 10)
+    return eager, both - alone
+
+
+def flash_bwd_kernel_phase(card: str) -> list[dict]:
+    """K1 with its logsumexp output, K5a and K5b at ``flash_bwd_cases``;
+    returns K5a's and K5b's records, timed at the training shape (and at
+    D = 64, the other head dim of the wgmma design)."""
+    from fei_tpu_torch.ops.kernels.flash_attention import (
+        flash_attention,
+        flash_attention_bwd,
+        flash_attention_bwd_dkv_block_steps,
+        flash_attention_bwd_dkv_steps,
         flash_attention_bwd_reference,
         flash_attention_bwd_tolerance,
         flash_attention_fwd,
         flash_attention_reference,
+        kernel_design,
     )
 
     gen = torch.Generator(device="cuda").manual_seed(SEED + 5)
     records = []
+    d64 = None
     for label, B, T, H, K, D, S, qs_l, kl_l, window in flash_bwd_cases():
         q, k, v, qs, kl = flash_inputs(B, T, H, K, D, S, qs_l, kl_l, gen)
         dout = torch.randn(B, T, H, D, generator=gen, device="cuda").to(torch.bfloat16)
@@ -466,6 +519,34 @@ def flash_bwd_kernel_phase(card: str) -> list[dict]:
         again = flash_attention_bwd(q, k, v, qs, kl, out, lse, dout, window=window)
         check(all(torch.equal(a, b) for a, b in zip(grads, again)),
               f"{label}: two runs of the backward differ")
+        rows_alone = ""
+        if label.startswith("ragged"):
+            # a batch row's sums must not depend on the schedule of the
+            # others: each row bitwise equal to itself run with B = 1
+            for b in range(B):
+                one = slice(b, b + 1)
+                alone = flash_attention_bwd(q[one], k[one], v[one], qs[one], kl[one], out[one],
+                                            lse[one].contiguous(), dout[one], window=window)
+                check(all(torch.equal(a, g[one]) for a, g in zip(alone, grads)),
+                      f"{label}: batch row {b}'s gradients differ from the row run alone")
+            rows_alone = "; every batch row's dq, dk, dv bitwise equal to the row run alone"
+        walked = ""
+        if kernel_design(D) == "wgmma":
+            # the steps K5b's blocks walked, as the kernel counts them: the
+            # schedule's, for the cluster size the launch picked
+            dsum = (dout.float() * out).sum(-1).permute(0, 2, 1).contiguous()
+            steps = flash_attention_bwd_dkv_block_steps(q, k, v, qs, kl, lse, dsum, dout,
+                                                        window=window)
+            units = -(-S // 256) * K * B
+            cluster = len(steps) // units
+            check(len(steps) == cluster * units and cluster in (2, 4, 8)
+                  and steps == flash_attention_bwd_dkv_steps(T, S, H, K, D, qs_l, kl_l, window,
+                                                             cluster),
+                  f"{label}: the dk/dv kernel's blocks walked other steps than its schedule's")
+            walked = (f"; dk/dv clusters of {cluster}, q-tile steps per block as the kernel "
+                      f"counts them: largest {max(steps)}, mean {sum(steps) / len(steps):.2f} "
+                      f"over {len(steps)} blocks (the schedule's)")
+            del dsum
         log(f"kernel flash_attention_bwd [{label}] B={B} T={T} H={H} K={K} D={D} S={S} "
             f"q_start={qs_l} kv_length={kl_l} window={window}: lse max_abs_err={lse_err:.3g} "
             f"({n_inf} +inf rows); max_abs_err dq/dk/dv "
@@ -474,59 +555,91 @@ def flash_bwd_kernel_phase(card: str) -> list[dict]:
             f"tolerance at {caught['no_dsum']:.2%} (no row-sum term) and "
             f"{caught['one_more']:.2%} (one key more) of the elements at least (floor "
             f"{MUTANT_FLOOR:.0%}); the cancelling-sums term is {cancel_share[0]:.2%} of dq's "
-            f"bound and {cancel_share[1]:.2%} of dk's on average; two runs bitwise equal")
+            f"bound and {cancel_share[1]:.2%} of dk's on average; two runs bitwise equal"
+            f"{rows_alone}; design {kernel_design(D)}{walked}")
         del refs, tols, again, f32, lse_ref
+        if label.startswith("MHA D=64"):  # the other head dim of the wgmma design
+            d64 = flash_bwd_times(q, k, v, qs, kl, out, lse, dout, window)
+            log(f"kernel flash_attention_bwd [{label}] on {card}: design "
+                f"{kernel_design(D)}, dq {d64['dq_ms']:.4f} ms ({d64['dq_device_ms']:.4f} "
+                f"device), dk/dv {d64['dkv_ms']:.4f} ms ({d64['dkv_device_ms']:.4f} device)")
         if not records:  # the training shape: time it
-            dsum = (dout.float() * out.float()).sum(-1).permute(0, 2, 1).contiguous()
-            kargs = (q, k, v, qs, kl, lse, dsum, dout)
-            dq_ms = cuda_ms(lambda: flash_attention_bwd_dq(*kargs, window=window))
-            dkv_ms = cuda_ms(lambda: flash_attention_bwd_dkv(*kargs, window=window))
-            both_ms = cuda_ms(lambda: flash_attention_bwd(q, k, v, qs, kl, out, lse, dout,
-                                                          window=window))
+            t = flash_bwd_times(q, k, v, qs, kl, out, lse, dout, window)
             lse_ms = cuda_ms(lambda: flash_attention_fwd(q, k, v, qs, kl, window=window))
             fwd_ms = cuda_ms(lambda: flash_attention(q, k, v, qs, kl, window=window))
             # the plain version computes dq, dk and dv in one pass
             plain_ms = cuda_ms(lambda: flash_attention_bwd_reference(
                 q, k, v, qs, kl, out, lse, dout, window=window), iters=3, warmup=1)
-            # yardstick only (never called by the port): the backward of SDPA
-            # on head-major copies made outside the timed region; one call
-            # gives all three gradients
-            qt, kt, vt = (t.transpose(1, 2).contiguous().requires_grad_(True)
-                          for t in (q, k, v))
-            dot = dout.transpose(1, 2).contiguous()
-            o = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True, enable_gqa=True)
-            lib_ms = cuda_ms(lambda: torch.autograd.grad(o, (qt, kt, vt), dot,
-                                                         retain_graph=True))
-            del o, qt, kt, vt, dot
+            lib_ms, lib_device_ms = sdpa_bwd_times(q, k, v, dout)
             dq_bound = flash_bound_ms(q, k, qs, kl, window, products=3, q_like=3,
                                       kv_like=2, stats=2)
             dkv_bound = flash_bound_ms(q, k, qs, kl, window, products=4, q_like=2,
                                        kv_like=2, kv_out=2, stats=2)
-            log(f"kernel flash_attention_bwd [{label}] on {card}: dq {dq_ms:.4f} ms (bound "
-                f"{dq_bound[0]:.4f} ms, {dq_bound[1]}), dk/dv {dkv_ms:.4f} ms (bound "
-                f"{dkv_bound[0]:.4f} ms, {dkv_bound[1]}), the whole backward with its row sums "
-                f"{both_ms:.4f} ms; plain backward {plain_ms:.4f} ms; backward of "
-                f"scaled_dot_product_attention {lib_ms:.4f} ms; K1 with lse {lse_ms:.4f} ms "
-                f"against {fwd_ms:.4f} ms without")
-            for name, line, ms, bound, err in (
-                    ("flash_attention_bwd_dq", 275, dq_ms, dq_bound, errs["dq"]),
-                    ("flash_attention_bwd_dkv", 345, dkv_ms, dkv_bound,
+            log(f"kernel flash_attention_bwd [{label}] on {card}: design "
+                f"{kernel_design(D)}; dq {t['dq_ms']:.4f} ms ({t['dq_device_ms']:.4f} "
+                f"device; bound {dq_bound[0]:.4f} ms, {dq_bound[1]}), dk/dv {t['dkv_ms']:.4f} "
+                f"ms ({t['dkv_device_ms']:.4f} device; bound {dkv_bound[0]:.4f} ms, "
+                f"{dkv_bound[1]}), the whole backward with its row sums {t['pair_ms']:.4f} ms "
+                f"({t['pair_device_ms']:.4f} device); plain backward {plain_ms:.4f} ms; "
+                f"backward of scaled_dot_product_attention {lib_ms:.4f} ms ({lib_device_ms:.4f} "
+                f"device); K1 with lse {lse_ms:.4f} ms against {fwd_ms:.4f} ms without")
+            for name, line, which, bound, err in (
+                    ("flash_attention_bwd_dq", 275, "dq", dq_bound, errs["dq"]),
+                    ("flash_attention_bwd_dkv", 345, "dkv", dkv_bound,
                      max(errs["dk"], errs["dv"]))):
                 records.append({
                     "name": name, "route": "cuda",
                     "source": "fei_tpu_torch/csrc/flash_attention_bwd.cu",
                     "replaces": f"fei_tpu/ops/pallas/flash_attention.py:{line}",
-                    "launches": 0, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-                    "bound_ms": bound[0], "bound_by": bound[1], "library_ms": lib_ms,
+                    "launches": 0, "max_abs_err": err, "ms": t[f"{which}_ms"],
+                    "plain_ms": plain_ms, "bound_ms": bound[0], "bound_by": bound[1],
+                    "library_ms": lib_ms,
                     # plain_ms and library_ms are of one pass that gives all
                     # three gradients: hold them against pair_ms (both
-                    # kernels and the row sums), not against one kernel's ms
+                    # kernels and the row sums), not against one kernel's ms.
+                    # "ms", "pair_ms" and "library_ms" are eager; the
+                    # *device_ms keys are device time from CUDA-graph replays
                     "plain_covers": "dq+dk+dv", "library_covers": "dq+dk+dv",
-                    "pair_ms": both_ms,
+                    "pair_ms": t["pair_ms"], "device_ms": t[f"{which}_device_ms"],
+                    "pair_device_ms": t["pair_device_ms"], "library_device_ms": lib_device_ms,
+                    "design": kernel_design(D),
                 })
         del q, k, v, dout, out, lse, grads
         torch.cuda.empty_cache()
+    for rec, which in zip(records, ("dq", "dkv")):
+        rec["designs"] = {str(d): kernel_design(d) for d in (64, 80, 128, 256)}
+        rec["ms_d64"], rec["device_ms_d64"] = d64[f"{which}_ms"], d64[f"{which}_device_ms"]
     return records
+
+
+def bwd_time_cases():
+    """The shapes ``--bwd-times`` takes: the training shape, the training
+    shapes of the D = 64 models (one sequence of 2048 at their head
+    counts) and the MHA D = 64 case of ``flash_bwd_cases``."""
+    cases = flash_bwd_cases()
+    return [cases[0],
+            ("train qwen2-0.5b", 1, 2048, 14, 2, 64, 2048, [0], [2048], 0),
+            ("train llama3-1b", 1, 2048, 32, 8, 64, 2048, [0], [2048], 0),
+            cases[4]]
+
+
+def bwd_times(card: str) -> None:
+    """``--bwd-times``: K5a, K5b and the pair at ``bwd_time_cases`` through
+    the public wrappers, eager and device time. Run from an older tree's
+    root it times that tree's kernels."""
+    from fei_tpu_torch.ops.kernels.flash_attention import flash_attention_fwd
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 5)
+    for label, B, T, H, K, D, S, qs_l, kl_l, window in bwd_time_cases():
+        q, k, v, qs, kl = flash_inputs(B, T, H, K, D, S, qs_l, kl_l, gen)
+        dout = torch.randn(B, T, H, D, generator=gen, device="cuda").to(torch.bfloat16)
+        out, lse = flash_attention_fwd(q, k, v, qs, kl, window=window)
+        t = flash_bwd_times(q, k, v, qs, kl, out, lse, dout, window)
+        log(f"bwd times [{label}] on {card}: dq {t['dq_ms']:.4f} ms ({t['dq_device_ms']:.4f} "
+            f"device), dk/dv {t['dkv_ms']:.4f} ({t['dkv_device_ms']:.4f} device), pair "
+            f"{t['pair_ms']:.4f} ({t['pair_device_ms']:.4f} device)")
+        del q, k, v, dout, out, lse
+        torch.cuda.empty_cache()
 
 
 # ---------------------------------------------------------- paged kernels
@@ -2072,6 +2185,11 @@ def main() -> int:
         with ThreadPoolExecutor(2) as pool:
             list(pool.map(build.build, ["paged_attention", "ragged_paged_attention"]))
         paged_times(card)
+        return 0
+    if sys.argv[1:] == ["--bwd-times"]:
+        with ThreadPoolExecutor(2) as pool:
+            list(pool.map(build.build, ["flash_attention_fwd", "flash_attention_bwd"]))
+        bwd_times(card)
         return 0
 
     t0 = time.perf_counter()

@@ -344,34 +344,7 @@ struct WgLayout {
   static constexpr int BYTES = BAR_OFF + (2 * STAGES + 1) * 8 + 1024;  // + alignment
 };
 
-// the producer warpgroup copies rows [row0, row0 + ROWS) of a [rows][D]
-// matrix into D / 64 SW128 panels with cp.async; rows at or past `limit`
-// are zero-filled and never read. Eight threads take one row's 128 bytes
-// of a panel, so a warp reads whole 128-byte segments and its stores fall
-// in distinct bank groups.
-template <int D, int ROWS>
-__device__ __forceinline__ void group_load(unsigned char* tile, const __nv_bfloat16* base,
-                                           long long row_stride, int row0, int limit,
-                                           int tid) {
-  constexpr int C = D / 8;
-  for (int i = tid; i < ROWS * C; i += WG_PRODUCERS) {
-    const int r = i / C;
-    const int c = i % C;
-    const int gr = row0 + r;
-    const bool ok = gr < limit;
-    hopper::cp_async16(tile + (c >> 3) * (ROWS * 128) + hopper::sw128_offset(r, c & 7),
-                       ok ? base + gr * row_stride + c * 8 : base, ok ? 16 : 0);
-  }
-}
-
-
 // O += P V for one 16-key step, an n64 product per 64-wide panel of V
-__device__ __forceinline__ float fast_exp2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
-
 template <int D>
 __device__ __forceinline__ void pv_product(float* o, const uint32_t* a, uint64_t dv,
                                            int panel_bytes) {
@@ -444,15 +417,15 @@ __global__ void __launch_bounds__(WG_THREADS, 1) flash_fwd_wgmma(const Params p)
     // ---- producer warpgroup: q once, then k/v tiles into the ring
     hopper::reg_dealloc<40>();
     const int tid = threadIdx.x - WG_CONSUMERS;
-    group_load<D, WG_BLOCK_M>(sQ, qb, p.q_st, t0, p.T, tid);
+    hopper::group_load<D, WG_BLOCK_M>(sQ, qb, p.q_st, t0, p.T, tid);
     hopper::cp_async_arrive(qbar);
     for (int i = 0; i < n_kt; ++i) {
       const int s = i % STAGES;
       hopper::mbar_wait(&empty[s], ((i / STAGES) & 1) ^ 1);  // the first pass finds it free
       unsigned char* st = smem + L::Q_BYTES + s * L::STAGE_BYTES;
       const int k0 = (kt_first + i) * BN;
-      group_load<D, BN>(st, kb, p.k_ss, k0, kv_len, tid);
-      group_load<D, BN>(st + L::KV_BYTES, vb, p.v_ss, k0, kv_len, tid);
+      hopper::group_load<D, BN>(st, kb, p.k_ss, k0, kv_len, tid);
+      hopper::group_load<D, BN>(st + L::KV_BYTES, vb, p.v_ss, k0, kv_len, tid);
       hopper::cp_async_arrive(&full[s]);
     }
     hopper::cp_async_wait<0>();
@@ -529,7 +502,7 @@ __global__ void __launch_bounds__(WG_THREADS, 1) flash_fwd_wgmma(const Params p)
         mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
         mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
         const float m_new = fmaxf(m_r[r], mx[r]);
-        corr[r] = fast_exp2(m_r[r] - m_new);
+        corr[r] = hopper::fast_exp2(m_r[r] - m_new);
         m_r[r] = m_new;
         l_r[r] *= corr[r];
         // a row whose max is still NEG_INF has seen no live key: its
@@ -546,7 +519,7 @@ __global__ void __launch_bounds__(WG_THREADS, 1) flash_fwd_wgmma(const Params p)
       // probabilities
 #pragma unroll
       for (int j = 0; j < BN / 2; ++j) {
-        sc[j] = fast_exp2(sc[j] - m_use[(j >> 1) & 1]);
+        sc[j] = hopper::fast_exp2(sc[j] - m_use[(j >> 1) & 1]);
         l_r[(j >> 1) & 1] += sc[j];
       }
 

@@ -1,7 +1,7 @@
 // Hopper (sm_90a) building blocks shared by the wgmma kernels
-// (flash_attention_fwd.cu, int4_matmul.cu): shared-memory addresses,
-// mbarriers, cp.async into an mbarrier, the wgmma matrix descriptor and the
-// wgmma instructions the kernels issue.
+// (flash_attention_fwd.cu, flash_attention_bwd.cu, int4_matmul.cu):
+// shared-memory addresses, mbarriers, cp.async into an mbarrier, the wgmma
+// matrix descriptor and the wgmma instructions the kernels issue.
 //
 // Shared-memory layout of every wgmma operand here: the 128-byte swizzle
 // (CUTLASS's canonical SW128 GMMA layouts, cute/atom/mma_traits_sm90_gmma.hpp).
@@ -12,7 +12,10 @@
 // bank groups. Panels start at 1024-byte boundaries. For an operand stored
 // K-major (the k index contiguous: q, k, x), a panel row is one row's 64
 // consecutive k values; for one stored MN-major (v, the dequantized
-// weight), it is one k row's 64 consecutive m or n values. Descriptors:
+// weight), it is one k row's 64 consecutive m or n values. One tile can be
+// read both ways: a [row][d] tile is K-major over d and MN-major over its
+// rows, two descriptors on the same bytes (the flash backward reads k, q
+// and dO so). Descriptors:
 //   K-major:  SBO = 1024 (next 8 rows); a 16-wide k step moves the start
 //             address by 32 bytes within the panel row
 //   MN-major: SBO = 1024 (next 8 k rows), LBO = the stride between
@@ -26,6 +29,7 @@
 
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -83,6 +87,56 @@ __device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, int bytes) {
                : "memory");
 }
 
+// ---- clusters: one CTA reaches another's shared memory (sm_90)
+
+__device__ __forceinline__ uint32_t cluster_rank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return r;
+}
+
+// the address of `ptr` (in this CTA's shared memory) in the shared memory
+// of the cluster's CTA `rank`
+__device__ __forceinline__ uint32_t map_shared(const void* ptr, uint32_t rank) {
+  uint32_t out;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(out) : "r"(smem_addr(ptr)), "r"(rank));
+  return out;
+}
+
+__device__ __forceinline__ void st_cluster_v4(uint32_t addr, float4 v) {
+  asm volatile("st.shared::cluster.v4.f32 [%0], {%1, %2, %3, %4};\n" ::"r"(addr), "f"(v.x), "f"(v.y),
+               "f"(v.z), "f"(v.w)
+               : "memory");
+}
+
+// arrive on a barrier of another CTA of the cluster (an address from
+// map_shared), releasing this thread's earlier writes at cluster scope
+__device__ __forceinline__ void mbar_arrive_cluster(uint32_t addr) {
+  asm volatile("mbarrier.arrive.release.cluster.shared::cluster.b64 _, [%0];\n" ::"r"(addr)
+               : "memory");
+}
+
+// mbar_wait that acquires at cluster scope: writes that another CTA
+// released before its arrival are visible after it
+__device__ __forceinline__ void mbar_wait_cluster(uint64_t* bar, int parity) {
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(smem_addr(bar)), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+// every thread of every CTA of the cluster (each warp whole)
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\nbarrier.cluster.wait.acquire.aligned;\n" ::
+                   : "memory");
+}
+
 // ---- TMA
 
 // copy the box at (c0, c1) (c0 the inner coordinate) of the 2-D tensor that
@@ -107,6 +161,14 @@ __device__ __forceinline__ void cp_async16(void* dst, const void* src, int bytes
                : "memory");
 }
 
+// 4 bytes, with zero-fill (bytes 0 or 4): for rows of fp32 statistics
+// whose start is not 16-byte aligned
+__device__ __forceinline__ void cp_async4(void* dst, const void* src, int bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_addr(dst)),
+               "l"(src), "r"(bytes)
+               : "memory");
+}
+
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::: "memory");
 }
@@ -123,6 +185,27 @@ __device__ __forceinline__ void cp_async_arrive(uint64_t* bar) {
                : "memory");
 }
 
+// a producer warpgroup (128 threads, `tid` 0..127) copies rows [row0,
+// row0 + ROWS) of a [rows][D] bf16 matrix into D / 64 SW128 panels of
+// ROWS * 128 bytes with cp.async; rows at or past `limit` are zero-filled
+// and never read. Eight threads take one row's 128 bytes of a panel, so a
+// warp reads whole 128-byte segments and its stores fall in distinct bank
+// groups.
+template <int D, int ROWS>
+__device__ __forceinline__ void group_load(unsigned char* tile, const __nv_bfloat16* base,
+                                           long long row_stride, int row0, int limit,
+                                           int tid) {
+  constexpr int C = D / 8;
+  for (int i = tid; i < ROWS * C; i += 128) {
+    const int r = i / C;
+    const int c = i % C;
+    const int gr = row0 + r;
+    const bool ok = gr < limit;
+    cp_async16(tile + (c >> 3) * (ROWS * 128) + sw128_offset(r, c & 7),
+               ok ? base + gr * row_stride + c * 8 : base, ok ? 16 : 0);
+  }
+}
+
 // order this thread's generic-proxy shared-memory writes (st.shared,
 // cp.async) before later async-proxy reads (wgmma)
 __device__ __forceinline__ void fence_proxy_async() {
@@ -132,6 +215,11 @@ __device__ __forceinline__ void fence_proxy_async() {
 // named barrier over `threads` threads (a multiple of 32)
 __device__ __forceinline__ void named_sync(int id, int threads) {
   asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
+// arrive on a named barrier without waiting for it
+__device__ __forceinline__ void named_arrive(int id, int threads) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
 }
 
 // ---- wgmma
@@ -162,6 +250,13 @@ __device__ __forceinline__ void wgmma_commit() {
 template <int N>
 __device__ __forceinline__ void wgmma_wait() {
   asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// 2^x on the special function unit (flush-to-zero; 2^-inf = 0)
+__device__ __forceinline__ float fast_exp2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
 }
 
 // hand registers from one warpgroup to another (every warp of the
@@ -195,6 +290,24 @@ __device__ __forceinline__ void wgmma_ss_n16(float* d, uint64_t da, uint64_t db,
       "{%0, %1, %2, %3, %4, %5, %6, %7}, %8, %9, p, 1, 1, %11, %12;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
         "+f"(d[6]), "+f"(d[7])
+      : "l"(da), "l"(db), "r"(scale_d), "n"(TA), "n"(TB));
+}
+
+// d[64 x 64] (+)= A[64 x 16] * B[16 x 64], A and B from shared memory
+template <int TA, int TB>
+__device__ __forceinline__ void wgmma_ss_n64(float* d, uint64_t da, uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17,"
+      " %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, %32, "
+      "%33, p, 1, 1, %35, %36;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
       : "l"(da), "l"(db), "r"(scale_d), "n"(TA), "n"(TB));
 }
 

@@ -6,11 +6,12 @@ Counterpart of fei_tpu/ops/pallas/flash_attention.py: ``flash_attention``
 and its ``custom_vjp`` (``_fwd_impl(save_lse=True)``, ``_bwd_impl`` over
 ``_dq_kernel`` and ``_dkv_kernel``). The kernels are
 ``fei_tpu_torch/csrc/flash_attention_fwd.cu`` (K1, with an optional
-logsumexp output: wgmma with a cp.async producer warpgroup at D 64 and 128,
-mma.sync tiles at D 80 and 256, as ``DESIGNS`` says) and
-``fei_tpu_torch/csrc/flash_attention_bwd.cu`` (K5a dq, K5b dk/dv, mma.sync
-tiles): CUDA C++ for sm_90a, live tiles only; their headers say what bounds
-them and what the design does about it.
+logsumexp output) and ``fei_tpu_torch/csrc/flash_attention_bwd.cu`` (K5a
+dq, K5b dk/dv, K5b's key tiles paired so that causal blocks carry equal
+work): wgmma with a cp.async producer warpgroup at D 64 and 128, mma.sync
+tiles at D 80 and 256, in both directions, as ``DESIGNS`` says. CUDA C++
+for sm_90a, live tiles only; their headers say what bounds them and what
+the design does about it.
 
 ``flash_attention`` launches K1 for CUDA tensors and raises when it cannot;
 it takes the plain version (``flash_attention_reference``) only for tensors
@@ -44,8 +45,11 @@ from fei_tpu_torch.ops.kernels import build
 KERNEL = "flash_attention_fwd"
 KERNEL_BWD = "flash_attention_bwd"
 HEAD_DIMS = (64, 80, 128, 256)
-# K1's design for each head dim (the switch in fei_flash_attention_fwd)
+# the design of K1, K5a and K5b for each head dim (the switches in
+# fei_flash_attention_fwd, fei_flash_attention_bwd_dq and _dkv)
 DESIGNS = {64: "wgmma", 80: "mma.sync", 128: "wgmma", 256: "mma.sync"}
+# K5b's tiles for each head dim: (keys per tile, query rows per step)
+DKV_TILES = {64: (128, 64), 80: (64, 64), 128: (128, 64), 256: (32, 32)}
 
 _FN = None
 _FN_BWD = None
@@ -81,18 +85,52 @@ def _kernel_bwd():
         tail = [_I32] * 6 + [_I64] * 9 + [_I32, ctypes.c_float, _VP]
         dq, dkv = lib.fei_flash_attention_bwd_dq, lib.fei_flash_attention_bwd_dkv
         dq.argtypes = [_VP] * 9 + tail
-        dkv.argtypes = [_VP] * 10 + tail
+        dkv.argtypes = [_VP] * 11 + tail
         dq.restype = dkv.restype = ctypes.c_int
         _FN_BWD = (dq, dkv, _error_string(lib))
     return _FN_BWD
 
 
 def kernel_design(D: int) -> str:
-    """The K1 design a head dim dispatches to: ``"wgmma"`` (the Hopper
-    pipeline) or ``"mma.sync"`` (the first, simpler kernel)."""
+    """The design of K1, K5a and K5b that a head dim dispatches to:
+    ``"wgmma"`` (the Hopper pipelines) or ``"mma.sync"`` (the first, simpler
+    kernels)."""
     if D not in DESIGNS:
-        raise ValueError(f"head dim {D} is not one the kernel is built for {HEAD_DIMS}")
+        raise ValueError(f"head dim {D} is not one the kernels are built for {HEAD_DIMS}")
     return DESIGNS[D]
+
+
+def flash_attention_bwd_dkv_steps(T, S, H, K, D, q_start, kv_length, window=0,
+                                  cluster=2) -> list[int]:
+    """The (query head, q tile) steps each K5b block walks, one entry per
+    block in launch order: the kernel's schedule in plain Python, so that
+    its balance can be read without the card (``chip_smoke.py`` holds it
+    against the counts the kernel reports). A key tile's steps are the
+    group's H / K heads times the 64-row q tiles that see one of its keys
+    (32-row at D = 256). The wgmma design gives a cluster of ``cluster``
+    blocks (2, 4 or 8: the launch picks it from the card) the 128-key tiles
+    j and n - 1 - j of one kv head, and block r of the cluster the steps i
+    with i % cluster == r of each; the mma.sync design gives a block one
+    key tile and all its steps. ``q_start`` and ``kv_length`` are per
+    batch row."""
+    bn, bm = DKV_TILES[D]
+    n_kt, G, B = -(-S // bn), H // K, len(q_start)
+
+    def steps(tile, qs, kl):
+        k0, kv = tile * bn, min(kl, S)
+        t_lo, t_hi = max(k0 - qs, 0), T - 1
+        if window > 0:
+            t_hi = min(t_hi, min(k0 + bn, kv) - 1 + window - 1 - qs)
+        live = k0 < kv and t_lo <= t_hi
+        return G * (t_hi // bm - t_lo // bm + 1) if live else 0
+
+    if kernel_design(D) == "wgmma":  # block (pair j, batch row, kv head, rank r)
+        pairs = [[j, n_kt - 1 - j] if n_kt - 1 - j != j else [j] for j in range(-(-n_kt // 2))]
+        return [sum((steps(t, int(q_start[b]), int(kv_length[b])) - r + cluster - 1) // cluster
+                    for t in tiles)
+                for tiles in pairs for b in range(B) for _ in range(K) for r in range(cluster)]
+    return [steps(t, int(q_start[b]), int(kv_length[b]))  # block (key tile, kv head, batch row)
+            for b in range(B) for _ in range(K) for t in range(n_kt)]
 
 
 def _positions(q_start: torch.Tensor, T: int) -> torch.Tensor:
@@ -405,8 +443,26 @@ def flash_attention_bwd_dkv(q, k, v, q_start, kv_length, lse, dsum, dout,
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     if q.shape[1] == 0:
         return dk.zero_(), dv.zero_()
-    _launch_bwd("dkv", q, ins, (dk.data_ptr(), dv.data_ptr()), tail)
+    _launch_bwd("dkv", q, ins, (dk.data_ptr(), dv.data_ptr(), None), tail)
     return dk, dv
+
+
+def flash_attention_bwd_dkv_block_steps(q, k, v, q_start, kv_length, lse, dsum, dout,
+                                        scale=None, window=0) -> list[int]:
+    """K5b's wgmma kernel once, on CUDA tensors, with the (query head, q
+    tile) steps each of its blocks walked as the kernel counts them, in
+    launch order (``flash_attention_bwd_dkv_steps`` is the schedule they
+    must follow). For ``chip_smoke.py``, which reads the balance from them."""
+    ins, tail = _bwd_args(q, k, v, q_start, kv_length, lse, dsum, dout, scale, window)
+    if kernel_design(q.shape[3]) != "wgmma":
+        raise ValueError(f"only the wgmma design counts its steps, not D = {q.shape[3]}")
+    S, K = k.shape[1], k.shape[2]
+    most = -(-S // (2 * DKV_TILES[q.shape[3]][0])) * K * q.shape[0] * 8  # clusters of 8
+    steps = torch.full((most,), -1, dtype=torch.int32, device=q.device)
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    _launch_bwd("dkv", q, ins, (dk.data_ptr(), dv.data_ptr(), steps.data_ptr()), tail)
+    steps = steps.tolist()
+    return steps[:steps.index(-1)] if -1 in steps else steps
 
 
 def flash_attention_bwd(
@@ -433,7 +489,8 @@ def flash_attention_bwd(
     if out.shape != q.shape or out.dtype != q.dtype or out.device != q.device:
         raise ValueError(f"out must be {q.dtype} {tuple(q.shape)} on {q.device}")
     dout = dout.contiguous()
-    dsum = (dout.float() * out.float()).sum(dim=-1).permute(0, 2, 1).contiguous()  # [B,H,T]
+    # fp32 x bf16 promotes exactly: the fp32 products, with one conversion less
+    dsum = (dout.float() * out).sum(dim=-1).permute(0, 2, 1).contiguous()  # [B,H,T]
     args = (q, k, v, q_start, kv_length, lse, dsum, dout, scale, window)
     return (flash_attention_bwd_dq(*args), *flash_attention_bwd_dkv(*args))
 

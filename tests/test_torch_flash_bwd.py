@@ -254,23 +254,34 @@ def test_lse_kernel_matches_plain_on_card(cuda_device, D):
 def test_bwd_kernels_match_plain_on_card(cuda_device, D):
     """K5a and K5b (bf16) against the plain backward in fp32 on the same
     values and residuals, element by element within
-    ``flash_attention_bwd_tolerance``; a second run is bitwise the same."""
-    q, k, v, qs, kl, dout = _card_inputs(cuda_device, D)
-    window = 64 if D == 80 else 0
-    out, lse = flash_attention_fwd(q, k, v, qs, kl, window=window)
-    before = (flash_attention_bwd.launches_dq, flash_attention_bwd.launches_dkv)
-    got = flash_attention_bwd(q, k, v, qs, kl, out, lse, dout, window=window)
-    torch.cuda.synchronize()
-    assert (flash_attention_bwd.launches_dq, flash_attention_bwd.launches_dkv) == (
-        before[0] + 1, before[1] + 1)
-    f = (q.float(), k.float(), v.float(), qs, kl, out.float(), lse, dout.float())
-    refs = flash_attention_bwd_reference(*f, window=window)
-    tols = flash_attention_bwd_tolerance(q, k, v, qs, kl, out, lse, dout, window=window)
-    for g, r, tol in zip(got, refs, tols):
-        assert torch.isfinite(g).all()
-        assert ((g.float() - r).abs() <= tol).all()
-    again = flash_attention_bwd(q, k, v, qs, kl, out, lse, dout, window=window)
-    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    ``flash_attention_bwd_tolerance``; a second run is bitwise the same, and
+    so is each batch row run alone. Two shapes: a ragged one (a window at
+    D = 80), and a causal one from position 0 with several 128-key tiles
+    for K5b's wgmma clusters to pair (T = S = 640)."""
+    q640, k640, v640, _, _, dout640 = _card_inputs(cuda_device, D, T=640, S=640)
+    shapes = [_card_inputs(cuda_device, D) + (64 if D == 80 else 0,),
+              (q640, k640, v640, torch.tensor([0, 37], dtype=torch.int32, device=cuda_device),
+               torch.tensor([640, 600], dtype=torch.int32, device=cuda_device), dout640, 0)]
+    for q, k, v, qs, kl, dout, window in shapes:
+        out, lse = flash_attention_fwd(q, k, v, qs, kl, window=window)
+        before = (flash_attention_bwd.launches_dq, flash_attention_bwd.launches_dkv)
+        got = flash_attention_bwd(q, k, v, qs, kl, out, lse, dout, window=window)
+        torch.cuda.synchronize()
+        assert (flash_attention_bwd.launches_dq, flash_attention_bwd.launches_dkv) == (
+            before[0] + 1, before[1] + 1)
+        f = (q.float(), k.float(), v.float(), qs, kl, out.float(), lse, dout.float())
+        refs = flash_attention_bwd_reference(*f, window=window)
+        tols = flash_attention_bwd_tolerance(q, k, v, qs, kl, out, lse, dout, window=window)
+        for g, r, tol in zip(got, refs, tols):
+            assert torch.isfinite(g).all()
+            assert ((g.float() - r).abs() <= tol).all()
+        again = flash_attention_bwd(q, k, v, qs, kl, out, lse, dout, window=window)
+        assert all(torch.equal(a, b) for a, b in zip(got, again))
+        for b in range(q.shape[0]):
+            one = slice(b, b + 1)
+            alone = flash_attention_bwd(q[one], k[one], v[one], qs[one], kl[one], out[one],
+                                        lse[one].contiguous(), dout[one], window=window)
+            assert all(torch.equal(a, g[one]) for a, g in zip(alone, got))
 
 
 @pytest.mark.cuda
