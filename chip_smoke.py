@@ -44,6 +44,20 @@ Phases (each raises on failure, so the script exits non-zero):
 7. Paged serve: the server over the paged engine answers eight concurrent
    completions (four streamed), each equal to the scheduler's own stream,
    and answers 429 with Retry-After once the waiting queue is full.
+8. Agent turn (the agent path), on the same engines: ``TorchLocalProvider``
+   over the 14-tool union grammar (1007 states; its int16 table padded to
+   llama3-8b's vocab on the card), at the trigger the random model emits
+   for its own tool prompt (a fixed point): one constrained call with
+   every required argument, K1 in the turn's prefill, one host sync per
+   decode chunk; ``generate_constrained`` equals the host-masked
+   per-token decode. The same turn on the paged engine equals the dense
+   one (or first leaves it at a tie of at most 2 bf16 ulps, as F1 allows),
+   rolls the multi-step scan back at its trigger and equals its
+   ``multistep = 1`` run; beside seven free requests (its chunks merged
+   with their decode, K3) every stream equals its run alone. Then one
+   round of the ``--message`` loop (``ui.cli.process_single_message``)
+   whose registry holds the real tool schemas with recording handlers: the
+   handler receives the decoded arguments, and no real tool runs.
 
 Phase 3 also holds the int4 matmul kernel (K4) against its plain version
 at llama3-8b's four linear shapes and M = 1/8/256/2048, shows that two
@@ -53,16 +67,16 @@ bitwise the same at every M (the decode split of K and the prefill
 pipeline sum in one order).
 After the bf16 engines are released:
 
-8. Quantized dense path: llama3-8b with int4 weights (random, the same
+9. Quantized dense path: llama3-8b with int4 weights (random, the same
    seed): ``param_bytes``; a ~1500-token prefill launches K4 exactly 7
    times per layer and its logits are held against the same weights
    dequantized to bf16 and multiplied plainly; 128 greedy tokens. Then
    int8 weights: ``param_bytes``, 32 greedy tokens, no K4 launch.
-9. Quantized paged path: the int4 weights behind the paged engine, four
+10. Quantized paged path: the int4 weights behind the paged engine, four
    requests from threads; each stream must equal the dense int4 engine's,
    and must not change with the merged dispatch off or in a tight pool
    that preempts.
-10. Provider: ``TorchLocalProvider`` built from the configuration with
+11. Provider: ``TorchLocalProvider`` built from the configuration with
     quantize = int4 answers one completion through the server.
 
 Phase 3 also holds the flash backward: K1 with its logsumexp output
@@ -77,7 +91,7 @@ K5b and the pair eager and as device time (CUDA graph) at the training
 shape and at D = 64 beside the SDPA backward, and prints K5b's q-tile steps
 per block (largest and mean). After the quantized engines are released:
 
-11. Training (the training path): llama3-8b at full width and depth, bf16,
+12. Training (the training path): llama3-8b at full width and depth, bf16,
     random weights from the seed, ``TrainConfig(remat=True)``, one sequence
     of 2049 ids: three steps on the same batch (finite loss near ln V,
     lower at the third step; K1 twice per layer and step, K5a and K5b once).
@@ -94,8 +108,11 @@ copy of this file run from an older tree's root times that tree's kernels.
 Every kernel count is set to 0 just before a path is driven and read just
 after. The line before the last two is the kernels' JSON record (launches
 from the paged paths: K1-K3 from the bf16 run, K4 from the int4 run, K5a and
-K5b from the three training steps), the line before the last is the card,
-and the last line is the JSON verdict.
+K5b from the three training steps; K1-K3 also carry ``launches_agent``, the
+sum over the agent path's own runs, each counted from 0: the provider turn,
+the paged turns, the paged turn beside its free neighbours and the
+``--message`` round), the line before the last is the card, and the last
+line is the JSON verdict.
 """
 
 from __future__ import annotations
@@ -1814,6 +1831,303 @@ def paged_serve_phase(eng, card: str) -> None:
         server.stop()
 
 
+# ------------------------------------------------------------------ agent
+
+AGENT_MESSAGES = ("list the python files", "grep for TODO", "run ls", "open README",
+                  "find the tests", "look around", "scan for bugs", "check the docs")
+AGENT_MAX_TOKENS = 160
+NEIGHBOUR_LENS = (40, 90, 120, 160, 200, 230, 250)  # dense admission, no chunks
+NEIGHBOUR_NEW = 48
+
+
+def fixed_point_trigger(provider, messages, system, tools, widths=(4, 8, 2), rounds=6):
+    """The trigger the random model emits for the provider's EXACT prompt.
+    The trigger appears in the rendered tool prompt, so iterate until the
+    greedy prefix of ``width`` tokens (at least 2, so that it completes
+    inside the scheduler's first multi-step scan) of the prompt that
+    contains it is the trigger itself. Returns (trigger, its width)."""
+    for width in widths:
+        for _ in range(rounds):
+            full = provider._messages_with_system(messages, system, tools)
+            ids = provider.engine.tokenizer.apply_chat_template(full, add_generation_prompt=True)
+            toks = list(provider.engine.generate_stream(ids, provider._GenerationConfig(
+                max_new_tokens=width, ignore_eos=True, chunk=1)))
+            text = provider.engine.tokenizer.decode(toks)
+            if not text:
+                break
+            if text == provider.tool_trigger:
+                return text, width
+            provider.tool_trigger = text
+    return None, 0
+
+
+def find_trigger(provider, system, tools):
+    for content in AGENT_MESSAGES:
+        messages = [{"role": "user", "content": content}]
+        trig, width = fixed_point_trigger(provider, messages, system, tools)
+        if trig:
+            return messages, trig, width
+    raise RuntimeError("no agent message converges to a fixed-point trigger")
+
+
+def check_call(resp, tools):
+    check(resp.stop_reason == "tool_use", f"stop_reason {resp.stop_reason!r}, not tool_use")
+    check(len(resp.tool_calls) == 1, f"{len(resp.tool_calls)} tool calls, expected 1")
+    call = resp.tool_calls[0]
+    schemas = {t["name"]: t["input_schema"] for t in tools}
+    check(call.name in schemas, f"tool {call.name!r} is not in the registry")
+    check(isinstance(call.arguments, dict), f"arguments {call.arguments!r} are not a dict")
+    missing = [r for r in schemas[call.name].get("required", []) if r not in call.arguments]
+    check(not missing, f"{call.name} call lacks required arguments {missing}")
+    return call
+
+
+def same_or_tie(dense, prompt, want, got, label):
+    """Streams equal, or first apart at a gap of at most 2 bf16 ulps (F1)."""
+    if got == want:
+        return "equal"
+    j, gap, ulp = first_divergence(dense, prompt, want, got)
+    log(f"agent: {label} first differs at token {j}; logit gap there {gap:.6g} "
+        f"({gap / ulp:.3g} bf16 ulps)")
+    check(abs(gap) <= 2 * ulp, f"{label} differs at token {j} by {gap / ulp:.3g} bf16 "
+          f"ulps (> 2)")
+    return f"tie at token {j} ({gap / ulp:.3g} ulps)"
+
+
+def chunk_ms(engine, ids, gen, grammar, reps: int = 3) -> tuple[float, float]:
+    """Host-clock time of one 16-token decode chunk on the turn's prompt,
+    from dispatch to the chunk's tokens on the host: the free chunk
+    (build_fused_decode) and the constrained one (_grammar_fused_fn, the
+    DFA's table row, mask and state step in each step), each from the same
+    cache length, median of ``reps``."""
+    logits, cache = engine.prefill([ids], engine.new_cache(1))
+    n = len(ids)
+    tok = logits.argmax(-1).to(torch.int32).reshape(1, 1)
+    table, min_dist = grammar.device_tables(engine.cfg.vocab_size, engine.device)
+    free = engine._free_fused_fn(gen, 16)
+    cons = engine._grammar_fused_fn(gen, 16)
+    dev = engine.device
+    done = torch.zeros((1,), dtype=torch.bool, device=dev)
+    stops = torch.zeros((0,), dtype=torch.int32, device=dev)
+    times = {"free": [], "constrained": []}
+    for _ in range(reps + 1):
+        for kind in times:
+            cache = cache._replace(length=torch.full_like(cache.length, n))
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            if kind == "free":
+                toks, cache, _, _ = free(engine.params, cache, tok, None, done, stops)
+            else:
+                toks, cache, _, _, _ = cons(
+                    engine.params, cache, tok, None,
+                    torch.tensor([grammar.entry], dtype=torch.int32, device=dev),
+                    torch.tensor(AGENT_MAX_TOKENS, dtype=torch.int32, device=dev),
+                    table, min_dist)
+            toks.tolist()
+            times[kind].append(time.perf_counter() - t0)
+    return (float(np.median(times["free"][1:])) * 1e3,
+            float(np.median(times["constrained"][1:])) * 1e3)
+
+
+def agent_phase(dense, paged, card: str) -> dict:
+    """The agent turn on the card (bf16 llama3-8b, the LM head zeroed past
+    the byte tokenizer's ids by the serve phase): the grammar-enforced tool
+    call on the dense engine through ``TorchLocalProvider``, the same turn
+    on the paged engine beside seven free requests, and one round of the
+    ``--message`` loop with recording tool handlers. Returns the kernel
+    launches of the agent path's own runs: the provider turn, the paged
+    turn alone and at multistep=1, the paged turn beside seven free
+    requests, and the ``--message`` round. Each is counted from 0 just
+    before it and read just after; the trigger probes, the chunk timings,
+    the references and the free requests' baseline run outside."""
+    import contextlib
+    import io
+
+    from fei_tpu_torch.agent import Assistant
+    from fei_tpu_torch.agent.providers import TorchLocalProvider
+    from fei_tpu_torch.engine import GenerationConfig
+    from fei_tpu_torch.engine.grammar import char_walk
+    from fei_tpu_torch.ops.kernels.flash_attention import flash_attention
+    from fei_tpu_torch.tools import TOOL_DEFINITIONS, ToolRegistry
+    from fei_tpu_torch.ui.cli import History, process_single_message
+
+    tools = TOOL_DEFINITIONS
+    check(bool((dense.params["lm_head"][:, dense.tokenizer.vocab_size:] == 0).all()),
+          "expected the LM head zeroed past the byte tokenizer's ids")
+    provider = TorchLocalProvider(engine=dense, gen_overrides={"ignore_eos": True})
+    check(provider.constrain_tools, "constrain_tools is off by default")
+    launched = dict.fromkeys(read_counts(), 0)
+
+    @contextlib.contextmanager
+    def agent_path():
+        """One run of the agent path: the counts from 0 just before it,
+        added to ``launched`` just after."""
+        reset_counts()
+        yield
+        for k, v in read_counts().items():
+            launched[k] += v
+
+    grammar = provider._tool_grammar(tools)
+    check(grammar is not None, "the tool grammar did not compile")
+    t0 = time.perf_counter()
+    table, _ = grammar.device_tables(dense.cfg.vocab_size, dense.device)
+    torch.cuda.synchronize()
+    upload_s = time.perf_counter() - t0
+    table_bytes = table.numel() * table.element_size()
+    log(f"agent: union grammar of {len(tools)} tools on the byte tokenizer: "
+        f"{grammar.table.shape[0]} states, min_dist[entry] "
+        f"{int(grammar.min_dist[grammar.entry])}, lift {grammar.lift_seconds:.3f} s (host), "
+        f"device table {tuple(table.shape)} {table.dtype} = {table_bytes / 1e6:.1f} MB, "
+        f"upload {upload_s * 1e3:.1f} ms on {card}")
+    check(tuple(table.shape) == (grammar.table.shape[0], dense.cfg.vocab_size)
+          and table.dtype == torch.int16, "device table shape/dtype")
+    check(provider._tool_grammar(list(tools)) is grammar
+          and grammar.device_tables(dense.cfg.vocab_size, dense.device)[0] is table,
+          "the tool set's grammar or its device table is not memoized")
+
+    # (a) the dense turn through the provider, at the fixed-point trigger
+    t0 = time.perf_counter()
+    messages, trig, width = find_trigger(provider, None, tools)
+    log(f"agent: fixed-point trigger {ascii(trig)} ({width} tokens) for {messages[0]['content']!r} "
+        f"found in {time.perf_counter() - t0:.1f} s")
+    full = provider._messages_with_system(messages, None, tools)
+    ids = dense.tokenizer.apply_chat_template(full, add_generation_prompt=True)
+    fused0, disp0 = counter("engine.grammar_fused_steps"), counter("engine.decode_dispatches")
+    provider.last_ttft_s = None
+    with agent_path():
+        t0 = time.perf_counter()
+        resp = provider.complete(messages, tools=tools, max_tokens=AGENT_MAX_TOKENS)
+        torch.cuda.synchronize()
+        turn_s = time.perf_counter() - t0
+        k1_turn = flash_attention.launches
+    fused = counter("engine.grammar_fused_steps") - fused0
+    dispatches = counter("engine.decode_dispatches") - disp0
+    call = check_call(resp, tools)
+    ntok = resp.usage["completion_tokens"]
+    check(fused > 0, "the turn never ran the fused grammar decode")
+    check(k1_turn >= dense.cfg.num_layers, f"the turn's prefill launched K1 {k1_turn} times")
+    # one host sync per chunk, not per token: the free chunks up to the
+    # trigger (the one in flight included) and the constrained chunks
+    most = 2 + math.ceil(width / 16) + math.ceil(fused / 16)
+    check(dispatches <= most, f"{dispatches} dispatches for {ntok} tokens (> {most})")
+    log(f"agent: dense turn on {card}: prompt {len(ids)} tokens, {ntok} tokens "
+        f"({fused:.0f} constrained) in {dispatches:.0f} dispatches (one host sync each), "
+        f"TTFT {provider.last_ttft_s * 1e3:.1f} ms, turn {turn_s:.3f} s, K1 launches "
+        f"{k1_turn}; call {call.name}({json.dumps(call.arguments)[:160]})")
+
+    gen = GenerationConfig(max_new_tokens=AGENT_MAX_TOKENS, ignore_eos=True)
+    free_ms, cons_ms = chunk_ms(dense, ids, gen, grammar)
+    log(f"agent: one 16-token chunk on the {len(ids)}-token prompt on {card}: free "
+        f"{free_ms:.2f} ms, constrained {cons_ms:.2f} ms ({cons_ms / free_ms:.3f}x)")
+
+    # (b) generate_constrained equals the host-masked per-token reference
+    gc_gen = GenerationConfig(max_new_tokens=48, ignore_eos=True)
+    got = dense.generate_constrained(ids, grammar, gc_gen).token_ids
+    want = dense.generate(ids, gc_gen, logit_mask_fn=grammar.logit_mask_fn(max_tokens=48)).token_ids
+    check(got == want, "generate_constrained differs from the host-masked reference")
+    check(char_walk(grammar, dense.tokenizer.decode(got)) == grammar.accept,
+          "generate_constrained did not complete a call within its budget")
+    log(f"agent: generate_constrained == generate(logit_mask_fn) for {len(got)} greedy tokens")
+
+    # where the turn's time goes (host clock, each token stamped as the
+    # engine's stream yields it): the prefill and first sample (TTFT), the
+    # free phase up to the trigger token (its chunk and the one in flight
+    # rolled back), the constrained phase (its chunks, one host sync each)
+    stamps, want_toks = [], []
+    t0 = time.perf_counter()
+    for tok in dense.generate_stream_toolcalls(ids, gen, grammar=grammar, trigger=trig):
+        stamps.append(time.perf_counter() - t0)
+        want_toks.append(tok)
+    check(dense.tokenizer.decode(want_toks[:width]) == trig, "the turn does not open with its trigger")
+    n_cons = len(want_toks) - width - len(dense.tokenizer.encode("</tool_call>"))
+    chunks = math.ceil(n_cons / 16)
+    free_s, cons_s = stamps[width - 1] - stamps[0], stamps[-1] - stamps[width - 1]
+    log(f"agent: the dense turn's engine stream on {card}: TTFT {stamps[0] * 1e3:.1f} ms, "
+        f"free phase ({width - 1} tokens after the first) {free_s * 1e3:.1f} ms, "
+        f"constrained phase ({n_cons} tokens, {chunks} chunks) {cons_s * 1e3:.1f} ms "
+        f"({cons_s * 1e3 / chunks:.1f} ms a chunk), in all {stamps[-1] * 1e3:.1f} ms (the "
+        f"provider's turn above: {turn_s * 1e3:.1f} ms)")
+
+    # (c) the paged turn: alone (multistep 8, then 1), then beside seven
+    # free requests; the dense turn's tokens, within F1's rule
+    sched = paged.scheduler
+    rb0, rbt0 = counter("scheduler.turbo_rollbacks"), counter("scheduler.turbo_rollback_tokens")
+    with agent_path():
+        alone = list(paged.generate_stream_toolcalls(ids, gen, grammar=grammar, trigger=trig))
+        check(read_counts()["paged_attention"] > 0, "the paged turn never launched K2")
+    rollbacks = counter("scheduler.turbo_rollbacks") - rb0
+    check(rollbacks > 0, "the paged turn's trigger never rolled the scan back")
+    verdict = same_or_tie(dense, ids, want_toks, alone, "paged turn vs dense turn")
+    sched.multistep = 1
+    with agent_path():
+        single = list(paged.generate_stream_toolcalls(ids, gen, grammar=grammar, trigger=trig))
+    sched.multistep = 8
+    check(single == alone, "the paged turn changed with multistep=1")
+    log(f"agent: paged turn ({len(alone)} tokens) vs dense: {verdict}; rollbacks "
+        f"{rollbacks:.0f} ({counter('scheduler.turbo_rollback_tokens') - rbt0:.0f} "
+        f"tokens discarded); multistep=1 gives the same tokens")
+
+    rng = np.random.default_rng(SEED + 7)
+    others = [rng.integers(8, dense.tokenizer.vocab_size, n).tolist() for n in NEIGHBOUR_LENS]
+    free_gen = GenerationConfig(max_new_tokens=NEIGHBOUR_NEW, ignore_eos=True)
+
+    def neighbours(with_turn: bool):
+        seqs = [sched.submit(p, free_gen) for p in others]
+        turn = None
+        if with_turn:
+            # once every neighbour decodes, the turn's prompt admits in
+            # chunks merged with their decode (K3)
+            deadline = time.perf_counter() + 300
+            while not all(s.generated for s in seqs) and time.perf_counter() < deadline:
+                time.sleep(0.005)
+            turn = sched.submit(ids, gen, grammar=grammar, grammar_trigger=trig)
+        streams = [list(sched.drain(s)) for s in seqs]
+        return streams, (list(sched.drain(turn)) if turn is not None else None), turn
+
+    base, _, _ = neighbours(False)  # the baseline: not the agent path
+    merged0 = counter("engine.ragged_dispatches")
+    with agent_path():
+        t0 = time.perf_counter()
+        streams, turn_toks, seq = neighbours(True)
+        wall = time.perf_counter() - t0
+        check(read_counts()["ragged_paged_attention"] > 0,
+              "the merged dispatches never launched K3")
+    merged = counter("engine.ragged_dispatches") - merged0
+    check(merged > 0, "the turn's chunks never merged with live decode")
+    check(streams == base, "a free request's stream changed beside the constrained turn")
+    check(seq.gaccepted, "the constrained turn beside the free requests was not accepted")
+    check(turn_toks + dense.tokenizer.encode("</tool_call>") == alone,
+          "the constrained turn changed beside the free requests")
+    log(f"agent: the paged turn beside {len(others)} free requests ({NEIGHBOUR_NEW} tokens "
+        f"each) in {wall:.3f} s, {merged:.0f} of its chunks merged with their decode: every "
+        f"free stream equal to its run without the turn, the turn equal to its run alone")
+
+    # (d) one round of the --message loop; recording handlers only: a random
+    # model's tool call never runs a real shell, file or network tool
+    seen: list[dict] = []
+    registry = ToolRegistry()
+    for t in tools:
+        registry.register_tool(t["name"], t["description"], t["input_schema"],
+                               lambda _t=t["name"], **kw: seen.append({_t: kw}) or {"ok": True})
+    assistant = Assistant(provider=provider, tool_registry=registry,
+                          max_tokens=AGENT_MAX_TOKENS, max_tool_rounds=1)
+    assistant.on_text = None
+    messages2, trig2, _ = find_trigger(provider, assistant.system_prompt,
+                                       assistant.tool_manager.get_tools())
+    with (tempfile.TemporaryDirectory() as d, contextlib.redirect_stdout(io.StringIO()),
+          agent_path()):
+        rc = process_single_message(assistant, messages2[0]["content"],
+                                    History(path=f"{d}/history.json"))
+    check(rc == 0, f"process_single_message returned {rc}")
+    calls = [c for m in assistant.conversation.messages for c in (m.get("tool_calls") or [])]
+    check(bool(calls and seen), "the loop executed no tool call")
+    name, args = calls[0]["name"], calls[0]["arguments"]
+    check(seen[0] == {name: args}, f"the handler got {seen[0]}, the call was {name}({args})")
+    log(f"agent: --message loop (trigger {ascii(trig2)}): one round, {name} executed through "
+        f"a recording handler with the decoded arguments {json.dumps(args)[:160]}")
+    return launched
+
+
 # ------------------------------------------------------ quantized weights
 
 QUANT_LENS = (96, 250, 700, 1500)  # two dense admissions, two chunked
@@ -2218,10 +2532,16 @@ def main() -> int:
     reset_counts()
     paged_serve_phase(paged_engine, card)
     log(f"paged serve: launches {read_counts()}")
+    # the agent path (counts each of its runs from 0 itself), on the same engines
+    launches_a = agent_phase(engine, paged_engine, card)
+    log(f"agent path: launches {launches_a}")
     paged_engine.close()
     for rec in records:
         rec["launches"] = launches[rec["name"]]
         check(rec["launches"] > 0, f"the paged path never launched {rec['name']}")
+        # the agent path runs K1 (every prefill), K2 and K3 (its paged turn)
+        rec["launches_agent"] = launches_a[rec["name"]]
+        check(rec["launches_agent"] > 0, f"the agent path never launched {rec['name']}")
     log(f"paged path (main run): launches {launches}")
 
     # the quantized paths, after the bf16 engines are released

@@ -6,13 +6,13 @@ package stays the reference; the tests feed the same inputs through both
 and compare. This package imports ``torch`` and never ``jax``, and nothing
 of ``fei_tpu``.
 
-What is ported so far is the dense serving path (``fei serve`` without
-``paged``): model configs, the llama-family forward, the dense engine with
-fused chunked decode, sampling, checkpoint loading, the local provider and
-the OpenAI-compatible server. Its one kernel is the flash-attention
-forward (``ops/kernels/flash_attention.py`` over
-``csrc/flash_attention_fwd.cu``), built with ``nvcc`` for ``sm_90a`` at
-first use.
+What is ported so far: the dense and paged serving paths (model configs,
+the llama-family forward, the engine with fused chunked decode, the
+continuous-batching scheduler, sampling, checkpoint loading, int8/int4
+weights, the OpenAI-compatible server), training, and the agent turn
+(grammar-enforced tool calls, the providers, the assistant loop, the code
+tools and the CLI). Its kernels are hand-written CUDA C++ for ``sm_90a``
+(``csrc/``), built with ``nvcc`` at first use.
 
 Entry points run on CUDA unless the caller asks for the CPU
 (``device="cpu"``); without a card they raise instead of falling back.

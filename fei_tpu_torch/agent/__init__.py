@@ -1,19 +1,26 @@
-"""Agent runtime over the PyTorch engine. Only the providers are ported in
-this slice; the assistant loop, conversation state and task executor are
-roadmap module C6."""
+"""Agent runtime over the PyTorch engine (counterpart of fei_tpu/agent):
+providers, conversation state, the assistant loop and the task executor.
+The LLM transport defaults to the in-tree engine on the local GPU
+(``torch_local``). MCP (``agent/mcp.py``) is a later slice."""
 
+from fei_tpu_torch.agent.assistant import Assistant
+from fei_tpu_torch.agent.conversation import ConversationManager
 from fei_tpu_torch.agent.providers import (
     MockProvider,
     Provider,
+    ProviderManager,
     ProviderResponse,
     ToolCall,
-    TorchLocalProvider,
 )
+from fei_tpu_torch.agent.task_executor import TaskExecutor
 
 __all__ = [
+    "Assistant",
+    "ConversationManager",
     "MockProvider",
     "Provider",
+    "ProviderManager",
     "ProviderResponse",
+    "TaskExecutor",
     "ToolCall",
-    "TorchLocalProvider",
 ]

@@ -22,9 +22,16 @@
   quantized at init or while a checkpoint is read (``ops.quant``); int4
   products run the K4 kernel, dense and paged alike.
 
+- **Constrained tool calls** (``generate_constrained``,
+  ``generate_stream_toolcalls``): the grammar's DFA steps on the device
+  inside each decode chunk (``_grammar_fused_fn``: the state's table row,
+  the budget-feasibility mask, the sample, the next state), so a
+  constrained chunk syncs with the host once, like a free one. A free
+  phase that finds the ``<tool_call>`` trigger mid-chunk rolls the cache
+  and the generator back to that token (``ChunkDecoder.rollback``).
+
 The engine runs on ``device`` ("cuda" unless the caller asks for "cpu") and
-raises ``EngineError`` when CUDA is asked for and missing. The tool grammar
-is a later slice.
+raises ``EngineError`` when CUDA is asked for and missing.
 """
 
 from __future__ import annotations
@@ -39,6 +46,7 @@ from fei_tpu_torch.engine.fused_decode import (
     ChunkDecoder,
     build_fused_decode,
     resolve_chunk,
+    trigger_walk,
 )
 from fei_tpu_torch.engine.sampling import sample_logits
 from fei_tpu_torch.engine.tokenizer import load_tokenizer
@@ -269,6 +277,41 @@ class InferenceEngine:
         """The N-step fused free-decode function (fused_decode)."""
         return build_fused_decode(forward, self.cfg, gen, n_steps)
 
+    def _grammar_fused_fn(self, gen: GenerationConfig, n_steps: int) -> Callable:
+        """Constrained fused decode: the grammar's DFA steps on the device
+        inside the chunk — row = table[state], the budget-feasibility mask
+        on the logits, the sample, state' = row[token] — so a constrained
+        chunk of ``n_steps`` tokens makes no host sync of its own.
+
+        Returns ``fused(params, cache, token, generator, gstate, remaining,
+        table, min_dist)`` → ``(toks [B, n], cache, token [B, 1], gstate,
+        remaining)``; ``gstate`` is int32 [B], ``remaining`` an int32
+        tensor, ``table`` int16/int32 [S, V] and ``min_dist`` int32 [S],
+        all on the engine's device."""
+        from fei_tpu_torch.engine.grammar import grammar_step
+
+        temperature, top_k, top_p, min_p = (
+            gen.temperature, gen.top_k, gen.top_p, gen.min_p
+        )
+        cfg = self.cfg
+
+        def fused(params, cache, token, generator, gstate, remaining, table, min_dist):
+            toks = []
+            for _ in range(n_steps):
+                logits, cache = forward(params, cfg, token, cache)
+                logits, advance = grammar_step(
+                    logits[:, -1, :], table, min_dist, gstate, remaining)
+                nxt = sample_logits(
+                    logits, generator, temperature=temperature, top_k=top_k,
+                    top_p=top_p, min_p=min_p,
+                )
+                gstate, remaining = advance(nxt)
+                token = nxt[:, None]
+                toks.append(nxt)
+            return torch.stack(toks, dim=1), cache, token, gstate, remaining
+
+        return fused
+
     # -- generation ---------------------------------------------------------
 
     def new_cache(self, batch: int | None = None) -> KVCache:
@@ -418,6 +461,239 @@ class InferenceEngine:
                 emitted += 1
                 if emitted >= budget:
                     return
+
+    def generate_constrained(
+        self,
+        prompt_ids: Sequence[int],
+        grammar,
+        gen: GenerationConfig | None = None,
+        chunk: int = 32,
+    ) -> GenerationResult:
+        """Grammar-constrained generation with the DFA on the device.
+
+        ``grammar`` is a TokenGrammar (engine.grammar). The output equals
+        ``generate(..., logit_mask_fn=grammar.logit_mask_fn(max_tokens=...))``,
+        but the mask and the state step run inside the fused chunk: one
+        host read per chunk instead of one per token. A paged engine runs
+        it in the scheduler, batched with every other request."""
+        gen = gen or GenerationConfig()
+        if self.paged:
+            return self._collect(
+                self.scheduler.stream(prompt_ids, gen, grammar=grammar), len(prompt_ids))
+        from fei_tpu_torch.engine.grammar import feasible_mask
+
+        stops = self._stops(gen)
+        budget = min(gen.max_new_tokens, self.max_seq_len - len(prompt_ids))
+        t0 = time.perf_counter()
+        table, min_dist = grammar.device_tables(self.cfg.vocab_size, self.device)
+        # first token: the prefill logits masked by the entry row, with the
+        # budget-feasibility rule the device steps apply
+        entry_mask = self._pad_mask(
+            feasible_mask(grammar.table[grammar.entry], grammar.min_dist, budget))
+        tok, cache, generator = self._prefill_sample(prompt_ids, gen, entry_mask)
+        slots_left = self.max_seq_len - len(prompt_ids) - 1
+        first = int(tok[0])
+        ttft = time.perf_counter() - t0
+        out: list[int] = []
+        if budget > 0 and first not in stops:
+            out.append(first)
+            gstate = torch.tensor([grammar.walk([first])], dtype=torch.int32,
+                                  device=self.device)
+            remaining = torch.tensor(budget - 1, dtype=torch.int32, device=self.device)
+            token = tok.reshape(1, 1)
+            # software-pipelined: chunk k+1 is issued before chunk k's
+            # tokens are read back for the stop check; on a stop the chunk
+            # in flight is abandoned with the cache that dies with this call
+            want = budget - 1
+            sched = 0
+            pending = None
+            stopped = False
+            while True:
+                nxt = None
+                if not stopped and sched < want and slots_left > 0:
+                    n = min(chunk, slots_left)
+                    fused = self._grammar_fused_fn(gen, n)
+                    METRICS.incr("engine.decode_dispatches")
+                    toks, cache, token, gstate, remaining = fused(
+                        self.params, cache, token, generator, gstate, remaining,
+                        table, min_dist,
+                    )
+                    slots_left -= n
+                    sched += n
+                    nxt = (toks, n)
+                if pending is None and nxt is None:
+                    break
+                if pending is not None:
+                    toks_p, n_p = pending
+                    host = toks_p[0].tolist()
+                    METRICS.incr("engine.grammar_fused_steps", n_p)
+                    emit = min(n_p, want - (len(out) - 1))
+                    for t in host[:emit]:
+                        if t in stops:
+                            stopped = True
+                            break
+                        out.append(t)
+                    if stopped:
+                        break
+                pending = nxt
+        total = time.perf_counter() - t0
+        return self._make_result(out, len(prompt_ids), ttft, total)
+
+    def generate_stream_toolcalls(
+        self,
+        prompt_ids: Sequence[int],
+        gen: GenerationConfig | None = None,
+        grammar=None,
+        trigger: str = "<tool_call>",
+        close: str = "</tool_call>",
+        chunk: int = 16,
+    ) -> Iterator[int]:
+        """Stream an agent turn with the tool-call grammar enforced on the
+        device.
+
+        Free decoding runs until the generated text emits ``trigger``; the
+        stream then switches to the fused grammar decode
+        (``_grammar_fused_fn``) on the same cache until the DFA accepts a
+        complete ``{"name":...,"arguments":{...}}`` object. The close tag's
+        ids are then yielded (not fed back: the turn ends at ``tool_use``
+        and the next turn prefills the conversation again) and the stream
+        ends. ``grammar`` is the registry-union TokenGrammar
+        (grammar.compile_agent_tool_grammar). A paged engine runs the same
+        protocol inside the scheduler."""
+        gen = gen or GenerationConfig()
+        if grammar is None:
+            yield from self.generate_stream(prompt_ids, gen)
+            return
+        from fei_tpu_torch.engine.grammar import TriggerScanner
+
+        close_ids = self.tokenizer.encode(close)
+        budget = min(gen.max_new_tokens, self.max_seq_len - len(prompt_ids))
+        if self.paged:
+            seq = self.scheduler.submit(prompt_ids, gen, grammar=grammar,
+                                        grammar_trigger=trigger)
+            yield from self.scheduler.drain(seq)
+            if seq.gaccepted:
+                yield from close_ids
+            return
+
+        stops = self._stops(gen)
+        scanner = TriggerScanner(self.tokenizer, trigger)
+        tok, cache, generator = self._prefill_sample(prompt_ids, gen)
+        gstate = -1
+        i = 0
+        token = tok.reshape(1, 1)
+        free_chunk = resolve_chunk(gen.chunk)
+        if free_chunk > 1:
+            # free phase, fused-chunked: the host TriggerScanner reads each
+            # chunk while the next one computes; a mid-chunk trigger rolls
+            # the cache and generator back to the exact token and enters
+            # the constrained phase as the per-token path would
+            first = int(tok[0])
+            if budget <= 0 or first in stops:
+                return
+            yield first
+            i = 1
+            g0 = trigger_walk(grammar, scanner, first)
+            if g0 is not None:
+                gstate = g0
+                if gstate < 0:
+                    METRICS.incr("engine.grammar_trigger_suffix_rejected")
+            if gstate < 0:
+                if i >= budget:
+                    return
+                dec = ChunkDecoder(
+                    self, gen, cache, tok, generator,
+                    fed=len(prompt_ids), chunk=free_chunk, want=budget - 1,
+                    stops=stops,
+                )
+                hit = False
+                for ch in dec.chunks():
+                    for j, t in enumerate(ch.tokens):
+                        if t in stops:
+                            return
+                        yield t
+                        i += 1
+                        g = trigger_walk(grammar, scanner, t)
+                        if g is not None:
+                            if g >= 0:
+                                gstate = g
+                                cache, token, generator = dec.rollback(ch, j)
+                                hit = True
+                                break  # enter the constrained phase
+                            METRICS.incr("engine.grammar_trigger_suffix_rejected")
+                        if i >= budget:
+                            return
+                    if hit:
+                        break
+                if not hit:
+                    return
+        else:
+            # free phase, per token (gen.chunk = 1): the in-tree oracle of
+            # the fused path
+            tok_host = int(tok[0])
+            while i < budget:
+                if tok_host in stops:
+                    return
+                yield tok_host
+                i += 1
+                g = trigger_walk(grammar, scanner, tok_host)
+                if g is not None:
+                    gstate = g
+                    if gstate >= 0:
+                        break  # enter the constrained phase
+                    METRICS.incr("engine.grammar_trigger_suffix_rejected")
+                if i >= budget:
+                    return
+                with METRICS.span("decode_step"):
+                    METRICS.incr("engine.decode_dispatches")
+                    tok, cache = self._step(gen, cache, tok.reshape(1, 1), generator)
+                    tok_host = int(tok[0])
+            token = tok.reshape(1, 1)
+        if gstate < 0 or i >= budget:
+            return
+        if gstate == grammar.accept:
+            # the trigger token carried the whole call
+            yield from close_ids
+            return
+        # constrained phase: the fused DFA decode on the live cache
+        if int(grammar.min_dist[gstate]) > budget - i:
+            METRICS.incr("engine.grammar_budget_too_small")
+            return  # no valid call fits: truncate like any budget
+        table, min_dist = grammar.device_tables(self.cfg.vocab_size, self.device)
+        gstate_dev = torch.tensor([gstate], dtype=torch.int32, device=self.device)
+        remaining = torch.tensor(budget - i, dtype=torch.int32, device=self.device)
+        stop_ids = set(self.tokenizer.stop_token_ids)
+        s = gstate
+        while i < budget:
+            # clamp the chunk to the budget, which already keeps every KV
+            # write inside the cache
+            n = min(chunk, budget - i)
+            fused = self._grammar_fused_fn(gen, n)
+            with METRICS.span("grammar_fused_chunk"):
+                METRICS.incr("engine.decode_dispatches")
+                toks, cache, token, gstate_dev, remaining = fused(
+                    self.params, cache, token, generator, gstate_dev, remaining,
+                    table, min_dist,
+                )
+                host = toks[0].tolist()  # the chunk's one host sync
+            METRICS.incr("engine.grammar_fused_steps", len(host))
+            for t in host:
+                if i >= budget:
+                    return
+                s = int(grammar.table[s, t]) if s >= 0 else -1
+                if s == grammar.accept:
+                    # a stop token's accept edge ends the call without being
+                    # part of its text; the closing '}' is
+                    if t not in stop_ids:
+                        yield t
+                    yield from close_ids
+                    return
+                if s < 0:
+                    METRICS.incr("engine.grammar_walked_off")
+                    return  # unreachable under the in-chunk mask
+                yield t
+                i += 1
+            # the chunk ended mid-grammar: token, gstate and remaining carry
 
     def _collect(self, stream: Iterator[int], prompt_len: int) -> GenerationResult:
         t0 = time.perf_counter()

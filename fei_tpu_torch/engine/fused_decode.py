@@ -11,11 +11,19 @@
   skip would need the host to read ``done``, the step computes and its
   writes are masked, so the cost of a stop is at most one chunk's tail.
 - ``ChunkDecoder`` drives it software-pipelined: chunk k+1 is issued
-  before chunk k's tokens are read back, so the host's stop scan overlaps
-  the device's work.
+  before chunk k's tokens are read back, so the host's stop and trigger
+  scan overlaps the device's work. A consumer that finds a grammar
+  trigger mid-chunk calls ``rollback``: the cache length goes back to the
+  exact token (the chunk tail and the chunk in flight are garbage above
+  it, never attended) and the generator to its state after that token's
+  draw, from the per-step ``get_state()`` snapshot the chunk kept (host
+  memory only, no sync).
+- ``trigger_walk`` is the one host trigger-watch step that every free
+  phase shares (the dense ``generate_stream_toolcalls`` and the paged
+  scheduler's ``_grammar_advance``).
 
-The grammar trigger rollback (``ChunkDecoder.rollback``, ``trigger_walk``)
-and kernel looping come with the tool-grammar module (roadmap A6).
+The JAX package's kernel looping (``FEI_TPU_KERNEL_LOOP``) has no
+counterpart here.
 """
 
 from __future__ import annotations
@@ -33,6 +41,21 @@ from fei_tpu_torch.utils.metrics import METRICS
 DEFAULT_CHUNK = 16
 
 
+def trigger_walk(grammar, scanner, token_id: int) -> int | None:
+    """Feed one sampled token to the ``TriggerScanner``; None while no new
+    trigger occurrence has completed, otherwise the DFA state reached by
+    char-walking the post-trigger suffix: ``grammar.accept`` when the
+    token carried a whole call, ``>= 0`` to enter constrained decode
+    there, ``< 0`` when the DFA rejects the suffix (callers count the
+    rejection and stay free)."""
+    from fei_tpu_torch.engine.grammar import char_walk
+
+    suffix = scanner.feed(token_id)
+    if suffix is None:
+        return None
+    return char_walk(grammar, suffix)
+
+
 def resolve_chunk(gen_chunk: int = 0) -> int:
     """Effective free-phase decode chunk: ``GenerationConfig.chunk`` when
     positive, else ``FEI_TPU_DECODE_CHUNK`` (default 16). ``1`` selects the
@@ -48,15 +71,18 @@ def resolve_chunk(gen_chunk: int = 0) -> int:
 def build_fused_decode(fwd: Callable, cfg, gen, n_steps: int) -> Callable:
     """The N-step free-decode function for one sampling config.
 
-    Returns ``fused(params, cache, token, generator, done, stop_ids)`` →
-    ``(toks [B, n], cache, token [B, 1], done [B])``. ``stop_ids`` is an
-    int32 [S] device tensor (S may be 0). The cache's K/V are updated in
-    place."""
+    Returns ``fused(params, cache, token, generator, done, stop_ids,
+    gen_states=None)`` → ``(toks [B, n], cache, token [B, 1], done [B])``.
+    ``stop_ids`` is an int32 [S] device tensor (S may be 0). The cache's
+    K/V are updated in place. A ``gen_states`` list receives the
+    generator's state after each step (``get_state()``: host memory, no
+    sync), so a consumer can re-enter decoding from an exact mid-chunk
+    state; greedy draws nothing and appends nothing."""
     temperature, top_k, top_p, min_p = (
         gen.temperature, gen.top_k, gen.top_p, gen.min_p
     )
 
-    def fused(params, cache, token, generator, done, stop_ids):
+    def fused(params, cache, token, generator, done, stop_ids, gen_states=None):
         toks = []
         for _ in range(n_steps):
             live = ~done
@@ -70,6 +96,8 @@ def build_fused_decode(fwd: Callable, cfg, gen, n_steps: int) -> Callable:
             done = done | stop_mask(nxt, stop_ids)
             token = nxt[:, None]
             toks.append(nxt)
+            if temperature > 0.0 and gen_states is not None:
+                gen_states.append(generator.get_state())
         return torch.stack(toks, dim=1), cache, token, done
 
     return fused
@@ -77,10 +105,13 @@ def build_fused_decode(fwd: Callable, cfg, gen, n_steps: int) -> Callable:
 
 @dataclass
 class DecodedChunk:
-    """One host-synced chunk. ``tokens[j]`` was sampled at step j; ``fed0``
-    is the cache length (tokens consumed) before the chunk's first step."""
+    """One host-synced chunk. ``tokens[j]`` was sampled at step j;
+    ``gen_states[j]`` is the generator's state after step j (empty for
+    greedy); ``fed0`` is the cache length (tokens consumed) before the
+    chunk's first step."""
 
     tokens: list[int]
+    gen_states: list
     fed0: int
 
 
@@ -91,6 +122,8 @@ class ChunkDecoder:
     precedes the blocking host read of chunk k. Full chunks are dispatched
     while the cache has room (the host truncates at the budget); the last
     one is clamped so no KV slot past ``max_seq_len`` is written.
+    Abandoning the iterator abandons the chunk in flight; ``rollback``
+    returns the exact mid-chunk state to resume from.
     """
 
     def __init__(
@@ -120,21 +153,38 @@ class ChunkDecoder:
                 fused = self._engine._free_fused_fn(self._gen, n)
                 METRICS.incr("engine.decode_dispatches")
                 t0 = time.perf_counter()
+                states: list = []
                 toks, self._cache, self._token, self._done = fused(
                     self._engine.params, self._cache, self._token,
-                    self._generator, self._done, self._stop_ids,
+                    self._generator, self._done, self._stop_ids, states,
                 )
                 METRICS.timing("dispatch_issue", time.perf_counter() - t0)
-                nxt = (toks, self._fed)
+                nxt = (toks, states, self._fed)
                 self._fed += n
                 self._slots_left -= n
                 self._sched += n
             if pending is not None:
-                toks_p, fed0_p = pending
+                toks_p, states_p, fed0_p = pending
                 with METRICS.span("decode_chunk"):
                     # the one blocking point: chunk k+1 is already issued
                     host = toks_p[0].tolist()
-                yield DecodedChunk(tokens=host, fed0=fed0_p)
+                yield DecodedChunk(tokens=host, gen_states=states_p, fed0=fed0_p)
             elif nxt is None:
                 return
             pending = nxt
+
+    def rollback(self, ch: DecodedChunk, j: int):
+        """State as if decoding had stopped right after ``ch.tokens[j]``:
+        ``(cache, token [1, 1], generator)``. The cache length is set back
+        explicitly to the tokens actually consumed (``fed0 + j + 1``:
+        ``tokens[j]`` itself has not been fed); the K/V written above it
+        by the chunk's tail and by the chunk in flight are never attended
+        and are overwritten slot by slot by whoever resumes. The generator
+        is restored to its state after ``j + 1`` draws of this chunk."""
+        fed = ch.fed0 + j + 1
+        cache = self._cache._replace(length=torch.full_like(self._cache.length, fed))
+        token = torch.tensor([[ch.tokens[j]]], dtype=torch.int32,
+                             device=self._token.device)
+        if ch.gen_states:
+            self._generator.set_state(ch.gen_states[j])
+        return cache, token, self._generator

@@ -298,8 +298,12 @@ class AdmissionMixin:
     def _first_token(self, seq, last_logits) -> int:
         """Sample the admission's first token on the request's own
         generator, created here from its seed (the dense engine's
-        prologue, engine._prefill_sample), with the first-step host mask."""
+        prologue, engine._prefill_sample), with the first-step host mask
+        or, for a request constrained from its first token, the grammar's
+        entry mask."""
         mask = self._host_mask(seq, first=True)
+        if mask is None and seq.grammar is not None and seq.gstate >= 0:
+            mask = self._grammar_first_mask(seq)
         if mask is not None:
             last_logits = torch.where(mask[None, :], last_logits, float("-inf"))
         seq.generator = torch.Generator(device=self.engine.device).manual_seed(
@@ -308,18 +312,6 @@ class AdmissionMixin:
             last_logits, seq.generator, temperature=seq.gen.temperature,
             top_k=seq.gen.top_k, top_p=seq.gen.top_p, min_p=seq.gen.min_p,
         )[0])
-
-    def _host_mask(self, seq, first: bool = False) -> torch.Tensor | None:
-        """A logit_mask_fn request's bool [V] mask on the device, or None."""
-        if seq.mask_fn is None:
-            return None
-        m = seq.mask_fn([] if first else seq.generated)
-        if m is None:
-            return None
-        from fei_tpu_torch.engine.engine import pad_vocab_mask
-
-        return pad_vocab_mask(np.asarray(m, dtype=bool),
-                              self.engine.cfg.vocab_size).to(self.engine.device)
 
     # -- paged-native chunked admission -------------------------------------
 

@@ -3,13 +3,18 @@ fei_tpu/engine/sched_decode.py): batched decode dispatches over the armed
 slots — the host-masked single step and the multi-step scan that runs up
 to ``multistep`` steps per host sync — and the merged dispatch in which a
 pending prefill chunk rides the scan's first step (``forward_paged_merged``,
-the ragged kernel). A mixin over PagedScheduler state.
+the ragged kernel). Every step runs one sampling tail (``_make_sampler``):
+the grammar's per-slot DFA mask and state step on the device, an optional
+host mask, the per-row draw. A tool-call slot whose trigger completes
+mid-scan rolls back to that token (``_rollback_slots``). A mixin over
+PagedScheduler state.
 
-Speculation (C3) and the tool grammar (A6) are later slices.
+Prompt-lookup speculation (C3) is a later slice.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from fei_tpu_torch.engine.faults import FAULTS
@@ -17,10 +22,17 @@ from fei_tpu_torch.engine.sampling import sample_logits_dynamic
 from fei_tpu_torch.utils.metrics import METRICS
 
 
-def _make_sampler(active, B: int):
-    """The ONE sampling tail every decode step of a dispatch runs: per-row
-    knobs and generators from the active slots; other rows are greedy and
-    draw nothing. Shared by the solo scan and the merged first step."""
+def _make_sampler(active, B: int, table=None, mind=None):
+    """The ONE sampling tail every decode step of a dispatch runs: the
+    grammar's per-slot DFA mask (``table``/``mind`` given: rows with
+    ``gstate < 0`` — free phase or no grammar — pass unmasked; budget
+    feasibility and the state step are the dense fused decode's,
+    grammar.grammar_step), an optional host mask, then per-row knobs and
+    generators from the active slots (other rows are greedy and draw
+    nothing), and the DFA state step. All on the device. Shared by the
+    solo scan and the merged first step."""
+    from fei_tpu_torch.engine.grammar import grammar_step
+
     gens = [None] * B
     temps, topks, topps, minps = [0.0] * B, [0] * B, [1.0] * B, [0.0] * B
     for b, s in active:
@@ -30,10 +42,16 @@ def _make_sampler(active, B: int):
         topps[b] = float(s.gen.top_p)
         minps[b] = float(s.gen.min_p)
 
-    def sample(logits, mask=None):
+    def sample(logits, mask=None, gstates=None, gremain=None):
+        if table is not None:
+            logits, advance = grammar_step(
+                logits, table, mind, gstates, gremain, use=gstates >= 0)
         if mask is not None:
             logits = torch.where(mask, logits, float("-inf"))
-        return sample_logits_dynamic(logits, gens, temps, topks, topps, minps)
+        nxt = sample_logits_dynamic(logits, gens, temps, topks, topps, minps)
+        if table is not None:
+            gstates, gremain = advance(nxt)
+        return nxt, gstates, gremain
 
     return sample
 
@@ -93,6 +111,9 @@ class DecodeMixin:
             return False
         active = [(b, s) for b, s in enumerate(self._slots)
                   if s is not None and not s.prefilling]
+        # only a host mask forces single steps: grammar slots scan, their
+        # DFA stepping on the device (constrained) or their trigger watched
+        # at delivery (free phase, rolled back on a mid-scan trigger)
         if not active or any(s.mask_fn is not None for _, s in active):
             return False
         headroom = max(s.budget - len(s.generated) for _, s in active)
@@ -106,12 +127,50 @@ class DecodeMixin:
         METRICS.incr("scheduler.multi_tokens", n)
         if self._waiting or self._admitting is not None:
             METRICS.incr("scheduler.turbo_under_admission")
+        rollback: dict[int, int] = {}
         for b, s in active:
             for i in range(n):
                 if self._slots[b] is not s:  # finished at an earlier step
                     break
+                was_free = s.grammar is not None and s.gstate < 0
                 self._deliver(s, int(toks[b, i]))
+                if was_free and i < n - 1 and self._slots[b] is s and s.gstate >= 0:
+                    # the tool-call trigger completed mid-scan: the steps
+                    # past i were sampled unconstrained — discard them and
+                    # re-enter constrained decode from the exact token
+                    rollback[b] = i
+                    break
+        if rollback:
+            self._rollback_slots(rollback, n)
         return True
+
+    def _rollback_slots(self, rollback: dict[int, int], n: int) -> None:
+        """Roll mid-scan-triggered slots back to their delivered frontier.
+
+        ``rollback`` maps a slot to the last scan step it delivered, ``i``.
+        Every slot's pool length is set from the host's own state (prompt
+        plus generated, less the pending next input, whose K/V is written
+        when it is fed): for a slot that delivered the whole scan this is
+        the scan's own length; for a free or prefilling slot, 0, as
+        eviction leaves it. Each rolled-back slot's generator returns to
+        its state after step ``i`` (``i + 1`` draws of the scan), the
+        per-token path's state after the same tokens. The K/V of the
+        discarded steps stay above the new length, never attended, and are
+        overwritten slot by slot."""
+        from fei_tpu_torch.engine.paged_cache import replace_lengths
+
+        lengths = np.zeros((self.B,), dtype=np.int32)
+        for b, s in enumerate(self._slots):
+            if s is not None and not s.prefilling:
+                lengths[b] = len(s.prompt_ids) + len(s.generated) - 1
+        self._pool = replace_lengths(self._pool, lengths)
+        for b, i in rollback.items():
+            states = self._step_gen_states.get(b)
+            if states:
+                self._slots[b].generator.set_state(states[i])
+        METRICS.incr("scheduler.turbo_rollbacks", len(rollback))
+        METRICS.incr("scheduler.turbo_rollback_tokens",
+                     sum(n - 1 - i for i in rollback.values()))
 
     def _grow_for_steps(self, active, n: int) -> None:
         """Pre-dispatch growth for LAZY reservations: every active lazy slot
@@ -172,7 +231,25 @@ class DecodeMixin:
             pc, self._pending_chunk = self._pending_chunk, None
             if pc["st"] is not self._admitting:
                 pc = None  # admission moved on (cancelled/aborted): drop
-        sample = _make_sampler(active, self.B)
+        gstates = gremain = table = mind = None
+        grammar_rows = [(b, s) for b, s in active if s.grammar is not None and s.gstate >= 0]
+        if grammar_rows:
+            # the [B] state/budget vectors ride one upload with the token
+            # ids; the [S, V] table never leaves the device
+            gs = torch.full((self.B,), -1, dtype=torch.int32)
+            gr = torch.zeros((self.B,), dtype=torch.int32)
+            for b, s in grammar_rows:
+                gs[b] = s.gstate
+                gr[b] = s.budget - len(s.generated)
+            gstates, gremain = gs.to(dev), gr.to(dev)
+            table, mind = self._gtable, self._gmind
+        # a free-phase tool-call row may roll back to any step of the scan:
+        # its sampled draws keep the generator's state after each step
+        # (get_state: host memory, no sync)
+        roll_rows = [(b, s) for b, s in active
+                     if s.grammar is not None and s.gstate < 0 and s.gen.temperature > 0]
+        self._step_gen_states = {b: [] for b, _ in roll_rows}
+        sample = _make_sampler(active, self.B, table, mind)
         METRICS.incr("scheduler.decode_steps", n)
         METRICS.incr("scheduler.decode_slot_steps", len(active) * n)
         METRICS.gauge("scheduler.batch_slots_active", len(active))
@@ -194,7 +271,9 @@ class DecodeMixin:
                                                eng.params, eng.cfg)[:, 0]
                 else:
                     logits, pool = forward_paged(eng.params, eng.cfg, tok, pool)
-                nxt = sample(logits[:, -1, :], mask)
+                nxt, gstates, gremain = sample(logits[:, -1, :], mask, gstates, gremain)
+                for b, s in roll_rows:
+                    self._step_gen_states[b].append(s.generator.get_state())
                 outs.append(nxt)
                 tok = nxt[:, None].long()
             self._pool = pool

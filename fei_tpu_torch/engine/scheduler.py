@@ -23,6 +23,13 @@
   preemption of the least-progressed victim, which resumes token-
   identically (its prompt re-prefills through the chunked path, its
   generated suffix replays through the decode-shaped forward).
+- Constrained requests (``grammar=``): the grammar's DFA steps on the
+  device inside the batched step from per-slot states (rows with no
+  grammar, or still in their free phase, pass unmasked), so constrained
+  and free requests share every dispatch. A tool-call request
+  (``grammar_trigger=``) decodes freely until its trigger, inside the
+  multi-step scan; a trigger found mid-scan rolls that slot's length and
+  generator back to the exact token (sched_decode ``_rollback_slots``).
 - Inactive slots still flow through the batched forward (static [B]
   shapes); their block-table rows are zero, so their KV writes land in the
   reserved null page 0.
@@ -54,6 +61,7 @@ import torch
 
 from fei_tpu_torch.engine.faults import FAULTS
 from fei_tpu_torch.engine.sched_admission import AdmissionMixin
+from fei_tpu_torch.engine.sched_constrain import ConstraintMixin
 from fei_tpu_torch.engine.sched_decode import DecodeMixin
 from fei_tpu_torch.engine.tenancy import TenantBook, clamp_priority, sanitize_tenant
 from fei_tpu_torch.utils.errors import (
@@ -120,9 +128,20 @@ class _Seq:
     shield: bool = False  # not a preemption victim until one dispatch lands
     tenant: str = "default"
     priority: int = 0
+    # device-native grammar constraint (engine.grammar.TokenGrammar): the
+    # DFA mask is computed inside the batched step from the slot's state;
+    # ``gstate`` is the host mirror (-1 = free phase / unconstrained)
+    grammar: object | None = None
+    gtrigger: str | None = None
+    gscanner: object | None = None
+    gstate: int = -1
+    gaccepted: bool = False
+    # host-mask route (a second distinct grammar in flight): the tool-call
+    # masker's state dict, whose "accepted" flag folds into gaccepted
+    gfallback_state: dict | None = None
 
 
-class PagedScheduler(AdmissionMixin, DecodeMixin):
+class PagedScheduler(AdmissionMixin, DecodeMixin, ConstraintMixin):
     """Multi-sequence decode over one paged pool (one per paged engine).
 
     ``engine.batch_size`` bounds concurrent sequences; further requests
@@ -158,15 +177,25 @@ class PagedScheduler(AdmissionMixin, DecodeMixin):
         self._fail_times: deque[float] = deque()
         self._degraded_until = 0.0
         self.tenants = TenantBook()
+        # the device-native grammar: ONE table pair serves every constrained
+        # request (the provider memoizes one union grammar per tool set)
+        self._ggrammar = None
+        self._gtable = None
+        self._gmind = None
+        # per free-phase sampled slot, its generator's state after each step
+        # of the last dispatch (the rollback's restore points)
+        self._step_gen_states: dict[int, list] = {}
 
     # -- public API ---------------------------------------------------------
 
     def stream(self, prompt_ids: Sequence[int], gen,
-               logit_mask_fn: Callable | None = None) -> Iterator[int]:
+               logit_mask_fn: Callable | None = None, grammar=None,
+               grammar_trigger: str | None = None) -> Iterator[int]:
         """Submit a request and yield its tokens as they decode. Closing
         the iterator (or abandoning it to GC) cancels the request and
         returns its pages/slot to the pool."""
-        seq = self.submit(prompt_ids, gen, logit_mask_fn)
+        seq = self.submit(prompt_ids, gen, logit_mask_fn, grammar=grammar,
+                          grammar_trigger=grammar_trigger)
         yield from self.drain(seq)
 
     def drain(self, seq: _Seq) -> Iterator[int]:
@@ -182,7 +211,14 @@ class PagedScheduler(AdmissionMixin, DecodeMixin):
         finally:
             self.cancel(seq)
 
-    def submit(self, prompt_ids, gen, logit_mask_fn=None) -> _Seq:
+    def submit(self, prompt_ids, gen, logit_mask_fn=None, grammar=None,
+               grammar_trigger: str | None = None) -> _Seq:
+        """``grammar`` (a TokenGrammar) runs device-native: the DFA mask is
+        computed inside the batched step from the slot's state, with no
+        per-step host mask and no [B, V] upload. With ``grammar_trigger``
+        the request decodes freely until the trigger text appears, then
+        constrains (the agent's tool-call protocol); without it the whole
+        output is constrained."""
         eng = self.engine
         if self.degraded():
             METRICS.incr("scheduler.requests_shed")
@@ -215,6 +251,14 @@ class PagedScheduler(AdmissionMixin, DecodeMixin):
         dl = getattr(gen, "deadline_s", 0.0) or self.default_deadline_s
         if dl > 0:
             seq.deadline = seq.t_queued + dl
+        if grammar is not None and logit_mask_fn is not None:
+            raise EngineError("grammar and logit_mask_fn are mutually exclusive")
+        prebuilt = None
+        if grammar is not None and self._ggrammar is not grammar:
+            # the [S, V] device tables are built OUTSIDE the lock: a union
+            # grammar over a 128k vocab is a large upload and must not
+            # stall the loop's token delivery
+            prebuilt = grammar.device_tables(eng.cfg.vocab_size, eng.device)
         with self._lock:
             # a tenant going idle -> backlogged re-anchors its fair-share
             # clock at the busy tenants' floor (tenancy.TenantBook)
@@ -226,6 +270,14 @@ class PagedScheduler(AdmissionMixin, DecodeMixin):
             # concurrent submits passed the pre-check against the same
             # stale depth and would otherwise all append
             victims, shed = self._caps_victims_locked(tenant, priority)
+            if shed is None and grammar is not None:
+                # installed and queued in ONE critical section: a concurrent
+                # submit of a different grammar must see this request in
+                # flight, or it could swap the tables under our host mirror
+                if self._set_grammar(grammar, prebuilt):
+                    self._arm_grammar(seq, grammar, grammar_trigger)
+                else:
+                    self._host_grammar(seq, grammar, grammar_trigger, budget)
             if shed is None:
                 self._closed = False  # a submit after close() reopens
                 self._waiting.append(seq)
@@ -236,6 +288,31 @@ class PagedScheduler(AdmissionMixin, DecodeMixin):
         self._update_sched_gauges()
         self._wake.set()
         return seq
+
+    def _arm_grammar(self, seq: _Seq, grammar, trigger: str | None) -> None:
+        """A device-grammar request: constrained from its first token, or
+        free until ``trigger`` (the scanner watches its text)."""
+        from fei_tpu_torch.engine.grammar import TriggerScanner
+
+        seq.grammar = grammar
+        seq.gtrigger = trigger
+        if trigger is None:
+            seq.gstate = grammar.entry
+        else:
+            seq.gscanner = TriggerScanner(self.engine.tokenizer, trigger)
+
+    def _host_grammar(self, seq: _Seq, grammar, trigger: str | None, budget: int) -> None:
+        """A different grammar is in flight: serve this request through the
+        equivalent host mask rather than reject it."""
+        log.info("second distinct grammar in flight; request served through "
+                 "host masks")
+        if trigger is None:
+            seq.mask_fn = grammar.logit_mask_fn(max_tokens=budget)
+            return
+        from fei_tpu_torch.engine.grammar import toolcall_stream_mask_fn
+
+        seq.mask_fn, seq.gfallback_state = toolcall_stream_mask_fn(
+            grammar, self.engine.tokenizer, trigger, max_tokens=budget)
 
     def _check_queue_caps(self, tenant: str, priority: int) -> None:
         """Backpressure pre-check: fail a doomed arrival before any work.
@@ -345,6 +422,9 @@ class PagedScheduler(AdmissionMixin, DecodeMixin):
         with self._lock:
             self._closed = True
             thread = self._thread
+            # release the installed grammar (its device tables stay memoized
+            # on the TokenGrammar, so a reopen installs it without an upload)
+            self._ggrammar = self._gtable = self._gmind = None
         self._wake.set()
         if thread is not None and thread.is_alive():
             thread.join(timeout=60)
@@ -428,14 +508,27 @@ class PagedScheduler(AdmissionMixin, DecodeMixin):
         self._finish(seq)
 
     def _deliver_inner(self, seq: _Seq, t: int) -> None:
-        if t in seq.stops:
+        emit, done = self._grammar_advance(seq, t) if seq.grammar is not None else (True, False)
+        if not done and t in seq.stops:
             self._finish(seq)
             return
-        if not seq.generated:
-            METRICS.observe("ttft_seconds", time.perf_counter() - seq.t_queued)
-        seq.generated.append(t)
-        seq.out.put(t)
-        self.tenants.charge(seq.tenant, 1)
+        if emit:
+            if not seq.generated:
+                METRICS.observe("ttft_seconds", time.perf_counter() - seq.t_queued)
+            seq.generated.append(t)
+            seq.out.put(t)
+            self.tenants.charge(seq.tenant, 1)
+        if not done and seq.gfallback_state is not None:
+            # host-mask tool-call route: advance the masker now (it is
+            # idempotent per prefix length) so acceptance ends the turn at
+            # the completing token, as on the device-native route
+            seq.mask_fn(seq.generated)
+            if seq.gfallback_state.get("accepted"):
+                seq.gaccepted = True
+                done = True
+        if done:
+            self._finish(seq)
+            return
         seq.next_input = t
         if self.engine.cfg.sliding_window:
             self._release_window_pages(seq)
@@ -460,6 +553,8 @@ class PagedScheduler(AdmissionMixin, DecodeMixin):
 
     def _finish(self, seq: _Seq) -> None:
         seq.finished = True
+        if seq.gfallback_state is not None:
+            seq.gaccepted = bool(seq.gfallback_state.get("accepted"))
         slot = seq.slot
         if slot >= 0 and self._slots[slot] is seq:
             self._evict_slot(slot)

@@ -1,2 +1,3 @@
-"""User-facing surfaces of the port: the OpenAI-compatible server. The CLI
-and the TUI are roadmap module C6."""
+"""User-facing surfaces of the port: the agent CLI (``cli.py``) and the
+OpenAI-compatible server (``server.py``). The Textual TUI is a later
+slice."""

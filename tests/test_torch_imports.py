@@ -48,7 +48,34 @@ def test_port_imports_without_jax_or_fei_tpu():
         "fei_tpu_torch.agent.providers", "fei_tpu_torch.ui.server",
         "fei_tpu_torch.engine.train", "fei_tpu_torch.engine.checkpoint",
         "fei_tpu_torch.utils.tree", "fei_tpu_torch.__main__",
+        "fei_tpu_torch.engine.grammar", "fei_tpu_torch.engine.sched_constrain",
+        "fei_tpu_torch.agent.assistant", "fei_tpu_torch.agent.conversation",
+        "fei_tpu_torch.agent.task_executor", "fei_tpu_torch.tools.registry",
+        "fei_tpu_torch.tools.definitions", "fei_tpu_torch.tools.handlers",
+        "fei_tpu_torch.tools.code", "fei_tpu_torch.tools.repomap",
+        "fei_tpu_torch.tools.pty_wrapper", "fei_tpu_torch.utils.openai_stub",
+        "fei_tpu_torch.obs.render", "fei_tpu_torch.ui.cli",
     ):
         assert name in got["imported"], name
     assert got["jax"] == [], got["jax"]
     assert got["fei_tpu"] == [], got["fei_tpu"]
+
+
+_SLICE_PROBE = r"""
+import json, sys
+import fei_tpu_torch.engine.grammar, fei_tpu_torch.agent, fei_tpu_torch.tools
+import fei_tpu_torch.ui.cli
+from fei_tpu_torch.tools.code import SystemInfo
+SystemInfo().get_info()  # the system-info tool reads torch.cuda, never jax
+loaded = sorted(sys.modules)
+print(json.dumps([m for m in loaded if m in ("jax", "fei_tpu")
+                  or m.startswith(("jax.", "fei_tpu."))]))
+"""
+
+
+def test_agent_modules_load_neither_jax_nor_fei_tpu():
+    out = subprocess.run(
+        [sys.executable, "-c", _SLICE_PROBE], capture_output=True, text=True,
+        timeout=120, check=True, cwd=REPO,
+    )
+    assert json.loads(out.stdout.strip().splitlines()[-1]) == []

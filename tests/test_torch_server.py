@@ -1,8 +1,8 @@
 """The port's ServeAPI against fei_tpu's over the same fp32 tiny weights,
 greedy: /health, /metrics, /v1/models, and /v1/chat/completions as JSON
 and as SSE, with completion text identical to the JAX server's. A tools
-request with constrain_tools on (the default) fails with the
-ProviderError that names the unported grammar module."""
+request with constrain_tools on (the default) takes the tool grammar's
+route in both servers and returns the same tool call."""
 
 import json
 
@@ -21,7 +21,6 @@ from fei_tpu_torch.engine.tokenizer import load_tokenizer
 from fei_tpu_torch.models.configs import get_model_config
 from fei_tpu_torch.models.convert import params_from_jax
 from fei_tpu_torch.ui.server import ServeAPI, ServingServer
-from fei_tpu_torch.utils.errors import ProviderError
 
 BODY = {
     "messages": [
@@ -84,15 +83,84 @@ def test_chat_sse_matches_jax_server(apis):
 
 
 def test_tools_with_constrained_decoding_raise(apis):
-    _, api = apis
+    """A tools request whose rendered tool prompt is longer than the
+    engines' 128 positions: the provider takes the tool grammar's route
+    (the port no longer refuses a tools request for want of the grammar)
+    and the engine raises, so both servers answer with the same 500
+    naming max_seq_len. The constrained call itself is checked in
+    test_tools_request_returns_the_jax_servers_tool_call."""
+    japi, api = apis
     provider = api.provider
     tools = [{"name": "Glob", "description": "find files",
               "input_schema": {"type": "object", "properties": {"pattern": {"type": "string"}}}}]
-    with pytest.raises(ProviderError, match="engine.grammar"):
-        provider.complete([{"role": "user", "content": "x"}], tools=tools, max_tokens=2)
+    assert provider.constrain_tools and provider._tool_grammar(tools) is not None
     body = dict(BODY, tools=[{"type": "function", "function": {"name": "Glob"}}])
     status, out = api.handle("POST", "/v1/chat/completions", body, {})
-    assert status == 500 and "grammar" in out["error"]["message"]
+    jstatus, jout = japi.handle("POST", "/v1/chat/completions", body, {})
+    assert (status, out) == (jstatus, jout)
+    assert status == 500 and "max_seq_len" in out["error"]["message"]
+
+
+SERVER_TOOLS = [{"type": "function", "function": {
+    "name": "Glob", "description": "find files", "parameters": {
+        "type": "object", "properties": {"pattern": {"type": "string"},
+                                         "limit": {"type": "integer"}},
+        "required": ["pattern"]}}}]
+
+
+def _fixed_point_trigger(provider, messages, tools):
+    """The trigger the random model emits for the provider's exact prompt
+    (the trigger appears in the rendered tool prompt, so iterate until
+    the greedy prefix of the prompt that contains it is the trigger)."""
+    for _ in range(8):
+        full = provider._messages_with_system(messages, None, tools)
+        ids = provider.engine.tokenizer.apply_chat_template(full, add_generation_prompt=True)
+        toks = list(provider.engine.generate_stream(
+            ids, provider._GenerationConfig(max_new_tokens=8, ignore_eos=True)))
+        text = provider.engine.tokenizer.decode(toks)
+        if not text:
+            return None
+        if text == provider.tool_trigger:
+            return text
+        provider.tool_trigger = text
+    return None
+
+
+def test_tools_request_returns_the_jax_servers_tool_call():
+    """A tools request with room for its tool prompt: the port's server
+    answers with a grammar-constrained call, the same ``tool_calls`` and
+    usage as the JAX server's over the same weights (LM head zeroed past
+    the byte tokenizer's ids, so the random model's picks decode to text;
+    the trigger is the one the model itself emits)."""
+    jeng = JaxEngine.from_config("tiny", dtype=jnp.float32, max_seq_len=1024, num_layers=2)
+    jeng.params["lm_head"] = jeng.params["lm_head"].at[:, jeng.tokenizer.vocab_size:].set(0.0)
+    peng = InferenceEngine.from_config(
+        "tiny", params=params_from_jax(jax.tree.map(np.asarray, jeng.params)),
+        device="cpu", dtype=torch.float32, max_seq_len=1024, num_layers=2,
+    )
+    jprov, prov = JaxLocalProvider(engine=jeng), TorchLocalProvider(engine=peng)
+    internal = [{"name": "Glob", "description": "find files",
+                 "input_schema": SERVER_TOOLS[0]["function"]["parameters"]}]
+    messages = None
+    for content in ("list the python files", "grep for TODO", "run ls", "open README",
+                    "find the tests", "look around", "scan for bugs", "check the docs"):
+        cand = [{"role": "user", "content": content}]
+        if _fixed_point_trigger(prov, cand, internal):
+            messages = cand
+            break
+    assert messages is not None, "no prompt converges to a fixed-point trigger"
+    jprov.tool_trigger = prov.tool_trigger
+    body = {"messages": messages, "tools": SERVER_TOOLS, "max_tokens": 96, "ignore_eos": True}
+    jstatus, jout = JaxServeAPI(jprov).handle("POST", "/v1/chat/completions", dict(body), {})
+    status, out = ServeAPI(prov).handle("POST", "/v1/chat/completions", dict(body), {})
+    assert status == jstatus == 200
+    choice, jchoice = out["choices"][0], jout["choices"][0]
+    assert choice["finish_reason"] == jchoice["finish_reason"] == "tool_calls"
+    calls = [c["function"] for c in choice["message"]["tool_calls"]]
+    assert calls == [c["function"] for c in jchoice["message"]["tool_calls"]]
+    assert len(calls) == 1 and calls[0]["name"] == "Glob"
+    assert "pattern" in json.loads(calls[0]["arguments"])
+    assert out["usage"] == jout["usage"]
 
 
 def test_bad_requests_and_auth(apis):
