@@ -58,6 +58,22 @@ Phases (each raises on failure, so the script exits non-zero):
    round of the ``--message`` loop (``ui.cli.process_single_message``)
    whose registry holds the real tool schemas with recording handlers: the
    handler receives the decoded arguments, and no real tool runs.
+9. Survival (the survival path), on the same weights: the threefry PRNG on
+   the card against the CPU (the known-answer vector, a 128256-lane draw
+   bitwise, 1000 chained splits); four seeded requests of 128 tokens
+   equal densely and paged (or first apart at a noise+logit gap within 2
+   bf16 ulps over the temperature, F1's rule); eight requests of 32
+   tokens (four greedy, four seeded; prompts 96-5000, dense and chunked
+   admission) drained in mid-decode (``begin_drain``, deadline 0.2 s) and restored on
+   a fresh engine by ``warm_restart``: every completed stream bitwise the
+   uninterrupted run's; the same traffic with the session journal at
+   ``batch`` and at ``always``, the latter's directory copied in
+   mid-stream and recovered on a fresh engine (bitwise again, and a
+   second restart finds nothing); POST /drain over HTTP (/health 503, a
+   completion 503 with Retry-After). Logged, not checked: drain start ->
+   drained, warm restart -> first replayed token per route, aggregate
+   tok/s with the journal off / batch / always, and what a sampled step's
+   sampling tail launches beside a greedy one's.
 
 Phase 3 also holds the int4 matmul kernel (K4) against its plain version
 at llama3-8b's four linear shapes and M = 1/8/256/2048, shows that two
@@ -67,16 +83,16 @@ bitwise the same at every M (the decode split of K and the prefill
 pipeline sum in one order).
 After the bf16 engines are released:
 
-9. Quantized dense path: llama3-8b with int4 weights (random, the same
+10. Quantized dense path: llama3-8b with int4 weights (random, the same
    seed): ``param_bytes``; a ~1500-token prefill launches K4 exactly 7
    times per layer and its logits are held against the same weights
    dequantized to bf16 and multiplied plainly; 128 greedy tokens. Then
    int8 weights: ``param_bytes``, 32 greedy tokens, no K4 launch.
-10. Quantized paged path: the int4 weights behind the paged engine, four
+11. Quantized paged path: the int4 weights behind the paged engine, four
    requests from threads; each stream must equal the dense int4 engine's,
    and must not change with the merged dispatch off or in a tight pool
    that preempts.
-11. Provider: ``TorchLocalProvider`` built from the configuration with
+12. Provider: ``TorchLocalProvider`` built from the configuration with
     quantize = int4 answers one completion through the server.
 
 Phase 3 also holds the flash backward: K1 with its logsumexp output
@@ -91,7 +107,7 @@ K5b and the pair eager and as device time (CUDA graph) at the training
 shape and at D = 64 beside the SDPA backward, and prints K5b's q-tile steps
 per block (largest and mean). After the quantized engines are released:
 
-12. Training (the training path): llama3-8b at full width and depth, bf16,
+13. Training (the training path): llama3-8b at full width and depth, bf16,
     random weights from the seed, ``TrainConfig(remat=True)``, one sequence
     of 2049 ids: three steps on the same batch (finite loss near ln V,
     lower at the third step; K1 twice per layer and step, K5a and K5b once).
@@ -111,8 +127,10 @@ from the paged paths: K1-K3 from the bf16 run, K4 from the int4 run, K5a and
 K5b from the three training steps; K1-K3 also carry ``launches_agent``, the
 sum over the agent path's own runs, each counted from 0: the provider turn,
 the paged turns, the paged turn beside its free neighbours and the
-``--message`` round), the line before the last is the card, and the last
-line is the JSON verdict.
+``--message`` round; and ``launches_survival``, the sum over the survival
+path's own runs: the seeded paged streams, the drained run, the warm
+restart, the journaled run and its recovery), the line before the last is
+the card, and the last line is the JSON verdict.
 """
 
 from __future__ import annotations
@@ -1916,9 +1934,9 @@ def chunk_ms(engine, ids, gen, grammar, reps: int = 3) -> tuple[float, float]:
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             if kind == "free":
-                toks, cache, _, _ = free(engine.params, cache, tok, None, done, stops)
+                toks, cache, *_ = free(engine.params, cache, tok, None, done, stops)
             else:
-                toks, cache, _, _, _ = cons(
+                toks, cache, *_ = cons(
                     engine.params, cache, tok, None,
                     torch.tensor([grammar.entry], dtype=torch.int32, device=dev),
                     torch.tensor(AGENT_MAX_TOKENS, dtype=torch.int32, device=dev),
@@ -2125,6 +2143,408 @@ def agent_phase(dense, paged, card: str) -> dict:
     check(seen[0] == {name: args}, f"the handler got {seen[0]}, the call was {name}({args})")
     log(f"agent: --message loop (trigger {ascii(trig2)}): one round, {name} executed through "
         f"a recording handler with the decoded arguments {json.dumps(args)[:160]}")
+    return launched
+
+
+# ---------------------------------------------------------------- survival
+
+SURVIVAL_SAMPLED = dict(temperature=0.8, top_p=0.9)
+DRAIN_AT = 8  # the first short request's delivered tokens at the drain
+DRAIN_DEADLINE_S = 0.2
+SURVIVAL_NEW = 32  # tokens per request of the eight-request survival traffic
+SEEDED_PAIR_LENS = (160, 250, 700, 1500)  # the seeded dense-vs-paged streams
+
+
+def prng_on_card(card: str) -> None:
+    """The threefry PRNG on the card against the CPU: the known-answer
+    vector, a 128256-lane draw (bits bitwise, so the uniforms too), a
+    chain of 1000 splits; and the time of one draw."""
+    from fei_tpu_torch.engine import prng
+
+    dev = torch.device("cuda")
+    kat = prng.threefry2x32(*(torch.tensor(v, device=dev) for v in
+                              (0x13198A2E, 0x03707344, 0x243F6A88, 0x85A308D3)))
+    check((int(kat[0]), int(kat[1])) == (0xC4923A9C, 0x483DF7A0),
+          f"threefry known-answer vector on the card: {[hex(int(x)) for x in kat]}")
+    V = 128256
+    key = prng.split(prng.PRNGKey(SEED + 9))[1]
+    bits = prng.random_bits(key.to(dev), (V,))
+    check(torch.equal(bits.cpu(), prng.random_bits(key, (V,))),
+          "128256-lane random bits differ between the card and the CPU")
+    u_card = prng.uniform(key.to(dev), (V,), minval=torch.finfo(torch.float32).tiny).cpu()
+    u_cpu = prng.uniform(key, (V,), minval=torch.finfo(torch.float32).tiny)
+    check(torch.equal(u_card.view(torch.int32), u_cpu.view(torch.int32)),
+          "uniforms differ between the card and the CPU")
+    g_diff = (prng.gumbel(key.to(dev), (V,)).cpu() - prng.gumbel(key, (V,))).abs().max().item()
+    k_card, k_cpu = prng.PRNGKey(SEED + 3, dev), prng.PRNGKey(SEED + 3)
+    chain_card, chain_cpu = [], []
+    for _ in range(1000):
+        k_card, s_card = prng.split(k_card)
+        k_cpu, s_cpu = prng.split(k_cpu)
+        chain_card.append(s_card)
+        chain_cpu.append(s_cpu)
+    check(torch.equal(torch.stack(chain_card).cpu(), torch.stack(chain_cpu))
+          and torch.equal(k_card.cpu(), k_cpu), "a chain of 1000 splits differs on the card")
+    logits = torch.randn(8, V, device=dev)
+    keys = prng.split(prng.PRNGKey(SEED), 8).to(dev)
+    draw_ms = cuda_ms(lambda: prng.categorical(keys, logits))
+    log(f"survival: threefry on {card}: known-answer vector, 128256-lane bits and uniforms "
+        f"bitwise the CPU's (Gumbel noise within {g_diff:.3g}: torch.log on the card vs the "
+        f"CPU), 1000 chained splits equal; an [8, 128256] draw {draw_ms:.3f} ms eager")
+
+
+def sampler_launches(paged) -> dict:
+    """What a sampled decode step adds over a greedy one: the batched
+    sampling tail of the scheduler (split, filters, draw) at B = 8 over
+    the vocab, greedy rows against sampled ones (temperature 0.8, top-p
+    0.9). Counts aten ops dispatched (each launches at most a few kernels)
+    and, where the profiler sees the card, the kernels themselves."""
+    from types import SimpleNamespace
+
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    from fei_tpu_torch.engine import GenerationConfig
+    from fei_tpu_torch.engine.sched_decode import _make_sampler
+
+    class Ops(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.n = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            self.n += 1
+            return func(*args, **(kwargs or {}))
+
+    B, V = paged.batch_size, paged.cfg.vocab_size
+    logits = torch.randn(B, V, device="cuda")
+    keys = torch.zeros((B, 2), dtype=torch.int64, device="cuda")
+    out = {}
+    for kind, gen in (("greedy", GenerationConfig()),
+                      ("sampled", GenerationConfig(**SURVIVAL_SAMPLED))):
+        active = [(b, SimpleNamespace(gen=gen)) for b in range(B)]
+        sample = _make_sampler(active, B, V, torch.device("cuda"))
+        sample(logits, keys)  # warm
+        torch.cuda.synchronize()
+        with Ops() as ops:
+            sample(logits, keys)
+        kernels = None
+        try:
+            with torch.profiler.profile(
+                    activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+                sample(logits, keys)
+                torch.cuda.synchronize()
+            kernels = sum(e.count for e in prof.key_averages()
+                          if e.device_type == torch.autograd.DeviceType.CUDA) or None
+        except Exception as exc:  # noqa: BLE001 — the profiler is optional here
+            log(f"survival: the profiler saw no device time ({exc!r})")
+        ms = cuda_ms(lambda: sample(logits, keys))
+        out[kind] = {"aten_ops": ops.n, "kernels": kernels, "ms": ms}
+    return out
+
+
+def first_sampled_divergence(dense, prompt, gen, want, got):
+    """(position, noise+logit gap, allowed gap) where two seeded streams
+    first differ: from the dense engine's logits at that position, the
+    reference's filters and the key that step draws with, the gap between
+    want's and got's token in filtered-logit-plus-Gumbel space; allowed is
+    2 bf16 ulps of the larger logit over the temperature (F1's rule)."""
+    from fei_tpu_torch.engine import prng
+    from fei_tpu_torch.engine.sampling import filter_logits
+
+    j = next(i for i, (a, b) in enumerate(zip(want, got)) if a != b)
+    logits, _ = dense.prefill([list(prompt) + list(want[:j])], dense.new_cache(1))
+    key = prng.PRNGKey(gen.seed, dense.device)
+    for _ in range(j + 1):
+        key, sub = prng.split(key)
+    noised = filter_logits(logits, gen.temperature, gen.top_k, gen.top_p, gen.min_p) + \
+        prng.gumbel(sub, logits.shape)
+    pair = noised[0, [want[j], got[j]]]
+    _, exp = torch.frexp(logits[0, [want[j], got[j]]].abs().max())
+    return j, (pair[0] - pair[1]).item(), 2 * 2.0 ** (exp.item() - 8) / gen.temperature
+
+
+def survival_traffic(eng, prompts, gens, on_deliver=None) -> dict:
+    """All requests submitted at once; each stream read on its own
+    thread. ``on_deliver(index, seq)`` runs on the loop thread after each
+    delivered token. A stream that ends in EngineDrainingError keeps the
+    tokens it got. Returns streams, per-request error, wall time."""
+    from fei_tpu_torch.utils.errors import EngineDrainingError
+
+    sched = eng.scheduler
+    if on_deliver is not None:
+        deliver = sched._deliver
+        index: dict = {}
+
+        def hooked(seq, t, key=None):
+            deliver(seq, t, key)
+            if id(seq) in index:
+                on_deliver(index[id(seq)], seq)
+
+        sched._deliver = hooked
+    t0 = time.perf_counter()
+    seqs = [sched.submit(p, g) for p, g in zip(prompts, gens)]
+    if on_deliver is not None:
+        index.update({id(s): i for i, s in enumerate(seqs)})
+    streams, errors = [[] for _ in seqs], [None] * len(seqs)
+
+    def read(i):
+        try:
+            for t in sched.drain(seqs[i]):
+                streams[i].append(t)
+        except EngineDrainingError as exc:
+            errors[i] = exc
+
+    with ThreadPoolExecutor(len(seqs)) as ex:
+        list(ex.map(read, range(len(seqs))))
+    torch.cuda.synchronize()
+    if on_deliver is not None:
+        sched._deliver = deliver
+    return {"streams": streams, "errors": errors, "seqs": seqs,
+            "wall": time.perf_counter() - t0}
+
+
+def survival_phase(dense, paged, card: str) -> dict:
+    """Survival on the card (bf16 llama3-8b, the paged engine's widths):
+    the PRNG against the CPU; seeded streams dense against paged; a drain
+    in mid-decode and a warm restart on a fresh engine; a journal copied
+    in mid-stream and recovered; /drain over HTTP. Returns the kernel
+    launches of the survival path's own runs (the seeded paged streams,
+    the drained run, the warm restart, the journaled crash run, the
+    recovery), each counted from 0 just before it; the references (the
+    dense seeded streams, the uninterrupted run, the journal-cost run)
+    are not counted."""
+    import contextlib
+    import os
+    import shutil
+
+    from fei_tpu_torch.agent.providers import TorchLocalProvider
+    from fei_tpu_torch.engine import GenerationConfig, InferenceEngine
+    from fei_tpu_torch.engine.checkpoint import load_request_snapshots
+    from fei_tpu_torch.ui.server import ServeAPI, ServingServer
+
+    t_phase = time.perf_counter()
+    cfg = dense.cfg
+    launched = dict.fromkeys(read_counts(), 0)
+
+    @contextlib.contextmanager
+    def survival_path():
+        reset_counts()
+        yield
+        for k, v in read_counts().items():
+            launched[k] += v
+
+    def fresh(journal_dir=None, sync="batch"):
+        old = {k: os.environ.get(k) for k in ("FEI_TPU_JOURNAL_DIR", "FEI_TPU_JOURNAL_SYNC")}
+        os.environ["FEI_TPU_JOURNAL_DIR"] = journal_dir or ""
+        os.environ["FEI_TPU_JOURNAL_SYNC"] = sync
+        try:
+            return InferenceEngine.from_config(
+                cfg.name, dtype=dense.dtype, params=dense.params, max_seq_len=dense.max_seq_len,
+                device=dense.device, paged=True, batch_size=paged.batch_size,
+                page_size=paged.page_size)
+        finally:
+            for k, v in old.items():
+                if v is None:
+                    os.environ.pop(k, None)
+                else:
+                    os.environ[k] = v
+
+    def release(eng):
+        eng.close()
+        eng.scheduler.close_journal()
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    if dense.device.type == "cuda":
+        prng_on_card(card)
+        tails = sampler_launches(paged)
+        log(f"survival: the scheduler's sampling tail at B = {paged.batch_size} on {card}: "
+            f"greedy {tails['greedy']}, sampled {tails['sampled']}; a sampled step adds "
+            f"{tails['sampled']['aten_ops'] - tails['greedy']['aten_ops']} aten ops"
+            + ("" if None in (tails['sampled']['kernels'], tails['greedy']['kernels']) else
+               f", {tails['sampled']['kernels'] - tails['greedy']['kernels']} kernels"))
+
+    rng = np.random.default_rng(SEED + 1)
+    prompts = [rng.integers(8, cfg.vocab_size, size=n).tolist()
+               for n in SHORT_LENS + LONG_LENS]
+
+    # (a) seeded streams: the dense engine against the paged one
+    pair = [p for p in prompts if len(p) in SEEDED_PAIR_LENS]
+    pair_gens = [GenerationConfig(max_new_tokens=NEW_TOKENS, ignore_eos=True,
+                                  temperature=0.8, seed=SEED + 20 + i) for i in range(len(pair))]
+    t0 = time.perf_counter()
+    want = [list(dense.generate_stream(p, g)) for p, g in zip(pair, pair_gens)]
+    with survival_path():
+        got = survival_traffic(paged, pair, pair_gens)["streams"]
+    verdicts = []
+    for p, g, w, s in zip(pair, pair_gens, want, got):
+        check(len(s) == NEW_TOKENS and len(set(s)) > 8, "a seeded stream is short or degenerate")
+        if s == w:
+            verdicts.append("equal")
+            continue
+        j, gap, allowed = first_sampled_divergence(dense, p, g, w, s)
+        log(f"survival: seeded prompt {len(p)}: paged first differs from dense at token {j}, "
+            f"noise+logit gap {gap:.6g} (allowed {allowed:.6g})")
+        check(abs(gap) <= allowed, f"seeded prompt {len(p)}: gap {gap:.6g} > {allowed:.6g}")
+        verdicts.append(f"tie at token {j}")
+    log(f"survival: 4 seeded streams (temperature 0.8, {NEW_TOKENS} tokens, prompts "
+        f"{[len(p) for p in pair]}) dense vs paged: {verdicts} "
+        f"({time.perf_counter() - t0:.1f} s)")
+
+    # (b) the uninterrupted run: four greedy and four seeded requests. The
+    # 700-token prompt goes first: it admits in chunks and decodes before
+    # the short ones admit densely, so when the first short request has
+    # DRAIN_AT tokens both routes are mid-decode with few tokens to replay;
+    # the longer prompts' chunks merge with their decode (K3)
+    prompts = [prompts[4]] + prompts[:4] + prompts[5:]
+    gens = [GenerationConfig(max_new_tokens=SURVIVAL_NEW, ignore_eos=True) if i % 2 == 0 else
+            GenerationConfig(max_new_tokens=SURVIVAL_NEW, ignore_eos=True, seed=SEED + 30 + i,
+                             **SURVIVAL_SAMPLED) for i in range(len(prompts))]
+    # on a fresh engine, as the journaled runs below are: the three
+    # aggregate rates then share every cold-start cost
+    eng = fresh()
+    ref = survival_traffic(eng, prompts, gens)
+    release(eng)
+    tok_s = {"off": len(prompts) * SURVIVAL_NEW / ref["wall"]}
+    check(all(len(s) == SURVIVAL_NEW for s in ref["streams"]), "a reference stream is short")
+
+    # (c) a drain in mid-decode on one engine, a warm restart on a fresh one
+    with tempfile.TemporaryDirectory() as snap_dir:
+        eng = fresh()
+        marks = {}
+
+        def drain_when_chunked_decodes(i, seq):
+            if i == 1 and len(seq.generated) == DRAIN_AT and "t0" not in marks:
+                marks["t0"] = time.perf_counter()
+                eng.scheduler.begin_drain(deadline_s=DRAIN_DEADLINE_S, snapshot_dir=snap_dir)
+
+        with survival_path():
+            run = survival_traffic(eng, prompts, gens, drain_when_chunked_decodes)
+            check(eng.wait_drained(600), "the drain never finalized")
+        drained_s = time.perf_counter() - marks["t0"]
+        release(eng)
+        for s, r in zip(run["streams"], ref["streams"]):
+            check(s == r[:len(s)], "a stream before the drain left the uninterrupted one")
+        snaps = {s["rid"]: s for s in load_request_snapshots(snap_dir)}
+        done = sum(e is None for e in run["errors"])
+        check(len(snaps) + done == len(prompts), "a request was neither finished nor snapshotted")
+        with_toks = [s["route"] for s in snaps.values() if s["generated"]]
+        check({"dense", "chunked"} <= set(with_toks),
+              f"the drain did not strand both routes mid-decode: {with_toks}")
+        log(f"survival: drain at {DRAIN_AT} tokens of the {len(prompts[1])}-token request, deadline "
+            f"{DRAIN_DEADLINE_S} s: "
+            f"start -> drained {drained_s:.3f} s; {done} finished, {len(snaps)} snapshotted "
+            f"(delivered {[len(s['generated']) for s in snaps.values()]}, routes "
+            f"{[s['route'] for s in snaps.values()]})")
+
+        eng = fresh()
+        firsts = {}
+        with survival_path():
+            t0 = time.perf_counter()
+            restored = eng.warm_restart(snap_dir)
+
+            def finish(seq):
+                out = []
+                for t in eng.scheduler.drain(seq):
+                    if not out:
+                        firsts[seq.rid] = time.perf_counter() - t0
+                    out.append(t)
+                return out
+
+            with ThreadPoolExecutor(len(restored)) as ex:
+                outs = list(ex.map(finish, restored))
+            torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+        index = {tuple(p): i for i, p in enumerate(prompts)}
+        for seq, out in zip(restored, outs):
+            i = index[tuple(seq.prompt_ids)]
+            check(out == ref["streams"][i],
+                  f"restored request {i} (prompt {len(prompts[i])}) is not the uninterrupted "
+                  "stream")
+        by_route: dict = {}
+        for seq in restored:
+            snap = next(s for s in snaps.values() if s["prompt_ids"] == seq.prompt_ids)
+            if snap["generated"]:
+                by_route.setdefault(snap["route"], []).append(firsts[seq.rid] * 1e3)
+        log(f"survival: warm restart on a fresh engine: {len(restored)} requests, every "
+            f"completed stream bitwise the uninterrupted run's; first replayed token after "
+            f"warm_restart, ms by route {({k: [round(x, 1) for x in v] for k, v in by_route.items()})}; "
+            f"all done in {restore_s:.3f} s")
+
+    # (d) the journal: its cost on the same traffic, then a crash
+    with tempfile.TemporaryDirectory() as jroot:
+        eng = fresh(os.path.join(jroot, "batch"), "batch")
+        tok_s["batch"] = len(prompts) * SURVIVAL_NEW / survival_traffic(eng, prompts, gens)["wall"]
+        release(eng)
+        live, dead = os.path.join(jroot, "always"), os.path.join(jroot, "dead")
+        eng = fresh(live, "always")
+
+        def copy_mid_stream(i, seq):
+            if i == 1 and len(seq.generated) == DRAIN_AT and not os.path.exists(dead):
+                check(eng.scheduler._journal.flush(timeout=120), "the journal did not flush")
+                shutil.copytree(live, dead)  # what a kill -9 leaves behind
+
+        with survival_path():
+            crash_run = survival_traffic(eng, prompts, gens, copy_mid_stream)
+        tok_s["always"] = len(prompts) * SURVIVAL_NEW / crash_run["wall"]
+        check(crash_run["streams"] == ref["streams"], "the journaled run changed a stream")
+        release(eng)
+        eng = fresh(dead)
+        with survival_path():
+            t0 = time.perf_counter()
+            recovered = eng.warm_restart()
+            delivered = [len(s.generated) for s in recovered]
+            outs = [list(eng.scheduler.drain(s)) for s in recovered]
+            torch.cuda.synchronize()
+        rec_s = time.perf_counter() - t0
+        index = {tuple(p): i for i, p in enumerate(prompts)}
+        for seq, out in zip(recovered, outs):
+            check(out == ref["streams"][index[tuple(seq.prompt_ids)]],
+                  "a recovered stream is not the uninterrupted one")
+        check(recovered and eng.warm_restart() == [], "a second restart found sessions")
+        log(f"survival: crash (journal always, copied at {DRAIN_AT} tokens of the "
+            f"{len(prompts[1])}-token request): {len(recovered)} sessions recovered, delivered "
+            f"{delivered}, every stream bitwise the uninterrupted "
+            f"run's, in {rec_s:.3f} s; a second restart finds nothing")
+        log(f"survival: aggregate tok/s on the same 8 x {SURVIVAL_NEW} traffic on {card}: journal "
+            f"off {tok_s['off']:.2f}, batch {tok_s['batch']:.2f}, always {tok_s['always']:.2f}")
+
+        # (e) /drain over HTTP on the recovered engine
+        api = ServeAPI(TorchLocalProvider(engine=eng), model_name=cfg.name)
+        server = ServingServer(api, host="127.0.0.1", port=0)
+        server.start()
+        base = f"http://127.0.0.1:{server.port}"
+
+        def http(method, path, body=None):
+            req = urllib.request.Request(
+                base + path, method=method, headers={"Content-Type": "application/json"},
+                data=None if body is None else json.dumps(body).encode())
+            try:
+                with urllib.request.urlopen(req, timeout=600) as r:
+                    return r.status, dict(r.headers), json.loads(r.read())
+            except urllib.error.HTTPError as exc:
+                return exc.code, dict(exc.headers), json.loads(exc.read())
+
+        try:
+            check(http("GET", "/health")[0] == 200, "/health before the drain")
+            check(http("POST", "/drain", {"deadline_s": "soon"})[0] == 400,
+                  "/drain took a deadline that is not a number")
+            status, _, body = http("POST", "/drain", {"deadline_s": 1})
+            check(status == 202 and body["status"] == "draining", f"/drain: {status} {body}")
+            check(eng.wait_drained(60), "the HTTP drain never finalized")
+            status, headers, body = http("GET", "/health")
+            check(status == 503 and body["status"] == "draining" and "Retry-After" in headers,
+                  f"/health while draining: {status} {body}")
+            status, headers, _ = http("POST", "/v1/chat/completions", {
+                "messages": [{"role": "user", "content": "hi"}], "max_tokens": 4})
+            check(status == 503 and "Retry-After" in headers,
+                  f"a completion while draining got {status}")
+            log("survival: POST /drain -> 202; /health 503 draining; a new completion 503 "
+                f"with Retry-After {headers['Retry-After']}")
+        finally:
+            server.stop()
+            release(eng)
+    log(f"survival: phase took {time.perf_counter() - t_phase:.1f} s")
     return launched
 
 
@@ -2535,6 +2955,9 @@ def main() -> int:
     # the agent path (counts each of its runs from 0 itself), on the same engines
     launches_a = agent_phase(engine, paged_engine, card)
     log(f"agent path: launches {launches_a}")
+    # the survival path (counts each of its runs from 0 itself), same weights
+    launches_s = survival_phase(engine, paged_engine, card)
+    log(f"survival path: launches {launches_s}")
     paged_engine.close()
     for rec in records:
         rec["launches"] = launches[rec["name"]]
@@ -2542,6 +2965,10 @@ def main() -> int:
         # the agent path runs K1 (every prefill), K2 and K3 (its paged turn)
         rec["launches_agent"] = launches_a[rec["name"]]
         check(rec["launches_agent"] > 0, f"the agent path never launched {rec['name']}")
+        # the survival path re-prefills (K1), replays and decodes (K2) and
+        # merges fresh admissions with restored decode (K3)
+        rec["launches_survival"] = launches_s[rec["name"]]
+        check(rec["launches_survival"] > 0, f"the survival path never launched {rec['name']}")
     log(f"paged path (main run): launches {launches}")
 
     # the quantized paths, after the bf16 engines are released

@@ -183,6 +183,8 @@ class TorchLocalProvider(Provider):
     name = "torch_local"
     # the serving endpoint may pass per-request sampling knobs
     supports_gen_overrides = True
+    # the serving endpoint may pass a teacher-forced resume (paged engines)
+    supports_resume = True
 
     def __init__(
         self,
@@ -297,9 +299,9 @@ class TorchLocalProvider(Provider):
         return out
 
     def complete(self, messages, system=None, tools=None, max_tokens=4000,
-                 gen_overrides=None):
+                 gen_overrides=None, resume=None):
         gen = self.stream(messages, system, tools, max_tokens,
-                          gen_overrides=gen_overrides)
+                          gen_overrides=gen_overrides, resume=resume)
         while True:
             try:
                 next(gen)
@@ -312,24 +314,22 @@ class TorchLocalProvider(Provider):
         ``gen_overrides`` (per-request sampling knobs from the serving
         endpoint) layer over the provider-level defaults. A tool turn
         decodes under the tool-call grammar (``generate_stream_toolcalls``).
-        ``resume`` (a mid-stream failover payload) is refused for a grammar
-        turn, as in the JAX package: its walk would restart from token 0;
-        the port has no resumable plain route yet either (roadmap B4)."""
+        ``resume`` (``generated`` ids and their ``resume_key``, a mid-stream
+        failover payload) teacher-forces a plain turn's delivered suffix on
+        a paged engine: the turn replays those tokens, then continues with
+        the uninterrupted run's tokens. A grammar turn refuses it, as in
+        the JAX package: its walk would restart from token 0."""
         grammar = self._tool_grammar(tools)
-        if resume is not None:
-            if grammar is not None:
-                raise ProviderError(
-                    "mid-stream resume is not supported for tool-grammar turns")
+        if resume is not None and grammar is not None:
             raise ProviderError(
-                "mid-stream resume needs the journal's keys (fei_tpu/engine/"
-                "journal.py, roadmap module B4), which are not ported yet")
+                "mid-stream resume is not supported for tool-grammar turns")
         if grammar is not None:
             stream_fn = functools.partial(
                 self.engine.generate_stream_toolcalls,
                 grammar=grammar, trigger=self.tool_trigger,
             )
         else:
-            stream_fn = self.engine.generate_stream
+            stream_fn = functools.partial(self.engine.generate_stream, resume=resume)
         full = self._messages_with_system(messages, system, tools)
         ids = self.engine.tokenizer.apply_chat_template(full, add_generation_prompt=True)
         gen = self._GenerationConfig(

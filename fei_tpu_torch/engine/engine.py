@@ -7,9 +7,10 @@
 - **Decode** is fused-chunked by default (engine/fused_decode.py): one host
   sync per ``chunk`` tokens with an on-device stop. ``chunk=1`` keeps the
   per-token loop, the in-tree parity oracle.
-- **Sampling** runs on the device; only sampled ids cross to the host. Each
-  request draws from its own ``torch.Generator`` seeded with
-  ``GenerationConfig.seed``.
+- **Sampling** runs on the device; only sampled ids cross to the host. A
+  request's threefry key chain is the reference's: ``PRNGKey(seed)``,
+  split once before the first token and once per sampled step
+  (engine/prng.py), so a seeded request draws the JAX package's bits.
 - **Static shapes**: the cache is a fixed [L, B, S, K, D] buffer with a
   valid length per sequence; prompt padding is never attended and is
   overwritten slot by slot during decode.
@@ -28,7 +29,7 @@
   the budget-feasibility mask, the sample, the next state), so a
   constrained chunk syncs with the host once, like a free one. A free
   phase that finds the ``<tool_call>`` trigger mid-chunk rolls the cache
-  and the generator back to that token (``ChunkDecoder.rollback``).
+  and the key back to that token (``ChunkDecoder.rollback``).
 
 The engine runs on ``device`` ("cuda" unless the caller asks for "cpu") and
 raises ``EngineError`` when CUDA is asked for and missing.
@@ -48,6 +49,7 @@ from fei_tpu_torch.engine.fused_decode import (
     resolve_chunk,
     trigger_walk,
 )
+from fei_tpu_torch.engine import prng
 from fei_tpu_torch.engine.sampling import sample_logits
 from fei_tpu_torch.engine.tokenizer import load_tokenizer
 from fei_tpu_torch.models.configs import ModelConfig, get_model_config
@@ -60,7 +62,10 @@ from fei_tpu_torch.models.llama import (
     init_params,
 )
 from fei_tpu_torch.utils.errors import EngineError
+from fei_tpu_torch.utils.logging import get_logger
 from fei_tpu_torch.utils.metrics import METRICS
+
+log = get_logger("engine")
 
 
 @dataclass(frozen=True)
@@ -76,6 +81,12 @@ class GenerationConfig:
     # free-phase fused decode chunk: 0 → FEI_TPU_DECODE_CHUNK (default 16),
     # 1 → per-token reference loop, N → N tokens per host sync
     chunk: int = 0
+    # paged serving: a wall-clock budget from submit in seconds (0 → the
+    # scheduler's default_deadline_s), and the tenant and priority class of
+    # its weighted-fair admission ("" → the default tenant)
+    deadline_s: float = 0.0
+    tenant: str = ""
+    priority: int = 0
 
 
 @dataclass
@@ -109,6 +120,15 @@ def pad_vocab_mask(mask, vocab_size: int) -> torch.Tensor | None:
     if mask.shape[-1] < vocab_size:
         mask = torch.nn.functional.pad(mask, (0, vocab_size - mask.shape[-1]))
     return mask
+
+
+def _split_if_sampled(gen: GenerationConfig, key: torch.Tensor):
+    """``(key, sub)`` = the reference's ``rng, sub = split(rng)`` for a
+    sampled request; a greedy one draws nothing and keeps its key."""
+    if gen.temperature > 0.0:
+        nk, sub = prng.split(key)
+        return nk, sub
+    return key, None
 
 
 def resolve_device(device: torch.device | str) -> torch.device:
@@ -254,24 +274,123 @@ class InferenceEngine:
         return self._scheduler
 
     def close(self) -> None:
-        """Stop the paged scheduler's loop thread (a dense engine has none)."""
+        """Stop the paged scheduler's loop thread (a dense engine has none)
+        and flush its session journal."""
         if self._scheduler is not None:
             self._scheduler.close()
 
+    # -- survival ------------------------------------------------------------
+
+    def begin_drain(self, deadline_s: float | None = None,
+                    snapshot_dir: str | None = None) -> None:
+        """Graceful drain (SIGTERM / POST /drain): reject new submits with
+        EngineDrainingError, let in-flight requests finish within the
+        deadline, snapshot the rest for a warm restart. A dense engine has
+        nothing in flight to drain."""
+        if self._scheduler is not None:
+            self._scheduler.begin_drain(deadline_s=deadline_s, snapshot_dir=snapshot_dir)
+
+    def wait_drained(self, timeout: float | None = None) -> bool:
+        """Block until a drain finalized (trivially true without a
+        scheduler)."""
+        if self._scheduler is None:
+            return True
+        return self._scheduler.wait_drained(timeout)
+
+    def warm_restart(self, snapshot_dir: str | None = None) -> list:
+        """Re-admit the in-flight work a previous process left behind, from
+        two sources:
+
+        - drain snapshots in ``snapshot_dir`` (a graceful drain). The file
+          is cleared BEFORE re-admission: a crash mid-replay must not
+          serve a request twice.
+        - the session journal (``FEI_TPU_JOURNAL_DIR``, a hard crash): the
+          admitted-but-unfinished sessions of older segments, which are
+          deleted before re-admission (the re-admissions journal into the
+          live segment).
+
+        A session recorded under another ``page_size`` or past its
+        deadline is skipped and counted in
+        ``engine.recovery_skipped.<reason>``; one from another mesh is
+        accepted (the mesh is provenance). Each restored request replays
+        its delivered tokens to the new consumer, so the stream equals
+        the uninterrupted run. Returns the sequence handles (stream each
+        with ``scheduler.drain(seq)``)."""
+        from fei_tpu_torch.engine.checkpoint import (
+            SINGLE_DEVICE_MESH,
+            clear_request_snapshots,
+            load_request_snapshots,
+        )
+        from fei_tpu_torch.engine.journal import deadline_remaining
+        from fei_tpu_torch.engine.scheduler import gen_from_record
+
+        seqs: list = []
+        snaps: list[dict] = []
+        if snapshot_dir:
+            snaps = load_request_snapshots(
+                snapshot_dir, expect_mesh=SINGLE_DEVICE_MESH,
+                expect_page_size=self.page_size)
+            if snaps:
+                clear_request_snapshots(snapshot_dir)
+                seqs.extend(self.scheduler.restore_snapshots(snaps))
+        journal = None if self._scheduler is None else self._scheduler._journal
+        if journal is None:
+            return seqs
+        sessions, torn = journal.recover_and_clear()
+        snap_rids = {s.get("rid") for s in snaps}
+        recovered = cross_mesh = 0
+        for sess in sessions:
+            rid = sess.get("rid")
+            if rid in snap_rids:
+                continue  # the drain snapshot owns this session
+            saved_ps = sess.get("page_size")
+            if saved_ps is not None and int(saved_ps) != self.page_size:
+                METRICS.incr("engine.recovery_skipped.page_size")
+                log.warning("journal session %s was served under page_size=%s, not "
+                            "this engine's %s; dropping it", rid, saved_ps, self.page_size)
+                continue
+            mesh = {k: int(v) for k, v in (sess.get("mesh") or {}).items()}
+            if mesh != SINGLE_DEVICE_MESH:
+                cross_mesh += 1  # provenance only: replayed like any other
+            restore = {"generated": sess.get("generated") or [],
+                       "resume_key": sess.get("resume_key"),
+                       "route": sess.get("route")}
+            if sess.get("deadline_epoch") is not None:
+                rem = deadline_remaining(sess["deadline_epoch"])
+                if rem <= 0:
+                    METRICS.incr("engine.recovery_skipped.deadline_expired")
+                    log.info("journal session %s expired its deadline during the "
+                             "outage; dropping it", rid)
+                    continue
+                restore["deadline_remaining_s"] = rem
+            seqs.append(self.scheduler.submit(
+                sess["prompt_ids"], gen_from_record(sess.get("gen")), _restore=restore))
+            recovered += 1
+        if recovered:
+            METRICS.incr("journal.recovered_sessions", recovered)
+            METRICS.incr("engine.crash_recoveries")
+        if cross_mesh:
+            METRICS.incr("engine.cross_mesh_recoveries", cross_mesh)
+        if sessions or torn:
+            log.info("journal: recovered %d session(s), %d from another mesh "
+                     "(%d torn record(s) discarded)", recovered, cross_mesh, torn)
+        return seqs
+
     # -- device programs ----------------------------------------------------
 
-    def _step(self, gen: GenerationConfig, cache, token, generator, logit_mask=None):
-        """One decode step: forward T=1, optional mask, sample on device.
-        Returns (next_token [B] int32, cache)."""
+    def _step(self, gen: GenerationConfig, cache, token, key, logit_mask=None):
+        """One decode step: forward T=1, optional mask, split the key and
+        sample on device. Returns (next_token [B] int32, cache, key)."""
         logits, cache = forward(self.params, self.cfg, token, cache)
         logits = logits[:, -1, :]
         if logit_mask is not None:
             logits = torch.where(logit_mask, logits, float("-inf"))
+        key, sub = _split_if_sampled(gen, key)
         nxt = sample_logits(
-            logits, generator, temperature=gen.temperature, top_k=gen.top_k,
+            logits, sub, temperature=gen.temperature, top_k=gen.top_k,
             top_p=gen.top_p, min_p=gen.min_p,
         )
-        return nxt, cache
+        return nxt, cache, key
 
     def _free_fused_fn(self, gen: GenerationConfig, n_steps: int) -> Callable:
         """The N-step fused free-decode function (fused_decode)."""
@@ -283,9 +402,10 @@ class InferenceEngine:
         on the logits, the sample, state' = row[token] — so a constrained
         chunk of ``n_steps`` tokens makes no host sync of its own.
 
-        Returns ``fused(params, cache, token, generator, gstate, remaining,
-        table, min_dist)`` → ``(toks [B, n], cache, token [B, 1], gstate,
-        remaining)``; ``gstate`` is int32 [B], ``remaining`` an int32
+        Returns ``fused(params, cache, token, key, gstate, remaining,
+        table, min_dist)`` → ``(toks [B, n], cache, token [B, 1], key,
+        gstate, remaining)``; ``key`` is the threefry key (split once per
+        sampled step), ``gstate`` int32 [B], ``remaining`` an int32
         tensor, ``table`` int16/int32 [S, V] and ``min_dist`` int32 [S],
         all on the engine's device."""
         from fei_tpu_torch.engine.grammar import grammar_step
@@ -295,20 +415,21 @@ class InferenceEngine:
         )
         cfg = self.cfg
 
-        def fused(params, cache, token, generator, gstate, remaining, table, min_dist):
+        def fused(params, cache, token, key, gstate, remaining, table, min_dist):
             toks = []
             for _ in range(n_steps):
                 logits, cache = forward(params, cfg, token, cache)
                 logits, advance = grammar_step(
                     logits[:, -1, :], table, min_dist, gstate, remaining)
+                key, sub = _split_if_sampled(gen, key)
                 nxt = sample_logits(
-                    logits, generator, temperature=temperature, top_k=top_k,
+                    logits, sub, temperature=temperature, top_k=top_k,
                     top_p=top_p, min_p=min_p,
                 )
                 gstate, remaining = advance(nxt)
                 token = nxt[:, None]
                 toks.append(nxt)
-            return torch.stack(toks, dim=1), cache, token, gstate, remaining
+            return torch.stack(toks, dim=1), cache, token, key, gstate, remaining
 
         return fused
 
@@ -361,18 +482,18 @@ class InferenceEngine:
 
     def _prefill_sample(self, prompt_ids, gen: GenerationConfig, mask=None):
         """Shared prologue: prefill, optional first-token logit mask,
-        sample. Returns (tok [1] int32, cache, generator)."""
+        sample. Returns (tok [1] int32, cache, key): the key is
+        ``PRNGKey(seed)`` after the first token's split."""
         with METRICS.span("prefill"):
             last_logits, cache = self.prefill([list(prompt_ids)], self.new_cache(1))
             if mask is not None:
                 last_logits = torch.where(mask[None, :], last_logits, float("-inf"))
-            # the request's own sampling stream, on the engine's device
-            generator = torch.Generator(device=self.device).manual_seed(int(gen.seed))
+            key, sub = _split_if_sampled(gen, prng.PRNGKey(gen.seed, self.device))
             tok = sample_logits(
-                last_logits, generator, temperature=gen.temperature,
+                last_logits, sub, temperature=gen.temperature,
                 top_k=gen.top_k, top_p=gen.top_p, min_p=gen.min_p,
             )
-        return tok, cache, generator
+        return tok, cache, key
 
     def _make_result(
         self, out: list[int], prompt_len: int, ttft: float, total: float
@@ -395,19 +516,28 @@ class InferenceEngine:
         prompt_ids: Sequence[int],
         gen: GenerationConfig | None = None,
         logit_mask_fn: Callable[[list[int]], object] | None = None,
+        resume: dict | None = None,
     ) -> Iterator[int]:
         """Stream sampled token ids for a single prompt (batch=1).
 
         ``logit_mask_fn`` maps the tokens generated so far to a bool [V]
         mask of allowed next tokens (or None); it forces the per-token
         loop, since the mask needs every token on the host. Unmasked
-        decoding is fused-chunked (``gen.chunk``; 1 = per-token loop)."""
+        decoding is fused-chunked (``gen.chunk``; 1 = per-token loop).
+        ``resume`` (``generated`` and an optional ``resume_key``) teacher-
+        forces an already-delivered suffix, replayed first; paged engines
+        only, as in the JAX package."""
         gen = gen or GenerationConfig()
         if self.paged:
             # continuous batching: the scheduler admits this request into a
             # batch slot; concurrent streams share the pool and the steps
-            yield from self.scheduler.stream(prompt_ids, gen, logit_mask_fn)
+            yield from self.scheduler.stream(prompt_ids, gen, logit_mask_fn,
+                                             resume=resume)
             return
+        if resume is not None:
+            raise EngineError(
+                "mid-stream resume requires a paged engine (the dense path "
+                "keeps no session state to resume from)")
         if logit_mask_fn is None and resolve_chunk(gen.chunk) > 1:
             yield from self._stream_chunked(prompt_ids, gen, resolve_chunk(gen.chunk))
             return
@@ -416,7 +546,7 @@ class InferenceEngine:
         mask = self._pad_mask(logit_mask_fn(generated)) if logit_mask_fn else None
         # never decode past the cache: each step writes one KV slot
         budget = min(gen.max_new_tokens, self.max_seq_len - len(prompt_ids))
-        tok, cache, generator = self._prefill_sample(prompt_ids, gen, mask)
+        tok, cache, key = self._prefill_sample(prompt_ids, gen, mask)
         tok_host = int(tok[0])
         for i in range(budget):
             if tok_host in stops:
@@ -428,8 +558,8 @@ class InferenceEngine:
             mask = self._pad_mask(logit_mask_fn(generated)) if logit_mask_fn else None
             with METRICS.span("decode_step"):
                 METRICS.incr("engine.decode_dispatches")
-                tok, cache = self._step(
-                    gen, cache, tok.reshape(1, 1), generator,
+                tok, cache, key = self._step(
+                    gen, cache, tok.reshape(1, 1), key,
                     None if mask is None else mask[None, :],
                 )
                 tok_host = int(tok[0])  # host sync inside the span
@@ -441,7 +571,7 @@ class InferenceEngine:
         dispatches, host truncation at stops and budget."""
         stops = self._stops(gen)
         budget = min(gen.max_new_tokens, self.max_seq_len - len(prompt_ids))
-        tok, cache, generator = self._prefill_sample(prompt_ids, gen)
+        tok, cache, key = self._prefill_sample(prompt_ids, gen)
         first = int(tok[0])
         if budget <= 0 or first in stops:
             return
@@ -449,7 +579,7 @@ class InferenceEngine:
         if budget == 1:
             return
         dec = ChunkDecoder(
-            self, gen, cache, tok, generator,
+            self, gen, cache, tok, key,
             fed=len(prompt_ids), chunk=chunk, want=budget - 1, stops=stops,
         )
         emitted = 1
@@ -490,7 +620,7 @@ class InferenceEngine:
         # budget-feasibility rule the device steps apply
         entry_mask = self._pad_mask(
             feasible_mask(grammar.table[grammar.entry], grammar.min_dist, budget))
-        tok, cache, generator = self._prefill_sample(prompt_ids, gen, entry_mask)
+        tok, cache, key = self._prefill_sample(prompt_ids, gen, entry_mask)
         slots_left = self.max_seq_len - len(prompt_ids) - 1
         first = int(tok[0])
         ttft = time.perf_counter() - t0
@@ -514,8 +644,8 @@ class InferenceEngine:
                     n = min(chunk, slots_left)
                     fused = self._grammar_fused_fn(gen, n)
                     METRICS.incr("engine.decode_dispatches")
-                    toks, cache, token, gstate, remaining = fused(
-                        self.params, cache, token, generator, gstate, remaining,
+                    toks, cache, token, key, gstate, remaining = fused(
+                        self.params, cache, token, key, gstate, remaining,
                         table, min_dist,
                     )
                     slots_left -= n
@@ -578,7 +708,7 @@ class InferenceEngine:
 
         stops = self._stops(gen)
         scanner = TriggerScanner(self.tokenizer, trigger)
-        tok, cache, generator = self._prefill_sample(prompt_ids, gen)
+        tok, cache, key = self._prefill_sample(prompt_ids, gen)
         gstate = -1
         i = 0
         token = tok.reshape(1, 1)
@@ -586,7 +716,7 @@ class InferenceEngine:
         if free_chunk > 1:
             # free phase, fused-chunked: the host TriggerScanner reads each
             # chunk while the next one computes; a mid-chunk trigger rolls
-            # the cache and generator back to the exact token and enters
+            # the cache and key back to the exact token and enters
             # the constrained phase as the per-token path would
             first = int(tok[0])
             if budget <= 0 or first in stops:
@@ -602,7 +732,7 @@ class InferenceEngine:
                 if i >= budget:
                     return
                 dec = ChunkDecoder(
-                    self, gen, cache, tok, generator,
+                    self, gen, cache, tok, key,
                     fed=len(prompt_ids), chunk=free_chunk, want=budget - 1,
                     stops=stops,
                 )
@@ -617,7 +747,7 @@ class InferenceEngine:
                         if g is not None:
                             if g >= 0:
                                 gstate = g
-                                cache, token, generator = dec.rollback(ch, j)
+                                cache, token, key = dec.rollback(ch, j)
                                 hit = True
                                 break  # enter the constrained phase
                             METRICS.incr("engine.grammar_trigger_suffix_rejected")
@@ -646,7 +776,7 @@ class InferenceEngine:
                     return
                 with METRICS.span("decode_step"):
                     METRICS.incr("engine.decode_dispatches")
-                    tok, cache = self._step(gen, cache, tok.reshape(1, 1), generator)
+                    tok, cache, key = self._step(gen, cache, tok.reshape(1, 1), key)
                     tok_host = int(tok[0])
             token = tok.reshape(1, 1)
         if gstate < 0 or i >= budget:
@@ -671,8 +801,8 @@ class InferenceEngine:
             fused = self._grammar_fused_fn(gen, n)
             with METRICS.span("grammar_fused_chunk"):
                 METRICS.incr("engine.decode_dispatches")
-                toks, cache, token, gstate_dev, remaining = fused(
-                    self.params, cache, token, generator, gstate_dev, remaining,
+                toks, cache, token, key, gstate_dev, remaining = fused(
+                    self.params, cache, token, key, gstate_dev, remaining,
                     table, min_dist,
                 )
                 host = toks[0].tolist()  # the chunk's one host sync

@@ -15,11 +15,22 @@ Points:
 - ``decode.dispatch``    — before a batched decode dispatch
 - ``delivery.detok``     — per-token delivery
 - ``pool.alloc``         — inside the scheduler's page-allocation seam
+- ``journal.append``     — session journal, before a record append
+- ``journal.fsync``      — session journal, before an fsync
+- ``replica.crash``      — the hard-kill seam (SIGKILL), per delivered
+  token or frame
 
 Kinds: ``request`` → RequestError, ``device`` → DeviceError,
 ``exhausted``/``transient`` → PoolPressure (``pool.alloc``: the
 scheduler's pressure handler swallows it like a real exhaustion, so a
-test forces preemption on a roomy pool).
+test forces preemption on a roomy pool), ``io`` → OSError (a journal
+write that fails).
+
+``crash`` is the one kind that does not raise: it kills the whole process
+with SIGKILL — no handlers, no drain, no atexit — the kill -9 the session
+journal exists to survive. Its ``count`` is a delay fuse rather than a
+fire budget: the fault fires on the count-th matching check, since a kill
+can only ever fire once.
 """
 
 from __future__ import annotations
@@ -37,12 +48,27 @@ from fei_tpu_torch.utils.logging import get_logger
 
 log = get_logger("faults")
 
-POINTS = ("admission.prefill", "decode.dispatch", "delivery.detok", "pool.alloc")
-KINDS = ("request", "device", "exhausted", "transient")
+POINTS = ("admission.prefill", "decode.dispatch", "delivery.detok", "pool.alloc",
+          "journal.append", "journal.fsync", "replica.crash")
+KINDS = ("request", "device", "exhausted", "transient", "io", "crash")
+
+
+def _hard_kill(point: str) -> None:
+    """SIGKILL this process. Module-level so a test can replace it."""
+    import os
+    import signal
+
+    os.kill(os.getpid(), signal.SIGKILL)
 
 
 def _make_exc(kind: str, point: str) -> BaseException:
     msg = f"injected {kind} fault at {point}"
+    if kind == "crash":
+        # never raised: check() routes a crash to _hard_kill; this arm
+        # lets arm() validate the kind
+        return SystemExit(msg)
+    if kind == "io":
+        return OSError(msg)
     if kind == "request":
         return RequestError(msg)
     if kind == "device":
@@ -96,11 +122,16 @@ class FaultInjector:
             if fault.match is not None and not fault.match(ctx):
                 return
             fault.count -= 1
+            if fault.kind == "crash" and fault.count > 0:
+                return  # the count is a delay fuse: fire on the Nth check
             if fault.count <= 0:
                 self._armed.pop(point, None)
             self._fired[point] = self._fired.get(point, 0) + 1
             kind = fault.kind
         log.warning("firing injected %s fault at %s", kind, point)
+        if kind == "crash":
+            _hard_kill(point)
+            return  # reached only when a test replaced _hard_kill
         raise _make_exc(kind, point)
 
     def fired(self, point: str) -> int:

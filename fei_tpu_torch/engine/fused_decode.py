@@ -15,9 +15,9 @@
   scan overlaps the device's work. A consumer that finds a grammar
   trigger mid-chunk calls ``rollback``: the cache length goes back to the
   exact token (the chunk tail and the chunk in flight are garbage above
-  it, never attended) and the generator to its state after that token's
-  draw, from the per-step ``get_state()`` snapshot the chunk kept (host
-  memory only, no sync).
+  it, never attended) and the threefry key to its value after that
+  token's draw, a row of the ``[n, 2]`` per-step keys the chunk wrote on
+  the device (the reference keeps each step's key the same way).
 - ``trigger_walk`` is the one host trigger-watch step that every free
   phase shares (the dense ``generate_stream_toolcalls`` and the paged
   scheduler's ``_grammar_advance``).
@@ -35,6 +35,7 @@ from typing import Callable, Iterator
 
 import torch
 
+from fei_tpu_torch.engine import prng
 from fei_tpu_torch.engine.sampling import sample_logits, stop_mask
 from fei_tpu_torch.utils.metrics import METRICS
 
@@ -71,24 +72,32 @@ def resolve_chunk(gen_chunk: int = 0) -> int:
 def build_fused_decode(fwd: Callable, cfg, gen, n_steps: int) -> Callable:
     """The N-step free-decode function for one sampling config.
 
-    Returns ``fused(params, cache, token, generator, done, stop_ids,
-    gen_states=None)`` → ``(toks [B, n], cache, token [B, 1], done [B])``.
+    Returns ``fused(params, cache, token, key, done, stop_ids)`` →
+    ``(toks [B, n], cache, token [B, 1], key, done [B], keys [n, 2])``.
+    ``key`` is the request's threefry key ([2], on the device): a sampled
+    step splits it once and draws with the second half, as the
+    reference's ``rng, sub = split(rng)``; ``keys[j]`` is the key after
+    step j, so a consumer can re-enter decoding from an exact mid-chunk
+    state. A dead step (after the stop) splits nothing; a greedy config
+    splits nothing and returns ``keys`` None.
     ``stop_ids`` is an int32 [S] device tensor (S may be 0). The cache's
-    K/V are updated in place. A ``gen_states`` list receives the
-    generator's state after each step (``get_state()``: host memory, no
-    sync), so a consumer can re-enter decoding from an exact mid-chunk
-    state; greedy draws nothing and appends nothing."""
+    K/V are updated in place."""
     temperature, top_k, top_p, min_p = (
         gen.temperature, gen.top_k, gen.top_p, gen.min_p
     )
+    sampled = temperature > 0.0
 
-    def fused(params, cache, token, generator, done, stop_ids, gen_states=None):
-        toks = []
+    def fused(params, cache, token, key, done, stop_ids):
+        toks, keys = [], []
         for _ in range(n_steps):
             live = ~done
             logits, cache = fwd(params, cfg, token, cache, live=live)
+            sub = None
+            if sampled:
+                nk, sub = prng.split(key)
+                key = torch.where(live, nk, key)
             nxt = sample_logits(
-                logits[:, -1, :], generator,
+                logits[:, -1, :], sub,
                 temperature=temperature, top_k=top_k, top_p=top_p, min_p=min_p,
             )
             # a dead step recycles the carry token: nothing new is sampled
@@ -96,9 +105,9 @@ def build_fused_decode(fwd: Callable, cfg, gen, n_steps: int) -> Callable:
             done = done | stop_mask(nxt, stop_ids)
             token = nxt[:, None]
             toks.append(nxt)
-            if temperature > 0.0 and gen_states is not None:
-                gen_states.append(generator.get_state())
-        return torch.stack(toks, dim=1), cache, token, done
+            keys.append(key)
+        return (torch.stack(toks, dim=1), cache, token, key, done,
+                torch.stack(keys) if sampled else None)
 
     return fused
 
@@ -106,12 +115,13 @@ def build_fused_decode(fwd: Callable, cfg, gen, n_steps: int) -> Callable:
 @dataclass
 class DecodedChunk:
     """One host-synced chunk. ``tokens[j]`` was sampled at step j;
-    ``gen_states[j]`` is the generator's state after step j (empty for
-    greedy); ``fed0`` is the cache length (tokens consumed) before the
-    chunk's first step."""
+    ``keys[j]`` is the key after step j (an [n, 2] device tensor; None
+    for greedy, whose key never moves);
+    ``fed0`` is the cache length (tokens consumed) before the chunk's
+    first step."""
 
     tokens: list[int]
-    gen_states: list
+    keys: torch.Tensor
     fed0: int
 
 
@@ -127,14 +137,14 @@ class ChunkDecoder:
     """
 
     def __init__(
-        self, engine, gen, cache, token, generator, *,
+        self, engine, gen, cache, token, key, *,
         fed: int, chunk: int, want: int, stops=(),
     ):
         self._engine = engine
         self._gen = gen
         self._cache = cache
         self._token = token.reshape(token.shape[0], 1)
-        self._generator = generator
+        self._key = key
         device = self._token.device
         self._done = torch.zeros((self._token.shape[0],), dtype=torch.bool, device=device)
         self._stop_ids = torch.tensor(sorted(stops), dtype=torch.int32, device=device)
@@ -153,38 +163,35 @@ class ChunkDecoder:
                 fused = self._engine._free_fused_fn(self._gen, n)
                 METRICS.incr("engine.decode_dispatches")
                 t0 = time.perf_counter()
-                states: list = []
-                toks, self._cache, self._token, self._done = fused(
+                toks, self._cache, self._token, self._key, self._done, keys = fused(
                     self._engine.params, self._cache, self._token,
-                    self._generator, self._done, self._stop_ids, states,
+                    self._key, self._done, self._stop_ids,
                 )
                 METRICS.timing("dispatch_issue", time.perf_counter() - t0)
-                nxt = (toks, states, self._fed)
+                nxt = (toks, keys, self._fed)
                 self._fed += n
                 self._slots_left -= n
                 self._sched += n
             if pending is not None:
-                toks_p, states_p, fed0_p = pending
+                toks_p, keys_p, fed0_p = pending
                 with METRICS.span("decode_chunk"):
                     # the one blocking point: chunk k+1 is already issued
                     host = toks_p[0].tolist()
-                yield DecodedChunk(tokens=host, gen_states=states_p, fed0=fed0_p)
+                yield DecodedChunk(tokens=host, keys=keys_p, fed0=fed0_p)
             elif nxt is None:
                 return
             pending = nxt
 
     def rollback(self, ch: DecodedChunk, j: int):
         """State as if decoding had stopped right after ``ch.tokens[j]``:
-        ``(cache, token [1, 1], generator)``. The cache length is set back
+        ``(cache, token [1, 1], key)``. The cache length is set back
         explicitly to the tokens actually consumed (``fed0 + j + 1``:
         ``tokens[j]`` itself has not been fed); the K/V written above it
         by the chunk's tail and by the chunk in flight are never attended
-        and are overwritten slot by slot by whoever resumes. The generator
-        is restored to its state after ``j + 1`` draws of this chunk."""
+        and are overwritten slot by slot by whoever resumes. The key is
+        the chunk's key after step j, read on the device."""
         fed = ch.fed0 + j + 1
         cache = self._cache._replace(length=torch.full_like(self._cache.length, fed))
         token = torch.tensor([[ch.tokens[j]]], dtype=torch.int32,
                              device=self._token.device)
-        if ch.gen_states:
-            self._generator.set_state(ch.gen_states[j])
-        return cache, token, self._generator
+        return cache, token, self._key if ch.keys is None else ch.keys[j]

@@ -34,6 +34,7 @@ import time
 import numpy as np
 import torch
 
+from fei_tpu_torch.engine import prng
 from fei_tpu_torch.engine.faults import FAULTS
 from fei_tpu_torch.engine.sampling import sample_logits
 from fei_tpu_torch.utils.errors import DeadlineExceededError, EngineError, PoolPressure
@@ -252,12 +253,13 @@ class AdmissionMixin:
         alloc = eng._allocator
         ids = self._prefill_ids(seq)
         n = len(ids)
-        tok0 = self._first_token(seq, last_logits)
+        tok0, key = self._first_token(seq, last_logits)
         pages = alloc.pages_for(slot)
         n_prompt_pages = alloc.pages_needed(n)
         self._scatter_dense(dense, pages[:n_prompt_pages])
         row = self._slot_row(slot)
         self._arm(slot, row, n)
+        self._keys[slot] = key
         seq.prefilling = False
         seq.row = row
         if self._prefix is not None:
@@ -266,7 +268,7 @@ class AdmissionMixin:
         if seq.budget <= 0:
             self._finish(seq)
             return
-        self._deliver(seq, tok0)
+        self._deliver(seq, tok0, key=key if seq.journaled else None)
 
     def _scatter_dense(self, dense, page_ids: list[int]) -> None:
         """Copy the first len(page_ids)*ps positions of a [L, 1, S, K, D]
@@ -295,23 +297,25 @@ class AdmissionMixin:
                 scales[:, idx] = s[:, :, :, None, :]
             dst[:, idx] = blocks.to(dst.dtype)
 
-    def _first_token(self, seq, last_logits) -> int:
-        """Sample the admission's first token on the request's own
-        generator, created here from its seed (the dense engine's
-        prologue, engine._prefill_sample), with the first-step host mask
-        or, for a request constrained from its first token, the grammar's
-        entry mask."""
+    def _first_token(self, seq, last_logits) -> tuple[int, torch.Tensor]:
+        """Sample the admission's first token on the request's own key
+        chain (the dense engine's prologue, engine._prefill_sample:
+        ``PRNGKey(seed)``, one split for a sampled request), with the
+        first-step host mask or, for a request constrained from its first
+        token, the grammar's entry mask. Returns (token, the slot's key)."""
+        from fei_tpu_torch.engine.engine import _split_if_sampled
+
         mask = self._host_mask(seq, first=True)
         if mask is None and seq.grammar is not None and seq.gstate >= 0:
             mask = self._grammar_first_mask(seq)
         if mask is not None:
             last_logits = torch.where(mask[None, :], last_logits, float("-inf"))
-        seq.generator = torch.Generator(device=self.engine.device).manual_seed(
-            int(seq.gen.seed))
-        return int(sample_logits(
-            last_logits, seq.generator, temperature=seq.gen.temperature,
+        key, sub = _split_if_sampled(seq.gen, prng.PRNGKey(seq.gen.seed, self.engine.device))
+        tok = int(sample_logits(
+            last_logits, sub, temperature=seq.gen.temperature,
             top_k=seq.gen.top_k, top_p=seq.gen.top_p, min_p=seq.gen.min_p,
         )[0])
+        return tok, key
 
     # -- paged-native chunked admission -------------------------------------
 
@@ -491,31 +495,46 @@ class AdmissionMixin:
 
     def _complete_admission_paged(self, seq, slot: int, last_logits, row: np.ndarray,
                                   prefix_pages: int = 0) -> None:
-        """Paged-native tail: sample the first token (a resume keeps its
-        generator and its last token as the next input), arm the slot's
-        row and length, register the prefix."""
+        """Paged-native tail: sample the first token (a resume re-installs
+        its key and keeps its last token as the next input), arm the
+        slot's row and length, register the prefix."""
         eng = self.engine
         alloc = eng._allocator
         ids = self._prefill_ids(seq)
         n = len(ids)
         resume = bool(seq.generated)
-        if not resume:
-            tok0 = self._first_token(seq, last_logits)
+        if resume:
+            key = seq.resume_key
+        else:
+            tok0, key = self._first_token(seq, last_logits)
         pages = alloc.pages_for(slot)
         self._arm(slot, row, n)
+        self._keys[slot] = key
         seq.prefilling = False
         seq.row = np.array(row)
         if self._prefix is not None:
             self._prefix.register(ids, pages[: alloc.pages_needed(n)])
         if resume:
-            seq.next_input = seq.generated[-1]
-            METRICS.incr("scheduler.preempted_tokens_recomputed",
-                         max(0, n - prefix_pages * alloc.page_size))
-            if len(seq.generated) >= seq.budget:
-                self._finish(seq)
+            self._resume_delivered(seq, n, prefix_pages)
             return
         METRICS.incr("scheduler.prefill_tokens", max(0, n - prefix_pages * alloc.page_size))
         if seq.budget <= 0:
             self._finish(seq)
             return
-        self._deliver(seq, tok0)
+        self._deliver(seq, tok0, key=key if seq.journaled else None)
+
+    def _resume_delivered(self, seq, n: int, prefix_pages: int) -> None:
+        """Resume tail: the stream continues with no token delivered twice
+        or dropped. A warm-restart replay first re-emits the recorded
+        tokens to the fresh consumer (the old process's queue is gone)."""
+        alloc = self.engine._allocator
+        seq.next_input = seq.generated[-1]
+        METRICS.incr("scheduler.preempted_tokens_recomputed",
+                     max(0, n - prefix_pages * alloc.page_size))
+        if seq.replay:
+            for t in seq.generated:
+                seq.out.put(t)
+            seq.replay = False
+            METRICS.incr("scheduler.replayed_tokens", len(seq.generated))
+        if len(seq.generated) >= seq.budget:
+            self._finish(seq)

@@ -5,8 +5,9 @@ to ``multistep`` steps per host sync — and the merged dispatch in which a
 pending prefill chunk rides the scan's first step (``forward_paged_merged``,
 the ragged kernel). Every step runs one sampling tail (``_make_sampler``):
 the grammar's per-slot DFA mask and state step on the device, an optional
-host mask, the per-row draw. A tool-call slot whose trigger completes
-mid-scan rolls back to that token (``_rollback_slots``). A mixin over
+host mask, one split of the sampled slots' threefry keys and the batched
+per-row draw. A tool-call slot whose trigger completes mid-scan rolls back
+to that token, key included (``_rollback_slots``). A mixin over
 PagedScheduler state.
 
 Prompt-lookup speculation (C3) is a later slice.
@@ -17,41 +18,49 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from fei_tpu_torch.engine import prng
 from fei_tpu_torch.engine.faults import FAULTS
-from fei_tpu_torch.engine.sampling import sample_logits_dynamic
+from fei_tpu_torch.engine.sampling import RowKnobs, sample_rows
 from fei_tpu_torch.utils.metrics import METRICS
 
 
-def _make_sampler(active, B: int, table=None, mind=None):
+def _make_sampler(active, B: int, vocab: int, device, table=None, mind=None):
     """The ONE sampling tail every decode step of a dispatch runs: the
     grammar's per-slot DFA mask (``table``/``mind`` given: rows with
     ``gstate < 0`` — free phase or no grammar — pass unmasked; budget
     feasibility and the state step are the dense fused decode's,
-    grammar.grammar_step), an optional host mask, then per-row knobs and
-    generators from the active slots (other rows are greedy and draw
-    nothing), and the DFA state step. All on the device. Shared by the
-    solo scan and the merged first step."""
+    grammar.grammar_step), an optional host mask, then the per-slot key
+    split (``jax.vmap(jax.random.split)`` in the reference) and the
+    batched per-row draw, and the DFA state step. All on the device.
+    Only the sampled slots' keys advance: a greedy slot draws nothing, and
+    a dispatch of greedy slots splits nothing. Rows outside ``active``
+    are greedy. Shared by the solo scan and the merged first step."""
     from fei_tpu_torch.engine.grammar import grammar_step
 
-    gens = [None] * B
     temps, topks, topps, minps = [0.0] * B, [0] * B, [1.0] * B, [0.0] * B
     for b, s in active:
-        gens[b] = s.generator
         temps[b] = float(s.gen.temperature)
         topks[b] = int(s.gen.top_k)
         topps[b] = float(s.gen.top_p)
         minps[b] = float(s.gen.min_p)
+    knobs = RowKnobs(temps, topks, topps, minps, vocab, device)
+    drawn = knobs.temps[:, 0] > 0.0 if knobs.sampled else None
 
-    def sample(logits, mask=None, gstates=None, gremain=None):
+    def sample(logits, keys, mask=None, gstates=None, gremain=None):
         if table is not None:
             logits, advance = grammar_step(
                 logits, table, mind, gstates, gremain, use=gstates >= 0)
         if mask is not None:
             logits = torch.where(mask, logits, float("-inf"))
-        nxt = sample_logits_dynamic(logits, gens, temps, topks, topps, minps)
+        subs = None
+        if drawn is not None:
+            outs = prng.split(keys)  # [B, 2, 2]
+            keys = torch.where(drawn[:, None], outs[:, 0], keys)
+            subs = outs[:, 1]
+        nxt = sample_rows(logits, subs, knobs)
         if table is not None:
             gstates, gremain = advance(nxt)
-        return nxt, gstates, gremain
+        return nxt, keys, gstates, gremain
 
     return sample
 
@@ -93,10 +102,10 @@ class DecodeMixin:
             for b, m in masks.items():
                 mask[b] = m
             METRICS.incr("scheduler.host_mask_uploads", len(masks))
-        toks, active = self._dispatch_steps(active, 1, mask=mask)
+        toks, keys_h, active = self._dispatch_steps(active, 1, mask=mask)
         for b, s in active:
             if self._slots[b] is s:
-                self._deliver(s, int(toks[b, 0]))
+                self._deliver(s, int(toks[b, 0]), key=None if keys_h is None else keys_h[0, b])
 
     def _try_multi_step(self) -> bool:
         """Run up to ``multistep`` decode steps in ONE dispatch (one host
@@ -122,7 +131,7 @@ class DecodeMixin:
             n *= 2
         if n <= 1:
             return False
-        toks, active = self._dispatch_steps(active, n)
+        toks, keys_h, active = self._dispatch_steps(active, n)
         METRICS.incr("scheduler.multi_steps")
         METRICS.incr("scheduler.multi_tokens", n)
         if self._waiting or self._admitting is not None:
@@ -133,7 +142,8 @@ class DecodeMixin:
                 if self._slots[b] is not s:  # finished at an earlier step
                     break
                 was_free = s.grammar is not None and s.gstate < 0
-                self._deliver(s, int(toks[b, i]))
+                self._deliver(s, int(toks[b, i]),
+                              key=None if keys_h is None else keys_h[i, b])
                 if was_free and i < n - 1 and self._slots[b] is s and s.gstate >= 0:
                     # the tool-call trigger completed mid-scan: the steps
                     # past i were sampled unconstrained — discard them and
@@ -152,11 +162,12 @@ class DecodeMixin:
         plus generated, less the pending next input, whose K/V is written
         when it is fed): for a slot that delivered the whole scan this is
         the scan's own length; for a free or prefilling slot, 0, as
-        eviction leaves it. Each rolled-back slot's generator returns to
-        its state after step ``i`` (``i + 1`` draws of the scan), the
-        per-token path's state after the same tokens. The K/V of the
-        discarded steps stay above the new length, never attended, and are
-        overwritten slot by slot."""
+        eviction leaves it. Each rolled-back slot's key returns to its
+        value after step ``i`` (``i + 1`` splits of the scan: a row of the
+        dispatch's per-step keys, on the device), the per-token path's key
+        after the same tokens. The K/V of the discarded steps stay above
+        the new length, never attended, and are overwritten slot by
+        slot."""
         from fei_tpu_torch.engine.paged_cache import replace_lengths
 
         lengths = np.zeros((self.B,), dtype=np.int32)
@@ -164,10 +175,9 @@ class DecodeMixin:
             if s is not None and not s.prefilling:
                 lengths[b] = len(s.prompt_ids) + len(s.generated) - 1
         self._pool = replace_lengths(self._pool, lengths)
-        for b, i in rollback.items():
-            states = self._step_gen_states.get(b)
-            if states:
-                self._slots[b].generator.set_state(states[i])
+        if self._step_keys is not None:  # a greedy dispatch moved no key
+            for b, i in rollback.items():
+                self._keys[b] = self._step_keys[i, b]
         METRICS.incr("scheduler.turbo_rollbacks", len(rollback))
         METRICS.incr("scheduler.turbo_rollback_tokens",
                      sum(n - 1 - i for i in rollback.values()))
@@ -204,15 +214,18 @@ class DecodeMixin:
     def _dispatch_steps(self, active, n: int, mask: torch.Tensor | None = None):
         """Run ``n`` batched decode steps (a pending chunk merged into the
         first one) with no host sync between them; returns (tokens [B, n]
-        on the host, the active slots that took part). Slots preempted by
-        the growth pass drop out before anything is sampled for them, so
-        their generators draw nothing they would not deliver."""
+        on the host, the per-step keys [n, B, 2] on the host when a slot
+        is journaled (else None), the active slots that took part). When a
+        slot samples, the keys after each step stay on the device in
+        ``self._step_keys`` (the rollback's restore points). Slots
+        preempted by the growth pass drop out before anything is sampled
+        for them."""
         from fei_tpu_torch.models.llama import _logits, forward_paged, forward_paged_merged
 
         self._grow_for_steps(active, n)
         active = [(b, s) for b, s in active if self._slots[b] is s]
         if not active:
-            return None, []
+            return None, None, []
         FAULTS.check("decode.dispatch")
         eng = self.engine
         dev = self._pool.k_pages.device
@@ -243,19 +256,17 @@ class DecodeMixin:
                 gr[b] = s.budget - len(s.generated)
             gstates, gremain = gs.to(dev), gr.to(dev)
             table, mind = self._gtable, self._gmind
-        # a free-phase tool-call row may roll back to any step of the scan:
-        # its sampled draws keep the generator's state after each step
-        # (get_state: host memory, no sync)
-        roll_rows = [(b, s) for b, s in active
-                     if s.grammar is not None and s.gstate < 0 and s.gen.temperature > 0]
-        self._step_gen_states = {b: [] for b, _ in roll_rows}
-        sample = _make_sampler(active, self.B, table, mind)
+        sample = _make_sampler(active, self.B, eng.cfg.vocab_size, dev, table, mind)
         METRICS.incr("scheduler.decode_steps", n)
         METRICS.incr("scheduler.decode_slot_steps", len(active) * n)
         METRICS.gauge("scheduler.batch_slots_active", len(active))
         chunk_logits = None
         tok = tokens.to(dev)
-        outs = []
+        keys = self._keys
+        # only a sampled slot's key moves: a greedy dispatch keeps no
+        # per-step keys
+        sampled = any(s.gen.temperature > 0.0 for _, s in active)
+        outs, step_keys = [], []
         with METRICS.span("decode_step"):
             for i in range(n):
                 if i == 0 and pc is not None:
@@ -271,13 +282,26 @@ class DecodeMixin:
                                                eng.params, eng.cfg)[:, 0]
                 else:
                     logits, pool = forward_paged(eng.params, eng.cfg, tok, pool)
-                nxt, gstates, gremain = sample(logits[:, -1, :], mask, gstates, gremain)
-                for b, s in roll_rows:
-                    self._step_gen_states[b].append(s.generator.get_state())
+                nxt, keys, gstates, gremain = sample(
+                    logits[:, -1, :], keys, mask, gstates, gremain)
                 outs.append(nxt)
+                if sampled:
+                    step_keys.append(keys)
                 tok = nxt[:, None].long()
             self._pool = pool
-            out = torch.stack(outs, dim=1).cpu().numpy()  # the one host sync
+            self._keys = keys
+            self._step_keys = torch.stack(step_keys) if sampled else None
+            toks = torch.stack(outs, dim=1).long()
+            keys_h = None
+            if self._want_token_keys():
+                # journaled slots record each delivered token's key: the
+                # keys ride the tokens' one copy to the host
+                steps = self._step_keys if sampled else keys.expand(n, *keys.shape)
+                both = torch.cat((toks.reshape(-1), steps.reshape(-1))).cpu()
+                out = both[: toks.numel()].reshape(toks.shape).numpy()
+                keys_h = both[toks.numel():].reshape(steps.shape).numpy()
+            else:
+                out = toks.cpu().numpy()  # the one host sync
         for _, s in active:
             s.shield = False  # survived a dispatch: victimizable again
         if pc is not None:
@@ -287,5 +311,5 @@ class DecodeMixin:
                 self._finish_merged_chunk(pc, chunk_logits)
             except BaseException as exc:  # noqa: BLE001
                 self._abort_admission(st["seq"], st["slot"], exc)
-        return out, active
+        return out, keys_h, active
 

@@ -15,10 +15,11 @@
   ``ragged_attention`` a pending prefill chunk rides the first step as ONE
   merged dispatch (models/llama.py ``forward_paged_merged``, the ragged
   kernel). Token streams are identical with it on or off.
-- Each request samples from its own ``torch.Generator`` seeded with
-  ``gen.seed``, drawing exactly what the dense engine draws at B=1, so a
-  seeded request gives the same tokens through the scheduler as through
-  the dense engine; greedy rows draw nothing.
+- Each slot carries the reference's threefry key chain in a [B, 2] device
+  tensor (``PRNGKey(seed)`` split once at the first token and once per
+  sampled step, engine/prng.py); the batched draw gives each row the
+  reference's bits, so a seeded request samples the JAX package's tokens
+  and the dense engine's. Greedy slots draw and split nothing.
 - Page exhaustion is a scheduling event: prefix-cache eviction, then
   preemption of the least-progressed victim, which resumes token-
   identically (its prompt re-prefills through the chunked path, its
@@ -29,14 +30,28 @@
   and free requests share every dispatch. A tool-call request
   (``grammar_trigger=``) decodes freely until its trigger, inside the
   multi-step scan; a trigger found mid-scan rolls that slot's length and
-  generator back to the exact token (sched_decode ``_rollback_slots``).
+  key back to the exact token (sched_decode ``_rollback_slots``).
+- Survival: ``begin_drain`` sheds new submits (``EngineDrainingError``,
+  HTTP 503 + Retry-After), lets the in-flight set finish within the
+  deadline, then snapshots what is left (``_finalize_drain``; constrained
+  requests fail typed instead). A session journal (engine/journal.py,
+  ``FEI_TPU_JOURNAL_DIR``) records each admission, each delivered token
+  with its key, and each end. ``submit(_restore=...)`` re-admits a
+  snapshot or a journaled session: it re-prefills through the route the
+  request was first admitted by (the ``route`` the snapshot and the
+  journal carry; chunked when a record has none), re-installs the key,
+  and replays the delivered tokens to the new consumer exactly once.
 - Inactive slots still flow through the batched forward (static [B]
   shapes); their block-table rows are zero, so their KV writes land in the
   reserved null page 0.
 
-The knobs are attributes with the JAX package's defaults (the port reads
-no environment variable): ``prefill_chunk`` 256, ``multistep`` 8,
-``ragged_attention`` True, ``ragged_rows`` 8, ``preempt_policy``
+The survival knobs read the JAX package's environment variables, so one
+deployment's settings drive either package: ``FEI_TPU_DRAIN_DEADLINE_S``
+(30), ``FEI_TPU_DRAIN_DIR``, ``FEI_TPU_JOURNAL_DIR`` (empty: no journal),
+``FEI_TPU_JOURNAL_SYNC`` (batch) and ``FEI_TPU_JOURNAL_SEGMENT_BYTES``
+(4 MiB). The other knobs are attributes with the JAX package's defaults
+(the port reads no environment variable for them): ``prefill_chunk``
+256, ``multistep`` 8, ``ragged_attention`` True, ``ragged_rows`` 8, ``preempt_policy``
 "min-progress", ``max_queue`` 0 (unbounded), ``retry_after_s`` 1,
 ``default_deadline_s`` 0, and the crash-loop breaker's ``breaker_fails``
 3 within ``breaker_window_s`` 60 for ``breaker_cooldown_s`` 30.
@@ -48,6 +63,7 @@ another program.
 
 from __future__ import annotations
 
+import os
 import queue
 import threading
 import time
@@ -59,6 +75,7 @@ from typing import Callable, Iterator, Sequence
 import numpy as np
 import torch
 
+from fei_tpu_torch.engine.checkpoint import SINGLE_DEVICE_MESH
 from fei_tpu_torch.engine.faults import FAULTS
 from fei_tpu_torch.engine.sched_admission import AdmissionMixin
 from fei_tpu_torch.engine.sched_constrain import ConstraintMixin
@@ -68,6 +85,7 @@ from fei_tpu_torch.utils.errors import (
     DeadlineExceededError,
     DeviceError,
     EngineDegradedError,
+    EngineDrainingError,
     EngineError,
     QueueFullError,
 )
@@ -77,6 +95,15 @@ from fei_tpu_torch.utils.metrics import METRICS
 log = get_logger("scheduler")
 
 _DONE = object()
+
+
+def gen_from_record(rec: dict | None):
+    """A GenerationConfig from a snapshot's or a journal's ``gen`` dict."""
+    from fei_tpu_torch.engine.engine import GenerationConfig
+
+    gen_d = dict(rec or {})
+    gen_d["stop_token_ids"] = tuple(gen_d.get("stop_token_ids") or ())
+    return GenerationConfig(**gen_d)
 
 
 def device_scoped(exc: BaseException) -> bool:
@@ -116,10 +143,15 @@ class _Seq:
     t_queued: float = 0.0
     # absolute perf_counter deadline (0 = none)
     deadline: float = 0.0
-    # the request's sampling stream, created at its first token; it stays
-    # with the sequence through preemption, so a resumed stream continues
-    # the same draws
-    generator: torch.Generator | None = None
+    # preempt-and-resume state: the slot's threefry key at preemption (or
+    # from a snapshot or a journal), re-installed at re-admission so the
+    # resumed chain is the uninterrupted one; ``replay`` re-emits the
+    # delivered tokens to a fresh consumer (warm restart)
+    resume_key: torch.Tensor | None = None
+    replay: bool = False
+    # the admission landed in the session journal: every delivered token
+    # and the end follow it there
+    journaled: bool = False
     # host mirror of the slot's device block-table row, in ABSOLUTE page
     # positions (rolling-window releases drop leading pages from
     # pages_for() while the row keeps them)
@@ -182,20 +214,41 @@ class PagedScheduler(AdmissionMixin, DecodeMixin, ConstraintMixin):
         self._ggrammar = None
         self._gtable = None
         self._gmind = None
-        # per free-phase sampled slot, its generator's state after each step
-        # of the last dispatch (the rollback's restore points)
-        self._step_gen_states: dict[int, list] = {}
+        self._keys = None  # [B, 2] per-slot threefry keys, on the device
+        self._step_keys = None  # [n, B, 2] keys after each step of the last dispatch
+        # graceful drain (SIGTERM / POST /drain)
+        self.drain_deadline_s = float(os.environ.get("FEI_TPU_DRAIN_DEADLINE_S", "30"))
+        self.drain_dir = os.environ.get("FEI_TPU_DRAIN_DIR", "")
+        self._draining = False
+        self._drain_deadline = 0.0
+        self._drain_dir: str | None = None
+        self._drained = threading.Event()
+        # the crash-consistent session journal; empty FEI_TPU_JOURNAL_DIR =
+        # off (survival is then the drain snapshots alone)
+        self._journal = None
+        jdir = os.environ.get("FEI_TPU_JOURNAL_DIR", "").strip()
+        if jdir:
+            from fei_tpu_torch.engine.journal import SessionJournal
+
+            self._journal = SessionJournal(
+                jdir,
+                sync=os.environ.get("FEI_TPU_JOURNAL_SYNC", "batch").strip().lower() or "batch",
+                segment_bytes=int(os.environ.get("FEI_TPU_JOURNAL_SEGMENT_BYTES", str(4 << 20))),
+            )
 
     # -- public API ---------------------------------------------------------
 
     def stream(self, prompt_ids: Sequence[int], gen,
                logit_mask_fn: Callable | None = None, grammar=None,
-               grammar_trigger: str | None = None) -> Iterator[int]:
+               grammar_trigger: str | None = None,
+               resume: dict | None = None) -> Iterator[int]:
         """Submit a request and yield its tokens as they decode. Closing
         the iterator (or abandoning it to GC) cancels the request and
-        returns its pages/slot to the pool."""
+        returns its pages/slot to the pool. ``resume`` (``generated`` and
+        an optional ``resume_key``) teacher-forces an already-delivered
+        suffix, which the stream replays first."""
         seq = self.submit(prompt_ids, gen, logit_mask_fn, grammar=grammar,
-                          grammar_trigger=grammar_trigger)
+                          grammar_trigger=grammar_trigger, _restore=resume)
         yield from self.drain(seq)
 
     def drain(self, seq: _Seq) -> Iterator[int]:
@@ -212,14 +265,27 @@ class PagedScheduler(AdmissionMixin, DecodeMixin, ConstraintMixin):
             self.cancel(seq)
 
     def submit(self, prompt_ids, gen, logit_mask_fn=None, grammar=None,
-               grammar_trigger: str | None = None) -> _Seq:
+               grammar_trigger: str | None = None,
+               _restore: dict | None = None) -> _Seq:
         """``grammar`` (a TokenGrammar) runs device-native: the DFA mask is
         computed inside the batched step from the slot's state, with no
         per-step host mask and no [B, V] upload. With ``grammar_trigger``
         the request decodes freely until the trigger text appears, then
         constrains (the agent's tool-call protocol); without it the whole
-        output is constrained."""
+        output is constrained.
+
+        ``_restore`` (a drain snapshot or a journaled session: ``generated``,
+        ``resume_key``, ``route``, ``deadline_remaining_s``) re-admits a
+        request a previous process accepted: it resumes like a preempted
+        sequence and replays its delivered tokens to the new consumer."""
         eng = self.engine
+        if self._draining:
+            METRICS.incr("scheduler.requests_shed")
+            raise EngineDrainingError(
+                "engine is draining; retry against another replica",
+                retry_after_s=max(self.retry_after_s,
+                                  self._drain_deadline - time.monotonic()),
+            )
         if self.degraded():
             METRICS.incr("scheduler.requests_shed")
             raise EngineDegradedError(
@@ -251,6 +317,8 @@ class PagedScheduler(AdmissionMixin, DecodeMixin, ConstraintMixin):
         dl = getattr(gen, "deadline_s", 0.0) or self.default_deadline_s
         if dl > 0:
             seq.deadline = seq.t_queued + dl
+        if _restore is not None:
+            self._install_restore(seq, _restore)
         if grammar is not None and logit_mask_fn is not None:
             raise EngineError("grammar and logit_mask_fn are mutually exclusive")
         prebuilt = None
@@ -285,9 +353,37 @@ class PagedScheduler(AdmissionMixin, DecodeMixin, ConstraintMixin):
             depth = len(self._waiting)
         self._settle_caps(victims, shed, tenant, priority, depth, arrival=seq)
         METRICS.incr("scheduler.requests_submitted")
+        # the journal's admit record comes after every point that sheds, so
+        # a journaled request is exactly an accepted one
+        self._journal_admit(seq)
         self._update_sched_gauges()
         self._wake.set()
         return seq
+
+    def _install_restore(self, seq: _Seq, restore: dict) -> None:
+        """The preempt-resume state of a restored request, set before the
+        loop thread can see it. A missing key is rebuilt: the chain is
+        ``PRNGKey(seed)`` split once at the first token and once per
+        sampled step, so after k delivered tokens it is k splits (a greedy
+        request's key never advances)."""
+        from fei_tpu_torch.engine import prng
+
+        dev = self.engine.device
+        seq.generated = [int(t) for t in restore.get("generated") or []]
+        key = restore.get("resume_key")
+        if key is not None:
+            seq.resume_key = prng.key_from_words(key, dev)
+        elif seq.generated:
+            k = prng.PRNGKey(int(getattr(seq.gen, "seed", 0) or 0), dev)
+            if seq.gen.temperature > 0.0:
+                for _ in range(len(seq.generated)):
+                    k = prng.split(k)[0]
+            seq.resume_key = k
+        seq.dense_admitted = restore.get("route") == "dense"
+        seq.replay = bool(seq.generated)
+        rem = restore.get("deadline_remaining_s")
+        if rem is not None:
+            seq.deadline = seq.t_queued + float(rem)
 
     def _arm_grammar(self, seq: _Seq, grammar, trigger: str | None) -> None:
         """A device-grammar request: constrained from its first token, or
@@ -399,6 +495,7 @@ class PagedScheduler(AdmissionMixin, DecodeMixin, ConstraintMixin):
                 self._waiting.remove(seq)
                 seq.finished = True
                 self._trace_finish(seq, "cancelled")
+                self._journal_end(seq, "cancelled")
                 return
             seq.cancelled = True
         self._wake.set()
@@ -428,6 +525,16 @@ class PagedScheduler(AdmissionMixin, DecodeMixin, ConstraintMixin):
         self._wake.set()
         if thread is not None and thread.is_alive():
             thread.join(timeout=60)
+        if self._journal is not None:
+            # flush, don't close: a submit() after close() reopens the
+            # scheduler and keeps journaling into the live segment
+            self._journal.flush()
+
+    def close_journal(self) -> None:
+        """Flush and close the session journal and stop its writer thread
+        (the process is done with this engine)."""
+        if self._journal is not None:
+            self._journal.close()
 
     def _loop(self) -> None:
         idle = 0
@@ -441,6 +548,16 @@ class PagedScheduler(AdmissionMixin, DecodeMixin, ConstraintMixin):
                             return
                     continue
                 self._reap_cancelled()
+                if self._draining:
+                    if self._admitting is not None:
+                        # an accepted chunked admission finishes its
+                        # prefill; nothing new leaves the queue
+                        self._admit_ready()
+                    if self._drain_step():
+                        with self._lock:
+                            self._thread = None
+                            return
+                    continue
                 self._admit_ready()
                 if not any(self._slots):
                     if not self._waiting and self._admitting is None:
@@ -487,13 +604,15 @@ class PagedScheduler(AdmissionMixin, DecodeMixin, ConstraintMixin):
         row[: len(pages)] = pages
         return row
 
-    def _deliver(self, seq: _Seq, t: int) -> None:
+    def _deliver(self, seq: _Seq, t: int, key=None) -> None:
         """Handle one sampled token for an armed sequence: stop handling,
-        emission, completion. A host-side failure here fails ONLY this
+        emission, completion. ``key`` is the slot's key after the step
+        (host words, or a device tensor at admission) when the request is
+        journaled, else None. A host-side failure here fails ONLY this
         sequence; device-scoped ones re-raise to the loop."""
         try:
             FAULTS.check("delivery.detok", seq=seq, rid=seq.rid)
-            self._deliver_inner(seq, t)
+            self._deliver_inner(seq, t, key)
         except BaseException as exc:  # noqa: BLE001
             if device_scoped(exc):
                 raise
@@ -504,10 +623,11 @@ class PagedScheduler(AdmissionMixin, DecodeMixin, ConstraintMixin):
         """Fail ONE request through the healthy-pool eviction path."""
         seq.out.put(exc)
         self._trace_finish(seq, "failed")
+        self._journal_end(seq, "failed")
         METRICS.incr("scheduler.requests_failed_isolated")
         self._finish(seq)
 
-    def _deliver_inner(self, seq: _Seq, t: int) -> None:
+    def _deliver_inner(self, seq: _Seq, t: int, key=None) -> None:
         emit, done = self._grammar_advance(seq, t) if seq.grammar is not None else (True, False)
         if not done and t in seq.stops:
             self._finish(seq)
@@ -516,6 +636,14 @@ class PagedScheduler(AdmissionMixin, DecodeMixin, ConstraintMixin):
             if not seq.generated:
                 METRICS.observe("ttft_seconds", time.perf_counter() - seq.t_queued)
             seq.generated.append(t)
+            if seq.journaled:
+                # the record is queued BEFORE the token is published: a
+                # consumer never sees a token whose resume state is missing
+                extra = None
+                if len(seq.generated) == 1:
+                    # the route the prompt was admitted by, known only now
+                    extra = {"route": "dense" if seq.dense_admitted else "chunked"}
+                self._journal.token(seq.rid, t, self._key_list(key), extra)
             seq.out.put(t)
             self.tenants.charge(seq.tenant, 1)
         if not done and seq.gfallback_state is not None:
@@ -559,6 +687,7 @@ class PagedScheduler(AdmissionMixin, DecodeMixin, ConstraintMixin):
         if slot >= 0 and self._slots[slot] is seq:
             self._evict_slot(slot)
         self._trace_finish(seq, "cancelled" if seq.cancelled else "completed")
+        self._journal_end(seq, "cancelled" if seq.cancelled else "completed")
         self._update_sched_gauges()
         seq.out.put(_DONE)
 
@@ -597,6 +726,7 @@ class PagedScheduler(AdmissionMixin, DecodeMixin, ConstraintMixin):
         for s in waiting:
             s.finished = True
             self._trace_finish(s, "failed")
+            self._journal_end(s, "failed")
             s.out.put(exc)
         self._admitting = None
         self._pending_chunk = None
@@ -604,6 +734,7 @@ class PagedScheduler(AdmissionMixin, DecodeMixin, ConstraintMixin):
             if s is not None:
                 s.out.put(exc)
                 self._trace_finish(s, "failed")
+                self._journal_end(s, "failed")
                 self._finish(s)
 
     def _fail_all(self, exc: BaseException) -> None:
@@ -631,6 +762,7 @@ class PagedScheduler(AdmissionMixin, DecodeMixin, ConstraintMixin):
         self._admitting = None
         self._pending_chunk = None
         self._pool = None
+        self._keys = None
         self.engine._pool = None
         if self._prefix is not None:
             while self._prefix._evict_one():
@@ -639,6 +771,7 @@ class PagedScheduler(AdmissionMixin, DecodeMixin, ConstraintMixin):
         for s in doomed:
             s.finished = True
             self._trace_finish(s, "failed")
+            self._journal_end(s, "failed")
             s.out.put(exc)
 
     # -- memory pressure: preemption + pressure-aware allocation -------------
@@ -666,10 +799,14 @@ class PagedScheduler(AdmissionMixin, DecodeMixin, ConstraintMixin):
 
     def _preempt_seq(self, seq: _Seq, *, locked: bool, requeue: bool = True) -> None:
         """Release one running sequence's slot and pages and requeue it.
-        Its state is host-side (token lists, its generator); re-admission
-        re-prefills through the prefix cache and the chunked path."""
+        Its state is its token lists and its slot's key (copied on the
+        device, no sync); re-admission re-prefills by its admission route
+        and replays its generated tokens."""
         slot = seq.slot
         if slot >= 0 and self._slots[slot] is seq:
+            if not seq.prefilling:
+                # a victim still (re-)prefilling keeps the key it carried
+                seq.resume_key = self._keys[slot].clone()
             self._evict_slot(slot)
         st = self._admitting
         if st is not None and st.get("seq") is seq:
@@ -732,6 +869,221 @@ class PagedScheduler(AdmissionMixin, DecodeMixin, ConstraintMixin):
             if got is not None:
                 return got
 
+    # -- the session journal ------------------------------------------------
+
+    @staticmethod
+    def _key_list(key) -> list[int] | None:
+        """A key as the journal's and the snapshot file's ``[hi, lo]`` int
+        list (None passes through). A device tensor syncs: callers pass
+        one only for journaled or snapshotted requests."""
+        if key is None:
+            return None
+        if isinstance(key, torch.Tensor):
+            key = key.tolist()
+        return [int(x) for x in np.asarray(key).reshape(-1).tolist()]
+
+    def _want_token_keys(self) -> bool:
+        """True when an armed slot is journaled: only then does a dispatch
+        copy its per-step keys to the host (once, with its tokens)."""
+        return any(s is not None and not s.finished and s.journaled for s in self._slots)
+
+    @staticmethod
+    def _portable(seq: _Seq) -> bool:
+        """A constraint (grammar automaton, mask closure) is process-local
+        state: such a request is neither journaled nor snapshotted."""
+        return (seq.grammar is None and seq.mask_fn is None
+                and seq.gscanner is None and seq.gfallback_state is None)
+
+    def _gen_record(self, seq: _Seq) -> dict:
+        from dataclasses import asdict
+
+        gen = asdict(seq.gen)
+        gen["stop_token_ids"] = list(gen.get("stop_token_ids") or ())
+        return gen
+
+    def _journal_admit(self, seq: _Seq) -> None:
+        """The journal's admit record, written at the end of submit() after
+        every point that sheds. The mesh is provenance (the port serves
+        one device); page_size gates recovery."""
+        j = self._journal
+        if j is None or seq.finished or not self._portable(seq):
+            return
+        from fei_tpu_torch.engine.journal import deadline_epoch
+
+        rec = {
+            "t": "admit",
+            "rid": seq.rid,
+            "prompt_ids": [int(t) for t in seq.prompt_ids],
+            "gen": self._gen_record(seq),
+            "mesh": dict(SINGLE_DEVICE_MESH),
+            "page_size": int(self.engine.page_size),
+            "tenant": seq.tenant,
+            "priority": seq.priority,
+        }
+        if seq.deadline:
+            # wall clock: the deadline must mean something after a restart
+            rec["deadline_epoch"] = deadline_epoch(seq.deadline - time.perf_counter())
+        if seq.generated:
+            # a resumed admission carries its delivered suffix, so recovery
+            # composes across repeated crashes
+            rec["generated"] = [int(t) for t in seq.generated]
+            rec["resume_key"] = self._key_list(seq.resume_key)
+            rec["route"] = "dense" if seq.dense_admitted else "chunked"
+        j.admit(rec)
+        seq.journaled = True
+
+    def _journal_end(self, seq: _Seq, reason: str) -> None:
+        """The journal's end record (once per request). A journaled request
+        with no end record is exactly what recovery re-admits, so every
+        exit path comes here."""
+        if self._journal is None or not seq.journaled:
+            return
+        seq.journaled = False
+        self._journal.finish(seq.rid, reason)
+
+    # -- graceful drain and warm restart ------------------------------------
+
+    def begin_drain(self, deadline_s: float | None = None,
+                    snapshot_dir: str | None = None) -> None:
+        """Start draining: new submits shed with EngineDrainingError (HTTP
+        503 + Retry-After), in-flight requests finish within the deadline,
+        then the still-queued set, and any running request the deadline
+        strands, snapshots (to ``snapshot_dir``, else ``drain_dir``) for a
+        warm restart. Idempotent; sticky for the process's lifetime."""
+        with self._lock:
+            if self._draining:
+                return
+            self._draining = True
+            self._drain_deadline = time.monotonic() + (
+                self.drain_deadline_s if deadline_s is None else deadline_s)
+            self._drain_dir = snapshot_dir if snapshot_dir is not None else (
+                self.drain_dir or None)
+            busy = (any(s is not None for s in self._slots) or bool(self._waiting)
+                    or self._admitting is not None)
+            if busy:
+                self._start_thread()
+        METRICS.gauge("engine.draining", 1)
+        log.info("drain started (deadline %.1fs, snapshot dir %s)",
+                 self._drain_deadline - time.monotonic(), self._drain_dir or "-")
+        thread = self._thread
+        if thread is None or not thread.is_alive():
+            # the loop cannot run (idle, or a harness stubbed
+            # _start_thread): finalize here instead of hanging wait_drained
+            self._finalize_drain()
+        self._wake.set()
+
+    def wait_drained(self, timeout: float | None = None) -> bool:
+        """Block until the drain finalized; True when it did in time."""
+        return self._drained.wait(timeout)
+
+    def draining(self) -> bool:
+        return self._draining
+
+    def _drain_step(self) -> bool:
+        """One loop iteration while draining: step the in-flight set until
+        it quiesces or the deadline passes, then finalize. True once the
+        drain has finalized (the loop parks)."""
+        busy = any(s is not None for s in self._slots) or self._admitting is not None
+        if busy and time.monotonic() < self._drain_deadline:
+            if any(s is not None and not s.prefilling for s in self._slots):
+                self._step_active()
+            else:
+                # only a chunked admission is in flight: the loop advances
+                # it one chunk per iteration
+                self._wake.wait(timeout=0.01)
+                self._wake.clear()
+            return False
+        self._finalize_drain()
+        return True
+
+    def _finalize_drain(self) -> None:
+        """Snapshot everything still alive and declare the drain done.
+        Running requests the deadline stranded are preempted (not
+        requeued): their delivered tokens and key ride in the snapshot.
+        Constrained requests cannot be snapshotted across processes; they
+        fail with a typed EngineDrainingError."""
+        with self._lock:
+            waiting = list(self._waiting)
+            self._waiting.clear()
+        st = self._admitting
+        if st is not None and st.get("seq") is not None:
+            s = st["seq"]
+            if not s.finished and not any(s is w for w in waiting):
+                waiting.insert(0, s)  # mid-admission: still queued work
+        running = [s for s in self._slots
+                   if s is not None and not s.finished
+                   and not any(s is w for w in waiting)]
+        for s in running + [w for w in waiting if w.slot >= 0]:
+            self._preempt_seq(s, locked=False, requeue=False)
+        self._admitting = None
+        self._pending_chunk = None
+        snaps: list[dict] = []
+        for s in running + waiting:
+            snap = self._snapshot_seq(s)
+            s.finished = True
+            if snap is None:
+                s.out.put(EngineDrainingError(
+                    "engine drained; this request's constraint (grammar / host "
+                    "mask closure) cannot be snapshotted across processes — "
+                    "resubmit it after restart", retry_after_s=self.retry_after_s))
+                self._trace_finish(s, "failed")
+                self._journal_end(s, "failed")
+            else:
+                snaps.append(snap)
+                s.out.put(EngineDrainingError(
+                    "engine drained before this request completed; it was "
+                    "snapshotted for warm restart", retry_after_s=self.retry_after_s))
+                self._trace_finish(s, "snapshotted")
+                # the snapshot owns the session now: without an end record
+                # a warm restart would re-admit it twice
+                self._journal_end(s, "snapshotted")
+            s.out.put(_DONE)
+        if snaps and self._drain_dir:
+            from fei_tpu_torch.engine import checkpoint
+
+            try:
+                checkpoint.save_request_snapshots(
+                    self._drain_dir, snaps, mesh=dict(SINGLE_DEVICE_MESH),
+                    page_size=self.engine.page_size)
+            except Exception as exc:  # noqa: BLE001
+                log.error("drain snapshot persistence failed: %r", exc)
+        if self._journal is not None:
+            # the end records must be durable before the process exits
+            self._journal.flush()
+        self._update_sched_gauges()
+        log.info("drain finalized: %d request(s) snapshotted (%d preempted from slots)",
+                 len(snaps), len(running))
+        self._drained.set()
+
+    def _snapshot_seq(self, seq: _Seq) -> dict | None:
+        """The host-resumable snapshot of one request, in the JAX package's
+        format plus ``route``; None for a constrained request."""
+        if not self._portable(seq):
+            return None
+        snap = {
+            "rid": seq.rid,
+            "prompt_ids": [int(t) for t in seq.prompt_ids],
+            "generated": [int(t) for t in seq.generated],
+            "resume_key": self._key_list(seq.resume_key),
+            "mesh": dict(SINGLE_DEVICE_MESH),
+            "gen": self._gen_record(seq),
+            "route": "dense" if seq.dense_admitted else "chunked",
+        }
+        if seq.deadline:
+            snap["deadline_remaining_s"] = max(0.0, seq.deadline - time.perf_counter())
+        return snap
+
+    def restore_snapshots(self, snaps: list[dict]) -> list[_Seq]:
+        """Warm restart: resubmit persisted drain snapshots. Each resumes
+        like a preempted sequence (its route, its key) and replays its
+        delivered tokens, so the new consumer sees the whole stream."""
+        seqs = []
+        for snap in snaps:
+            seqs.append(self.submit(snap["prompt_ids"], gen_from_record(snap.get("gen")),
+                                    _restore=snap))
+            METRICS.incr("scheduler.requests_restored")
+        return seqs
+
     # -- shared device state ------------------------------------------------
 
     def _ensure_pool(self) -> None:
@@ -740,6 +1092,8 @@ class PagedScheduler(AdmissionMixin, DecodeMixin, ConstraintMixin):
             if self._pool is None:
                 self._pool = self.engine._ensure_pool()
                 self.engine._pool = None  # the scheduler owns the tensors now
+                self._keys = torch.zeros((self.B, 2), dtype=torch.int64,
+                                         device=self._pool.k_pages.device)
                 if self.engine.prefix_cache and self._prefix is None:
                     from fei_tpu_torch.engine.paged_cache import PrefixCache
 

@@ -3,10 +3,17 @@ of fei_tpu/ui/server.py, dense serving routes).
 
 ``python -m fei_tpu_torch serve`` exposes the torch_local provider behind
 POST /v1/chat/completions (JSON, or SSE with ``"stream": true``), GET
-/v1/models, /health and /metrics. The paged engine's control plane
-(/kv/*, /drain) and the /debug and /v1/traces routes come with the paged
-and observability slices; until then they answer 404 like any unknown
-route. Built on stdlib http.server. Auth is optional (``--api-key`` /
+/v1/models, /health and /metrics, and POST /drain. Survival is the JAX
+package's: /drain and SIGTERM start a graceful drain (/health answers 503
+``draining``, new completions 503 with Retry-After, in-flight requests
+finish within the deadline, the rest snapshot to FEI_TPU_DRAIN_DIR), and
+at boot ``warm_restart`` re-admits what a drain snapshotted or what the
+session journal (FEI_TPU_JOURNAL_DIR) recorded as unfinished. A
+completion body may carry ``"resume": {"generated": [...], "resume_key":
+[hi, lo]}`` to teach-force a delivered suffix (paged engines). The KV
+control plane (/kv/*) and the /debug and /v1/traces routes come with
+later slices (roadmap B5, B7) and answer 404 like any unknown route.
+Built on stdlib http.server. Auth is optional (``--api-key`` /
 FEI_TPU_SERVER_API_KEY).
 """
 
@@ -22,9 +29,11 @@ import uuid
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from urllib.parse import urlsplit
 
+from fei_tpu_torch.engine.faults import FAULTS
 from fei_tpu_torch.utils.errors import (
     DeadlineExceededError,
     EngineDegradedError,
+    EngineDrainingError,
     QueueFullError,
 )
 from fei_tpu_torch.utils.logging import get_logger
@@ -187,6 +196,10 @@ class ServeAPI:
             if sched is not None:
                 out.update(queue_depth=len(sched._waiting), slots=sched.B,
                            running=sum(1 for s in sched._slots if s is not None))
+                if sched.draining():
+                    # a draining replica leaves the load balancer's rotation
+                    # while its in-flight set finishes
+                    return 503, dict(out, status="draining"), {"Retry-After": "5"}
                 if sched.degraded():
                     return 503, dict(out, status="degraded"), {"Retry-After": "5"}
             return 200, out
@@ -204,6 +217,8 @@ class ServeAPI:
             }
         if route == "/v1/chat/completions" and method == "POST":
             return self._chat(body)
+        if route == "/drain" and method == "POST":
+            return self._drain(body)
         return 404, {"error": {"message": f"no route {method} {route}",
                                "type": "invalid_request_error"}}
 
@@ -227,7 +242,51 @@ class ServeAPI:
         over = _gen_overrides(body)
         if over and getattr(self.provider, "supports_gen_overrides", False):
             kw["gen_overrides"] = over
+        kw.update(self._resume_kw(body))
         return kw
+
+    def _resume_kw(self, body: dict) -> dict:
+        """The ``"resume"`` body extension: ``{"generated": [ids...],
+        "resume_key": [hi, lo] | null}`` teacher-forces a delivered suffix
+        so this stream replays it byte-identically. A provider that cannot
+        resume refuses it: restarting from token 0 would duplicate the
+        user-visible stream."""
+        raw = body.get("resume")
+        if raw is None:
+            return {}
+        if not getattr(self.provider, "supports_resume", False):
+            raise ValueError("resume is not supported by this provider")
+        if not isinstance(raw, dict):
+            raise ValueError("resume must be an object")
+        gen = raw.get("generated") or []
+        if not isinstance(gen, list):
+            raise ValueError("resume.generated must be a list of token ids")
+        resume: dict = {"generated": [int(t) for t in gen]}
+        key = raw.get("resume_key")
+        if key is not None:
+            if not isinstance(key, list) or not key:
+                raise ValueError("resume.resume_key must be a list of ints")
+            resume["resume_key"] = [int(x) for x in key]
+        return {"resume": resume}
+
+    def _drain(self, body: dict) -> tuple:
+        """Operator-initiated graceful drain, the HTTP twin of SIGTERM:
+        stop admitting, finish in-flight requests within the deadline,
+        snapshot the rest for a warm restart. Idempotent."""
+        try:
+            deadline = body.get("deadline_s")
+            deadline = None if deadline is None else max(0.0, float(deadline))
+        except (TypeError, ValueError):
+            return 400, {"error": {"message": "deadline_s must be a number",
+                                   "type": "invalid_request_error"}}
+        eng = getattr(self.provider, "engine", None)
+        sched = getattr(eng, "_scheduler", None)
+        if sched is None:
+            return 200, {"status": "drained"}  # nothing in flight to drain
+        eng.begin_drain(deadline_s=deadline)
+        METRICS.incr("server.drains")
+        return 202, {"status": "draining",
+                     "deadline_s": deadline if deadline is not None else sched.drain_deadline_s}
 
     def _chat(self, body: dict) -> tuple:
         try:
@@ -242,7 +301,7 @@ class ServeAPI:
             # backpressure, not failure: tell the client when to come back
             return 429, {"error": {"message": str(exc),
                                    "type": "overloaded_error"}}, _retry_after(exc)
-        except EngineDegradedError as exc:
+        except (EngineDegradedError, EngineDrainingError) as exc:
             return 503, {"error": {"message": str(exc),
                                    "type": "overloaded_error"}}, _retry_after(exc)
         except DeadlineExceededError as exc:
@@ -287,12 +346,15 @@ class ServeAPI:
                     break
                 if delta:
                     yield frame({"content": delta})
+                    # the hard-kill seam: a process that dies after a frame
+                    # left, the worst case the journal must cover
+                    FAULTS.check("replica.crash", rid=rid)
         except Exception as exc:  # noqa: BLE001 — headers are committed
             log.warning("stream failed: %r", exc)
             # the status line is sent, but the frame keeps the category so
             # a client can still back off
             etype = "server_error"
-            if isinstance(exc, (QueueFullError, EngineDegradedError)):
+            if isinstance(exc, (QueueFullError, EngineDegradedError, EngineDrainingError)):
                 etype = "overloaded_error"
             elif isinstance(exc, DeadlineExceededError):
                 etype = "timeout_error"
@@ -436,12 +498,19 @@ def main(argv: list[str] | None = None) -> int:
     server.start()
     log.info("model %s ready on http://%s:%d/v1 (ctrl-c to stop)",
              provider.engine.cfg.name, args.host, server.port)
+    eng = provider.engine
+    warm_restart_at_boot(eng, os.environ.get("FEI_TPU_DRAIN_DIR", ""))
     stopping = threading.Event()
+    got_term = threading.Event()
+
+    def _sigterm(signum, frame):  # noqa: ARG001
+        got_term.set()
+        stopping.set()
 
     import signal
 
     try:
-        signal.signal(signal.SIGTERM, lambda signum, frame: stopping.set())
+        signal.signal(signal.SIGTERM, _sigterm)
     except ValueError:
         pass  # not the main thread (embedded use): no SIGTERM hook
     try:
@@ -449,8 +518,45 @@ def main(argv: list[str] | None = None) -> int:
             pass
     except KeyboardInterrupt:
         pass
+    sched = getattr(eng, "_scheduler", None)
+    if got_term.is_set() and sched is not None:
+        log.info("SIGTERM: draining before shutdown")
+        eng.begin_drain()
+        eng.wait_drained(sched.drain_deadline_s + 5.0)
     server.stop()
+    if sched is not None:
+        sched.close_journal()
     return 0
+
+
+def warm_restart_at_boot(eng, drain_dir: str) -> list:
+    """Re-admit what a previous process left: the requests its drain
+    snapshotted to ``drain_dir`` and the sessions its journal recorded as
+    unfinished (it may have died with no cooperation at all). They decode
+    to completion on threads of their own (their old connections are
+    gone), which also warms the prefix cache for the clients' retries.
+    Returns the restored sequences."""
+    sched = getattr(eng, "_scheduler", None)
+    if sched is None or not (drain_dir or sched._journal is not None):
+        return []
+    try:
+        restored = eng.warm_restart(drain_dir or None)
+    except Exception as exc:  # noqa: BLE001 — boot survives a corrupt snapshot
+        log.warning("warm restart failed: %r", exc)
+        return []
+    if restored:
+        log.info("warm restart: re-admitted %d request(s)", len(restored))
+
+    def finish(seq):
+        try:
+            for _ in sched.drain(seq):
+                pass
+        except Exception as exc:  # noqa: BLE001
+            log.warning("restored request failed: %r", exc)
+
+    for seq in restored:
+        threading.Thread(target=finish, args=(seq,), daemon=True).start()
+    return restored
 
 
 if __name__ == "__main__":

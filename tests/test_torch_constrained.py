@@ -218,8 +218,8 @@ def test_paged_constrained_resumes_after_preemption(dense, grammars):
     urgent = []
     deliver = sched._deliver
 
-    def deliver_then_preempt(seq, t):
-        deliver(seq, t)
+    def deliver_then_preempt(seq, t, key=None):
+        deliver(seq, t, key)
         # once the call is a few tokens in, a priority request arrives and
         # takes the only slot (submitted on the loop thread: deterministic)
         if seq.grammar is not None and seq.gstate >= 0 and len(seq.generated) == j + 4 \

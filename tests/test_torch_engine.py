@@ -1,10 +1,11 @@
 """The port's dense engine: greedy token identity with the JAX
 InferenceEngine on the same fp32 tiny weights, and the engine's own
 contracts re-proved inside the port — chunk=1 == chunked, the post-stop
-freeze of the fused decode, budget truncation, and seeded sampling
-(top-k=1 is greedy; the filtered support matches the JAX sampler's over
-many draws). Sampling draws differ between the packages by design (Gumbel
-noise from a torch.Generator vs threefry), so only supports are compared.
+freeze of the fused decode (key included), budget truncation, and seeded
+sampling (top-k=1 is greedy; on the same threefry key the port draws the
+JAX sampler's tokens, whose set is the filtered support). The seeded
+streams of the two engines are held against each other in
+tests/test_torch_seeded_parity.py.
 """
 
 import jax
@@ -17,6 +18,7 @@ from fei_tpu.engine.engine import GenerationConfig as JaxGen
 from fei_tpu.engine.engine import InferenceEngine as JaxEngine
 from fei_tpu.engine.sampling import sample_logits as jax_sample
 from fei_tpu_torch.engine.engine import GenerationConfig, InferenceEngine
+from fei_tpu_torch.engine.prng import PRNGKey
 from fei_tpu_torch.engine.sampling import filter_logits, sample_logits
 from fei_tpu_torch.engine.tokenizer import load_tokenizer
 from fei_tpu_torch.models.configs import get_model_config
@@ -63,27 +65,41 @@ def test_chunk1_equals_chunk5(engine, kw):
 
 
 def test_fused_decode_freezes_after_stop(engine):
-    """Once the stop is sampled, later steps leave cache.length and the KV
-    slots unchanged and repeat the carry token."""
+    """Once the stop is sampled, later steps leave cache.length, the KV
+    slots and the key unchanged and repeat the carry token."""
     prompt = engine.tokenizer.encode("device stop", add_bos=True)
     full = _tokens(engine, prompt, 12, chunk=1)
     # the fused chunk samples full[1:]; pick a step j whose token is new
     j = next(j for j in range(2, 8) if full[1 + j] not in full[: 1 + j])
     stop_at = full[1 + j]
     gen = GenerationConfig(max_new_tokens=12, stop_token_ids=(stop_at,))
-    tok, cache, generator = engine._prefill_sample(prompt, gen)
+    tok, cache, key = engine._prefill_sample(prompt, gen)
     assert int(tok[0]) == full[0]
     k_before, v_before = cache.k.clone(), cache.v.clone()
     fused = engine._free_fused_fn(gen, 10)
     done = torch.zeros((1,), dtype=torch.bool)
-    toks, cache, token, done = fused(
-        engine.params, cache, tok.reshape(1, 1), generator, done,
+    toks, cache, token, key, done, keys = fused(
+        engine.params, cache, tok.reshape(1, 1), key, done,
         torch.tensor([stop_at], dtype=torch.int32),
     )
     host = toks[0].tolist()
     assert host[: j + 1] == full[1: j + 2]
     assert all(t == stop_at for t in host[j:])
     assert bool(done[0]) and int(token[0, 0]) == stop_at
+    assert keys is None and torch.equal(key, PRNGKey(0))  # greedy: no split
+    # sampled: the per-step keys, the last one the carried key, frozen
+    # from the step after the stop (its dead steps split nothing)
+    sgen = GenerationConfig(max_new_tokens=12, temperature=0.9, seed=4)
+    stok, scache, skey = engine._prefill_sample(prompt, sgen)
+    done = torch.zeros((1,), dtype=torch.bool)
+    stoks, _, _, skey, done, keys = engine._free_fused_fn(sgen, 10)(
+        engine.params, scache, stok.reshape(1, 1), skey, done,
+        torch.tensor([stop_at], dtype=torch.int32),
+    )
+    assert keys.shape == (10, 2) and torch.equal(keys[-1], skey)
+    if bool(done[0]):
+        j = stoks[0].tolist().index(stop_at)
+        assert all(torch.equal(keys[i], keys[j]) for i in range(j, 10))
     fed = len(prompt) + j + 1  # the stop itself is never fed
     assert int(cache.length[0]) == fed
     assert torch.equal(cache.k[:, :, fed:], k_before[:, :, fed:])
@@ -133,16 +149,16 @@ def test_seed_reproducible(engine):
     ids=["top_k", "top_p", "min_p", "combined"],
 )
 def test_sampled_support_matches_jax(knobs):
-    """Over N draws on a 16-token vocab, the port and the JAX sampler hit
-    the same set of tokens, and that set is the port's filtered support."""
+    """Over N draws on a 16-token vocab with one threefry key, the port and
+    the JAX sampler draw the same tokens, and their set is the port's
+    filtered support."""
     n, V = 4000, 16
     logits = (np.random.default_rng(0).standard_normal(V) * 1.5).astype(np.float32)
     jax_ids = jax_sample(jnp.tile(jnp.asarray(logits), (n, 1)),
                          jax.random.PRNGKey(0), **knobs)
-    gen = torch.Generator().manual_seed(0)
-    pt_ids = sample_logits(torch.from_numpy(logits).repeat(n, 1), gen, **knobs)
+    pt_ids = sample_logits(torch.from_numpy(logits).repeat(n, 1), PRNGKey(0), **knobs)
     support = torch.isfinite(filter_logits(torch.from_numpy(logits)[None], **knobs)[0])
-    assert set(np.asarray(jax_ids).tolist()) == set(pt_ids.tolist())
+    assert np.asarray(jax_ids).tolist() == pt_ids.tolist()
     assert set(pt_ids.tolist()) == set(torch.nonzero(support)[:, 0].tolist())
 
 

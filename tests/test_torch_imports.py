@@ -55,6 +55,8 @@ def test_port_imports_without_jax_or_fei_tpu():
         "fei_tpu_torch.tools.code", "fei_tpu_torch.tools.repomap",
         "fei_tpu_torch.tools.pty_wrapper", "fei_tpu_torch.utils.openai_stub",
         "fei_tpu_torch.obs.render", "fei_tpu_torch.ui.cli",
+        "fei_tpu_torch.engine.prng", "fei_tpu_torch.engine.journal",
+        "fei_tpu_torch.utils.fsync",
     ):
         assert name in got["imported"], name
     assert got["jax"] == [], got["jax"]

@@ -389,21 +389,40 @@ class TestCheckpoint:
             restore_checkpoint(str(tmp_path), target={"params": fewer}, device="cpu")
 
     def test_cache_shardings_and_quantized_leaves_wait(self, tmp_path, cfg_params):
-        """What the port's checkpoints do not cover yet raises, naming the
-        roadmap module that brings it."""
+        """Quantized leaves and a KV cache no longer wait: they round-trip
+        bitwise, with and without a target. Sharded restore still raises,
+        naming its roadmap module, and a leaf of no known kind raises and
+        leaves nothing behind."""
         _, params = cfg_params
-        with pytest.raises(NotImplementedError, match="B4"):
+        with pytest.raises(CheckpointError, match="not a tensor"):
             save_checkpoint(str(tmp_path), 0, params, cache=object())
+        assert latest_step(str(tmp_path)) is None  # the failed save left nothing
+        assert list(tmp_path.iterdir()) == []
         save_checkpoint(str(tmp_path), 0, params)
         with pytest.raises(NotImplementedError, match="C4"):
             restore_checkpoint(str(tmp_path), shardings={}, device="cpu")
         pcfg = pt_get_model_config("tiny", hidden_size=512, intermediate_size=1024,
                                    num_heads=8, num_kv_heads=4)
-        q = quantize_params(pt_llama.init_params(pcfg, seed=0, dtype=torch.float32))
-        with pytest.raises(CheckpointError, match="B4"):
-            save_checkpoint(str(tmp_path), 1, q)
-        assert latest_step(str(tmp_path)) == 0  # the failed save left nothing behind
-        assert [p.name for p in tmp_path.iterdir()] == ["0"]
+        q = quantize_params(pt_llama.init_params(pcfg, seed=0, dtype=torch.float32),
+                            bits=4)
+        cache = pt_llama.KVCache.create(pcfg, 1, 16, dtype=torch.float32)
+        cache.k.normal_(generator=torch.Generator().manual_seed(0))
+        cache = cache._replace(length=torch.tensor([5], dtype=torch.int32))
+        save_checkpoint(str(tmp_path), 1, q, cache=cache)
+        want = flatten(q)
+        kinds = {type(leaf).__name__ for leaf in want.values()}
+        assert {"QTensor", "QTensor4"} <= kinds
+        for target in (None, {"params": q, "cache": cache}):
+            out = restore_checkpoint(str(tmp_path), 1, target=target, device="cpu")
+            got = flatten(out["params"])
+            assert set(got) == set(want)
+            for path, leaf in want.items():
+                assert type(got[path]) is type(leaf), path
+                for a, b in zip(got[path], leaf):
+                    assert torch.equal(a, b), path
+            assert type(out["cache"]) is pt_llama.KVCache
+            for a, b in zip(out["cache"], cache):
+                assert torch.equal(a, b)
 
     def test_resume_matches_uninterrupted(self, tmp_path, cfg_params):
         """Four steps against two steps, a checkpoint, a restore and two
