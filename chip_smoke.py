@@ -74,6 +74,34 @@ Phases (each raises on failure, so the script exits non-zero):
    drained, warm restart -> first replayed token per route, aggregate
    tok/s with the journal off / batch / always, and what a sampled step's
    sampling tail launches beside a greedy one's.
+10. KV tier (the KV path), on the same weights, each run on a fresh paged
+   engine built with the tier's variables (``FEI_TPU_KV_TIER``, RAM
+   budget 8 GiB); the eight prompts of phase 6 as four greedy and four
+   top-p 0.9 requests. The roomy traffic (1025 pages, 128 tokens) gives
+   the same streams with the tier off and on (every new prompt's prefix
+   published). The tight pool (129 pages) preempts: with the tier on,
+   victims spill before eviction and resume by scatter, with
+   ``kv.spills``, ``kv.fetches`` and ``kv.pages_restored`` counted, no
+   fetch fallen back, ``scheduler.preempted_tokens_recomputed`` flat, and
+   every stream bitwise the roomy run's. The disk rung (the same tight
+   traffic, a RAM budget of one byte) demotes and serves fetches from
+   disk with the same streams. An int8 pool (30 pages, four requests of 32
+   tokens) spills its scales and equals its tier-off run, also under the
+   faults ``kv.fetch`` io/corrupt/hang and ``kv.spill`` io, which fall back
+   to replay and are counted. A 3000-token prompt published, the local
+   prefix cache evicted through ``run_ctl``, admits through the tier
+   (``kv.prefix_hits_tier``, only the suffix prefilled) with the local
+   prefix hit's stream (bitwise) and the cold run's (within 2 bf16 ulps,
+   F2); ``export_prefix`` -> ``import_prefix`` into a second engine (129
+   pages) lands the blob's bytes and serves a prefix hit with the same
+   stream; over HTTP, /kv/prefix, /kv/prefix/probe, GET and POST
+   /kv/prefix (the peer's next completion hits the push), /kv/export ->
+   /kv/import, 409 for a blob of another page size, 400, 404, and
+   ``kv_fingerprint`` on /health. Logged: gather and scatter GB/s per
+   entry size beside a pinned ``copy_`` of the same bytes, re-admission
+   -> next token streamed vs replayed, the tight traffic's wall time
+   with the tier off / ram / disk, the publish cost per admission and the
+   roomy tok/s with the tier off and on.
 
 Phase 3 also holds the int4 matmul kernel (K4) against its plain version
 at llama3-8b's four linear shapes and M = 1/8/256/2048, shows that two
@@ -83,16 +111,16 @@ bitwise the same at every M (the decode split of K and the prefill
 pipeline sum in one order).
 After the bf16 engines are released:
 
-10. Quantized dense path: llama3-8b with int4 weights (random, the same
+11. Quantized dense path: llama3-8b with int4 weights (random, the same
    seed): ``param_bytes``; a ~1500-token prefill launches K4 exactly 7
    times per layer and its logits are held against the same weights
    dequantized to bf16 and multiplied plainly; 128 greedy tokens. Then
    int8 weights: ``param_bytes``, 32 greedy tokens, no K4 launch.
-11. Quantized paged path: the int4 weights behind the paged engine, four
+12. Quantized paged path: the int4 weights behind the paged engine, four
    requests from threads; each stream must equal the dense int4 engine's,
    and must not change with the merged dispatch off or in a tight pool
    that preempts.
-12. Provider: ``TorchLocalProvider`` built from the configuration with
+13. Provider: ``TorchLocalProvider`` built from the configuration with
     quantize = int4 answers one completion through the server.
 
 Phase 3 also holds the flash backward: K1 with its logsumexp output
@@ -107,7 +135,7 @@ K5b and the pair eager and as device time (CUDA graph) at the training
 shape and at D = 64 beside the SDPA backward, and prints K5b's q-tile steps
 per block (largest and mean). After the quantized engines are released:
 
-13. Training (the training path): llama3-8b at full width and depth, bf16,
+14. Training (the training path): llama3-8b at full width and depth, bf16,
     random weights from the seed, ``TrainConfig(remat=True)``, one sequence
     of 2049 ids: three steps on the same batch (finite loss near ln V,
     lower at the third step; K1 twice per layer and step, K5a and K5b once).
@@ -118,8 +146,10 @@ per block (largest and mean). After the quantized engines are released:
 
 ``python3 chip_smoke.py --paged-times`` only builds K2/K3 and times them at
 every shape of phase 3 through their public wrappers; ``--bwd-times`` does
-the same for K5a, K5b and the pair at the training shape and at D = 64. A
-copy of this file run from an older tree's root times that tree's kernels.
+the same for K5a, K5b and the pair at the training shape and at D = 64;
+``--kv`` builds K1-K3 and runs phase 10 alone (on the seed's weights with
+the serve phase's LM head). A copy of this file run from an older tree's
+root times that tree's kernels.
 
 Every kernel count is set to 0 just before a path is driven and read just
 after. The line before the last two is the kernels' JSON record (launches
@@ -129,16 +159,19 @@ sum over the agent path's own runs, each counted from 0: the provider turn,
 the paged turns, the paged turn beside its free neighbours and the
 ``--message`` round; and ``launches_survival``, the sum over the survival
 path's own runs: the seeded paged streams, the drained run, the warm
-restart, the journaled run and its recovery), the line before the last is
-the card, and the last line is the JSON verdict.
+restart, the journaled run and its recovery; and ``launches_kv``, the sum
+over the KV path's tier-on runs), the line before the last is the card,
+and the last line is the JSON verdict.
 """
 
 from __future__ import annotations
 
+import contextlib
 import gc
 import itertools
 import json
 import math
+import statistics
 import subprocess
 import sys
 import tempfile
@@ -1565,11 +1598,13 @@ def counter(name: str) -> float:
     return METRICS.snapshot()["counters"].get(name, 0.0)
 
 
-def traffic(engine, prompts, new_tokens: int) -> dict:
+def traffic(engine, prompts, new_tokens: int, gens=None) -> dict:
     """Eight requests from eight threads through the scheduler: the short
     prompts start at once, the long ones once every short stream has its
-    first token (so their chunks overlap live decode). Returns the token
-    streams, each request's TTFT and the run's wall time."""
+    first token (so their chunks overlap live decode). ``gens`` gives each
+    request its own GenerationConfig (default: greedy, ``new_tokens``).
+    Returns the token streams, each request's TTFT and the run's wall
+    time."""
     from fei_tpu_torch.engine import GenerationConfig
 
     gen = GenerationConfig(max_new_tokens=new_tokens, ignore_eos=True)
@@ -1585,7 +1620,7 @@ def traffic(engine, prompts, new_tokens: int) -> dict:
                     firsts.acquire(timeout=600)
             t0 = time.perf_counter()
             out = []
-            for tok in engine.scheduler.stream(prompts[i], gen):
+            for tok in engine.scheduler.stream(prompts[i], gen if gens is None else gens[i]):
                 if not out:
                     ttft[i] = time.perf_counter() - t0
                     if len(prompts[i]) <= engine.scheduler.prefill_chunk:
@@ -2548,6 +2583,515 @@ def survival_phase(dense, paged, card: str) -> dict:
     return launched
 
 
+# ------------------------------------------------------------------ KV tier
+
+KV_RAM_BYTES = "8g"  # holds every victim of the tight traffic and every publish
+KV_NEW = 32  # tokens a request of the int8, fault and prefix runs (cut: time)
+KV_SAMPLED = dict(temperature=0.8, top_p=0.9)
+
+
+def host_memory_gib() -> tuple[float, float]:
+    """(MemFree, MemAvailable) of the host in GiB, from /proc/meminfo."""
+    info = {}
+    with open("/proc/meminfo") as f:
+        for line in f:
+            name, value = line.split(":", 1)
+            info[name] = int(value.split()[0]) * 1024
+    return info["MemFree"] / 2**30, info.get("MemAvailable", 0) / 2**30
+
+
+def sync(device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+
+
+@contextlib.contextmanager
+def resume_timer(eng, out: list):
+    """Appends, for each re-admission of a preempted request, the ms from
+    that re-admission to the request's next delivered token (host clock):
+    a streamed resume's scatter, or a replay's re-prefill and replay."""
+    sched = eng.scheduler
+    resume, deliver = sched._try_streamed_resume, sched._deliver
+    t_admit: dict = {}
+
+    def timed_resume(seq, slot, prefix):
+        t_admit[id(seq)] = time.perf_counter()
+        return resume(seq, slot, prefix)
+
+    def timed_deliver(seq, t, key=None):
+        t0 = t_admit.pop(id(seq), None)
+        deliver(seq, t, key)
+        if t0 is not None:
+            out.append((time.perf_counter() - t0) * 1e3)
+
+    sched._try_streamed_resume, sched._deliver = timed_resume, timed_deliver
+    try:
+        yield
+    finally:
+        del sched._try_streamed_resume, sched._deliver
+
+
+@contextlib.contextmanager
+def transfer_timer(out: list, device):
+    """Appends one record per page gather (spill or publish) and scatter
+    (fetch) the KV tier makes: direction, bytes, seconds (host clock around
+    the copy, the device synchronised on both sides), array names."""
+    from fei_tpu_torch.kv import pagesio
+
+    gather, scatter = pagesio.gather_pages, pagesio.scatter_pages
+
+    def timed_gather(pool, pages):
+        sync(device)
+        t0 = time.perf_counter()
+        got = gather(pool, pages)
+        out.append({"op": "gather", "bytes": sum(a.nbytes for a in got.values()),
+                    "s": time.perf_counter() - t0, "names": sorted(got)})
+        return got
+
+    def timed_scatter(pool, pages, arrays):
+        sync(device)
+        t0 = time.perf_counter()
+        scatter(pool, pages, arrays)
+        sync(device)
+        n = len(pages)
+        out.append({"op": "scatter", "bytes": sum(np.asarray(a)[:n].nbytes for a in arrays.values()),
+                    "s": time.perf_counter() - t0, "names": sorted(arrays)})
+
+    pagesio.gather_pages, pagesio.scatter_pages = timed_gather, timed_scatter
+    try:
+        yield
+    finally:
+        pagesio.gather_pages, pagesio.scatter_pages = gather, scatter
+
+
+def pinned_copy_gbps(nbytes: int) -> tuple[float, float]:
+    """(device -> host, host -> device) GB/s of one ``copy_`` of ``nbytes``
+    between the card and pinned host memory: the host link's yardstick
+    (best of three, host clock around a synchronised copy)."""
+    dev = torch.empty(nbytes, dtype=torch.uint8, device="cuda")
+    host = torch.empty(nbytes, dtype=torch.uint8, pin_memory=True)
+
+    def best(fn) -> float:
+        times = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        return nbytes / min(times) / 1e9
+
+    return best(lambda: host.copy_(dev)), best(lambda: dev.copy_(host))
+
+
+def kv_weights():
+    """The dense engine the KV phase runs on after the serve phase: the
+    seed's llama3-8b with the LM head zeroed past the byte tokenizer's ids
+    (for ``--kv``, which runs the KV phase alone)."""
+    from fei_tpu_torch.engine import InferenceEngine
+
+    dense = InferenceEngine.from_config("llama3-8b", dtype=torch.bfloat16, seed=SEED,
+                                        max_seq_len=8192, device="cuda")
+    dense.params["lm_head"][:, dense.tokenizer.vocab_size:] = 0
+    return dense
+
+
+def kv_phase(dense, card: str) -> dict:
+    """The KV tier on the card (bf16 llama3-8b, 8 rows, page 64): spill
+    before preemption and streamed resume in the tight pool (``ram``, then
+    ``disk``), an int8 pool, the fault points, a content-addressed prefix
+    hit, prefix migration between engines and the /kv routes over HTTP.
+    Every check counts spills and fetches, not only streams. Returns the
+    kernel launches of the phase's tier-on runs, each counted from 0 just
+    before it; the tier-off references are not counted."""
+    import base64
+    import dataclasses
+    import os
+
+    from fei_tpu_torch.agent.providers import TorchLocalProvider
+    from fei_tpu_torch.engine import GenerationConfig, InferenceEngine
+    from fei_tpu_torch.engine.faults import FAULTS
+    from fei_tpu_torch.kv.pagesio import gather_pages
+    from fei_tpu_torch.kv.tier import PageEntry, pack_entry, unpack_entry
+    from fei_tpu_torch.ui.server import ServeAPI, ServingServer
+    from fei_tpu_torch.utils.metrics import METRICS
+
+    t_phase = time.perf_counter()
+    cfg, dev = dense.cfg, dense.device
+    free, avail = host_memory_gib()
+    log(f"kv: host memory free {free:.1f} GiB, available {avail:.1f} GiB; RAM budget "
+        f"{KV_RAM_BYTES} on {card}")
+    launched = dict.fromkeys(read_counts(), 0)
+
+    @contextlib.contextmanager
+    def kv_path():
+        reset_counts()
+        yield
+        for k, v in read_counts().items():
+            launched[k] += v
+
+    def fresh(mode="off", num_pages=None, kv_quant=None, prefix_cache=False, **env):
+        over = {"FEI_TPU_KV_TIER": mode, "FEI_TPU_KV_RAM_BYTES": KV_RAM_BYTES, **env}
+        old = {k: os.environ.get(k) for k in over}
+        os.environ.update(over)
+        try:
+            return InferenceEngine.from_config(
+                cfg.name, dtype=dense.dtype, params=dense.params, max_seq_len=dense.max_seq_len,
+                device=dev, paged=True, batch_size=8, page_size=PAGE, num_pages=num_pages,
+                kv_quant=kv_quant, prefix_cache=prefix_cache)
+        finally:
+            for k, v in old.items():
+                if v is None:
+                    os.environ.pop(k, None)
+                else:
+                    os.environ[k] = v
+
+    def release(eng):
+        eng.close()
+        gc.collect()
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+
+    def snap():
+        return METRICS.snapshot()
+
+    def delta(before, name):
+        return counter(name) - before["counters"].get(name, 0.0)
+
+    def span_delta(before, name):
+        a = before["spans"].get(name, {"count": 0, "total_s": 0.0})
+        b = snap()["spans"].get(name, {"count": 0, "total_s": 0.0})
+        return b["count"] - a["count"], b["total_s"] - a["total_s"]
+
+    def divergence(prompt, gen, want, got) -> str:
+        if gen.temperature > 0:
+            j, gap, allowed = first_sampled_divergence(dense, prompt, gen, want, got)
+            return f"token {j}, noise+logit gap {gap:.6g} (2 ulps: {allowed:.6g})"
+        j, gap, ulp = first_divergence(dense, prompt, want, got)
+        return f"token {j}, logit gap {gap:.6g} ({gap / ulp:.3g} bf16 ulps)"
+
+    kv_names = ("scheduler.preemptions", "kv.spills", "kv.fetches", "kv.pages_spilled",
+                "kv.pages_restored", "kv.fetch_fallbacks", "kv.spill_failures",
+                "kv.spill_skipped_length", "kv.demotions",
+                "scheduler.preempted_tokens_recomputed")
+
+    rng = np.random.default_rng(SEED + 1)
+    prompts = [rng.integers(8, cfg.vocab_size, size=n).tolist()
+               for n in SHORT_LENS + LONG_LENS]
+    # four greedy and four seeded (top-p) requests, both kinds on both routes
+    gens = [GenerationConfig(max_new_tokens=NEW_TOKENS, ignore_eos=True) if i % 2 == 0 else
+            GenerationConfig(max_new_tokens=NEW_TOKENS, ignore_eos=True, seed=SEED + 40 + i,
+                             **KV_SAMPLED) for i in range(len(prompts))]
+    short_gens = [dataclasses.replace(g, max_new_tokens=KV_NEW) for g in gens]
+
+    # (a) the roomy traffic with the tier off (the reference) and on
+    eng = fresh("off")
+    ref = traffic(eng, prompts, NEW_TOKENS, gens)
+    release(eng)
+    roomy = ref["streams"]
+    check(all(len(s) == NEW_TOKENS for s in roomy), "a roomy reference stream is short")
+    eng = fresh("ram")
+    before = snap()
+    pubs: list = []
+    with kv_path(), transfer_timer(pubs, dev):
+        run = traffic(eng, prompts, NEW_TOKENS, gens)
+    n_pub, pub_s = span_delta(before, "kv_spill")
+    release(eng)
+    check(run["streams"] == roomy, "the tier changed a roomy stream")
+    check(n_pub == len(prompts) and delta(before, "kv.cas_stores") == len(prompts),
+          f"{n_pub} publishes for {len(prompts)} new prompts")
+    total = len(prompts) * NEW_TOKENS
+    tok_s = {"off": total / ref["wall"], "ram": total / run["wall"]}
+    log(f"kv: roomy 8 x {NEW_TOKENS} (4 greedy, 4 top-p) on {card}: tier off {tok_s['off']:.2f} tok/s, "
+        f"ram {tok_s['ram']:.2f} tok/s (the same streams); {n_pub} prefix publishes, "
+        f"{pub_s * 1e3 / max(n_pub, 1):.1f} ms each (kv_spill span), "
+        f"{sum(x['bytes'] for x in pubs) / 2**20:.1f} MiB in all; by size "
+        + ", ".join(f"{x['bytes'] / 2**20:.0f} MiB {x['s'] * 1e3:.1f} ms" for x in pubs))
+
+    # (b) the tight pool: tier off (replay) against ram (streamed resume)
+    lat = {"off": [], "ram": []}
+    xfers: list = []
+    eng = fresh("off", num_pages=129)
+    before = snap()
+    with resume_timer(eng, lat["off"]):
+        t_off = traffic(eng, prompts, NEW_TOKENS, gens)
+    d_off = {k: delta(before, k) for k in kv_names}
+    release(eng)
+    check(d_off["scheduler.preemptions"] >= 1, "the tight pool never preempted")
+    same_off = [a == b for a, b in zip(t_off["streams"], roomy)]
+    eng = fresh("ram", num_pages=129)
+    before = snap()
+    with kv_path(), resume_timer(eng, lat["ram"]), transfer_timer(xfers, dev):
+        t_ram = traffic(eng, prompts, NEW_TOKENS, gens)
+    d = {k: delta(before, k) for k in kv_names}
+    release(eng)
+    log(f"kv: tight pool (129 pages), 8 x {NEW_TOKENS}: tier off {d_off}; ram {d}")
+    log(f"kv: tight pool, tier off: streams equal to the roomy run: {same_off}")
+    check(d["scheduler.preemptions"] >= 1, "the tight pool never preempted (ram)")
+    check(d["kv.spills"] >= 1, f"no spill in the tight pool: {d}")
+    check(d["kv.fetches"] >= 1 and d["kv.pages_restored"] > 0, f"no streamed resume: {d}")
+    check(d["kv.fetch_fallbacks"] == 0, f"a resume fell back to replay: {d}")
+    check(d["scheduler.preempted_tokens_recomputed"] == 0,
+          f"a resume recomputed tokens instead of streaming pages: {d}")
+    same = [a == b for a, b in zip(t_ram["streams"], roomy)]
+    for i, ok in enumerate(same):
+        if not ok:
+            log(f"kv: tight ram stream {i} (prompt {len(prompts[i])}, temperature "
+                f"{gens[i].temperature}) first differs from the roomy run at "
+                + divergence(prompts[i], gens[i], roomy[i], t_ram["streams"][i]))
+    check(all(same), f"a streamed resume left the roomy stream: {same}")
+    log(f"kv: tight pool, ram: every stream (4 greedy, 4 top-p 0.9) bitwise the roomy run's")
+
+    # (c) the disk rung: a RAM budget below one entry sends all but the
+    # newest entry to disk. The tight traffic of (b): at fewer tokens, or
+    # in a smaller pool, whether anything preempts depends on when the
+    # requests arrive (runs of 8 x 32 in 100 pages preempted 0 to 6 times).
+    # A victim is usually resumed before any other entry lands, so its
+    # entry is still the newest, in RAM, or its demotion is still being
+    # written (one full run read 2 of 29 resumes from disk, the next 0).
+    # So before each resume's fetch the smoke puts an empty entry, as
+    # another session's spill would, which demotes the victim's, and waits
+    # for the writer: every streamed resume of this rung reads disk.
+    disk_hits: list = []
+    with tempfile.TemporaryDirectory() as ddir:
+        eng = fresh("disk", num_pages=129, FEI_TPU_KV_RAM_BYTES="1", FEI_TPU_KV_DISK_DIR=ddir,
+                    FEI_TPU_KV_DISK_BYTES="64g")
+        tier = eng.scheduler._kv_tier
+        fetch = tier.fetch
+        push = "smoke:push-to-disk"
+
+        def fetch_from_disk(key):
+            # loop thread, like every put: nothing else lands meanwhile
+            with tier._lock:
+                in_ram = key in tier._ram
+            if in_ram:
+                tier.put(push, PageEntry(push, 0, PAGE, {}))
+            tier.flush()
+            if in_ram:
+                tier.drop(push)
+            with tier._lock:
+                on_disk = key in tier._disk
+            t0 = time.perf_counter()
+            got = fetch(key)
+            if got is not None and on_disk:  # read, sha256 and unpack, inline
+                disk_hits.append((got.nbytes, time.perf_counter() - t0))
+            return got
+
+        tier.fetch = fetch_from_disk
+        before = snap()
+        x_disk: list = []
+        with kv_path(), transfer_timer(x_disk, dev):
+            t_disk = traffic(eng, prompts, NEW_TOKENS, gens)
+        tier.flush()
+        d_disk = {k: delta(before, k) for k in kv_names}
+        release(eng)
+    log(f"kv: disk rung (129 pages, RAM budget 1 byte), 8 x {NEW_TOKENS}: {d_disk}; fetches served from "
+        f"disk {len(disk_hits)} (each pushed there first), {sum(b for b, _ in disk_hits) / 2**20:.0f} MiB read, "
+        "checksummed and unpacked at "
+        + (f"median {statistics.median(b / t / 1e9 for b, t in disk_hits):.2f} GB/s (min "
+           f"{min(b / t / 1e9 for b, t in disk_hits):.2f}, max "
+           f"{max(b / t / 1e9 for b, t in disk_hits):.2f})" if disk_hits else "-")
+        + f" on {card}")
+    check(d_disk["kv.demotions"] >= 1, f"nothing was demoted to disk: {d_disk}")
+    check(d_disk["kv.fetches"] >= 1 and len(disk_hits) == d_disk["kv.fetches"],
+          f"{len(disk_hits)} of {d_disk['kv.fetches']:.0f} streamed resumes read disk")
+    check(d_disk["kv.fetch_fallbacks"] == 0 and d_disk["scheduler.preempted_tokens_recomputed"] == 0,
+          f"a disk resume fell back to replay: {d_disk}")
+    check(t_disk["streams"] == roomy, "a disk-rung stream left the roomy run's")
+
+    # (d) an int8 pool, tight: spills carry the scales; (e) the fault points
+    four = [0, 1, 4, 5]  # prompts 96, 160 (dense admission), 700, 1500 (chunked)
+    p4, g4 = [prompts[i] for i in four], [short_gens[i] for i in four]
+    eng = fresh("off", num_pages=30, kv_quant="int8")
+    before = snap()
+    q_off = traffic(eng, p4, KV_NEW, g4)
+    pre8 = delta(before, "scheduler.preemptions")
+    release(eng)
+    x8: list = []
+    eng = fresh("ram", num_pages=30, kv_quant="int8")
+    before = snap()
+    with kv_path(), transfer_timer(x8, dev):
+        q_ram = traffic(eng, p4, KV_NEW, g4)
+    d8 = {k: delta(before, k) for k in kv_names}
+    log(f"kv: int8 pool (30 pages), 4 x {KV_NEW}: tier off {pre8:.0f} preemptions; ram {d8}")
+    check(pre8 >= 1 and d8["kv.spills"] >= 1 and d8["kv.fetches"] >= 1,
+          f"the int8 pool did not spill and resume: {d8}")
+    check(all("k_scales" in x["names"] and "v_scales" in x["names"] for x in x8),
+          "an int8 transfer carried no scales")
+    check(d8["scheduler.preempted_tokens_recomputed"] == 0, f"an int8 resume replayed: {d8}")
+    check(q_ram["streams"] == q_off["streams"], "int8 streams differ with the tier on")
+    faults = []
+    for point, kind in (("kv.fetch", "io"), ("kv.fetch", "corrupt"), ("kv.fetch", "hang"),
+                        ("kv.spill", "io")):
+        FAULTS.disarm()
+        FAULTS.arm(point, kind, count=99)
+        before = snap()
+        try:
+            with kv_path():
+                r = traffic(eng, p4, KV_NEW, g4)
+            fired = FAULTS.fired(point)
+        finally:
+            FAULTS.disarm()
+        counted = delta(before, "kv.fetch_fallbacks" if point == "kv.fetch" else "kv.spill_failures")
+        faults.append(f"{point}:{kind} fired {fired}, counted {counted:.0f}")
+        check(fired >= 1, f"{point}:{kind} never fired")
+        check(counted == fired, f"{point}:{kind}: fired {fired}, counted {counted}")
+        check(r["streams"] == q_off["streams"], f"{point}:{kind} changed a stream")
+    release(eng)
+    log(f"kv: faults on the int8 pool, every stream equal to the tier-off run: {faults}")
+
+    # (f) a content-addressed prefix: publish, evict the local prefix cache,
+    # admit again through the tier
+    p3000 = prompts[SHORT_LENS.__len__() + 2]
+    g = GenerationConfig(max_new_tokens=KV_NEW, ignore_eos=True)
+    a = fresh("ram", num_pages=257, prefix_cache=True)
+    with kv_path():
+        cold = list(a.scheduler.stream(p3000, g))
+        before = snap()
+        local = list(a.scheduler.stream(p3000, g))
+        check(delta(before, "prefix.hits") >= 1, "the second admission missed the prefix cache")
+        sched = a.scheduler
+
+        def evict_all():
+            n = 0
+            while sched._prefix._evict_one():
+                n += 1
+            return n
+
+        evicted = sched.run_ctl(evict_all)
+        before = snap()
+        cas = list(a.scheduler.stream(p3000, g))
+    saved = (len(p3000) - 1) // PAGE * PAGE
+    check(delta(before, "kv.prefix_hits_tier") == 1, "the admission did not hit the tier")
+    check(delta(before, "scheduler.prefill_tokens") == len(p3000) - saved,
+          f"prefilled {delta(before, 'scheduler.prefill_tokens')} tokens, not the "
+          f"{len(p3000) - saved}-token suffix")
+    check(cas == local, "the tier hit's stream is not the local prefix hit's")
+    vs_cold = "bitwise"
+    if cas != cold:
+        j, gap, ulp = first_divergence(dense, p3000, cold, cas)
+        vs_cold = f"first differs at token {j}, logit gap {gap / ulp:.3g} bf16 ulps"
+        check(abs(gap) <= 2 * ulp, f"the tier hit left the cold stream by {gap / ulp} ulps")
+    log(f"kv: {len(p3000)}-token prompt: {evicted} local prefix entries evicted through "
+        f"run_ctl, then a tier hit of {saved // PAGE} pages: prefilled "
+        f"{len(p3000) - saved} tokens; stream bitwise the local hit's; against the cold "
+        f"run: {vs_cold}")
+
+    # (g) migration to a second engine with a small pool, then the routes
+    b = fresh("ram", num_pages=129, prefix_cache=True)
+    with kv_path():
+        t0 = time.perf_counter()
+        blob = a.scheduler.export_prefix(p3000)
+        t_exp = time.perf_counter() - t0
+        check(blob is not None, "nothing to export")
+        entry, _ = unpack_entry(blob)
+        t0 = time.perf_counter()
+        landed = b.scheduler.import_prefix(blob)
+        t_imp = time.perf_counter() - t0
+        check(landed == entry.n_pages, f"imported {landed} of {entry.n_pages} pages")
+        sb = b.scheduler
+        back = sb.run_ctl(lambda: gather_pages(sb._pool, sb._prefix.match(p3000)))
+        check(set(back) == set(entry.arrays) and all(
+            back[k].tobytes() == entry.arrays[k].tobytes() for k in back),
+            "the imported pages are not the blob's bytes")
+        before = snap()
+        moved = list(b.scheduler.stream(p3000, g))
+    check(delta(before, "prefix.hits") >= 1, "the migrated prefix did not hit")
+    check(moved == local, "the migrated prefix's stream is not the source's hit stream")
+    log(f"kv: migration of {entry.n_pages} pages ({len(blob) / 2**20:.1f} MiB blob) on {card}: export "
+        f"{t_exp * 1e3:.1f} ms, import {t_imp * 1e3:.1f} ms; pages bitwise the blob's, the "
+        "next admission a prefix hit with the source's stream")
+
+    servers = [ServingServer(ServeAPI(TorchLocalProvider(engine=e), model_name=cfg.name),
+                             host="127.0.0.1", port=0) for e in (a, b)]
+    for srv in servers:
+        srv.start()
+    base_a, base_b = (f"http://127.0.0.1:{srv.port}" for srv in servers)
+
+    def http(base, method, path, body=None):
+        req = urllib.request.Request(
+            base + path, method=method, headers={"Content-Type": "application/json"},
+            data=None if body is None else json.dumps(body).encode())
+        try:
+            with urllib.request.urlopen(req, timeout=600) as r:
+                return r.status, json.loads(r.read())
+        except urllib.error.HTTPError as exc:
+            return exc.code, json.loads(exc.read())
+
+    text = "".join(chr(c) for c in rng.integers(97, 123, size=220))
+    msgs = [{"role": "user", "content": text}]
+    chat = {"messages": msgs, "max_tokens": 4, "temperature": 0}
+    try:
+        with kv_path():
+            check(http(base_a, "POST", "/v1/chat/completions", chat)[0] == 200, "completion on A")
+            status, listed = http(base_a, "GET", "/kv/prefix")
+            status, probe = http(base_a, "POST", "/kv/prefix/probe", {"messages": msgs})
+            check(status == 200 and probe["have"] and probe["have"][0] in listed["hashes"],
+                  f"/kv/prefix does not list the published prefix: {listed} {probe}")
+            h = probe["have"][0]
+            status, got = http(base_a, "GET", f"/kv/prefix/{h}")
+            check(status == 200 and got["hash"] == h, f"GET /kv/prefix/<hash>: {status}")
+            status, pushed = http(base_b, "POST", "/kv/prefix", {"hash": h, "blob": got["blob"]})
+            check(status == 200 and pushed["stored"] is True, f"POST /kv/prefix: {status} {pushed}")
+            before = snap()
+            check(http(base_b, "POST", "/v1/chat/completions", chat)[0] == 200, "completion on B")
+            check(delta(before, "kv.prefix_hits_tier") == 1, "B's completion did not hit the push")
+            status, exported = http(base_a, "POST", "/kv/export", {"messages": msgs})
+            check(status == 200, f"/kv/export: {status}")
+            status, imported = http(base_b, "POST", "/kv/import", {"blob": exported["blob"]})
+            check(status == 200 and imported["pages"] > 0, f"/kv/import: {status} {imported}")
+        e, _ = unpack_entry(base64.b64decode(got["blob"]))
+        wrong = pack_entry(PageEntry(key=e.key, n_tokens=e.n_tokens, page_size=32,
+                                     fingerprint=dict(e.fingerprint, page_size=32),
+                                     arrays=e.arrays, layout=e.layout))
+        status, err = http(base_b, "POST", "/kv/prefix",
+                           {"hash": e.key, "blob": base64.b64encode(wrong).decode()})
+        check(status == 409 and err["error"]["theirs"]["page_size"] == 32
+              and err["error"]["ours"]["page_size"] == PAGE, f"a page-32 blob got {status}")
+        check(http(base_b, "POST", "/kv/import", {"blob": "not base64!!"})[0] == 400,
+              "bad base64 was not a 400")
+        check(http(base_a, "GET", "/kv/prefix/cas:" + "00" * 32)[0] == 404, "unknown hash")
+        status, health = http(base_b, "GET", "/health")
+        check(health.get("kv_fingerprint", {}).get("dtype") == "bfloat16"
+              and health["kv_layout"]["tp"] == 1, f"/health: {health}")
+        log(f"kv: HTTP: /kv/prefix lists the {e.n_pages}-page prefix of a "
+            f"{len(listed['hashes'])}-hash tier, GET /kv/prefix/<hash> ({got['bytes'] / 2**20:.1f} "
+            "MiB) -> POST /kv/prefix on B (stored) -> B's completion hits it; /kv/export -> "
+            f"/kv/import {imported['pages']} pages; page-32 blob 409, bad base64 400, unknown "
+            f"hash 404; /health kv_fingerprint {health['kv_fingerprint']}")
+    finally:
+        for srv in servers:
+            srv.stop()
+        release(a)
+        release(b)
+
+    # (h) times, on the card
+    if dev.type == "cuda":
+        for run, records in (("tight ram", xfers), ("disk rung", x_disk)):
+            by = {}
+            for x in records:
+                by.setdefault((x["op"], x["bytes"]), []).append(x["bytes"] / x["s"] / 1e9)
+            for (op, nbytes), rates in sorted(by.items()):
+                d2h, h2d = pinned_copy_gbps(nbytes)
+                what = "gather (spill/publish)" if op == "gather" else "scatter (fetch)"
+                log(f"kv: {run}: {what} of {nbytes / 2**20:.1f} MiB x {len(rates)}: "
+                    f"{statistics.median(rates):.2f} GB/s (min {min(rates):.2f}, max "
+                    f"{max(rates):.2f}); a pinned copy_ of the same bytes "
+                    f"{d2h if op == 'gather' else h2d:.2f} GB/s "
+                    f"({'device -> host' if op == 'gather' else 'host -> device'}) on {card}")
+    for mode in ("off", "ram"):
+        v = lat[mode]
+        log(f"kv: resume -> next token, tier {mode} "
+            f"({'replay' if mode == 'off' else 'streamed'}): n={len(v)} "
+            + (f"median {statistics.median(v):.1f} ms, min {min(v):.1f}, max {max(v):.1f}"
+               if v else "no resume") + f" on {card}")
+    log(f"kv: tight traffic (8 x {NEW_TOKENS}, 129 pages) wall: tier off {t_off['wall']:.3f} s, "
+        f"ram {t_ram['wall']:.3f} s, disk {t_disk['wall']:.3f} s (every resume read from disk after its "
+        f"entry's write was awaited) on {card}")
+    log(f"kv: phase took {time.perf_counter() - t_phase:.1f} s; launches {launched}")
+    return launched
+
+
 # ------------------------------------------------------ quantized weights
 
 QUANT_LENS = (96, 250, 700, 1500)  # two dense admissions, two chunked
@@ -2925,6 +3469,11 @@ def main() -> int:
             list(pool.map(build.build, ["flash_attention_fwd", "flash_attention_bwd"]))
         bwd_times(card)
         return 0
+    if sys.argv[1:] == ["--kv"]:
+        with ThreadPoolExecutor(3) as pool:
+            list(pool.map(build.build, KERNELS[:1] + KERNELS[2:4]))
+        kv_phase(kv_weights(), card)
+        return 0
 
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(KERNELS)) as pool:  # one nvcc per source
@@ -2959,6 +3508,9 @@ def main() -> int:
     launches_s = survival_phase(engine, paged_engine, card)
     log(f"survival path: launches {launches_s}")
     paged_engine.close()
+    # the KV tier path (counts each of its tier-on runs from 0 itself)
+    launches_kv = kv_phase(engine, card)
+    log(f"kv path: launches {launches_kv}")
     for rec in records:
         rec["launches"] = launches[rec["name"]]
         check(rec["launches"] > 0, f"the paged path never launched {rec['name']}")
@@ -2969,6 +3521,10 @@ def main() -> int:
         # merges fresh admissions with restored decode (K3)
         rec["launches_survival"] = launches_s[rec["name"]]
         check(rec["launches_survival"] > 0, f"the survival path never launched {rec['name']}")
+        # the KV path admits densely (K1), decodes and restores (K2) and
+        # merges chunks with decode and tier-hit suffixes (K3)
+        rec["launches_kv"] = launches_kv[rec["name"]]
+        check(rec["launches_kv"] > 0, f"the KV path never launched {rec['name']}")
     log(f"paged path (main run): launches {launches}")
 
     # the quantized paths, after the bf16 engines are released

@@ -262,6 +262,31 @@ class InferenceEngine:
             self._allocator = PageAllocator(num_pages, self.page_size)
         return self._pool
 
+    def kv_fingerprint(self) -> dict | None:
+        """The INVARIANT half of this engine's KV pool geometry (layers,
+        total kv heads, page_size, head_dim, dtype, quantized) that
+        ``/health`` advertises: equal to the JAX package's for the same
+        model and knobs. None for a dense engine. Derived from the config
+        until the scheduler's pool exists (a health probe must not race
+        the loop thread that builds it)."""
+        if self._scheduler is None:
+            return None
+        from fei_tpu_torch.kv.pagesio import config_fingerprint, pool_fingerprint
+
+        pool = self._scheduler._pool
+        if pool is not None:
+            return pool_fingerprint(pool)
+        return config_fingerprint(self.cfg, self.page_size, self.dtype, self.kv_quant)
+
+    def kv_layout(self) -> dict | None:
+        """The LAYOUT half: how the kv-head extent is sliced over tp (one
+        device: ``tp`` 1). None for a dense engine."""
+        if self._scheduler is None:
+            return None
+        from fei_tpu_torch.kv.pagesio import shard_layout
+
+        return shard_layout(self.cfg.num_kv_heads)
+
     @property
     def scheduler(self):
         """The continuous-batching scheduler; all paged generation runs

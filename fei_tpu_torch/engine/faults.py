@@ -15,6 +15,8 @@ Points:
 - ``decode.dispatch``    — before a batched decode dispatch
 - ``delivery.detok``     — per-token delivery
 - ``pool.alloc``         — inside the scheduler's page-allocation seam
+- ``kv.spill``           — KV tier, before a page spill lands
+- ``kv.fetch``           — KV tier, before a page fetch returns
 - ``journal.append``     — session journal, before a record append
 - ``journal.fsync``      — session journal, before an fsync
 - ``replica.crash``      — the hard-kill seam (SIGKILL), per delivered
@@ -24,7 +26,9 @@ Kinds: ``request`` → RequestError, ``device`` → DeviceError,
 ``exhausted``/``transient`` → PoolPressure (``pool.alloc``: the
 scheduler's pressure handler swallows it like a real exhaustion, so a
 test forces preemption on a roomy pool), ``io`` → OSError (a journal
-write that fails).
+write or a tier file that fails), ``corrupt`` → KVTierError (a tier entry
+whose checksum fails), ``hang`` → TimeoutError (what a fetch that never
+answers turns into after its timeout; raised at once, never slept).
 
 ``crash`` is the one kind that does not raise: it kills the whole process
 with SIGKILL — no handlers, no drain, no atexit — the kill -9 the session
@@ -49,8 +53,8 @@ from fei_tpu_torch.utils.logging import get_logger
 log = get_logger("faults")
 
 POINTS = ("admission.prefill", "decode.dispatch", "delivery.detok", "pool.alloc",
-          "journal.append", "journal.fsync", "replica.crash")
-KINDS = ("request", "device", "exhausted", "transient", "io", "crash")
+          "kv.spill", "kv.fetch", "journal.append", "journal.fsync", "replica.crash")
+KINDS = ("request", "device", "exhausted", "transient", "hang", "io", "corrupt", "crash")
 
 
 def _hard_kill(point: str) -> None:
@@ -69,6 +73,12 @@ def _make_exc(kind: str, point: str) -> BaseException:
         return SystemExit(msg)
     if kind == "io":
         return OSError(msg)
+    if kind == "corrupt":
+        from fei_tpu_torch.utils.errors import KVTierError
+
+        return KVTierError(msg)
+    if kind == "hang":
+        return TimeoutError(msg)
     if kind == "request":
         return RequestError(msg)
     if kind == "device":

@@ -22,9 +22,18 @@ the decode-shaped [B, 1] forward, so its rebuilt KV is bitwise what
 admission and the decode steps wrote. A chunked prompt whose prefix-cache
 pages were evicted before it resumes recomputes those positions through
 the chunks, which may round apart from the pages it had shared.
-The JAX package's dense-staging chunked route, its sp admission, the KV
-tier and its fallbacks for a kernel Mosaic rejects have no counterpart
-here: a kernel failure fails the requests, it is never rerouted.
+With the KV tier on, two routes come first (kv/): a preempted sequence
+whose pages were spilled scatters them back and re-arms at once
+(``_try_streamed_resume``: zero tokens recomputed, bitwise the slot it
+left), and a fresh request the local prefix cache cannot fully serve
+fetches its longest published prefix by content hash
+(``_try_cas_admit``), then takes the chunked prefix-hit route. Each new
+prompt's full-page prefix is published (``_cas_publish``). Any tier miss or
+failure falls through to the routes above.
+
+The JAX package's dense-staging chunked route, its sp admission and its
+fallbacks for a kernel Mosaic rejects have no counterpart here: a kernel
+failure fails the requests, it is never rerouted.
 """
 
 from __future__ import annotations
@@ -38,7 +47,14 @@ from fei_tpu_torch.engine import prng
 from fei_tpu_torch.engine.faults import FAULTS
 from fei_tpu_torch.engine.sampling import sample_logits
 from fei_tpu_torch.utils.errors import DeadlineExceededError, EngineError, PoolPressure
-from fei_tpu_torch.utils.metrics import METRICS
+from fei_tpu_torch.utils.logging import get_logger
+from fei_tpu_torch.utils.metrics import METRICS, account_kv_transfer
+
+log = get_logger("scheduler")
+
+# pseudo seq-id for a content-addressed fetch's pages in flight (slots are
+# 0..B-1, kv/migrate.py's import is -7777)
+_CAS_ID = -7778
 
 
 class AdmissionMixin:
@@ -122,6 +138,16 @@ class AdmissionMixin:
             METRICS.observe("queue_wait_seconds", time.perf_counter() - seq.t_queued)
             self._update_sched_gauges()
             try:
+                # streamed resume: a preempted sequence whose pages live in
+                # the KV tier scatters them back and re-arms in one hop
+                if seq.generated and self._try_streamed_resume(seq, slot, prefix):
+                    continue
+                # a fresh request's prefix may be in the tier under its
+                # content hash; a hit takes the chunked prefix-hit route
+                if not seq.generated:
+                    cas = self._try_cas_admit(seq, slot, prefix)
+                    if cas:
+                        seq.prefix_match = prefix = cas
                 if prefix or len(ids) > self.prefill_chunk or seq.generated:
                     self._start_chunked_paged(seq, slot, prefix)
                     return  # one chunked admission at a time
@@ -265,6 +291,7 @@ class AdmissionMixin:
         if self._prefix is not None:
             self._prefix.register(ids, pages[:n_prompt_pages])
         METRICS.incr("scheduler.prefill_tokens", n)
+        self._cas_publish(seq, ids, pages)
         if seq.budget <= 0:
             self._finish(seq)
             return
@@ -518,19 +545,24 @@ class AdmissionMixin:
             self._resume_delivered(seq, n, prefix_pages)
             return
         METRICS.incr("scheduler.prefill_tokens", max(0, n - prefix_pages * alloc.page_size))
+        self._cas_publish(seq, ids, pages)
         if seq.budget <= 0:
             self._finish(seq)
             return
         self._deliver(seq, tok0, key=key if seq.journaled else None)
 
-    def _resume_delivered(self, seq, n: int, prefix_pages: int) -> None:
+    def _resume_delivered(self, seq, n: int, prefix_pages: int,
+                          recomputed: int | None = None) -> None:
         """Resume tail: the stream continues with no token delivered twice
         or dropped. A warm-restart replay first re-emits the recorded
-        tokens to the fresh consumer (the old process's queue is gone)."""
+        tokens to the fresh consumer (the old process's queue is gone).
+        ``recomputed`` overrides the replay-cost accounting: a streamed
+        resume passes 0 (it recomputes nothing)."""
         alloc = self.engine._allocator
         seq.next_input = seq.generated[-1]
         METRICS.incr("scheduler.preempted_tokens_recomputed",
-                     max(0, n - prefix_pages * alloc.page_size))
+                     max(0, n - prefix_pages * alloc.page_size)
+                     if recomputed is None else recomputed)
         if seq.replay:
             for t in seq.generated:
                 seq.out.put(t)
@@ -538,3 +570,196 @@ class AdmissionMixin:
             METRICS.incr("scheduler.replayed_tokens", len(seq.generated))
         if len(seq.generated) >= seq.budget:
             self._finish(seq)
+
+    # -- the KV tier ----------------------------------------------------------
+
+    def _try_streamed_resume(self, seq, slot: int, prefix: list[int]) -> bool:
+        """Resume a preempted sequence by scattering its spilled pages back
+        from the KV tier instead of replaying tokens. True = the slot is
+        armed and the stream continues (zero tokens recomputed); False = no
+        usable entry, and the caller takes the replay route. Only
+        ``PoolPressure`` escapes (from the reservation, to the caller's
+        requeue handler); every tier-side failure becomes a replay here.
+
+        The entry's arrays are the exact pool bytes the slot held at
+        preemption (``_spill_seq`` gathers after checking the device
+        length). Prefix pages the registry shares into the slot are never
+        overwritten (a live co-resident may be attending them), and the
+        replay route reads those same pages; the rest is restored bitwise.
+        The saved key re-installs exactly as on the replay route."""
+        tier = self._kv_tier
+        if tier is None or seq.resume_key is None:
+            return False
+        if self.engine.cfg.sliding_window:
+            return False
+        from fei_tpu_torch.kv.pagesio import canonicalize_arrays, pool_fingerprint, scatter_pages
+        from fei_tpu_torch.utils.errors import KVGeometryError
+
+        alloc = self.engine._allocator
+        ids = self._prefill_ids(seq)
+        n = len(ids)
+        try:
+            entry = tier.fetch(seq.rid)
+        except Exception as exc:  # noqa: BLE001 — corrupt file, I/O error,
+            # injected hang: all mean "replay instead"
+            METRICS.incr("kv.fetch_fallbacks")
+            log.warning("kv fetch for %s failed (%r); falling back to replay", seq.rid, exc)
+            return False
+        if entry is None:
+            return False
+        need = alloc.pages_needed(n)
+        want = pool_fingerprint(self._pool)
+        if (entry.n_tokens != n or entry.page_size != self.engine.page_size
+                or entry.n_pages < need or entry.fingerprint != want):
+            # stale (decoded past the spill) or invariant-incompatible:
+            # useless now and forever
+            tier.drop(seq.rid)
+            METRICS.incr("kv.fetch_fallbacks")
+            return False
+        try:
+            arrays = canonicalize_arrays(entry.arrays, entry.layout, want["kv_heads"])
+        except KVGeometryError:
+            tier.drop(seq.rid)  # partial head coverage: replay instead
+            METRICS.incr("kv.fetch_fallbacks")
+            return False
+        # commits pages to the slot; PoolPressure propagates to the
+        # caller's requeue handler exactly like the replay routes
+        m = self._reserve_admission(seq, slot, prefix)
+        t0 = time.perf_counter()
+        pages = alloc.pages_for(slot)
+        with METRICS.span("kv_fetch"):
+            # blocking host -> device copies: the entry may go right after
+            scatter_pages(self._pool, pages[m:need], {k: v[m:need] for k, v in arrays.items()})
+        row = self._slot_row(slot)
+        self._arm(slot, row, n)
+        self._keys[slot] = seq.resume_key
+        t1 = time.perf_counter()
+        seq.prefilling = False
+        seq.row = row
+        if self._prefix is not None:
+            self._prefix.register(ids, pages[:need])
+        METRICS.incr("kv.fetches")
+        METRICS.incr("kv.pages_restored", need - m)
+        account_kv_transfer("fetched", sum(int(v[m:need].nbytes) for v in arrays.values()),
+                            t1 - t0)
+        tier.drop(seq.rid)  # one-shot: a later preemption re-spills
+        self._resume_delivered(seq, n, prefix_pages=m, recomputed=0)
+        return True
+
+    def _try_cas_admit(self, seq, slot: int, prefix: list[int]) -> list[int]:
+        """Local prefix shortfall -> content-addressed tier fetch.
+        ``prefix`` is the local prefix-cache match already shared into
+        ``slot``. Probes the prompt's page-boundary content hashes
+        longest-first for a boundary PAST the local match; on a hit,
+        allocates only the missing pages under a pseudo-id, scatters the
+        blob's tail, registers the full prefix and shares the new pages
+        into ``slot`` (kv/migrate.py's import, keyed by content). Returns
+        the full prefix page list now shared into the slot ([] = nothing
+        gained: the caller keeps its local match). Never raises: a
+        tier-side failure degrades to plain prefill."""
+        tier = self._kv_tier
+        if tier is None or not self._cas_enabled or self._prefix is None:
+            return []
+        from fei_tpu_torch.kv.pagesio import canonicalize_arrays, pool_fingerprint, scatter_pages
+        from fei_tpu_torch.utils.errors import KVGeometryError
+
+        alloc = self.engine._allocator
+        ids = self._prefill_ids(seq)
+        ps = self.engine.page_size
+        have = len(prefix)
+        # strictly shorter than the prompt, like PrefixCache.match: one
+        # suffix token must remain to produce logits
+        max_m = (len(ids) - 1) // ps
+        if max_m <= have:
+            return []
+        try:
+            keys = self._cas_keys(ids, max_m)
+            for m in range(max_m, have, -1):
+                key = keys[m - 1]
+                if not tier.contains(key):
+                    continue
+                entry = tier.fetch(key)  # kv.fetch faults fire here
+                if entry is None:
+                    continue
+                want = pool_fingerprint(self._pool)
+                if (entry.n_tokens != m * ps or entry.page_size != ps
+                        or entry.n_pages != m or entry.fingerprint != want):
+                    tier.drop(key)  # stale or incompatible: try shorter
+                    continue
+                try:
+                    cas_arrays = canonicalize_arrays(entry.arrays, entry.layout,
+                                                     want["kv_heads"])
+                except KVGeometryError:
+                    tier.drop(key)
+                    continue
+                if entry.layout is not None and entry.layout.get("tp") != 1:
+                    METRICS.incr("kv.resharded_imports")
+                # the blob carries all m pages from position 0; the first
+                # ``have`` are in the slot already: fetch only the tail
+                grow = m - have
+                got = alloc.try_alloc(_CAS_ID, grow)
+                if got is None:
+                    self._prefix.evict_for(grow)
+                    got = alloc.try_alloc(_CAS_ID, grow)
+                if got is None:
+                    return []  # no room even after eviction: prefill
+                try:
+                    t0 = time.perf_counter()
+                    with METRICS.span("kv_fetch"):
+                        scatter_pages(self._pool, got,
+                                      {k: v[have:m] for k, v in cas_arrays.items()})
+                    t1 = time.perf_counter()
+                    full = list(prefix) + list(got)
+                    self._prefix.register(ids[: m * ps], full)
+                    alloc.share(slot, got)
+                finally:
+                    # the registry and slot refs keep the pages; the
+                    # fetch's own claim dies even if the scatter raised
+                    alloc.free(_CAS_ID)
+                METRICS.incr("kv.prefix_hits_tier")
+                METRICS.incr("kv.prefix_tokens_saved", grow * ps)
+                account_kv_transfer(
+                    "fetched", sum(int(v[have:m].nbytes) for v in entry.arrays.values()), t1 - t0)
+                return full
+        except Exception as exc:  # noqa: BLE001 — corrupt entry, I/O error,
+            # injected hang: all mean "prefill instead"
+            METRICS.incr("kv.fetch_fallbacks")
+            log.warning("cas prefix fetch for %s failed (%r); prefilling", seq.rid, exc)
+        return []
+
+    def _cas_publish(self, seq, ids, pages) -> None:
+        """Publish a freshly admitted prompt's full-page prefix under its
+        content hash, to every session here (the tier) and to other
+        replicas (``GET /kv/prefix/<hash>``). ``put_if_absent`` stores at
+        most one copy however many sessions admit the same prefix (the
+        gather runs only on absence), and each live session pins the key.
+        Best-effort: a failure only costs future fetch hits."""
+        tier = self._kv_tier
+        if tier is None or not self._cas_enabled:
+            return
+        ps = self.engine.page_size
+        # the strictly-shorter boundary a consumer can ask for (an
+        # admission keeps one token to prefill for logits)
+        m = (len(ids) - 1) // ps
+        if m <= 0:
+            return
+        from fei_tpu_torch.kv.pagesio import gather_pages, pool_fingerprint, shard_layout
+        from fei_tpu_torch.kv.tier import PageEntry
+
+        try:
+            key = self._cas_keys(ids, m)[m - 1]
+            if seq.cas_key is None:
+                tier.pin(key)
+                seq.cas_key = key
+
+            def make_entry() -> PageEntry:
+                with METRICS.span("kv_spill"):
+                    arrays = gather_pages(self._pool, list(pages[:m]))
+                fp = pool_fingerprint(self._pool)
+                return PageEntry(key=key, n_tokens=m * ps, page_size=ps, fingerprint=fp,
+                                 arrays=arrays, layout=shard_layout(fp["kv_heads"]))
+
+            tier.put_if_absent(key, make_entry)
+        except Exception as exc:  # noqa: BLE001 — the admission stands
+            METRICS.incr("kv.spill_failures")
+            log.warning("cas publish for %s failed: %r", seq.rid, exc)

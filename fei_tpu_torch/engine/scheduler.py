@@ -24,6 +24,17 @@
   preemption of the least-progressed victim, which resumes token-
   identically (its prompt re-prefills through the chunked path, its
   generated suffix replays through the decode-shaped forward).
+- KV tier (fei_tpu_torch/kv, ``FEI_TPU_KV_TIER``): a victim's settled
+  pages spill to host RAM (and past the budget, disk) before its slot is
+  evicted (``_spill_seq``), and its re-admission scatters them back and
+  re-arms the slot with zero tokens recomputed (``_try_streamed_resume``);
+  any miss or tier failure falls back to the replay above. With the tier
+  on, each new prompt's full-page prefix is published under a content
+  hash (``_cas_publish``), and a local prefix-cache miss tries the tier
+  before prefilling (``_try_cas_admit``). ``export_prefix`` /
+  ``import_prefix`` move a cached prefix between replicas; they and every
+  other pool access from another thread run on the loop thread between
+  dispatches (``run_ctl``).
 - Constrained requests (``grammar=``): the grammar's DFA steps on the
   device inside the batched step from per-slot states (rows with no
   grammar, or still in their free phase, pass unmasked), so constrained
@@ -45,11 +56,14 @@
   shapes); their block-table rows are zero, so their KV writes land in the
   reserved null page 0.
 
-The survival knobs read the JAX package's environment variables, so one
-deployment's settings drive either package: ``FEI_TPU_DRAIN_DEADLINE_S``
-(30), ``FEI_TPU_DRAIN_DIR``, ``FEI_TPU_JOURNAL_DIR`` (empty: no journal),
-``FEI_TPU_JOURNAL_SYNC`` (batch) and ``FEI_TPU_JOURNAL_SEGMENT_BYTES``
-(4 MiB). The other knobs are attributes with the JAX package's defaults
+The survival and KV-tier knobs read the JAX package's environment
+variables, so one deployment's settings drive either package:
+``FEI_TPU_DRAIN_DEADLINE_S`` (30), ``FEI_TPU_DRAIN_DIR``,
+``FEI_TPU_JOURNAL_DIR`` (empty: no journal), ``FEI_TPU_JOURNAL_SYNC``
+(batch), ``FEI_TPU_JOURNAL_SEGMENT_BYTES`` (4 MiB), ``FEI_TPU_KV_TIER``
+(off | ram | disk; off), ``FEI_TPU_KV_RAM_BYTES`` (256 MiB),
+``FEI_TPU_KV_DISK_BYTES`` (1 GiB), ``FEI_TPU_KV_DISK_DIR`` and
+``FEI_TPU_KV_CDN`` (1: content-addressed prefixes while the tier is on). The other knobs are attributes with the JAX package's defaults
 (the port reads no environment variable for them): ``prefill_chunk``
 256, ``multistep`` 8, ``ragged_attention`` True, ``ragged_rows`` 8, ``preempt_policy``
 "min-progress", ``max_queue`` 0 (unbounded), ``retry_after_s`` 1,
@@ -171,6 +185,9 @@ class _Seq:
     # host-mask route (a second distinct grammar in flight): the tool-call
     # masker's state dict, whose "accepted" flag folds into gaccepted
     gfallback_state: dict | None = None
+    # the content key this session published or shares (pinned in the
+    # KV tier while it lives)
+    cas_key: str | None = None
 
 
 class PagedScheduler(AdmissionMixin, DecodeMixin, ConstraintMixin):
@@ -194,6 +211,7 @@ class PagedScheduler(AdmissionMixin, DecodeMixin, ConstraintMixin):
         self._prefix = None  # PrefixCache when engine.prefix_cache
         self._admitting: dict | None = None  # in-flight chunked admission
         self._pending_chunk: dict | None = None  # deferred merge chunk
+        self._ctl: deque = deque()  # closures for the loop thread (run_ctl)
         self._closed = False
         self.prefill_chunk = 256
         self.multistep = 8
@@ -235,6 +253,21 @@ class PagedScheduler(AdmissionMixin, DecodeMixin, ConstraintMixin):
                 sync=os.environ.get("FEI_TPU_JOURNAL_SYNC", "batch").strip().lower() or "batch",
                 segment_bytes=int(os.environ.get("FEI_TPU_JOURNAL_SEGMENT_BYTES", str(4 << 20))),
             )
+        # the KV tier: a preempted slot's pages spill to host RAM (and past
+        # the budget, disk) so its resume streams bytes back instead of
+        # replaying tokens. None = off (FEI_TPU_KV_TIER), exactly the
+        # replay-only behaviour.
+        from fei_tpu_torch.kv.tier import KVTierStore, TierConfig
+
+        tier_cfg = TierConfig.from_env()
+        self._kv_tier = KVTierStore(tier_cfg) if tier_cfg.enabled else None
+        # content-addressed prefixes (kv/content.py): with the tier on,
+        # finished admissions publish their full-page prefix under a
+        # content hash and a local prefix-cache miss tries the tier before
+        # prefilling. FEI_TPU_KV_CDN=0 keeps only the spill/resume half.
+        self._cas_enabled = self._kv_tier is not None and os.environ.get(
+            "FEI_TPU_KV_CDN", "1").strip().lower() not in ("0", "off", "false")
+        self._cas_salt: bytes | None = None  # lazy: needs the live pool
 
     # -- public API ---------------------------------------------------------
 
@@ -494,6 +527,7 @@ class PagedScheduler(AdmissionMixin, DecodeMixin, ConstraintMixin):
             if seq in self._waiting:
                 self._waiting.remove(seq)
                 seq.finished = True
+                self._release_tier(seq)  # a preempted waiter's spill dies here
                 self._trace_finish(seq, "cancelled")
                 self._journal_end(seq, "cancelled")
                 return
@@ -548,6 +582,7 @@ class PagedScheduler(AdmissionMixin, DecodeMixin, ConstraintMixin):
                             return
                     continue
                 self._reap_cancelled()
+                self._run_ctl_pending()
                 if self._draining:
                     if self._admitting is not None:
                         # an accepted chunked admission finishes its
@@ -683,6 +718,7 @@ class PagedScheduler(AdmissionMixin, DecodeMixin, ConstraintMixin):
         seq.finished = True
         if seq.gfallback_state is not None:
             seq.gaccepted = bool(seq.gfallback_state.get("accepted"))
+        self._release_tier(seq)
         slot = seq.slot
         if slot >= 0 and self._slots[slot] is seq:
             self._evict_slot(slot)
@@ -690,6 +726,16 @@ class PagedScheduler(AdmissionMixin, DecodeMixin, ConstraintMixin):
         self._journal_end(seq, "cancelled" if seq.cancelled else "completed")
         self._update_sched_gauges()
         seq.out.put(_DONE)
+
+    def _release_tier(self, seq: _Seq) -> None:
+        """A finished or cancelled request's tier state: its spilled pages
+        are dropped and its content key unpinned."""
+        if self._kv_tier is None:
+            return
+        self._kv_tier.drop(seq.rid)
+        if seq.cas_key is not None:
+            self._kv_tier.unpin(seq.cas_key)
+            seq.cas_key = None
 
     def _evict_slot(self, slot: int) -> None:
         """Zero the slot's device block-table row + length (future KV writes
@@ -800,13 +846,18 @@ class PagedScheduler(AdmissionMixin, DecodeMixin, ConstraintMixin):
     def _preempt_seq(self, seq: _Seq, *, locked: bool, requeue: bool = True) -> None:
         """Release one running sequence's slot and pages and requeue it.
         Its state is its token lists and its slot's key (copied on the
-        device, no sync); re-admission re-prefills by its admission route
-        and replays its generated tokens."""
+        device, no sync); with the KV tier on, its settled pages spill to
+        the host first. Re-admission streams the pages back, or else
+        re-prefills by its admission route and replays its generated
+        tokens."""
         slot = seq.slot
         if slot >= 0 and self._slots[slot] is seq:
             if not seq.prefilling:
                 # a victim still (re-)prefilling keeps the key it carried
                 seq.resume_key = self._keys[slot].clone()
+                # spill-before-preempt: best effort, the preemption never
+                # depends on the tier
+                self._spill_seq(seq, slot)
             self._evict_slot(slot)
         st = self._admitting
         if st is not None and st.get("seq") is seq:
@@ -825,6 +876,52 @@ class PagedScheduler(AdmissionMixin, DecodeMixin, ConstraintMixin):
             else:
                 with self._lock:
                     self._waiting.append(seq)
+
+    def _spill_seq(self, seq: _Seq, slot: int) -> None:
+        """Copy a settled, about-to-be-preempted slot's pages into the host
+        tier, keyed by request id. Loop thread only (reads the live pool,
+        after the last dispatch's KV writes in stream order). Every skip or
+        failure is silent toward the caller: replay remains the
+        always-correct resume."""
+        tier = self._kv_tier
+        if tier is None or not seq.generated:
+            return
+        if self.engine.cfg.sliding_window:
+            # rolling-window slots release leading pages mid-decode;
+            # spilled pages would misalign at scatter — replay covers
+            return
+        from fei_tpu_torch.kv.pagesio import gather_pages, pool_fingerprint, shard_layout
+        from fei_tpu_torch.kv.tier import PageEntry
+        from fei_tpu_torch.utils.metrics import account_kv_transfer
+
+        try:
+            alloc = self.engine._allocator
+            n = len(self._prefill_ids(seq))
+            need = alloc.pages_needed(n)
+            pages = alloc.pages_for(slot)[:need]
+            if len(pages) < need:
+                return  # partial state: replay
+            # the device length must match the host token count, or the
+            # entry would arm a resumed slot at the wrong position
+            if int(self._pool.lengths[slot]) != n:
+                METRICS.incr("kv.spill_skipped_length")
+                return
+            t0 = time.perf_counter()
+            with METRICS.span("kv_spill"):
+                arrays = gather_pages(self._pool, pages)
+            fp = pool_fingerprint(self._pool)
+            entry = PageEntry(
+                key=seq.rid, n_tokens=n, page_size=self.engine.page_size,
+                fingerprint=fp, arrays=arrays, layout=shard_layout(fp["kv_heads"]),
+            )
+            tier.put(seq.rid, entry)
+            METRICS.incr("kv.spills")
+            METRICS.incr("kv.pages_spilled", need)
+            account_kv_transfer("spilled", entry.nbytes, time.perf_counter() - t0)
+        except Exception as exc:  # noqa: BLE001 — a failed spill only costs
+            # the fast resume; the preemption proceeds regardless
+            METRICS.incr("kv.spill_failures")
+            log.warning("kv spill of %s failed: %r", seq.rid, exc)
 
     def _ensure_free(self, seq: _Seq, n: int, *, preempt: bool, locked: bool = True) -> bool:
         """Make ``n`` pages free: first evict prefix-cache entries, then
@@ -868,6 +965,109 @@ class PagedScheduler(AdmissionMixin, DecodeMixin, ConstraintMixin):
             got = alloc.try_alloc(slot, n)
             if got is not None:
                 return got
+
+    # -- control-plane closures on the loop thread ---------------------------
+
+    def run_ctl(self, fn, timeout_s: float = 60.0):
+        """Run ``fn`` on the scheduler loop thread between dispatches and
+        return its result (KV export/import: the pool is single-owner
+        state). With the loop parked there is no dispatch to race, so
+        ``fn`` runs inline, outside the lock (the closure may take it:
+        ``_ensure_pool`` does); a live loop services the queue at the top
+        of its next iteration."""
+        box: dict = {}
+        done = threading.Event()
+        with self._lock:
+            alive = self._thread is not None and self._thread.is_alive()
+            if alive:
+                self._ctl.append((fn, box, done))
+        if not alive:
+            return fn()
+        self._wake.set()
+        deadline = time.perf_counter() + timeout_s
+        while not done.wait(timeout=0.05):
+            if time.perf_counter() > deadline:
+                raise EngineError(f"scheduler ctl call timed out after {timeout_s}s")
+            reclaimed = False
+            with self._lock:
+                alive = self._thread is not None and self._thread.is_alive()
+                if not alive:
+                    # the loop parked or died between enqueue and service:
+                    # reclaim the entry and run inline
+                    try:
+                        self._ctl.remove((fn, box, done))
+                        reclaimed = True
+                    except ValueError:
+                        pass  # already picked up; keep waiting
+            if reclaimed:
+                return fn()
+        if "exc" in box:
+            raise box["exc"]
+        return box.get("result")
+
+    def _run_ctl_pending(self) -> None:
+        """Service queued control closures (loop thread only), each outside
+        the lock. A closure's exception fails its caller, never the loop."""
+        while True:
+            with self._lock:
+                if not self._ctl:
+                    return
+                fn, box, done = self._ctl.popleft()
+            try:
+                box["result"] = fn()
+            except BaseException as exc:  # noqa: BLE001 — re-raised by run_ctl
+                box["exc"] = exc
+            finally:
+                done.set()
+
+    def export_prefix(self, prompt_ids) -> bytes | None:
+        """The longest page-aligned cached prefix of ``prompt_ids`` as a
+        portable migration blob (kv/migrate.py), or None when nothing is
+        cached. Safe from any thread."""
+        from fei_tpu_torch.kv.migrate import export_blob
+
+        ids = [int(t) for t in prompt_ids]
+        return self.run_ctl(lambda: export_blob(self, ids))
+
+    def import_prefix(self, blob: bytes) -> int:
+        """Scatter a migration blob into this scheduler's pool and prefix
+        cache; returns the pages landed (0 = refused for lack of room).
+        Raises KVTierError on a corrupt or mismatched blob. Safe from any
+        thread."""
+        from fei_tpu_torch.kv.migrate import import_blob
+
+        return self.run_ctl(lambda: import_blob(self, blob))
+
+    def content_prefix_status(self, prompt_ids, cap: int = 8) -> dict:
+        """Candidate content hashes for ``prompt_ids``' page boundaries
+        (longest first, at most ``cap``) and which of them this replica's
+        tier holds (``POST /kv/prefix/probe``). Safe from any thread."""
+        ids = [int(t) for t in prompt_ids]
+
+        def work() -> dict:
+            if self._kv_tier is None or not self._cas_enabled:
+                return {"hashes": [], "have": []}
+            self._ensure_pool()
+            max_m = max(0, (len(ids) - 1) // self.engine.page_size)
+            keys = self._cas_keys(ids, max_m)
+            hashes = list(reversed(keys))[: max(1, int(cap))]
+            have = [k for k in hashes if self._kv_tier.contains(k)]
+            return {"hashes": hashes, "have": have}
+
+        return self.run_ctl(work)
+
+    def _cas_keys(self, ids, n_pages: int) -> list[str]:
+        """Content keys for the first 1..n_pages boundaries of ``ids``.
+        Loop thread only (reads the live pool's fingerprint once). The
+        salt hashes only the invariant fingerprint half, so the keys are
+        the JAX package's for the same model and pool geometry."""
+        from fei_tpu_torch.kv.content import content_keys, content_salt
+        from fei_tpu_torch.kv.pagesio import pool_fingerprint
+
+        if self._cas_salt is None:
+            self._cas_salt = content_salt(getattr(self.engine.cfg, "name", ""),
+                                          pool_fingerprint(self._pool))
+        return content_keys(ids, n_pages, self.engine.page_size, self._cas_salt)
 
     # -- the session journal ------------------------------------------------
 

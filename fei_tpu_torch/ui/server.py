@@ -10,9 +10,19 @@ finish within the deadline, the rest snapshot to FEI_TPU_DRAIN_DIR), and
 at boot ``warm_restart`` re-admits what a drain snapshotted or what the
 session journal (FEI_TPU_JOURNAL_DIR) recorded as unfinished. A
 completion body may carry ``"resume": {"generated": [...], "resume_key":
-[hi, lo]}`` to teach-force a delivered suffix (paged engines). The KV
-control plane (/kv/*) and the /debug and /v1/traces routes come with
-later slices (roadmap B5, B7) and answer 404 like any unknown route.
+[hi, lo]}`` to teach-force a delivered suffix (paged engines).
+
+The KV control plane (paged engines; the blobs are the JAX package's FKV1
+bytes, base64 in JSON): POST /kv/export (a prompt's cached prefix as a
+blob; 404 when nothing is cached), POST /kv/import (scatter one into the
+pool), GET /kv/prefix (the content hashes the KV tier can serve), POST
+/kv/prefix (push a content-addressed blob into the tier), POST
+/kv/prefix/probe (the hashes a prompt would admit through) and GET
+/kv/prefix/<hash>. A blob that is not base64 answers 400, one whose
+invariant pool geometry can never match 409 with ``{ours, theirs}``, a
+corrupt one 422. /health carries ``kv_fingerprint`` and ``kv_layout``.
+The /debug and /v1/traces routes come with a later slice and answer 404
+like any unknown route.
 Built on stdlib http.server. Auth is optional (``--api-key`` /
 FEI_TPU_SERVER_API_KEY).
 """
@@ -20,6 +30,8 @@ FEI_TPU_SERVER_API_KEY).
 from __future__ import annotations
 
 import argparse
+import base64
+import binascii
 import hmac
 import json
 import os
@@ -34,6 +46,8 @@ from fei_tpu_torch.utils.errors import (
     DeadlineExceededError,
     EngineDegradedError,
     EngineDrainingError,
+    KVGeometryError,
+    KVTierError,
     QueueFullError,
 )
 from fei_tpu_torch.utils.logging import get_logger
@@ -195,7 +209,8 @@ class ServeAPI:
             sched = getattr(eng, "_scheduler", None)
             if sched is not None:
                 out.update(queue_depth=len(sched._waiting), slots=sched.B,
-                           running=sum(1 for s in sched._slots if s is not None))
+                           running=sum(1 for s in sched._slots if s is not None),
+                           **self._kv_geometry())
                 if sched.draining():
                     # a draining replica leaves the load balancer's rotation
                     # while its in-flight set finishes
@@ -219,8 +234,193 @@ class ServeAPI:
             return self._chat(body)
         if route == "/drain" and method == "POST":
             return self._drain(body)
+        # the KV routes stay routable while draining: migration on drain is
+        # exactly when a replica's warm KV must leave
+        if route == "/kv/export" and method == "POST":
+            return self._kv_export(body)
+        if route == "/kv/import" and method == "POST":
+            return self._kv_import(body)
+        if route == "/kv/prefix" and method == "GET":
+            return self._kv_prefix_list()
+        if route == "/kv/prefix" and method == "POST":
+            return self._kv_prefix_push(body)
+        if route == "/kv/prefix/probe" and method == "POST":
+            return self._kv_prefix_probe(body)
+        if route.startswith("/kv/prefix/") and method == "GET":
+            return self._kv_prefix_get(route.rsplit("/", 1)[1])
         return 404, {"error": {"message": f"no route {method} {route}",
                                "type": "invalid_request_error"}}
+
+    # -- the KV control plane -------------------------------------------------
+
+    def _kv_geometry(self) -> dict:
+        """Both halves of the KV pool geometry for /health: the INVARIANT
+        fingerprint (which replicas can exchange KV at all) and the shard
+        layout (provenance). Empty for dense and non-engine providers."""
+        eng = getattr(self.provider, "engine", None)
+        try:
+            fp = eng.kv_fingerprint() if eng is not None else None
+        except Exception:  # noqa: BLE001 — /health must never 500
+            return {}
+        if fp is None:
+            return {}
+        return {"kv_fingerprint": fp, "kv_layout": eng.kv_layout()}
+
+    def _kv_scheduler(self):
+        return getattr(getattr(self.provider, "engine", None), "_scheduler", None)
+
+    def _prompt_ids(self, body: dict) -> list[int]:
+        """The request's prompt ids, rendered exactly like a completion
+        (same chat template, same system folding), so the prefix named is
+        the one a later /v1/chat/completions on this body would hit."""
+        msgs, system = _from_openai_messages(body.get("messages") or [])
+        full = self.provider._messages_with_system(
+            msgs, system, _from_openai_tools(body.get("tools")))
+        return list(self.provider.engine.tokenizer.apply_chat_template(
+            full, add_generation_prompt=True))
+
+    @staticmethod
+    def _blob_of(body: dict) -> tuple[bytes | None, tuple | None]:
+        """(the decoded ``blob`` field, None) or (None, the 400 answer)."""
+        raw = body.get("blob")
+        if not isinstance(raw, str) or not raw:
+            return None, _bad_request("blob must be a base64 string")
+        try:
+            return base64.b64decode(raw, validate=True), None
+        except (binascii.Error, ValueError):
+            return None, _bad_request("blob is not valid base64")
+
+    def _kv_export(self, body: dict) -> tuple:
+        """The longest cached KV prefix of this prompt as a portable blob
+        (kv/migrate.py). 404 when nothing is cached: the caller re-prefills."""
+        sched = self._kv_scheduler()
+        if sched is None or not hasattr(self.provider, "_messages_with_system"):
+            return 501, {"error": {"message": "kv export needs a paged engine",
+                                   "type": "invalid_request_error"}}
+        try:
+            ids = self._prompt_ids(body)
+        except (ValueError, KeyError, TypeError) as exc:
+            return _bad_request(str(exc))
+        try:
+            blob = sched.export_prefix(ids)
+        except Exception as exc:  # noqa: BLE001 — answer JSON, never drop
+            log.warning("kv export failed: %r", exc)
+            return _server_error(exc)
+        if blob is None:
+            return 404, {"error": {"message": "no cached prefix for this prompt",
+                                   "type": "invalid_request_error"}}
+        return 200, {"object": "kv.blob", "bytes": len(blob),
+                     "blob": base64.b64encode(blob).decode("ascii")}
+
+    def _kv_import(self, body: dict) -> tuple:
+        """Scatter a migration blob into this replica's pool: 409 with the
+        ``{ours, theirs}`` geometry diff for an invariant-incompatible blob
+        (never retryable), 422 for a corrupt one (another copy may be
+        fine). ``pages: 0`` when the pool cannot spare room (best effort,
+        never preempts)."""
+        sched = self._kv_scheduler()
+        if sched is None:
+            return 501, {"error": {"message": "kv import needs a paged engine",
+                                   "type": "invalid_request_error"}}
+        blob, bad = self._blob_of(body)
+        if bad is not None:
+            return bad
+        try:
+            pages = sched.import_prefix(blob)
+        except KVTierError as exc:
+            return _kv_refusal(exc)
+        except Exception as exc:  # noqa: BLE001
+            log.warning("kv import failed: %r", exc)
+            return _server_error(exc)
+        return 200, {"object": "kv.import", "pages": int(pages)}
+
+    def _kv_tier_store(self):
+        return getattr(self._kv_scheduler(), "_kv_tier", None)
+
+    def _kv_prefix_list(self) -> tuple:
+        """Content hashes this replica's tier can serve, hottest first (an
+        empty list is a healthy answer)."""
+        tier = self._kv_tier_store()
+        return 200, {"object": "kv.prefix.list",
+                     "hashes": [] if tier is None else tier.advertised()}
+
+    def _kv_prefix_get(self, key: str) -> tuple:
+        """One content-addressed prefix blob by hash; 404 = not here. A
+        tier-side fault (the ``kv.fetch`` point fires here too) answers
+        500 JSON."""
+        from fei_tpu_torch.kv.tier import pack_entry
+
+        tier = self._kv_tier_store()
+        if tier is None:
+            return 404, {"error": {"message": "this replica runs without a KV tier",
+                                   "type": "invalid_request_error"}}
+        try:
+            entry = tier.fetch(key)
+        except Exception as exc:  # noqa: BLE001
+            log.warning("kv prefix fetch %s failed: %r", key, exc)
+            return _server_error(exc)
+        if entry is None:
+            return 404, {"error": {"message": f"no prefix {key!r} in the tier",
+                                   "type": "invalid_request_error"}}
+        blob = pack_entry(entry)
+        return 200, {"object": "kv.blob", "hash": key, "bytes": len(blob),
+                     "blob": base64.b64encode(blob).decode("ascii")}
+
+    def _kv_prefix_push(self, body: dict) -> tuple:
+        """Land a content-addressed blob in this replica's tier without
+        touching the pool (the next admission over those tokens fetches
+        it). 409 when its invariant fingerprint can never match this pool,
+        422 for a corrupt blob or a key that is not content-addressed;
+        ``stored: false`` means the tier already held it."""
+        from fei_tpu_torch.kv.content import is_cas_key
+        from fei_tpu_torch.kv.pagesio import check_fingerprint
+        from fei_tpu_torch.kv.tier import unpack_entry
+
+        tier = self._kv_tier_store()
+        if tier is None:
+            return 501, {"error": {"message": "kv prefix push needs a KV tier "
+                                              "(FEI_TPU_KV_TIER)",
+                                   "type": "invalid_request_error"}}
+        blob, bad = self._blob_of(body)
+        if bad is not None:
+            return bad
+        try:
+            entry, _ = unpack_entry(blob)
+            key = body.get("hash") or entry.key
+            if not is_cas_key(key) or key != entry.key:
+                raise KVTierError("hash does not name a content-addressed prefix blob")
+            want = self._kv_geometry().get("kv_fingerprint")
+            if want is not None:
+                check_fingerprint(want, entry.fingerprint, what="pushed prefix blob")
+        except KVTierError as exc:
+            return _kv_refusal(exc)
+        try:
+            stored = tier.put_if_absent(key, entry)
+        except Exception as exc:  # noqa: BLE001 — spill faults, disk errors
+            log.warning("kv prefix push %s failed: %r", key, exc)
+            return _server_error(exc)
+        return 200, {"object": "kv.prefix.push", "hash": key,
+                     "stored": bool(stored), "bytes": entry.nbytes}
+
+    def _kv_prefix_probe(self, body: dict) -> tuple:
+        """Which content hashes this prompt would admit through (longest
+        first), and which of them the tier already holds."""
+        sched = self._kv_scheduler()
+        if sched is None or not hasattr(self.provider, "_messages_with_system"):
+            return 501, {"error": {"message": "kv prefix probe needs a paged engine",
+                                   "type": "invalid_request_error"}}
+        if sched._kv_tier is None or not sched._cas_enabled:
+            return 200, {"object": "kv.prefix.probe", "hashes": [], "have": []}
+        try:
+            ids = self._prompt_ids(body)
+        except (ValueError, KeyError, TypeError) as exc:
+            return _bad_request(str(exc))
+        try:
+            st = sched.content_prefix_status(ids)
+        except Exception as exc:  # noqa: BLE001
+            log.warning("kv prefix probe failed: %r", exc)
+            return _server_error(exc)
+        return 200, {"object": "kv.prefix.probe", **st}
 
     def _parse_request(self, body: dict) -> dict:
         """Decode the request into provider kwargs; raises on bad input
@@ -385,6 +585,24 @@ class ServeAPI:
 
 def _retry_after(exc) -> dict:
     return {"Retry-After": str(max(1, round(getattr(exc, "retry_after_s", 1.0))))}
+
+
+def _bad_request(msg: str) -> tuple:
+    return 400, {"error": {"message": msg, "type": "invalid_request_error"}}
+
+
+def _server_error(exc: BaseException) -> tuple:
+    return 500, {"error": {"message": f"{type(exc).__name__}: {exc}",
+                           "type": "server_error"}}
+
+
+def _kv_refusal(exc: KVTierError) -> tuple:
+    """409 for a geometry that can never match (with the ``{ours,
+    theirs}`` diff), 422 for bad bytes."""
+    if isinstance(exc, KVGeometryError):
+        return 409, {"error": {"message": str(exc), "type": "invalid_request_error",
+                               "ours": exc.ours, "theirs": exc.theirs}}
+    return 422, {"error": {"message": str(exc), "type": "invalid_request_error"}}
 
 
 def make_handler(api: ServeAPI):

@@ -4,6 +4,22 @@ A copy of fei_tpu.obs.metrics (with its Prometheus renderer,
 fei_tpu.obs.prom) minus the jax.profiler span annotation. Spans are
 wall-clock host timings; a span that must cover device work ends in a
 host sync inside it (the engine syncs on the sampled token).
+
+The KV tier (fei_tpu_torch/kv, the scheduler's spill, streamed resume,
+content-addressed prefixes and migration) sets the JAX package's ``kv.*``
+names (fei_tpu/obs/registry.py): counters ``kv.spills``,
+``kv.spill_failures``, ``kv.pages_spilled``, ``kv.bytes_spilled``,
+``kv.fetches``, ``kv.pages_restored``, ``kv.bytes_fetched``,
+``kv.fetch_misses``, ``kv.fetch_corrupt``, ``kv.fetch_fallbacks``,
+``kv.spill_skipped_length`` (the port's own: a victim whose device
+length is not its host token count, so it replays),
+``kv.demotions``, ``kv.evictions``, ``kv.migrations_out``/``_in``,
+``kv.pages_migrated``, ``kv.bytes_migrated``, ``kv.cas_stores``,
+``kv.cas_dedup_hits``, ``kv.prefix_hits_tier``, ``kv.prefix_tokens_saved``,
+``kv.resharded_imports``; gauges ``kv.tier_bytes_ram``/``_disk``,
+``kv.tier_entries``, ``kv.dedup_ratio``, ``kv.spilled_gbps``,
+``kv.fetched_gbps``; spans ``kv_spill`` (a gather to the host) and
+``kv_fetch`` (a scatter into the pool).
 """
 
 from __future__ import annotations
@@ -210,3 +226,17 @@ def _fmt(v: float) -> str:
 
 
 METRICS = Metrics()
+
+
+def account_kv_transfer(direction: str, nbytes: int, dt_s: float) -> None:
+    """Bytes moved by the KV tier: the cumulative ``kv.bytes_<direction>``
+    counter and the achieved ``kv.<direction>_gbps`` gauge (host clock).
+    ``direction`` is ``spilled`` (device → host on preemption) or
+    ``fetched`` (host → device on streamed resume). The JAX package keeps
+    this in its cost model (obs/costmodel.py), which the port does not
+    have yet."""
+    if direction not in ("spilled", "fetched"):
+        return
+    METRICS.incr(f"kv.bytes_{direction}", int(nbytes))
+    if dt_s > 0:
+        METRICS.gauge(f"kv.{direction}_gbps", round(nbytes / dt_s / 1e9, 6))

@@ -57,6 +57,8 @@ def test_port_imports_without_jax_or_fei_tpu():
         "fei_tpu_torch.obs.render", "fei_tpu_torch.ui.cli",
         "fei_tpu_torch.engine.prng", "fei_tpu_torch.engine.journal",
         "fei_tpu_torch.utils.fsync",
+        "fei_tpu_torch.kv", "fei_tpu_torch.kv.tier", "fei_tpu_torch.kv.pagesio",
+        "fei_tpu_torch.kv.migrate", "fei_tpu_torch.kv.content",
     ):
         assert name in got["imported"], name
     assert got["jax"] == [], got["jax"]
@@ -78,6 +80,25 @@ print(json.dumps([m for m in loaded if m in ("jax", "fei_tpu")
 def test_agent_modules_load_neither_jax_nor_fei_tpu():
     out = subprocess.run(
         [sys.executable, "-c", _SLICE_PROBE], capture_output=True, text=True,
+        timeout=120, check=True, cwd=REPO,
+    )
+    assert json.loads(out.stdout.strip().splitlines()[-1]) == []
+
+
+_KV_PROBE = r"""
+import json, sys
+import fei_tpu_torch.kv.tier, fei_tpu_torch.kv.pagesio
+import fei_tpu_torch.kv.migrate, fei_tpu_torch.kv.content
+loaded = sorted(sys.modules)
+print(json.dumps([m for m in loaded if m in ("jax", "fei_tpu", "ml_dtypes")
+                  or m.startswith(("jax.", "fei_tpu.", "ml_dtypes."))]))
+"""
+
+
+def test_kv_modules_load_neither_jax_nor_fei_tpu():
+    """The KV tier carries bf16 as 2-byte words: not even ml_dtypes loads."""
+    out = subprocess.run(
+        [sys.executable, "-c", _KV_PROBE], capture_output=True, text=True,
         timeout=120, check=True, cwd=REPO,
     )
     assert json.loads(out.stdout.strip().splitlines()[-1]) == []
