@@ -42,8 +42,14 @@ Phases (each raises on failure, so the script exits non-zero):
    logits are held against the dense engine's; an int8 pool must run the
    kernels' int8 branch.
 7. Paged serve: the server over the paged engine answers eight concurrent
-   completions (four streamed), each equal to the scheduler's own stream,
-   and answers 429 with Retry-After once the waiting queue is full.
+   completions (four streamed), each equal to the scheduler's own stream.
+   Then the serving controls, as ``python -m fei_tpu_torch serve`` reads
+   them: a two-slot paged engine on the same weights built with
+   ``FEI_TPU_MAX_QUEUE=1`` in the environment sheds a completion whose
+   ``X-FEI-Deadline-S: 0`` passed while it queued (504, as the JAX server
+   answers), answers 429 with Retry-After once the queue is full, and
+   serves a completion labelled ``X-FEI-Tenant``/``X-FEI-Priority``,
+   counting its tokens under the tenant.
 8. Agent turn (the agent path), on the same engines: ``TorchLocalProvider``
    over the 14-tool union grammar (1007 states; its int16 table padded to
    llama3-8b's vocab on the card), at the trigger the random model emits
@@ -58,9 +64,30 @@ Phases (each raises on failure, so the script exits non-zero):
    round of the ``--message`` loop (``ui.cli.process_single_message``)
    whose registry holds the real tool schemas with recording handlers: the
    handler receives the decoded arguments, and no real tool runs.
-9. Survival (the survival path), on the same weights: the threefry PRNG on
+9. Agent tools (the C6 path), on the same engines: ``ui.cli.build_assistant``
+   holds the JAX package's 15 tools (the code tools and MCP's
+   ``brave_web_search``); the turn over their union grammar through
+   ``TorchLocalProvider`` on the dense engine and the same turn on the
+   paged engine agree (or first part at a tie within 2 bf16 ulps, F1).
+   The port's Memdir server runs on loopback (started by
+   ``MemdirConnector``); ``--memory-tools``'s 24-tool turn runs on the
+   paged engine beside three free requests (K3) and its call runs for
+   real when the tool only reads files or talks to the scratch Memdir
+   server (a writing tool's call is logged, not run); ``memory_create`` -> ``memory_search`` -> ``memory_view``
+   round-trips. MCP: Brave with no key gives its error payload, ``mcp
+   list`` lists a stdio server set through ``FEI_TPU_MCP_SERVER_ECHO`` and
+   one call goes through the registry's ``mcp_*`` dispatcher. Two
+   Memorychain nodes vote two memories in over loopback; the embedding
+   federation (4 nodes x 1024 x 256 fp32) is copied onto the card by
+   ``exchange_banks`` and read back bitwise, and a top-5 this script
+   computes there equals the federation's recall, which runs on the host;
+   the native grep scanner,
+   built with the host compiler, equals the Python route; the TUI,
+   headless, streams one reply from the dense engine and answers ``/mem
+   list`` from the live server, which ``memory_server_stop`` then stops.
+10. Survival (the survival path), on the same weights: the threefry PRNG on
    the card against the CPU (the known-answer vector, a 128256-lane draw
-   bitwise, 1000 chained splits); four seeded requests of 128 tokens
+   bitwise, 1000 chained splits); four seeded requests of 64 tokens
    equal densely and paged (or first apart at a noise+logit gap within 2
    bf16 ulps over the temperature, F1's rule); eight requests of 32
    tokens (four greedy, four seeded; prompts 96-5000, dense and chunked
@@ -74,7 +101,7 @@ Phases (each raises on failure, so the script exits non-zero):
    drained, warm restart -> first replayed token per route, aggregate
    tok/s with the journal off / batch / always, and what a sampled step's
    sampling tail launches beside a greedy one's.
-10. KV tier (the KV path), on the same weights, each run on a fresh paged
+11. KV tier (the KV path), on the same weights, each run on a fresh paged
    engine built with the tier's variables (``FEI_TPU_KV_TIER``, RAM
    budget 8 GiB); the eight prompts of phase 6 as four greedy and four
    top-p 0.9 requests. The roomy traffic (1025 pages, 128 tokens) gives
@@ -111,16 +138,16 @@ bitwise the same at every M (the decode split of K and the prefill
 pipeline sum in one order).
 After the bf16 engines are released:
 
-11. Quantized dense path: llama3-8b with int4 weights (random, the same
+12. Quantized dense path: llama3-8b with int4 weights (random, the same
    seed): ``param_bytes``; a ~1500-token prefill launches K4 exactly 7
    times per layer and its logits are held against the same weights
    dequantized to bf16 and multiplied plainly; 128 greedy tokens. Then
    int8 weights: ``param_bytes``, 32 greedy tokens, no K4 launch.
-12. Quantized paged path: the int4 weights behind the paged engine, four
+13. Quantized paged path: the int4 weights behind the paged engine, four
    requests from threads; each stream must equal the dense int4 engine's,
    and must not change with the merged dispatch off or in a tight pool
    that preempts.
-13. Provider: ``TorchLocalProvider`` built from the configuration with
+14. Provider: ``TorchLocalProvider`` built from the configuration with
     quantize = int4 answers one completion through the server.
 
 Phase 3 also holds the flash backward: K1 with its logsumexp output
@@ -135,7 +162,7 @@ K5b and the pair eager and as device time (CUDA graph) at the training
 shape and at D = 64 beside the SDPA backward, and prints K5b's q-tile steps
 per block (largest and mean). After the quantized engines are released:
 
-14. Training (the training path): llama3-8b at full width and depth, bf16,
+15. Training (the training path): llama3-8b at full width and depth, bf16,
     random weights from the seed, ``TrainConfig(remat=True)``, one sequence
     of 2049 ids: three steps on the same batch (finite loss near ln V,
     lower at the third step; K1 twice per layer and step, K5a and K5b once).
@@ -147,8 +174,9 @@ per block (largest and mean). After the quantized engines are released:
 ``python3 chip_smoke.py --paged-times`` only builds K2/K3 and times them at
 every shape of phase 3 through their public wrappers; ``--bwd-times`` does
 the same for K5a, K5b and the pair at the training shape and at D = 64;
-``--kv`` builds K1-K3 and runs phase 10 alone (on the seed's weights with
-the serve phase's LM head). A copy of this file run from an older tree's
+``--kv`` builds K1-K3 and runs phase 11 alone (on the seed's weights with
+the serve phase's LM head), and ``--tools`` the serving controls and phase 9
+likewise. A copy of this file run from an older tree's
 root times that tree's kernels.
 
 Every kernel count is set to 0 just before a path is driven and read just
@@ -157,7 +185,9 @@ from the paged paths: K1-K3 from the bf16 run, K4 from the int4 run, K5a and
 K5b from the three training steps; K1-K3 also carry ``launches_agent``, the
 sum over the agent path's own runs, each counted from 0: the provider turn,
 the paged turns, the paged turn beside its free neighbours and the
-``--message`` round; and ``launches_survival``, the sum over the survival
+``--message`` round; ``launches_tools``, the sum over the agent tools
+path's own runs: the dense and paged 15-tool turns, the 24-tool turn
+beside its neighbours and the TUI turn; and ``launches_survival``, the sum over the survival
 path's own runs: the seeded paged streams, the drained run, the warm
 restart, the journaled run and its recovery; and ``launches_kv``, the sum
 over the KV path's tier-on runs), the line before the last is the card,
@@ -180,6 +210,7 @@ import time
 import urllib.error
 import urllib.request
 from concurrent.futures import ThreadPoolExecutor
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -1803,7 +1834,8 @@ def paged_engine_phase(dense, card: str) -> tuple:
 
 def paged_serve_phase(eng, card: str) -> None:
     """Eight concurrent completions (four SSE) over the paged engine, each
-    equal to the scheduler's own greedy stream; then 429 on a full queue."""
+    equal to the scheduler's own greedy stream; then the serving controls
+    (``serving_controls``)."""
     from fei_tpu_torch.agent.providers import TorchLocalProvider
     from fei_tpu_torch.engine import GenerationConfig
     from fei_tpu_torch.ui.server import ServeAPI, ServingServer
@@ -1859,29 +1891,93 @@ def paged_serve_phase(eng, card: str) -> None:
             f"{[len(tok.apply_chat_template(b['messages'], add_generation_prompt=True)) for b in bodies]}"
             f" tokens) in {dt * 1e3:.1f} ms on {card}, each equal to the scheduler's stream")
 
-        # backpressure: 8 running + 1 queued fill a queue capped at 1
-        sched = eng.scheduler
-        hold = [sched.submit([5] * 64, GenerationConfig(max_new_tokens=512, ignore_eos=True))
-                for _ in range(9)]
-        deadline = time.perf_counter() + 120
-        while time.perf_counter() < deadline and not (
-                len(sched._waiting) >= 1 and all(s is not None for s in sched._slots)):
-            time.sleep(0.01)
-        sched.max_queue = 1
-        try:
-            post(dict(bodies[0], stream=False))
-            status, headers = 200, {}
-        except urllib.error.HTTPError as exc:
-            status, headers = exc.code, dict(exc.headers)
-        for s in hold:
-            sched.cancel(s)
-        sched.max_queue = 0
-        check(status == 429, f"a request over the queue cap got HTTP {status}, not 429")
-        check("Retry-After" in headers, "429 without Retry-After")
-        log(f"paged serve: queue capped at 1 with 8 running + 1 queued: HTTP 429, "
-            f"Retry-After {headers['Retry-After']}")
+        serving_controls(eng, card)
     finally:
         server.stop()
+
+
+def serving_controls(eng, card: str) -> None:
+    """The serving controls as ``python -m fei_tpu_torch serve`` reads them:
+    a second paged engine on the same weights, two slots, built with
+    ``FEI_TPU_MAX_QUEUE=1`` and ``FEI_TPU_RETRY_AFTER_S=2`` in the
+    environment. With both slots busy, a completion whose propagated
+    deadline has passed (``X-FEI-Deadline-S: 0``) queues and is shed with
+    the JAX server's 504; with one more request queued the next one gets
+    429 and Retry-After; then a completion labelled ``X-FEI-Tenant`` and
+    ``X-FEI-Priority`` is served and counted under its tenant."""
+    import os
+
+    from fei_tpu_torch.agent.providers import TorchLocalProvider
+    from fei_tpu_torch.engine import GenerationConfig, InferenceEngine
+    from fei_tpu_torch.ui.server import ServeAPI, ServingServer
+
+    env = {"FEI_TPU_MAX_QUEUE": "1", "FEI_TPU_RETRY_AFTER_S": "2"}
+    os.environ.update(env)
+    try:
+        capped = InferenceEngine.from_config(
+            "llama3-8b", dtype=torch.bfloat16, params=eng.params, max_seq_len=8192,
+            device="cuda", paged=True, batch_size=2, page_size=PAGE)
+    finally:
+        for k in env:
+            del os.environ[k]
+    sched = capped.scheduler
+    check(sched.max_queue == 1 and sched.retry_after_s == 2.0,
+          f"the scheduler read max_queue {sched.max_queue}, retry_after_s {sched.retry_after_s}")
+    server = ServingServer(ServeAPI(TorchLocalProvider(engine=capped), model_name=eng.cfg.name),
+                           host="127.0.0.1", port=0)
+    server.start()
+    body = {"messages": [{"role": "user", "content": "pages tables kernels"}],
+            "max_tokens": 16, "ignore_eos": True}
+
+    def post(headers):
+        req = urllib.request.Request(
+            f"http://127.0.0.1:{server.port}/v1/chat/completions",
+            data=json.dumps(body).encode(), method="POST",
+            headers={"Content-Type": "application/json", **headers})
+        try:
+            with urllib.request.urlopen(req, timeout=600) as r:
+                return r.status, json.loads(r.read()), dict(r.headers)
+        except urllib.error.HTTPError as exc:
+            return exc.code, json.loads(exc.read()), dict(exc.headers)
+
+    hold_gen = GenerationConfig(max_new_tokens=2048, ignore_eos=True)
+    hold = []
+    try:
+        for _ in range(2):  # one at a time: the queue holds one
+            hold.append(sched.submit([5] * 64, hold_gen))
+            deadline = time.perf_counter() + 120
+            while time.perf_counter() < deadline and not hold[-1].generated:
+                time.sleep(0.01)
+            check(bool(hold[-1].generated), "a holding request never decoded")
+        status, payload, _ = post({"X-FEI-Deadline-S": "0"})
+        check(status == 504 and payload["error"]["type"] == "timeout_error",
+              f"a passed deadline got HTTP {status} {payload}, not the JAX server's 504")
+        hold.append(sched.submit([5] * 64, hold_gen))  # queued: the queue is full
+        status, payload, headers = post({})
+        check(status == 429 and payload["error"]["type"] == "overloaded_error",
+              f"a request over FEI_TPU_MAX_QUEUE got HTTP {status}, not 429")
+        check(headers.get("Retry-After") == "2", f"429 with Retry-After {headers.get('Retry-After')}")
+        for s in hold:
+            sched.cancel(s)
+        hold = []
+        served0 = counter("tenant.card-tenant.tokens_served")
+        status, payload, _ = post({"X-FEI-Tenant": "card-tenant", "X-FEI-Priority": "2"})
+        served = counter("tenant.card-tenant.tokens_served") - served0
+        check(status == 200 and payload["usage"]["completion_tokens"] == 16,
+              f"the labelled completion got HTTP {status}")
+        check(served == 16, f"tenant card-tenant counted {served} tokens served, not 16")
+        log(f"serving controls on {card}: FEI_TPU_MAX_QUEUE=1 read at build; with 2 slots "
+            f"busy X-FEI-Deadline-S: 0 -> HTTP 504 timeout_error; with 1 queued -> HTTP 429, "
+            f"Retry-After 2; X-FEI-Tenant card-tenant, X-FEI-Priority 2 -> HTTP 200, "
+            f"tenant.card-tenant.tokens_served +{served:.0f}")
+    finally:
+        for s in hold:
+            sched.cancel(s)
+        server.stop()
+        capped.close()
+        del capped, sched
+        gc.collect()
+        torch.cuda.empty_cache()
 
 
 # ------------------------------------------------------------------ agent
@@ -2178,6 +2274,418 @@ def agent_phase(dense, paged, card: str) -> dict:
     check(seen[0] == {name: args}, f"the handler got {seen[0]}, the call was {name}({args})")
     log(f"agent: --message loop (trigger {ascii(trig2)}): one round, {name} executed through "
         f"a recording handler with the decoded arguments {json.dumps(args)[:160]}")
+    return launched
+
+
+# ------------------------------------------------------------ agent tools
+
+# the JAX package's default registry (fei_tpu/ui/cli.py::build_assistant):
+# the 14 code tools and the MCP manager's web search; --memory-tools adds
+# the nine memory tools before it (tests/test_torch_mcp.py holds both lists
+# equal to the JAX package's registries)
+DEFAULT_TOOL_NAMES = (
+    "GlobTool", "GrepTool", "View", "Edit", "Replace", "LS", "RegexEdit", "BatchGlob",
+    "FindInFiles", "SmartSearch", "RepoMap", "RepoSummary", "RepoDependencies", "Shell",
+    "brave_web_search")
+MEMORY_TOOL_NAMES = DEFAULT_TOOL_NAMES[:-1] + (
+    "memory_search", "memory_create", "memory_view", "memory_list", "memory_delete",
+    "memory_search_by_tag", "memory_server_start", "memory_server_stop",
+    "memory_server_status", "brave_web_search")
+# a stdio MCP server: echoes each call's method and params back
+STDIO_MCP_SERVER = r"""
+import json, sys
+for line in sys.stdin:
+    req = json.loads(line)
+    out = {"jsonrpc": "2.0", "id": req["id"],
+           "result": {"method": req["method"], "params": req.get("params", {})}}
+    sys.stdout.write(json.dumps(out) + "\n")
+    sys.stdout.flush()
+"""
+# the tools whose handlers the 24-tool turn may run for real: they read
+# files or talk to the scratch Memdir server; a call to any other (Edit,
+# Replace, RegexEdit, Shell, the server's start and stop) is logged only
+READ_ONLY_TOOLS = frozenset(MEMORY_TOOL_NAMES) - {
+    "Edit", "Replace", "RegexEdit", "Shell", "memory_server_start", "memory_server_stop"}
+TOOLS_NEIGHBOUR_LENS = (40, 120, 250)  # dense admission, decoding while the turn chunks
+TOOLS_NEIGHBOUR_NEW = 32
+TOOLS_MAX_TOKENS = 96  # the 15- and 24-tool turns' budget: the grammar closes a call within it
+TUI_TOKENS = 32
+FED_NODES, FED_BANK, FED_DIM = 4, 1024, 256  # the federation: 4 nodes x 1024 x 256 fp32
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def grammar_line(label, grammar, engine, card) -> str:
+    table, _ = grammar.device_tables(engine.cfg.vocab_size, engine.device)
+    return (f"{label}: union grammar {grammar.table.shape[0]} states, device table "
+            f"{tuple(table.shape)} {table.dtype} = {table.numel() * table.element_size() / 1e6:.1f} MB "
+            f"on {card}")
+
+
+def federation_exchange(card: str) -> None:
+    """EmbeddingFederation at 4 nodes x bank 1024 x D 256 fp32. The port's
+    device work is ``exchange_banks``: the stacked banks copied onto the
+    card, read back bitwise. The federation's recall runs on the host
+    (``search`` over numpy); a top-5 that this script computes on the card
+    over the exchanged bank agrees with it (ids and scores within 1e-6)."""
+    from fei_tpu_torch.memory.memorychain.embedding_exchange import (
+        EmbeddingFederation, exchange_banks)
+
+    rng = np.random.default_rng(SEED + 11)
+    vocab = [f"w{i}" for i in range(4000)]
+    feds = [EmbeddingFederation(i, FED_NODES, bank_size=FED_BANK, dim=FED_DIM)
+            for i in range(FED_NODES)]
+    texts = [[" ".join(rng.choice(vocab, 12)) for _ in range(FED_BANK)] for _ in feds]
+    t0 = time.perf_counter()
+    for i, fed in enumerate(feds):
+        for j in range(FED_BANK):
+            fed.add(f"n{i}-m{j}", texts[i][j])
+    embed_s = time.perf_counter() - t0
+    banks = np.stack([f.local_bank for f in feds])
+    ids = [list(f._ids) for f in feds]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = exchange_banks(banks, device="cuda")
+    torch.cuda.synchronize()
+    xfer_s = time.perf_counter() - t0
+    check(out.is_cuda and tuple(out.shape) == (1, FED_NODES, FED_BANK, FED_DIM),
+          f"exchange_banks gave {tuple(out.shape)} on {out.device}")
+    check(out[0].cpu().numpy().tobytes() == banks.tobytes(), "the exchanged banks differ")
+    fed = feds[0]
+    fed.sync(banks, device="cuda")
+    fed.install_global(fed._global, ids)
+    flat = out[0].reshape(-1, FED_DIM)
+    worst = 0.0
+    for q in range(3):
+        # another node's memory, recalled by half of its words
+        node, slot = (q + 1) % FED_NODES, int(rng.integers(FED_BANK))
+        query = " ".join(texts[node][slot].split()[:6])
+        host = fed.search(query, top_k=5)
+        qv = fed.embed_fn(query)
+        host_all = fed._global.reshape(-1, FED_DIM) @ qv
+        scores, idx = torch.topk(flat @ torch.as_tensor(qv, device="cuda"), 5)
+        card_hits = list(zip(idx.tolist(), scores.tolist()))
+        # rank by rank the same scores; each hit on the card scores the same
+        # on the host; the ids agree wherever the score is not an exact tie
+        # (hashed bags of words tie often: numpy's argsort and topk order a
+        # tie differently)
+        err = max(max(abs(s - h["score"]) for (_, s), h in zip(card_hits, host)),
+                  max(abs(s - float(host_all[i])) for i, s in card_hits))
+        check(err <= 1e-6, f"recall scores differ by {err:.3g} (> 1e-6)")
+        for r, ((i, s), h) in enumerate(zip(card_hits, host)):
+            tied = np.count_nonzero(np.abs(host_all - s) <= 1e-6) > 1
+            check(tied or ids[i // FED_BANK][i % FED_BANK] == h["id"],
+                  f"rank {r}: the card recalled {ids[i // FED_BANK][i % FED_BANK]}, "
+                  f"the host {h['id']}")
+        check(host[0]["id"] == ids[node][slot], f"{query!r} recalled {host[0]}")
+        worst = max(worst, err)
+    log(f"tools: federation {FED_NODES} nodes x {FED_BANK} x {FED_DIM} fp32 "
+        f"({banks.nbytes / 2**20:.0f} MiB): embedded in {embed_s:.2f} s (host); exchange_banks "
+        f"copied the banks onto the card in {xfer_s * 1e3:.2f} ms and they read back bitwise; "
+        f"the federation's recall runs on the host, and three top-5s computed by this script "
+        f"on the card over the exchanged bank equal it (ids up to exact ties, scores within "
+        f"{worst:.3g}) on {card}")
+
+
+
+def memorychain_over_loopback(tmp: str, card: str) -> None:
+    """Two Memorychain nodes of the port over loopback HTTP: two memories
+    proposed to the first pass the reference's 51 % vote (the second node
+    votes over HTTP), both chains hold them with equal hashes, and both
+    nodes answer /health."""
+    from fei_tpu_torch.memory.memorychain.node import MemorychainNode
+
+    n1 = MemorychainNode("card-a", 0, f"{tmp}/chain-a")
+    n1.start_background()
+    n2 = MemorychainNode("card-b", 0, f"{tmp}/chain-b", seed=n1.address)
+    n2.start_background()
+    try:
+        for content in ("flash attention tiles on the card", "paged decode segments"):
+            req = urllib.request.Request(
+                f"{n1.address}/memorychain/propose", method="POST",
+                data=json.dumps({"memory_data": {"content": content}}).encode(),
+                headers={"Content-Type": "application/json"})
+            with urllib.request.urlopen(req, timeout=30) as r:
+                check(r.status == 201, f"/memorychain/propose answered {r.status}")
+        for node in (n1, n2):
+            with urllib.request.urlopen(f"{node.address}/health", timeout=10) as r:
+                health = json.loads(r.read())
+            check(health["status"] == "ok" and health["chain_length"] == 3,
+                  f"{node.chain.node_id} /health: {health}")
+        check([b.hash for b in n1.chain.blocks] == [b.hash for b in n2.chain.blocks]
+              and n1.chain.validate_chain() and n2.chain.validate_chain(),
+              "the two chains differ or do not validate")
+        log(f"tools: memorychain: 2 memories voted in over loopback (2 nodes), chains of "
+            f"{len(n1.chain.blocks)} blocks with equal hashes, /health ok on both ({card})")
+    finally:
+        n1.shutdown()
+        n2.shutdown()
+
+
+def native_scanner(card: str) -> None:
+    """The port's C++ scanner, built with the host compiler here, gives
+    GrepTool the pure-Python route's matches in the same order."""
+    import os
+
+    from fei_tpu_torch.native import scan
+    from fei_tpu_torch.native.build import lib_path
+    from fei_tpu_torch.tools.code import GrepTool
+
+    t0 = time.perf_counter()
+    path = lib_path()
+    check(path is not None, "the native scanner did not build")
+    build_s = time.perf_counter() - t0
+    root = str(Path(__file__).resolve().parent / "fei_tpu_torch")
+    files = sorted(str(f) for f in Path(root).rglob("*.py"))
+    for pattern in ("launches", "tenant", "deadline"):  # fixed strings: the native route
+        check(scan.grep_files(files, pattern, 1000) is not None,
+              f"grep {pattern!r}: the native scan was not taken")
+        t0 = time.perf_counter()
+        native = [(m.file, m.line_number, m.line) for m in GrepTool().search(pattern, path=root)]
+        native_s = time.perf_counter() - t0
+        os.environ["FEI_TPU_NATIVE"] = "0"
+        scan._lib = None
+        try:
+            t0 = time.perf_counter()
+            plain = [(m.file, m.line_number, m.line) for m in GrepTool().search(pattern, path=root)]
+            plain_s = time.perf_counter() - t0
+        finally:
+            del os.environ["FEI_TPU_NATIVE"]
+            scan._lib = None
+        check(native == plain and 0 < len(native) < 1000,
+              f"grep {pattern!r}: native {len(native)} matches, Python {len(plain)}, or apart")
+        log(f"tools: native scanner ({Path(path).name}, built in {build_s:.1f} s): grep "
+            f"{pattern!r} over {len(files)} files, {len(native)} matches equal to the Python "
+            f"route's in order; host {native_s * 1e3:.1f} ms vs {plain_s * 1e3:.1f} ms ({card})")
+
+
+def tools_phase(dense, paged, card: str) -> dict:
+    """The rest of the agent's tool layer on the card (the C6 path), on the
+    agent phase's engines (bf16 llama3-8b, the LM head zeroed past the byte
+    tokenizer's ids): the default 15-tool registry's constrained turn dense
+    and paged; the 24-tool ``--memory-tools`` turn on the paged engine
+    beside free requests, its call run for real against a live Memdir
+    server when the tool only reads; MCP (a stdio server through the ``mcp_*`` dispatcher, ``mcp
+    list``, Brave with no key); Memorychain over loopback; the federation's
+    banks exchanged onto the card; the native scanner; the TUI streaming one reply from the
+    dense engine. Returns the kernel launches of the path's own runs, each
+    counted from 0 just before it: the dense and paged 15-tool turns, the
+    24-tool turn with its neighbours and the TUI turn."""
+    import argparse
+    import asyncio
+    import contextlib
+    import io
+    import os
+    import shlex
+
+    from fei_tpu_torch.agent.providers import TorchLocalProvider
+    from fei_tpu_torch.engine import GenerationConfig
+    from fei_tpu_torch.tools.memdir_connector import MemdirConnector
+    from fei_tpu_torch.tools.memory_tools import MemoryToolHandlers
+    from fei_tpu_torch.ui import cli, textual_chat
+    from fei_tpu_torch.ui.textual_chat import FeiChatApp
+
+    t_phase = time.perf_counter()
+    launched = dict.fromkeys(read_counts(), 0)
+
+    @contextlib.contextmanager
+    def tools_path():
+        reset_counts()
+        yield
+        for k, v in read_counts().items():
+            launched[k] += v
+
+    tmp = tempfile.TemporaryDirectory()
+    key, port = "chip-smoke-memdir", free_port()
+    url = f"http://127.0.0.1:{port}"
+    os.environ.pop("BRAVE_API_KEY", None)
+    env = {"FEI_TPU_MCP_SERVER_ECHO": shlex.join([sys.executable, "-u", "-c", STDIO_MCP_SERVER]),
+           "MEMDIR_SERVER_URL": url, "MEMDIR_API_KEY": key}
+    os.environ.update(env)
+    memdir = MemdirConnector(server_url=url, api_key=key, base_dir=f"{tmp.name}/Memdir")
+    memory = MemoryToolHandlers(memdir)
+    try:
+        t0 = time.perf_counter()
+        check(memdir.start_server(wait=60), "the port's Memdir server did not come up")
+        log(f"tools: Memdir server (python -m fei_tpu_torch.memory.memdir.server) on {url} "
+            f"up in {time.perf_counter() - t0:.2f} s")
+
+        def assistant(provider, memory_tools):
+            a = cli.build_assistant(argparse.Namespace(
+                provider=provider, model=None, max_tool_rounds=1, max_tokens=TOOLS_MAX_TOKENS,
+                no_stream=True, memory_tools=memory_tools))
+            return a, a.tool_manager.get_tools()
+
+        gen = GenerationConfig(max_new_tokens=TOOLS_MAX_TOKENS, ignore_eos=True)
+
+        # (1) the default registry: the JAX package's 15 tools; its turn
+        # dense through the provider, then on the paged engine
+        provider = TorchLocalProvider(engine=dense, gen_overrides={"ignore_eos": True})
+        asst15, tools15 = assistant(provider, False)
+        check([t["name"] for t in tools15] == list(DEFAULT_TOOL_NAMES),
+              f"default registry {[t['name'] for t in tools15]}")
+        g15 = provider._tool_grammar(tools15)
+        log(grammar_line("tools: 15-tool registry", g15, dense, card))
+        messages, trig, width = find_trigger(provider, None, tools15)
+        full = provider._messages_with_system(messages, None, tools15)
+        ids = dense.tokenizer.apply_chat_template(full, add_generation_prompt=True)
+        dense_toks: list[int] = []
+        stream_fn = dense.generate_stream_toolcalls
+
+        def recording(*a, **kw):  # the provider's own stream, recorded
+            for tok in stream_fn(*a, **kw):
+                dense_toks.append(tok)
+                yield tok
+
+        dense.generate_stream_toolcalls = recording
+        provider.last_ttft_s = None
+        try:
+            with tools_path():
+                t0 = time.perf_counter()
+                resp = provider.complete(messages, tools=tools15, max_tokens=TOOLS_MAX_TOKENS)
+                turn_s = time.perf_counter() - t0
+                check(read_counts()["flash_attention_fwd"] >= dense.cfg.num_layers,
+                      "the 15-tool turn's prefill did not launch K1")
+        finally:
+            del dense.generate_stream_toolcalls
+        call = check_call(resp, tools15)
+        log(f"tools: 15-tool turn, dense, on {card}: trigger {ascii(trig)}, prompt {len(ids)} "
+            f"tokens, {len(dense_toks)} tokens, TTFT {provider.last_ttft_s * 1e3:.1f} ms, turn "
+            f"{turn_s:.3f} s; call {call.name}({json.dumps(call.arguments)[:120]})")
+        with tools_path():
+            t0 = time.perf_counter()
+            alone = list(paged.generate_stream_toolcalls(ids, gen, grammar=g15, trigger=trig))
+            paged_s = time.perf_counter() - t0
+            check(read_counts()["paged_attention"] > 0, "the paged 15-tool turn never launched K2")
+        verdict = same_or_tie(dense, ids, dense_toks, alone, "15-tool paged turn vs dense")
+        log(f"tools: 15-tool turn, paged, on {card}: {len(alone)} tokens in {paged_s:.3f} s; "
+            f"vs dense: {verdict}")
+
+        # (2) --memory-tools: 24 tools; one constrained turn on the paged
+        # engine beside free requests; its call runs for real if it only reads
+        provider24 = TorchLocalProvider(engine=paged, gen_overrides={"ignore_eos": True})
+        asst24, tools24 = assistant(provider24, True)
+        check([t["name"] for t in tools24] == list(MEMORY_TOOL_NAMES),
+              f"--memory-tools registry {[t['name'] for t in tools24]}")
+        g24 = provider24._tool_grammar(tools24)
+        log(grammar_line("tools: 24-tool registry", g24, paged, card))
+        probe = TorchLocalProvider(engine=dense, gen_overrides={"ignore_eos": True})
+        messages24, trig24, _ = find_trigger(probe, None, tools24)
+        provider24.tool_trigger = trig24
+        sched = paged.scheduler
+        rng = np.random.default_rng(SEED + 9)
+        others = [rng.integers(8, dense.tokenizer.vocab_size, n).tolist()
+                  for n in TOOLS_NEIGHBOUR_LENS]
+        free_gen = GenerationConfig(max_new_tokens=TOOLS_NEIGHBOUR_NEW, ignore_eos=True)
+        merged0 = counter("engine.ragged_dispatches")
+        provider24.last_ttft_s = None
+        with tools_path():
+            seqs = [sched.submit(p, free_gen) for p in others]
+            deadline = time.perf_counter() + 300
+            while not all(s.generated for s in seqs) and time.perf_counter() < deadline:
+                time.sleep(0.005)
+            t0 = time.perf_counter()
+            resp24 = provider24.complete(messages24, tools=tools24, max_tokens=TOOLS_MAX_TOKENS)
+            turn24_s = time.perf_counter() - t0
+            streams = [list(sched.drain(s)) for s in seqs]
+            check(read_counts()["ragged_paged_attention"] > 0,
+                  "the 24-tool turn's chunks never launched K3")
+        check(counter("engine.ragged_dispatches") > merged0,
+              "the 24-tool turn's chunks never merged with live decode")
+        check(all(len(s) == TOOLS_NEIGHBOUR_NEW for s in streams), "a free request came up short")
+        call24 = check_call(resp24, tools24)
+        if call24.name in READ_ONLY_TOOLS:
+            cwd = os.getcwd()
+            os.chdir(tmp.name)  # a code tool's relative paths land in the scratch directory
+            try:
+                t0 = time.perf_counter()
+                result = asst24.tool_manager.execute_tool(call24)
+                tool_s = time.perf_counter() - t0
+            finally:
+                os.chdir(cwd)
+            check(isinstance(result, dict), f"{call24.name} returned {type(result).__name__}")
+            ran = (f"ran for real in {tool_s * 1e3:.1f} ms -> "
+                   f"{json.dumps(result, default=str)[:160]}")
+        else:
+            ran = "not run: the tool writes or starts processes"
+        log(f"tools: 24-tool turn, paged beside {len(others)} free requests, on {card}: trigger "
+            f"{ascii(trig24)}, prompt {resp24.usage['prompt_tokens']} tokens, "
+            f"{resp24.usage['completion_tokens']} tokens, TTFT {provider24.last_ttft_s * 1e3:.1f} "
+            f"ms, turn {turn24_s:.3f} s; call {call24.name}({json.dumps(call24.arguments)[:120]}) "
+            f"{ran}")
+        made = memory.memory_create("the H100 runs K1, K2 and K3 on this path",
+                                    subject="card", tags="chip,smoke")
+        check("error" not in made, f"memory_create: {made}")
+        found = memory.memory_search("#chip", with_content=True)
+        check(any(r["id"] == made["created"] for r in found.get("results", [])),
+              f"memory_search did not find {made['created']}: {found}")
+        viewed = memory.memory_view(made["created"])
+        check(viewed.get("content") == "the H100 runs K1, K2 and K3 on this path",
+              f"memory_view: {viewed}")
+        log(f"tools: memory_create -> memory_search -> memory_view round trip through the live "
+            f"server got back its content ({made['created']})")
+
+        # (3) MCP: Brave with no key, `mcp list`, one call through mcp_*
+        registry = asst15.tool_manager.registry
+        brave = registry.execute_tool("brave_web_search", {"query": "hopper"})
+        check(set(brave) == {"error"} and "BRAVE_API_KEY" in brave["error"],
+              f"brave_web_search without a key: {brave}")
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            rc = cli.main(["mcp", "list"])
+        listed = out.getvalue().split()
+        check(rc == 0 and listed[:2] == ["echo", "stdio"], f"mcp list: rc {rc}, {out.getvalue()!r}")
+        echoed = registry.execute_tool("mcp_echo_hello", {"x": 1})
+        check(echoed == {"method": "hello", "params": {"x": 1}}, f"mcp_echo_hello: {echoed}")
+        log(f"tools: MCP: brave_web_search without a key -> {brave}; `mcp list` -> "
+            f"{out.getvalue().strip()[:60]!r}...; mcp_echo_hello through the stdio server -> {echoed}")
+
+        # (4) Memorychain and the federation
+        memorychain_over_loopback(tmp.name, card)
+        federation_exchange(card)
+
+        # (5) the native scanner
+        native_scanner(card)
+
+        # (6) the TUI, headless: one reply streamed from the dense engine
+        tui = textual_chat.build_assistant(argparse.Namespace(
+            provider=TorchLocalProvider(engine=dense, gen_overrides={"ignore_eos": True}),
+            model=None, max_tokens=TUI_TOKENS))
+        app = FeiChatApp(assistant=tui, memory_handlers=memory)
+        frames = []
+        app.invalidate = lambda: frames.append(1)  # one per streamed delta, no terminal
+        with tools_path():
+            t0 = time.perf_counter()
+            asyncio.run(app.handle_user_message("what is on the card"))
+            tui_s = time.perf_counter() - t0
+            check(read_counts()["flash_attention_fwd"] >= dense.cfg.num_layers,
+                  "the TUI turn's prefill did not launch K1")
+        reply = app.messages[-1]
+        check(reply.role == "assistant" and not reply.live and reply.content,
+              f"the TUI's reply: {reply}")
+        check(len(frames) > 2, f"the TUI reply arrived in {len(frames)} updates, not streamed")
+        listing = app.handle_memory_command("list")
+        check(listing.split("\n")[0].endswith(" memories") and made["created"] in listing,
+              f"/mem list: {listing[:200]!r}")
+        log(f"tools: TUI (headless, {len(tui.tool_manager.get_tools())} tools): one reply of "
+            f"{TUI_TOKENS} tokens streamed in {len(frames)} updates, {tui_s:.3f} s on {card}; "
+            f"/mem list -> {listing.splitlines()[0]!r}")
+    finally:
+        # the stdio MCP server stops with its manager's atexit hook
+        stopped = memory.memory_server_stop()
+        for k in env:
+            os.environ.pop(k, None)
+        tmp.cleanup()
+    check(stopped == {"stopped": True} and not memdir.check_connection(),
+          f"memory_server_stop: {stopped}")
+    log(f"tools: memory_server_stop -> {stopped}; agent tools phase {time.perf_counter() - t_phase:.1f} s "
+        f"on {card}")
     return launched
 
 
@@ -3474,17 +3982,42 @@ def main() -> int:
             list(pool.map(build.build, KERNELS[:1] + KERNELS[2:4]))
         kv_phase(kv_weights(), card)
         return 0
+    if sys.argv[1:] == ["--tools"]:
+        from fei_tpu_torch.engine import InferenceEngine
 
-    t0 = time.perf_counter()
+        with ThreadPoolExecutor(3) as pool:
+            list(pool.map(build.build, KERNELS[:1] + KERNELS[2:4]))
+        dense = kv_weights()
+        paged = InferenceEngine.from_config(
+            "llama3-8b", dtype=torch.bfloat16, params=dense.params, max_seq_len=8192,
+            device="cuda", paged=True, batch_size=8, page_size=PAGE)
+        reset_counts()
+        serving_controls(paged, card)
+        log(f"agent tools path: launches {tools_phase(dense, paged, card)}")
+        paged.close()
+        return 0
+
+    t0 = last = time.perf_counter()
+    phase_s: dict[str, float] = {}
+
+    def stamp(name: str) -> None:
+        """Wall seconds since the previous stamp, under the phase's name."""
+        nonlocal last
+        now = time.perf_counter()
+        phase_s[name] = round(now - last, 1)
+        last = now
+
     with ThreadPoolExecutor(len(KERNELS)) as pool:  # one nvcc per source
         for res in pool.map(build.build, KERNELS):
             regs = [ln.strip() for ln in res.log.splitlines() if "registers" in ln]
             log(f"build: {res.name} -> {res.path.name} in {res.seconds:.1f} s; {regs}")
     log(f"build: {time.perf_counter() - t0:.1f} s")
 
+    stamp("build")
     records = [kernel_phase(card)] + paged_kernel_phase(card)
     bwd_records = flash_bwd_kernel_phase(card)
     int4_record = int4_kernel_phase(card)
+    stamp("kernels")
 
     from fei_tpu_torch.ops.kernels.flash_attention import flash_attention
 
@@ -3492,7 +4025,9 @@ def main() -> int:
     # then paged serve): each with its counts set to 0 just before it
     engine = engine_phase(card)  # zeroes the flash count itself
     dense_launches = flash_attention.launches
+    stamp("engine")
     paged_engine, launches = paged_engine_phase(engine, card)
+    stamp("paged engine")
     reset_counts()
     serve_phase(engine, card)
     dense_launches += flash_attention.launches
@@ -3501,22 +4036,34 @@ def main() -> int:
     reset_counts()
     paged_serve_phase(paged_engine, card)
     log(f"paged serve: launches {read_counts()}")
+    stamp("serve, paged serve, serving controls")
     # the agent path (counts each of its runs from 0 itself), on the same engines
     launches_a = agent_phase(engine, paged_engine, card)
     log(f"agent path: launches {launches_a}")
+    stamp("agent")
+    # the agent tools path (counts each of its runs from 0 itself), same engines
+    launches_tools = tools_phase(engine, paged_engine, card)
+    log(f"agent tools path: launches {launches_tools}")
+    stamp("agent tools")
     # the survival path (counts each of its runs from 0 itself), same weights
     launches_s = survival_phase(engine, paged_engine, card)
     log(f"survival path: launches {launches_s}")
+    stamp("survival")
     paged_engine.close()
     # the KV tier path (counts each of its tier-on runs from 0 itself)
     launches_kv = kv_phase(engine, card)
     log(f"kv path: launches {launches_kv}")
+    stamp("kv")
     for rec in records:
         rec["launches"] = launches[rec["name"]]
         check(rec["launches"] > 0, f"the paged path never launched {rec['name']}")
         # the agent path runs K1 (every prefill), K2 and K3 (its paged turn)
         rec["launches_agent"] = launches_a[rec["name"]]
         check(rec["launches_agent"] > 0, f"the agent path never launched {rec['name']}")
+        # the tools path prefills its turns (K1), decodes the paged turns
+        # (K2) and merges the 24-tool turn's chunks with free requests (K3)
+        rec["launches_tools"] = launches_tools[rec["name"]]
+        check(rec["launches_tools"] > 0, f"the agent tools path never launched {rec['name']}")
         # the survival path re-prefills (K1), replays and decodes (K2) and
         # merges fresh admissions with restored decode (K3)
         rec["launches_survival"] = launches_s[rec["name"]]
@@ -3540,6 +4087,7 @@ def main() -> int:
     int4_record["launches"] = launches4["int4_matmul"]
     records.append(int4_record)
     log(f"int4 paged path (main run): launches {launches4}")
+    stamp("quantized")
 
     # the training path, after the quantized engines are released
     del dense4
@@ -3557,6 +4105,9 @@ def main() -> int:
           and records[0]["launches_training"] == 2 * TRAIN_LAYERS * TRAIN_STEPS,
           f"the training path launched K1 {records[0]['launches_training']} times")
     log(f"training path ({TRAIN_STEPS} steps): launches {launches_t}")
+    stamp("training")
+    log(f"phase seconds on {card}: {json.dumps(phase_s)}; "
+        f"in all {time.perf_counter() - t0:.1f} s")
 
     print(json.dumps({"kernels": records}))
     print(card)

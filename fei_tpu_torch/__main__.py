@@ -7,7 +7,8 @@
   mode, and no argument the interactive chat (ui/cli.py).
 - ``python -m fei_tpu_torch serve [--host H] [--port P] [--model NAME]
   [--api-key KEY]`` starts the OpenAI-compatible server (ui/server.py).
-- ``--textual`` exits non-zero: the Textual TUI is not ported yet.
+- ``--textual`` starts the full-screen chat (ui/textual_chat.py) with the
+  code and memory tools.
 """
 
 from __future__ import annotations
@@ -21,12 +22,14 @@ def main(argv: list[str] | None = None) -> int:
         from fei_tpu_torch.ui.server import main as serve_main
 
         return serve_main(argv[1:])
-    from fei_tpu_torch.ui import cli
-
     if "--textual" in argv:
-        print(f"error: {cli.TEXTUAL_MISSING}", file=sys.stderr)
-        return 2
-    return cli.main(argv)
+        argv.remove("--textual")
+        from fei_tpu_torch.ui.textual_chat import main as textual_main
+
+        return textual_main(argv)
+    from fei_tpu_torch.ui.cli import main as cli_main
+
+    return cli_main(argv)
 
 
 if __name__ == "__main__":

@@ -7,8 +7,10 @@ exactly ``count`` times, then disarms. Arm it from code:
 ``FAULTS.arm("delivery.detok", "request", count=1, match=lambda ctx: ...)``
 — ``match`` filters on the call-site context (e.g. the victim sequence),
 so a test can doom one request out of a concurrent batch with no race
-against the scheduler thread. (The port reads no environment variable:
-the JAX package's ``FEI_TPU_FAULT`` arming has no counterpart here.)
+against the scheduler thread. Or from the environment, as the JAX package
+arms it: ``FEI_TPU_FAULT="point:kind:count"`` (comma-separated for
+several), parsed at import; an entry naming a point or kind this copy
+does not have is logged and skipped.
 
 Points:
 - ``admission.prefill``  — before a prefill/chunk dispatch
@@ -39,6 +41,7 @@ can only ever fire once.
 
 from __future__ import annotations
 
+import os
 import threading
 from typing import Callable
 
@@ -105,6 +108,7 @@ class FaultInjector:
         self._lock = threading.Lock()
         self._armed: dict[str, _Fault] = {}
         self._fired: dict[str, int] = {}
+        self.load_env()
 
     def arm(self, point: str, kind: str = "request", count: int = 1,
             match: Callable[[dict], bool] | None = None) -> None:
@@ -121,6 +125,26 @@ class FaultInjector:
                 self._fired.clear()
             else:
                 self._armed.pop(point, None)
+
+    def load_env(self) -> None:
+        """(Re)parse FEI_TPU_FAULT — ``point:kind:count`` specs, comma-
+        separated. Called at import; tests that monkeypatch the env call
+        it explicitly."""
+        spec = os.environ.get("FEI_TPU_FAULT", "").strip()
+        if not spec:
+            return
+        for part in spec.split(","):
+            fields = part.strip().split(":")
+            if len(fields) < 2:
+                log.warning("malformed FEI_TPU_FAULT entry %r", part)
+                continue
+            point, kind = fields[0], fields[1]
+            count = int(fields[2]) if len(fields) > 2 else 1
+            try:
+                self.arm(point, kind, count)
+                log.info("fault armed from env: %s:%s:%d", point, kind, count)
+            except EngineError as exc:
+                log.warning("FEI_TPU_FAULT entry %r rejected: %s", part, exc)
 
     def check(self, point: str, **ctx) -> None:
         """Raise the armed fault for ``point`` (if any). A non-matching

@@ -63,12 +63,22 @@ variables, so one deployment's settings drive either package:
 (batch), ``FEI_TPU_JOURNAL_SEGMENT_BYTES`` (4 MiB), ``FEI_TPU_KV_TIER``
 (off | ram | disk; off), ``FEI_TPU_KV_RAM_BYTES`` (256 MiB),
 ``FEI_TPU_KV_DISK_BYTES`` (1 GiB), ``FEI_TPU_KV_DISK_DIR`` and
-``FEI_TPU_KV_CDN`` (1: content-addressed prefixes while the tier is on). The other knobs are attributes with the JAX package's defaults
-(the port reads no environment variable for them): ``prefill_chunk``
-256, ``multistep`` 8, ``ragged_attention`` True, ``ragged_rows`` 8, ``preempt_policy``
-"min-progress", ``max_queue`` 0 (unbounded), ``retry_after_s`` 1,
-``default_deadline_s`` 0, and the crash-loop breaker's ``breaker_fails``
-3 within ``breaker_window_s`` 60 for ``breaker_cooldown_s`` 30.
+``FEI_TPU_KV_CDN`` (1: content-addressed prefixes while the tier is on).
+So do the serving knobs, each read into an attribute when the scheduler
+is built, with the JAX package's defaults and parsing:
+``FEI_TPU_PREFILL_CHUNK`` (``prefill_chunk`` 256), ``FEI_TPU_ATTENTION``
+(ragged | paged; ``ragged_attention`` True), ``FEI_TPU_RAGGED_ROWS``
+(``ragged_rows`` 8), ``FEI_TPU_PAGED_PREFILL`` (1; the port has only the
+paged-native admission, so 0 raises), ``FEI_TPU_SCHED_MULTISTEP``
+(``multistep`` 8), ``FEI_TPU_MAX_QUEUE`` (``max_queue`` 0, unbounded),
+``FEI_TPU_RETRY_AFTER_S`` (1), ``FEI_TPU_DEFAULT_DEADLINE_S`` (0: none),
+the crash-loop breaker's ``FEI_TPU_BREAKER_FAILS`` (3) within
+``FEI_TPU_BREAKER_WINDOW_S`` (60) for ``FEI_TPU_BREAKER_COOLDOWN_S`` (30),
+``FEI_TPU_PREEMPT_POLICY`` (min-progress | off), and through
+``TenantBook`` ``FEI_TPU_TENANT_BUDGETS`` and ``FEI_TPU_DEFAULT_TENANT``.
+The speculation (``FEI_TPU_SPECULATE``, ``FEI_TPU_SPEC_*``) and
+sequence-parallel (``FEI_TPU_SP_*``) variables name features the port does
+not have and stay unread.
 
 A kernel that fails to launch fails every in-flight request through
 ``_fail_all`` (device scope); no path reroutes a failed kernel call to
@@ -213,20 +223,42 @@ class PagedScheduler(AdmissionMixin, DecodeMixin, ConstraintMixin):
         self._pending_chunk: dict | None = None  # deferred merge chunk
         self._ctl: deque = deque()  # closures for the loop thread (run_ctl)
         self._closed = False
-        self.prefill_chunk = 256
-        self.multistep = 8
-        self.ragged_attention = True
-        self.ragged_rows = 8
-        self.preempt_policy = "min-progress"
-        self.max_queue = 0
-        self.retry_after_s = 1.0
-        self.default_deadline_s = 0.0
-        self.breaker_fails = 3
-        self.breaker_window_s = 60.0
-        self.breaker_cooldown_s = 30.0
+        # the serving knobs, read as the JAX package reads them
+        # (fei_tpu/engine/scheduler.py:195-301)
+        self.prefill_chunk = int(os.environ.get("FEI_TPU_PREFILL_CHUNK", "256"))
+        # ragged merged dispatch: a pending prefill chunk rides the decode
+        # step as one program; "paged" keeps the two-program shape
+        attn = os.environ.get("FEI_TPU_ATTENTION", "ragged")
+        if attn not in ("ragged", "paged"):
+            raise EngineError(f"unknown FEI_TPU_ATTENTION {attn!r} (ragged | paged)")
+        self.ragged_attention = attn == "ragged"
+        self.ragged_rows = max(1, int(os.environ.get("FEI_TPU_RAGGED_ROWS", "8")))
+        # admission chunks always write K/V straight into pool pages; the
+        # JAX package's dense-staging admission (FEI_TPU_PAGED_PREFILL=0)
+        # is not ported (ROADMAP F3)
+        if os.environ.get("FEI_TPU_PAGED_PREFILL", "1") == "0":
+            raise EngineError(
+                "FEI_TPU_PAGED_PREFILL=0 selects the dense-staging admission, "
+                "which fei_tpu_torch does not have (ROADMAP F3): unset it")
+        self.multistep = max(1, int(os.environ.get("FEI_TPU_SCHED_MULTISTEP", "8")))
+        # backpressure: bound the waiting queue (0 = unbounded); the server
+        # maps the QueueFullError to 429 + Retry-After
+        self.max_queue = int(os.environ.get("FEI_TPU_MAX_QUEUE", "0"))
+        self.retry_after_s = float(os.environ.get("FEI_TPU_RETRY_AFTER_S", "1"))
+        # per-request wall-clock deadline default (0 = none)
+        self.default_deadline_s = float(os.environ.get("FEI_TPU_DEFAULT_DEADLINE_S", "0"))
+        # crash-loop breaker: breaker_fails device failures inside
+        # breaker_window_s reject new submits for breaker_cooldown_s
+        self.breaker_fails = int(os.environ.get("FEI_TPU_BREAKER_FAILS", "3"))
+        self.breaker_window_s = float(os.environ.get("FEI_TPU_BREAKER_WINDOW_S", "60"))
+        self.breaker_cooldown_s = float(os.environ.get("FEI_TPU_BREAKER_COOLDOWN_S", "30"))
         self._fail_times: deque[float] = deque()
         self._degraded_until = 0.0
         self.tenants = TenantBook()
+        self.preempt_policy = os.environ.get("FEI_TPU_PREEMPT_POLICY", "min-progress")
+        if self.preempt_policy not in ("min-progress", "off"):
+            raise EngineError(
+                f"unknown FEI_TPU_PREEMPT_POLICY {self.preempt_policy!r} (min-progress | off)")
         # the device-native grammar: ONE table pair serves every constrained
         # request (the provider memoizes one union grammar per tool set)
         self._ggrammar = None
@@ -486,6 +518,7 @@ class PagedScheduler(AdmissionMixin, DecodeMixin, ConstraintMixin):
         for v in victims:
             v.finished = True
             self._trace_finish(v, "shed")
+            METRICS.incr(f"tenant.{v.tenant}.sheds")
             v.out.put(QueueFullError(
                 f"request {v.rid} (priority {v.priority}) was evicted from "
                 f"the full queue by a priority-{priority} arrival",
@@ -497,6 +530,7 @@ class PagedScheduler(AdmissionMixin, DecodeMixin, ConstraintMixin):
                 self._trace_finish(arrival, "shed")
             else:
                 METRICS.incr("scheduler.requests_shed")
+            METRICS.incr(f"tenant.{tenant}.sheds")
             METRICS.gauge("scheduler.queue_depth", depth)
             raise QueueFullError(shed, retry_after_s=self.retry_after_s)
 
@@ -680,7 +714,9 @@ class PagedScheduler(AdmissionMixin, DecodeMixin, ConstraintMixin):
                     extra = {"route": "dense" if seq.dense_admitted else "chunked"}
                 self._journal.token(seq.rid, t, self._key_list(key), extra)
             seq.out.put(t)
+            # weighted-fair service accounting
             self.tenants.charge(seq.tenant, 1)
+            METRICS.incr(f"tenant.{seq.tenant}.tokens_served")
         if not done and seq.gfallback_state is not None:
             # host-mask tool-call route: advance the masker now (it is
             # idempotent per prefix length) so acceptance ends the turn at
@@ -762,6 +798,17 @@ class PagedScheduler(AdmissionMixin, DecodeMixin, ConstraintMixin):
             METRICS.gauge("pool.pages_total", total)
             METRICS.gauge("pool.pages_free", alloc.free_pages)
             METRICS.gauge("pool.pages_in_use", total - alloc.free_pages)
+        if self.tenants.configured:
+            queued: dict[str, int] = {}
+            running: dict[str, int] = {}
+            for s in self._waiting:
+                queued[s.tenant] = queued.get(s.tenant, 0) + 1
+            for s in self._slots:
+                if s is not None and not s.finished:
+                    running[s.tenant] = running.get(s.tenant, 0) + 1
+            for name in set(queued) | set(running) | {k for k in self.tenants.policies if k != "*"}:
+                METRICS.gauge(f"tenant.{name}.queued", queued.get(name, 0))
+                METRICS.gauge(f"tenant.{name}.running", running.get(name, 0))
 
     def _drain(self, exc: BaseException) -> None:
         """Fail every queued and in-flight request WITHOUT dropping device
@@ -868,6 +915,7 @@ class PagedScheduler(AdmissionMixin, DecodeMixin, ConstraintMixin):
         seq.released_pages = 0
         seq.row = None
         METRICS.incr("scheduler.preemptions")
+        METRICS.incr(f"tenant.{seq.tenant}.preemptions")
         log.info("preempted %s (%d/%d tokens) under pool pressure",
                  seq.rid, len(seq.generated), seq.budget)
         if requeue:

@@ -1,18 +1,18 @@
 """Multi-tenant QoS policy for the paged scheduler (a copy of
-fei_tpu/engine/tenancy.py; the port reads no environment variable, so
-the policy table is the caller's: ``TenantBook(parse_tenant_budgets(spec))``).
+fei_tpu/engine/tenancy.py).
 
 One greedy tenant must not starve everyone else: requests carry a
-``tenant`` label and an integer ``priority`` (attributes of the
-generation config, where the caller sets them), and admission becomes weighted-fair across tenants instead of
-strictly FIFO. A policy table is spelled::
+``tenant`` label and an integer ``priority`` (GenerationConfig fields,
+fed from the request body or the ``X-FEI-Tenant`` / ``X-FEI-Priority``
+headers), and admission becomes weighted-fair across tenants instead of
+strictly FIFO. The policy table comes from ``FEI_TPU_TENANT_BUDGETS``::
 
-    "gold:4,silver:2:8,bronze:1:4:4096,*:1"
+    FEI_TPU_TENANT_BUDGETS="gold:4,silver:2:8,bronze:1:4:4096,*:1"
 
 Comma-separated ``tenant:weight[:queue_cap[:token_budget]]`` entries —
 ``weight`` scales the tenant's fair share of served tokens,
-``queue_cap`` bounds its waiting requests (0 = only the scheduler's
-``max_queue`` applies), ``token_budget`` caps the token positions
+``queue_cap`` bounds its waiting requests (0 = only the global
+FEI_TPU_MAX_QUEUE applies), ``token_budget`` caps the token positions
 its running sequences may hold reserved at once (0 = unlimited). A
 ``*`` entry sets the policy for tenants not named explicitly. With no
 spec configured every tenant shares one default policy and — as long as
@@ -31,6 +31,7 @@ owed to it.
 
 from __future__ import annotations
 
+import os
 import re
 from dataclasses import dataclass
 
@@ -68,8 +69,9 @@ class TenantPolicy:
 
 
 def parse_tenant_budgets(spec: str) -> dict[str, TenantPolicy]:
-    """Parse a policy table. Malformed entries log and skip — a typo in
-    one tenant must not take the whole policy table down with it."""
+    """Parse ``FEI_TPU_TENANT_BUDGETS``. Malformed entries log and skip
+    (matching FEI_TPU_FAULT's forgiving parse) — a typo in one tenant
+    must not take the whole policy table down with it."""
     table: dict[str, TenantPolicy] = {}
     for part in (spec or "").split(","):
         part = part.strip()
@@ -78,7 +80,7 @@ def parse_tenant_budgets(spec: str) -> dict[str, TenantPolicy]:
         fields = part.split(":")
         name = fields[0].strip()
         if not name:
-            log.warning("malformed tenant budget entry %r", part)
+            log.warning("malformed FEI_TPU_TENANT_BUDGETS entry %r", part)
             continue
         if name != "*":
             name = sanitize_tenant(name)
@@ -87,11 +89,11 @@ def parse_tenant_budgets(spec: str) -> dict[str, TenantPolicy]:
             queue_cap = int(fields[2]) if len(fields) > 2 else 0
             token_budget = int(fields[3]) if len(fields) > 3 else 0
         except ValueError:
-            log.warning("malformed tenant budget entry %r", part)
+            log.warning("malformed FEI_TPU_TENANT_BUDGETS entry %r", part)
             continue
         if weight <= 0:
             log.warning(
-                "tenant budget entry %r has non-positive weight; "
+                "FEI_TPU_TENANT_BUDGETS entry %r has non-positive weight; "
                 "using 1", part,
             )
             weight = 1.0
@@ -110,8 +112,16 @@ class TenantBook:
 
     def __init__(self, policies: dict[str, TenantPolicy] | None = None,
                  default_tenant: str | None = None):
-        self.policies = dict(policies or {})
-        self.default_tenant = sanitize_tenant(default_tenant or "default")
+        if policies is None:
+            policies = parse_tenant_budgets(
+                os.environ.get("FEI_TPU_TENANT_BUDGETS", "")
+            )
+        self.policies = dict(policies)
+        self.default_tenant = sanitize_tenant(
+            default_tenant
+            if default_tenant is not None
+            else os.environ.get("FEI_TPU_DEFAULT_TENANT", "default")
+        )
         self._fallback = self.policies.get("*") or TenantPolicy(name="*")
         self._vtime: dict[str, float] = {}
 

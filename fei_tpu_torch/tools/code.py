@@ -11,11 +11,11 @@ with the reference's known defects fixed:
   pipeline segment, not just the first token;
 - backups are atomic and pruned under a lock.
 
-A copy of fei_tpu/tools/code.py with two differences: the system-info
-tool reports the CUDA devices through ``torch.cuda``, and grep always takes
-the pure-Python route — the JAX package's native C++ scanner
-(fei_tpu/native, roadmap module ``native/``) is not ported yet, and until
-it is, this is the route that package takes when its scanner is not built.
+A native C++ scan engine (fei_tpu_torch.native) accelerates the grep hot
+loop when built; the pure-Python path is the always-available fallback.
+
+A copy of fei_tpu/tools/code.py whose system-info tool reports the CUDA
+devices through ``torch.cuda``.
 """
 
 from __future__ import annotations
@@ -161,6 +161,20 @@ class GrepTool:
         if os.path.isfile(root):
             return self._search_file(root, rx, max_results)
         files = self._candidate_files(root, include)
+        # Try the native C++ scanner first (fei_tpu_torch.native, task: hot loop).
+        try:
+            from fei_tpu_torch.native import scan as native_scan
+
+            raw = native_scan.grep_files(files, pattern, max_results)
+            if raw is not None:
+                matches = [GrepMatch(f, ln, text) for f, ln, text in raw]
+                # same ordering contract as the Python path
+                matches.sort(
+                    key=lambda m: (-_safe_mtime(m.file), m.file, m.line_number)
+                )
+                return matches[:max_results]
+        except Exception:  # noqa: BLE001 — native path is best-effort
+            pass
         results: list[GrepMatch] = []
         with ThreadPoolExecutor(max_workers=min(self.max_workers, max(1, len(files)))) as pool:
             futures = {pool.submit(self._search_file, f, rx, max_results): f for f in files}

@@ -1,14 +1,13 @@
 """CLI: interactive REPL, one-shot message, continuous task mode, subcommands
 (a copy of fei_tpu/ui/cli.py that imports only the port).
 
-The provider defaults to ``torch_local``, the engine on the local GPU, and
-tokens stream to stdout as they decode. What the port does not have yet
-fails loudly and names its roadmap module: the ``mcp`` subcommand and web
-search (``search``; ``ask`` without ``--no-search`` says the search is
-unavailable, as the JAX package does when its search fails) need
-``agent/mcp.py``, and ``--memory-tools`` needs ``tools/memory_tools.py``.
-At startup the MCP tools are reported unavailable, the route the JAX
-package takes when its MCP manager cannot start.
+Parity with the reference's fei/ui/cli.py:60-786 (REPL with exit/clear/
+history commands, history persistence, --task mode wrapping TaskExecutor,
+history/mcp/search/ask subcommands), with the provider defaulting to
+``torch_local``, the engine on the local GPU, and tokens streamed to stdout
+as they decode. The default registry is the JAX package's: the code tools,
+``--memory-tools``'s nine memory tools, and the MCP manager's
+``brave_web_search`` with the ``mcp_*`` passthrough.
 """
 
 from __future__ import annotations
@@ -62,29 +61,22 @@ class History:
         self.save()
 
 
-# what the port has not ported yet, by roadmap module
-MCP_MISSING = ("MCP (fei_tpu/agent/mcp.py) is not ported to fei_tpu_torch yet "
-               "(roadmap module agent/mcp.py)")
-MEMORY_TOOLS_MISSING = ("--memory-tools needs fei_tpu/tools/memory_tools.py, which is "
-                        "not ported to fei_tpu_torch yet (roadmap module "
-                        "tools/memory_tools.py)")
-TEXTUAL_MISSING = ("--textual needs fei_tpu/ui/textual_chat.py, which is not ported "
-                   "to fei_tpu_torch yet (roadmap module ui/textual_chat.py)")
-
-
-class NotPortedError(RuntimeError):
-    """A CLI feature whose module the port does not have yet."""
-
-
 def build_assistant(args):
     from fei_tpu_torch.agent import Assistant
     from fei_tpu_torch.tools import ToolRegistry, create_code_tools
 
-    if getattr(args, "memory_tools", False):
-        raise NotPortedError(MEMORY_TOOLS_MISSING)
     registry = ToolRegistry()
     create_code_tools(registry)
-    log.warning("mcp tools unavailable: %s", MCP_MISSING)
+    if getattr(args, "memory_tools", False):
+        from fei_tpu_torch.tools.memory_tools import create_memory_tools
+
+        create_memory_tools(registry)
+    try:
+        from fei_tpu_torch.agent.mcp import MCPManager, register_mcp_tools
+
+        register_mcp_tools(registry, MCPManager())
+    except Exception as exc:  # noqa: BLE001 — MCP is optional at startup
+        log.warning("mcp tools unavailable: %s", exc)
     streamed: list[str] = []
     on_text = None
     if not getattr(args, "no_stream", False):
@@ -217,15 +209,106 @@ def handle_history_command(args) -> int:
     return 0
 
 
+# discovery methods MCP servers variously answer (parity: the reference's
+# check_mcp_methods.py:1-102 probe script, without its hardcoded API key)
+_PROBE_METHODS = [
+    "initialize", "tools/list", "listTools", "list_tools",
+    "resources/list", "prompts/list", "rpc.discover", "system.listMethods",
+]
+
+
+def handle_mcp_probe(args, manager) -> int:
+    """Probe which discovery methods a configured MCP service answers."""
+    service = args.service
+    if not service:
+        print("usage: fei mcp probe <service>", file=sys.stderr)
+        return 2
+    found = 0
+    for method in _PROBE_METHODS:
+        try:
+            result = manager.client.call_service(service, method, {})
+            found += 1
+            blob = json.dumps(result, default=str)
+            print(f"✓ {method}: {blob[:200]}{'…' if len(blob) > 200 else ''}")
+        except Exception as exc:  # noqa: BLE001 — probing expects failures
+            print(f"✗ {method}: {exc}")
+    print(f"\n{found}/{len(_PROBE_METHODS)} discovery methods answered")
+    return 0 if found else 1
+
+
 def handle_mcp_command(args) -> int:
-    print(f"error: {MCP_MISSING}", file=sys.stderr)
-    return 2
+    from fei_tpu_torch.agent.mcp import MCPManager
+
+    manager = MCPManager()
+    if args.mcp_action == "probe":
+        try:
+            return handle_mcp_probe(args, manager)
+        finally:
+            manager.close()
+    if args.mcp_action == "list":
+        if not manager.client.servers:
+            print("no mcp servers configured (set FEI_TPU_MCP_SERVER_<NAME> "
+                  "or [mcp] server_<name> in the config file)")
+        for name, spec in manager.client.servers.items():
+            target = spec.url or " ".join(spec.command)
+            print(f"{name:20s} {spec.type:6s} {target}")
+    elif args.mcp_action == "call":
+        if not args.service or not args.method:
+            print("usage: fei mcp call <service> <method> [--params JSON]",
+                  file=sys.stderr)
+            return 2
+        params = json.loads(args.params) if args.params else {}
+        result = manager.client.call_service(args.service, args.method, params)
+        print(json.dumps(result, indent=2, default=str))
+    manager.close()
+    return 0
+
+
+def _extract_search_results(result) -> list[dict]:
+    """Normalize brave/MCP search payload shapes into [{title,url,description}].
+    (The reference parsed the same two shapes, fei/ui/cli.py:640-672.)"""
+    if not isinstance(result, dict):
+        return []
+    web = result.get("web")
+    rows = web.get("results") if isinstance(web, dict) else None
+    if rows is None:
+        rows = result.get("results")
+    if rows is None and "content" in result:
+        # MCP text content envelope: one blob, keep as a single pseudo-result
+        content = result["content"]
+        if isinstance(content, list):
+            text = "\n".join(
+                c.get("text", "") for c in content if isinstance(c, dict)
+            )
+        else:
+            text = str(content)
+        return [{"title": "search results", "url": "", "description": text}]
+    out = []
+    for r in rows or []:
+        if isinstance(r, dict):
+            out.append({
+                "title": str(r.get("title", "")),
+                "url": str(r.get("url", "")),
+                "description": str(r.get("description", r.get("snippet", ""))),
+            })
+    return out
 
 
 def run_search(query: str, count: int = 5, manager=None) -> list[dict]:
-    """Direct web search goes through the MCP brave service, which the port
-    does not have yet: raises ``NotPortedError`` naming its module."""
-    raise NotPortedError(MCP_MISSING)
+    """Direct web search through the MCP brave service (falls back to the
+    direct REST API inside the service when no MCP server is configured;
+    unlike the reference there is NO hardcoded fallback API key —
+    ref fei/ui/cli.py:589 is a catalogued defect)."""
+    from fei_tpu_torch.agent.mcp import MCPManager
+
+    own = manager is None
+    manager = manager or MCPManager()
+    try:
+        result = manager.brave_search.web_search(query, count=count)
+        return _extract_search_results(result)
+    finally:
+        if own:
+            manager.close()
 
 
 def handle_search_command(args) -> int:
@@ -375,7 +458,7 @@ def print_stats(assistant=None) -> None:
     """Span timings + histograms + counters + token usage to stderr
     (observability the reference lacks entirely — SURVEY §5 'Tracing/
     profiling: none'). Rendering is shared with the TUI's /metrics command
-    (obs/render.py) so both UIs show the same table."""
+    (fei_tpu_torch/obs/render.py) so both UIs show the same table."""
     from fei_tpu_torch.obs.render import snapshot_lines
     from fei_tpu_torch.utils.metrics import METRICS
 

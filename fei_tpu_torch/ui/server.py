@@ -122,10 +122,16 @@ def _from_openai_tools(raw: list[dict] | None) -> list[dict] | None:
     return out
 
 
-def _gen_overrides(body: dict) -> dict:
-    """Per-request sampling knobs; explicit JSON null means 'use the
-    default' per the OpenAI spec."""
+def _gen_overrides(body: dict, headers: dict | None = None) -> dict:
+    """Explicit JSON null means 'use the default' per the OpenAI spec
+    (several SDKs serialize unset fields as null). ``headers`` carries
+    the fleet extensions: ``X-FEI-Tenant`` / ``X-FEI-Priority`` (QoS
+    labels, body fields win) and ``X-FEI-Deadline-S`` — the client's
+    REMAINING deadline as propagated by the fleet router, folded in as a
+    min() so a retry hop can only ever shrink the request's budget,
+    never extend it."""
     over: dict = {}
+    h = {str(k).lower(): v for k, v in (headers or {}).items()}
     if body.get("temperature") is not None:
         over["temperature"] = float(body["temperature"])
     if body.get("top_p") is not None:
@@ -136,8 +142,38 @@ def _gen_overrides(body: dict) -> dict:
         over["min_p"] = min(max(float(body["min_p"]), 0.0), 1.0)
     if body.get("seed") is not None:
         over["seed"] = int(body["seed"])
-    if body.get("ignore_eos") is not None:  # decode the full budget
+    if body.get("ignore_eos") is not None:
+        # non-OpenAI extension (vLLM-style): decode the full max_tokens
+        # budget — benches and the chaos crash smoke need streams long
+        # enough to kill mid-flight regardless of what the model samples
         over["ignore_eos"] = bool(body["ignore_eos"])
+    deadlines = []
+    if body.get("deadline_s") is not None:  # non-OpenAI extension
+        dl = max(0.0, float(body["deadline_s"]))
+        if dl > 0:
+            deadlines.append(dl)
+    hd = h.get("x-fei-deadline-s")
+    if hd is not None:
+        try:
+            # a propagated remaining budget of <= 0 means the client's
+            # deadline already passed in flight; clamp to an epsilon so
+            # the scheduler sheds it instead of treating 0 as "none"
+            deadlines.append(max(1e-3, float(hd)))
+        except (TypeError, ValueError):
+            pass
+    if deadlines:
+        over["deadline_s"] = min(deadlines)
+    tenant = body.get("tenant") or h.get("x-fei-tenant")
+    if tenant:  # non-OpenAI extension (multi-tenant QoS)
+        over["tenant"] = str(tenant)
+    priority = body.get("priority")
+    if priority is None:
+        priority = h.get("x-fei-priority")
+    if priority is not None:
+        try:
+            over["priority"] = int(priority)
+        except (TypeError, ValueError):
+            pass
     return over
 
 
@@ -231,7 +267,7 @@ class ServeAPI:
                           "owned_by": "fei-tpu-torch"}],
             }
         if route == "/v1/chat/completions" and method == "POST":
-            return self._chat(body)
+            return self._chat(body, headers)
         if route == "/drain" and method == "POST":
             return self._drain(body)
         # the KV routes stay routable while draining: migration on drain is
@@ -422,7 +458,8 @@ class ServeAPI:
             return _server_error(exc)
         return 200, {"object": "kv.prefix.probe", **st}
 
-    def _parse_request(self, body: dict) -> dict:
+    def _parse_request(self, body: dict,
+                       headers: dict | None = None) -> dict:
         """Decode the request into provider kwargs; raises on bad input
         BEFORE any engine work (the streaming path validates here before
         committing SSE headers)."""
@@ -439,7 +476,7 @@ class ServeAPI:
             "tools": _from_openai_tools(body.get("tools")),
             "max_tokens": mt,
         }
-        over = _gen_overrides(body)
+        over = _gen_overrides(body, headers)
         if over and getattr(self.provider, "supports_gen_overrides", False):
             kw["gen_overrides"] = over
         kw.update(self._resume_kw(body))
@@ -488,9 +525,9 @@ class ServeAPI:
         return 202, {"status": "draining",
                      "deadline_s": deadline if deadline is not None else sched.drain_deadline_s}
 
-    def _chat(self, body: dict) -> tuple:
+    def _chat(self, body: dict, headers: dict | None = None) -> tuple:
         try:
-            kw = self._parse_request(body)
+            kw = self._parse_request(body, headers)
         except (ValueError, KeyError, TypeError) as exc:
             return 400, {"error": {"message": str(exc),
                                    "type": "invalid_request_error"}}
@@ -655,7 +692,7 @@ def make_handler(api: ServeAPI):
             ):
                 # validate BEFORE committing 200 + SSE headers
                 try:
-                    kw = api._parse_request(body)
+                    kw = api._parse_request(body, dict(self.headers))
                 except (ValueError, KeyError, TypeError) as exc:
                     self._json(400, {"error": {"message": str(exc),
                                                "type": "invalid_request_error"}})

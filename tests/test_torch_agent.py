@@ -331,9 +331,10 @@ def test_remote_against_openai_stub():
 
 # ---------------------------------------------------------------- CLI
 
-def _run(pkg, args, home):
+def _run(pkg, args, home, extra_env=None):
     env = dict(os.environ, JAX_PLATFORMS="cpu", HOME=str(home),
-               PYTHONPATH=REPO + os.pathsep + os.environ.get("PYTHONPATH", ""))
+               PYTHONPATH=REPO + os.pathsep + os.environ.get("PYTHONPATH", ""),
+               **(extra_env or {}))
     return subprocess.run([sys.executable, "-m", pkg, *args], capture_output=True,
                           text=True, timeout=300, env=env, cwd=REPO)
 
@@ -348,13 +349,16 @@ def test_message_cli_prints_what_the_reference_prints(tmp_path):
     assert hist[-1]["prompt"] == "hi"
 
 
-@pytest.mark.parametrize("args,module", [
-    (["--textual"], "ui/textual_chat.py"),
-    (["--memory-tools", "--provider", "mock", "--message", "hi"], "tools/memory_tools.py"),
-    (["mcp", "list"], "agent/mcp.py"),
-    (["search", "x"], "agent/mcp.py"),
-])
-def test_unported_cli_features_fail_loudly(args, module, tmp_path):
-    out = _run("fei_tpu_torch", args, tmp_path)
-    assert out.returncode != 0
-    assert module in out.stderr
+@pytest.mark.parametrize("args", [
+    ["--memory-tools", "--provider", "mock", "--message", "hi"],
+    ["mcp", "list"],
+    ["search", "x"],  # no network and no Brave key in either package
+    ["--textual", "--help"],  # the TUI's argument parser: no terminal needed
+], ids=["memory-tools", "mcp-list", "search", "textual"])
+def test_cli_features_behave_as_the_reference(args, tmp_path):
+    env_free = {"BRAVE_API_KEY": ""}
+    ours = _run("fei_tpu_torch", args, tmp_path / "a", env_free)
+    theirs = _run("fei_tpu", args, tmp_path / "b", env_free)
+    assert ours.returncode == theirs.returncode, ours.stderr[-800:]
+    assert ours.stdout == theirs.stdout
+    assert ours.stdout.strip() or ours.returncode

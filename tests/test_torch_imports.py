@@ -59,6 +59,19 @@ def test_port_imports_without_jax_or_fei_tpu():
         "fei_tpu_torch.utils.fsync",
         "fei_tpu_torch.kv", "fei_tpu_torch.kv.tier", "fei_tpu_torch.kv.pagesio",
         "fei_tpu_torch.kv.migrate", "fei_tpu_torch.kv.content",
+        "fei_tpu_torch.agent.mcp", "fei_tpu_torch.native", "fei_tpu_torch.native.build",
+        "fei_tpu_torch.native.scan", "fei_tpu_torch.tools.memory_tools",
+        "fei_tpu_torch.tools.memdir_connector", "fei_tpu_torch.tools.memorychain_connector",
+        "fei_tpu_torch.memory", "fei_tpu_torch.memory.memdir",
+        "fei_tpu_torch.memory.memdir.store", "fei_tpu_torch.memory.memdir.folders",
+        "fei_tpu_torch.memory.memdir.filters", "fei_tpu_torch.memory.memdir.search",
+        "fei_tpu_torch.memory.memdir.archiver", "fei_tpu_torch.memory.memdir.server",
+        "fei_tpu_torch.memory.memdir.cli", "fei_tpu_torch.memory.memdir.samples",
+        "fei_tpu_torch.memory.memdir.__main__", "fei_tpu_torch.memory.memorychain",
+        "fei_tpu_torch.memory.memorychain.chain", "fei_tpu_torch.memory.memorychain.transport",
+        "fei_tpu_torch.memory.memorychain.node", "fei_tpu_torch.memory.memorychain.cli",
+        "fei_tpu_torch.memory.memorychain.embedding_exchange",
+        "fei_tpu_torch.ui.textual_chat",
     ):
         assert name in got["imported"], name
     assert got["jax"] == [], got["jax"]
@@ -99,6 +112,33 @@ def test_kv_modules_load_neither_jax_nor_fei_tpu():
     """The KV tier carries bf16 as 2-byte words: not even ml_dtypes loads."""
     out = subprocess.run(
         [sys.executable, "-c", _KV_PROBE], capture_output=True, text=True,
+        timeout=120, check=True, cwd=REPO,
+    )
+    assert json.loads(out.stdout.strip().splitlines()[-1]) == []
+
+
+_TOOLS_PROBE = r"""
+import argparse, json, sys
+from fei_tpu_torch.ui.cli import build_assistant
+from fei_tpu_torch.ui.textual_chat import FeiChatApp
+from fei_tpu_torch.native import scan
+from fei_tpu_torch.memory.memorychain.embedding_exchange import exchange_banks, hash_embed
+a = build_assistant(argparse.Namespace(provider="mock", model=None, max_tool_rounds=1,
+                                       max_tokens=8, no_stream=True, memory_tools=True))
+FeiChatApp(assistant=a).handle_memory_command("help")
+scan.grep_files([__import__("fei_tpu_torch").__file__], "import", 10)
+exchange_banks(hash_embed("a b")[None, None], device="cpu")
+loaded = sorted(sys.modules)
+print(json.dumps([m for m in loaded if m in ("jax", "fei_tpu")
+                  or m.startswith(("jax.", "fei_tpu."))]))
+"""
+
+
+def test_tools_modules_load_neither_jax_nor_fei_tpu():
+    """Driving the agent's tool layer (MCP, the memory tools, the native
+    scanner, the TUI, the federation) loads no module of the JAX package."""
+    out = subprocess.run(
+        [sys.executable, "-c", _TOOLS_PROBE], capture_output=True, text=True,
         timeout=120, check=True, cwd=REPO,
     )
     assert json.loads(out.stdout.strip().splitlines()[-1]) == []
