@@ -101,7 +101,9 @@ Phases (each raises on failure, so the script exits non-zero):
    drained, warm restart -> first replayed token per route, aggregate
    tok/s with the journal off / batch / always, and what a sampled step's
    sampling tail launches beside a greedy one's.
-11. KV tier (the KV path), on the same weights, each run on a fresh paged
+11. KV tier (the KV path), on the first 16 of the same weights' 32 layers
+   (views, llama3-8b's widths; cut from 32 layers for time when the fleet
+   phase was added, every check kept), each run on a fresh paged
    engine built with the tier's variables (``FEI_TPU_KV_TIER``, RAM
    budget 8 GiB); the eight prompts of phase 6 as four greedy and four
    top-p 0.9 requests. The roomy traffic (1025 pages, 128 tokens) gives
@@ -129,6 +131,37 @@ Phases (each raises on failure, so the script exits non-zero):
    -> next token streamed vs replayed, the tight traffic's wall time
    with the tier off / ram / disk, the publish cost per admission and the
    roomy tok/s with the tier off and on.
+12. Fleet and observability (the fleet path), on the KV phase's 16
+   layers (cut from 32 for time: the phase's share of the script's limit;
+   every check kept): two paged replicas of 8 rows and 513 pages with the KV tier in RAM, ``a``
+   prefill-heavy in process and ``b`` decode-heavy behind its HTTP server
+   (``HttpReplica``), one ``Router`` over both; a third engine alone is
+   the reference. Eight sessions (first turns of 96-5000 characters, one
+   byte id each; four greedy, four top-p 0.9) take two 32-token turns
+   through ``Router.stream_chat``: the prompts of at least 512 ids land
+   on ``a`` and hand their prefix off to ``b`` over /kv
+   (``router.migrations``, ``router.role_routed``), second turns keep
+   their affinity and hit the prefix cache, and every stream's ``fei``
+   token ids equal the reference scheduler's on the same turns (or first
+   part at a tie within 2 bf16 ulps). A greedy and a seeded 64-token
+   stream dropped after 16 frames (by ``a`` in process; by ``b``, whose
+   handler dies at the ``replica.crash`` fault and drops the socket) are
+   resurrected once each and reach the client bitwise the uninterrupted
+   stream. Three ``router.forward`` conn faults on ``a`` eject it while
+   ``b`` serves, and after the 1 s cooldown a half-open probe readmits
+   it; ``X-FEI-Deadline-S: 0.001`` answers 504 from the router
+   (``router.deadline_expired``) and charges no breaker; a cold session on
+   ``b`` pulls its prefix off ``a`` by content hash
+   (``kv.prefix_hits_remote``). Over ``b``'s HTTP server: /v1/traces (the
+   phase's traces, phases in order), /v1/traces/<id> (its flight slice),
+   /debug/timeline (``.issue``/``.sync`` of the paged dispatches),
+   a 1 s /debug/profile taken under the second turns (its trace names
+   a K2/K3 kernel), /metrics (only declared names), ``roofline.frac`` in
+   (0, 1.05] against 3350 GB/s and no ``engine.recompiles``. Last,
+   ``rolling_restart(drain_deadline_s=0.2)`` over in-process replicas
+   under four live 64-token streams: each finishes in place or is
+   snapshotted and restored bitwise, none lost. Logged: each step's wall
+   seconds.
 
 Phase 3 also holds the int4 matmul kernel (K4) against its plain version
 at llama3-8b's four linear shapes and M = 1/8/256/2048, shows that two
@@ -138,16 +171,16 @@ bitwise the same at every M (the decode split of K and the prefill
 pipeline sum in one order).
 After the bf16 engines are released:
 
-12. Quantized dense path: llama3-8b with int4 weights (random, the same
+13. Quantized dense path: llama3-8b with int4 weights (random, the same
    seed): ``param_bytes``; a ~1500-token prefill launches K4 exactly 7
    times per layer and its logits are held against the same weights
    dequantized to bf16 and multiplied plainly; 128 greedy tokens. Then
    int8 weights: ``param_bytes``, 32 greedy tokens, no K4 launch.
-13. Quantized paged path: the int4 weights behind the paged engine, four
+14. Quantized paged path: the int4 weights behind the paged engine, four
    requests from threads; each stream must equal the dense int4 engine's,
    and must not change with the merged dispatch off or in a tight pool
    that preempts.
-14. Provider: ``TorchLocalProvider`` built from the configuration with
+15. Provider: ``TorchLocalProvider`` built from the configuration with
     quantize = int4 answers one completion through the server.
 
 Phase 3 also holds the flash backward: K1 with its logsumexp output
@@ -162,7 +195,7 @@ K5b and the pair eager and as device time (CUDA graph) at the training
 shape and at D = 64 beside the SDPA backward, and prints K5b's q-tile steps
 per block (largest and mean). After the quantized engines are released:
 
-15. Training (the training path): llama3-8b at full width and depth, bf16,
+16. Training (the training path): llama3-8b at full width and depth, bf16,
     random weights from the seed, ``TrainConfig(remat=True)``, one sequence
     of 2049 ids: three steps on the same batch (finite loss near ln V,
     lower at the third step; K1 twice per layer and step, K5a and K5b once).
@@ -175,8 +208,13 @@ per block (largest and mean). After the quantized engines are released:
 every shape of phase 3 through their public wrappers; ``--bwd-times`` does
 the same for K5a, K5b and the pair at the training shape and at D = 64;
 ``--kv`` builds K1-K3 and runs phase 11 alone (on the seed's weights with
-the serve phase's LM head), and ``--tools`` the serving controls and phase 9
-likewise. A copy of this file run from an older tree's
+the serve phase's LM head, cut to 16 layers as in the full run),
+``--fleet`` phase 12 likewise, and ``--tools`` the serving controls and
+phase 9 on all 32 layers. ``--serve-rates`` logs only the dense
+decode tok/s (twice) and the paged aggregate tok/s of phases 4 and 6's
+traffic, straight into the scheduler and through the SSE path of
+``ServeAPI.stream_chat``, so a copy run from an older tree's root measures
+what that tree's serving layers cost on the same card. A copy of this file run from an older tree's
 root times that tree's kernels.
 
 Every kernel count is set to 0 just before a path is driven and read just
@@ -189,18 +227,22 @@ the paged turns, the paged turn beside its free neighbours and the
 path's own runs: the dense and paged 15-tool turns, the 24-tool turn
 beside its neighbours and the TUI turn; and ``launches_survival``, the sum over the survival
 path's own runs: the seeded paged streams, the drained run, the warm
-restart, the journaled run and its recovery; and ``launches_kv``, the sum
-over the KV path's tier-on runs), the line before the last is the card,
+restart, the journaled run and its recovery; ``launches_kv``, the sum
+over the KV path's tier-on runs; and ``launches_fleet``, the sum over the
+fleet path's runs, its reference scheduler not counted), the line before
+the last is the card,
 and the last line is the JSON verdict.
 """
 
 from __future__ import annotations
 
 import contextlib
+import faulthandler
 import gc
 import itertools
 import json
 import math
+import shutil
 import statistics
 import subprocess
 import sys
@@ -3094,6 +3136,9 @@ def survival_phase(dense, paged, card: str) -> dict:
 # ------------------------------------------------------------------ KV tier
 
 KV_RAM_BYTES = "8g"  # holds every victim of the tight traffic and every publish
+# the KV and fleet phases run on the first 16 of llama3-8b's 32 layers at
+# its widths (cut: time, to fit the fleet phase; every check kept)
+KV_LAYERS = 16
 KV_NEW = 32  # tokens a request of the int8, fault and prefix runs (cut: time)
 KV_SAMPLED = dict(temperature=0.8, top_p=0.9)
 
@@ -3193,15 +3238,28 @@ def pinned_copy_gbps(nbytes: int) -> tuple[float, float]:
 
 
 def kv_weights():
-    """The dense engine the KV phase runs on after the serve phase: the
-    seed's llama3-8b with the LM head zeroed past the byte tokenizer's ids
-    (for ``--kv``, which runs the KV phase alone)."""
+    """The dense engine the KV and fleet phases run on after the serve
+    phase: the seed's llama3-8b with the LM head zeroed past the byte
+    tokenizer's ids (for ``--kv``, ``--fleet`` and ``--tools``, which run
+    their phase alone)."""
     from fei_tpu_torch.engine import InferenceEngine
 
     dense = InferenceEngine.from_config("llama3-8b", dtype=torch.bfloat16, seed=SEED,
                                         max_seq_len=8192, device="cuda")
     dense.params["lm_head"][:, dense.tokenizer.vocab_size:] = 0
     return dense
+
+
+def kv_depth(dense):
+    """The KV phase's model: the first ``KV_LAYERS`` layers of ``dense``'s
+    weights at llama3-8b's widths (views of the same tensors, no copy)."""
+    from fei_tpu_torch.engine import InferenceEngine
+
+    params = {**dense.params,
+              "layers": {k: v[:KV_LAYERS] for k, v in dense.params["layers"].items()}}
+    return InferenceEngine.from_config(
+        dense.cfg.name, dtype=dense.dtype, params=params, max_seq_len=dense.max_seq_len,
+        device=dense.device, num_layers=KV_LAYERS)
 
 
 def kv_phase(dense, card: str) -> dict:
@@ -3245,6 +3303,7 @@ def kv_phase(dense, card: str) -> dict:
         try:
             return InferenceEngine.from_config(
                 cfg.name, dtype=dense.dtype, params=dense.params, max_seq_len=dense.max_seq_len,
+                num_layers=cfg.num_layers,
                 device=dev, paged=True, batch_size=8, page_size=PAGE, num_pages=num_pages,
                 kv_quant=kv_quant, prefix_cache=prefix_cache)
         finally:
@@ -3598,6 +3657,650 @@ def kv_phase(dense, card: str) -> dict:
         f"entry's write was awaited) on {card}")
     log(f"kv: phase took {time.perf_counter() - t_phase:.1f} s; launches {launched}")
     return launched
+
+
+# ------------------------------------------------- fleet and observability
+
+FLEET_LENS = SHORT_LENS + LONG_LENS  # characters of each session's first turn (byte ids)
+FLEET_NEW = 32  # tokens a turn
+FLEET_PAGES = 513  # each replica's pool
+# top-p 0.9 inside the top 40: the LM head is zeroed past the byte
+# tokenizer's ids, and their 128k zero logits would otherwise take most of a
+# draw's mass, leaving a stream with no visible text (no content frame, so no
+# ``fei`` ids for the router's ledger)
+FLEET_SAMPLED = dict(temperature=0.8, top_p=0.9, top_k=40)
+FLEET_DROP_NEW = 64  # tokens of a stream dropped by its replica
+FLEET_DROP_AFTER = 16  # content frames before the drop
+FLEET_SPLIT_IDS = 512  # a first turn of at least this many ids is prefill work
+
+
+def fleet_text(rng, n: int) -> str:
+    """``n`` characters of lowercase words: the byte tokenizer gives one id
+    per character."""
+    return "".join(rng.choice(list("abcdefghijklmnopqrstuvwxyz   "), size=n).tolist())
+
+
+def read_sse(frames) -> dict:
+    """A stream's content, its ``fei`` token ids, error frames, ids and
+    finish reason."""
+    from fei_tpu_torch.fleet.router import _parse_sse
+
+    out = {"content": [], "toks": [], "errors": [], "ids": set(), "finish": None,
+           "frames": 0}
+    for f in frames:
+        info = _parse_sse(f)
+        if info is None:
+            continue
+        if info.get("error"):
+            out["errors"].append(info["error"])
+            continue
+        if info.get("id"):
+            out["ids"].add(info["id"])
+        out["toks"] += list((info.get("fei") or {}).get("toks") or [])
+        choice = (info.get("choices") or [{}])[0]
+        delta = choice.get("delta") or {}
+        if delta.get("content"):
+            out["content"].append(delta["content"])
+            out["frames"] += 1
+        if choice.get("finish_reason"):
+            out["finish"] = choice["finish_reason"]
+    out["content"] = "".join(out["content"])
+    return out
+
+
+class DroppingReplica:
+    """A replica whose next stream, once armed, drops its transport after
+    ``after`` content frames: a dead in-process replica as the router sees
+    it (the HTTP replica dies for real, through the ``replica.crash``
+    fault)."""
+
+    def __init__(self, inner):
+        self.inner, self.after = inner, None
+
+    def __getattr__(self, name):
+        return getattr(self.inner, name)
+
+    def stream(self, body, headers=None):
+        from fei_tpu_torch.fleet.router import _parse_sse
+
+        gen, after, self.after = self.inner.stream(body, headers), self.after, None
+        if after is None:
+            return gen
+
+        def dropped():
+            n = 0
+            for f in gen:
+                yield f
+                choice = ((_parse_sse(f) or {}).get("choices") or [{}])[0]
+                if (choice.get("delta") or {}).get("content"):
+                    n += 1
+                    if n >= after:
+                        gen.close()
+                        raise ConnectionResetError("replica dropped the stream")
+        return dropped()
+
+
+def fleet_phase(dense, card: str) -> dict:
+    """The fleet phase on the card: the fleet router over two paged replicas of
+    llama3-8b (``a`` prefill-heavy in process, ``b`` decode-heavy behind
+    its HTTP server), the flight recorder, traces, cost model and /debug
+    routes watching it. Checks counters, not only streams; returns the
+    kernel launches of the fleet's own runs (the one-scheduler reference
+    runs are not counted)."""
+    import os
+
+    from fei_tpu_torch.agent.providers import TorchLocalProvider
+    from fei_tpu_torch.engine import GenerationConfig, InferenceEngine, faults
+    from fei_tpu_torch.engine.faults import FAULTS
+    from fei_tpu_torch.fleet import HttpReplica, InProcessReplica, Router
+    from fei_tpu_torch.obs import METRICS, costmodel, help_for
+    from fei_tpu_torch.ui.server import ServeAPI, ServingServer, _gen_overrides
+
+    t_phase, t_epoch = time.perf_counter(), time.time()
+    cfg = dense.cfg
+    check(costmodel.H100_HBM_GBPS * 1e9 == PEAK_BYTES_PER_S
+          and costmodel.H100_BF16_FLOPS == PEAK_BF16_FLOPS,
+          "the cost model's ceilings are not this script's")
+    launched = dict.fromkeys(read_counts(), 0)
+    walls: dict[str, float] = {}
+    mark = [time.perf_counter()]
+
+    def wall(name: str) -> None:
+        now = time.perf_counter()
+        walls[name] = round(now - mark[0], 2)
+        mark[0] = now
+        log(f"fleet: {name} done in {walls[name]} s")
+
+    @contextlib.contextmanager
+    def fleet_path():
+        reset_counts()
+        yield
+        for k, v in read_counts().items():
+            launched[k] += v
+
+    env = {"FEI_TPU_KV_TIER": "ram", "FEI_TPU_KV_RAM_BYTES": "1g",
+           "FEI_TPU_ROUTER_PREFILL_TOKENS": str(FLEET_SPLIT_IDS // 4)}
+    old_env = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+
+    def engine(tier: bool = True):
+        os.environ["FEI_TPU_KV_TIER"] = "ram" if tier else "off"
+        return InferenceEngine.from_config(
+            cfg.name, dtype=dense.dtype, params=dense.params, max_seq_len=dense.max_seq_len,
+            num_layers=cfg.num_layers,
+            device=dense.device, paged=True, batch_size=8, page_size=PAGE,
+            num_pages=FLEET_PAGES, prefix_cache=True)
+
+    def api(eng, role):
+        return ServeAPI(TorchLocalProvider(engine=eng), model_name=cfg.name, role=role)
+
+    engines: list = []
+    served: dict[str, list] = {"fleet": [], "ref": []}
+    scratch: list = []  # directories the phase leaves behind, removed at its end
+
+    def record(eng, side: str):
+        """Keep every sequence the engine's scheduler admits: its whole
+        token list, visible text or not (``fei`` ids ride content frames
+        only), is what the streams are held to."""
+        submit = eng.scheduler.submit
+
+        def recorded(*args, **kw):
+            seq = submit(*args, **kw)
+            served[side].append(seq)
+            return seq
+
+        eng.scheduler.submit = recorded
+        return eng
+
+    a_api = api(record(engine(), "fleet"), "prefill-heavy")
+    b_api = api(record(engine(), "fleet"), "decode-heavy")
+    # the one scheduler the streams are held to
+    ref_api = api(record(engine(tier=False), "ref"), "mixed")
+    engines += [a_api.provider.engine, b_api.provider.engine, ref_api.provider.engine]
+
+    def tokens(side: str, b_) -> list:
+        """The completed sequence of ``b_``'s prompt on that side."""
+        ids = ref_api._prompt_ids(b_)
+        done = [s_ for s_ in served[side] if s_.prompt_ids == ids and s_.status == "completed"]
+        check(len(done) >= 1, f"no completed {side} sequence for a {len(ids)}-id prompt")
+        return list(done[-1].generated)
+    server = ServingServer(b_api, host="127.0.0.1", port=0)
+    server.start()
+    base = f"http://127.0.0.1:{server.port}"
+    a = DroppingReplica(InProcessReplica("a", api=a_api))
+    b = HttpReplica("b", base, timeout_s=600)
+    router = Router([a, b], retries=2, backoff_s=0.05, breaker_fails=3,
+                    breaker_cooldown_s=1.0, health_ttl_s=0.0)
+    moves: list = []  # (src, dst, seconds, moved) of each migration
+    migrate = router._migrate
+
+    def timed_migrate(src, dst, body_):
+        t0 = time.perf_counter()
+        ok = migrate(src, dst, body_)
+        moves.append((src, dst, round(time.perf_counter() - t0, 3), ok))
+        return ok
+
+    router._migrate = timed_migrate
+    kv_s: dict = {}  # seconds inside each replica's /kv handlers (its share of a move)
+
+    def timed_kv(api_, name):
+        fn = getattr(api_, name)
+
+        def run(*args, **kw):
+            t0 = time.perf_counter()
+            try:
+                return fn(*args, **kw)
+            finally:
+                kv_s.setdefault(name, []).append(round(time.perf_counter() - t0, 3))
+        setattr(api_, name, run)
+
+    timed_kv(a_api, "_kv_export")
+    timed_kv(b_api, "_kv_import")
+    counts0 = METRICS.snapshot()["counters"]
+    wall("set-up")
+
+    def grew(name: str) -> float:
+        return counter(name) - counts0.get(name, 0.0)
+
+    rng = np.random.default_rng(SEED + 5)
+    firsts = [fleet_text(rng, n) for n in FLEET_LENS]
+    seconds = [fleet_text(rng, 40) for _ in FLEET_LENS]
+
+    def body(messages, i, new=FLEET_NEW):
+        b_ = {"messages": messages, "max_tokens": new, "ignore_eos": True, "model": cfg.name}
+        b_.update(dict(FLEET_SAMPLED, seed=SEED + 60 + i) if i % 2 else {"temperature": 0})
+        return b_
+
+    def gen_of(b_) -> GenerationConfig:
+        return GenerationConfig(max_new_tokens=b_["max_tokens"], **_gen_overrides(b_))
+
+    def run_router(bodies, sessions):
+        out = [None] * len(bodies)
+        errs = []
+
+        def go(i):
+            try:
+                t0 = time.perf_counter()
+                frames = []
+                for f in router.stream_chat(dict(bodies[i]), {"X-FEI-Session": sessions[i]}):
+                    frames.append(f)
+                    if f == b"data: [DONE]\n\n":
+                        t_done = time.perf_counter()
+                out[i] = read_sse(frames)
+                # the client's stream, then the router's handoff after it
+                out[i]["s"] = (round(t_done - t0, 2), round(time.perf_counter() - t_done, 2))
+            except BaseException as exc:  # noqa: BLE001 — re-raised below
+                errs.append(exc)
+
+        ts = [threading.Thread(target=go, args=(i,)) for i in range(len(bodies))]
+        [t.start() for t in ts]
+        [t.join() for t in ts]
+        if errs:
+            raise errs[0]
+        return out
+
+    def run_ref(bodies):
+        out = [None] * len(bodies)
+
+        def go(i):
+            kw = ref_api._parse_request(dict(bodies[i]), {})
+            out[i] = read_sse(ref_api.stream_chat(dict(bodies[i]), kw))
+
+        ts = [threading.Thread(target=go, args=(i,)) for i in range(len(bodies))]
+        [t.start() for t in ts]
+        [t.join() for t in ts]
+        return out
+
+    def agree(label, b_, want, got) -> str:
+        """Equal token streams, or first apart at a tie within 2 bf16 ulps."""
+        check(len(got) == len(want) == b_["max_tokens"],
+              f"{label}: {len(got)} tokens against {len(want)}")
+        if got == want:
+            return "equal"
+        prompt, gen = ref_api._prompt_ids(b_), gen_of(b_)
+        if gen.temperature > 0:
+            j, gap, allowed = first_sampled_divergence(dense, prompt, gen, want, got)
+        else:
+            j, gap, ulp = first_divergence(dense, prompt, want, got)
+            allowed = 2 * ulp
+        log(f"fleet: {label} first differs at token {j}; gap {gap:.6g} (2 ulps: {allowed:.6g})")
+        check(abs(gap) <= allowed, f"{label} differs at token {j} beyond a 2-ulp tie")
+        return f"tie at {j}"
+
+    try:
+        # (1) eight sessions, two turns each, through the router
+        sessions = [f"fleet-{i}" for i in range(len(FLEET_LENS))]
+        turn1 = [body([{"role": "user", "content": t}], i) for i, t in enumerate(firsts)]
+        before = {k: counter(k) for k in ("router.migrations", "router.role_routed",
+                                          "router.affinity_hits", "prefix.hits")}
+        with fleet_path():
+            got1 = run_router(turn1, sessions)
+        wall("turn 1")
+        for i, g in enumerate(got1):
+            check(not g["errors"] and g["finish"] == "stop" and len(g["ids"]) == 1
+                  and g["toks"], f"session {i} turn 1: {g['errors']} {g['finish']}")
+        turn2 = [body([{"role": "user", "content": firsts[i]},
+                       {"role": "assistant", "content": got1[i]["content"]},
+                       {"role": "user", "content": seconds[i]}], i)
+                 for i in range(len(firsts))]
+        prof: dict = {}
+
+        def profile():
+            time.sleep(0.3)  # inside the second wave's decode
+            req = urllib.request.Request(base + "/debug/profile", data=b'{"seconds": 1}',
+                                         method="POST",
+                                         headers={"Content-Type": "application/json"})
+            log("fleet: /debug/profile capture starts")
+            with urllib.request.urlopen(req, timeout=300) as r:
+                prof.update(json.loads(r.read()), status=r.status)
+            scratch.append(prof.get("trace_dir"))
+            log(f"fleet: /debug/profile answered {prof.get('status')}")
+
+        pt = threading.Thread(target=profile)
+        with fleet_path():
+            pt.start()
+            got2 = run_router(turn2, sessions)
+            pt.join()
+        wall("turn 2 (profiled)")
+        moved = {k: counter(k) - v for k, v in before.items()}
+        log(f"fleet: turn 1 (stream s, then handoff s) by session: {[g['s'] for g in got1]}; "
+            f"turn 2: {[g['s'] for g in got2]}; migrations (src, dst, s, moved): {moves}; "
+            f"inside the /kv handlers: {kv_s}")
+        log(f"fleet: two turns x 8 sessions (prompts {FLEET_LENS} ids, {FLEET_NEW} tokens, "
+            f"4 greedy, 4 top-p 0.9) on {card}: {json.dumps(moved)}")
+        check(moved["router.migrations"] >= 1 and moved["router.role_routed"] > 0,
+              f"no prefill -> decode handoff: {moved}")
+        check(moved["router.affinity_hits"] >= len(sessions),
+              f"second turns lost their affinity: {moved}")
+        check(moved["prefix.hits"] >= len(sessions), f"second turns missed the prefix cache: {moved}")
+
+        # the same turns on one scheduler alone
+        greedy = body([{"role": "user", "content": fleet_text(rng, 700)}], 0, FLEET_DROP_NEW)
+        seeded = body([{"role": "user", "content": fleet_text(rng, 600)}], 1, FLEET_DROP_NEW)
+        ref1 = run_ref(turn1)
+        ref2 = run_ref(turn2 + [greedy, seeded])
+        refs, ref2 = ref2[len(turn2):], ref2[:len(turn2)]
+        wall("reference")
+        verdicts = []
+        for t, (bodies, ref, got) in enumerate(((turn1, ref1, got1), (turn2, ref2, got2))):
+            for i in range(len(firsts)):
+                mine = tokens("fleet", bodies[i])
+                # the frames' ids are the served sequence's, in order
+                check(got[i]["toks"] == mine[:len(got[i]["toks"])] and ref[i]["toks"]
+                      == tokens("ref", bodies[i])[:len(ref[i]["toks"])],
+                      f"session {i} turn {t + 1}: fei ids are not the served tokens")
+                verdicts.append(agree(f"session {i} turn {t + 1}", bodies[i],
+                                      tokens("ref", bodies[i]), mine))
+        log(f"fleet: 16 streams against one scheduler alone: {verdicts}")
+
+        # (2) resurrection: a greedy stream dropped by a (in process), a
+        # seeded one by b (its handler dies mid-stream: the socket drops).
+        # Both prompts are chunked admissions, so the survivor's replay takes
+        # the dead replica's route (a dense admission would replay through
+        # chunks: F2's gap); the seeded one reaches b by a session b holds.
+
+        def kill(point):
+            # ends b's handler thread at once (quietly: a SystemExit), so the
+            # socket closes with no error frame and no [DONE]
+            raise SystemExit(point)
+
+        hard_kill = faults._hard_kill
+        faults._hard_kill = kill
+        try:
+            for label, b_, ref, session, arm in (
+                    ("greedy, dropped by a", greedy, refs[0], "drop-a",
+                     lambda: setattr(a, "after", FLEET_DROP_AFTER)),
+                    ("seeded, dropped by b", seeded, refs[1], sessions[1],
+                     lambda: FAULTS.arm("replica.crash", "crash", count=FLEET_DROP_AFTER))):
+                r0, t0 = counter("router.resurrections"), time.perf_counter()
+                arm()
+                with fleet_path():
+                    got = read_sse(router.stream_chat(dict(b_), {"X-FEI-Session": session}))
+                log(f"fleet: {label}: {time.perf_counter() - t0:.2f} s, migrations {moves[-2:]}")
+                res = counter("router.resurrections") - r0
+                check(res == 1, f"{label}: {res} resurrections")
+                check(not got["errors"] and got["finish"] == "stop" and len(got["ids"]) == 1,
+                      f"{label}: {got['errors']}")
+                check(got["content"] == ref["content"],
+                      f"{label}: the client's text is not the uninterrupted stream's")
+                # the survivor's sequence (replay included) token for token
+                check(tokens("fleet", b_) == tokens("ref", b_),
+                      f"{label}: the resurrected tokens are not the uninterrupted stream's")
+                log(f"fleet: {label} after {FLEET_DROP_AFTER} frames: resurrected once; the "
+                    f"client's {got['frames']} frames and the survivor's "
+                    f"{len(tokens('fleet', b_))} tokens bitwise the uninterrupted stream's")
+        finally:
+            faults._hard_kill = hard_kill
+            FAULTS.disarm("replica.crash")
+        wall("resurrection")
+
+        # (3) the breaker (a router of its own, so earlier drops charge
+        # nothing): three conn faults on a eject it while b serves; after the
+        # 1 s cooldown a half-open probe readmits it
+        brk = Router([a, b], retries=2, backoff_s=0.05, breaker_fails=3,
+                     breaker_cooldown_s=1.0, health_ttl_s=0.0)
+        e0, r0 = counter("router.ejections"), counter("router.readmissions")
+        f0 = FAULTS.fired("router.forward")
+        FAULTS.arm("router.forward", "conn", count=3, match=lambda ctx: ctx.get("replica") == "a")
+        with fleet_path():
+            for i in range(3):
+                g = read_sse(brk.stream_chat(
+                    body([{"role": "user", "content": fleet_text(rng, 600)}], 0, 4), {}))
+                check(not g["errors"] and g["finish"] == "stop", f"breaker request {i}: {g['errors']}")
+        check(FAULTS.fired("router.forward") - f0 == 3 and counter("router.ejections") - e0 == 1
+              and not brk._usable("a"), "three conn faults did not eject a")
+        time.sleep(1.05)
+        check(brk._usable("a") and counter("router.readmissions") - r0 == 1,
+              "the half-open probe did not readmit a")
+        wall("breaker")
+
+        # (4) a passed deadline: the router answers 504 itself and charges
+        # no breaker (every forward sheds 503, the backoff spends the budget)
+        d0, e0 = counter("router.deadline_expired"), counter("router.ejections")
+        late = Router([a, b], retries=2, backoff_s=10.0, health_ttl_s=1.0)
+        FAULTS.arm("router.forward", "http503", count=3)
+        res = late.handle("POST", "/v1/chat/completions",
+                          body([{"role": "user", "content": "late"}], 0, 4),
+                          {"X-FEI-Deadline-S": "0.001"})
+        FAULTS.disarm("router.forward")
+        check(res[0] == 504 and counter("router.deadline_expired") - d0 == 1,
+              f"deadline: {res[:2]}")
+        check(counter("router.ejections") == e0
+              and {r: late._state[r].fails for r in ("a", "b")} == {"a": 0, "b": 0},
+              "the deadline charged a breaker")
+        wall("deadline")
+
+        # (5) a cold session on b whose prefix only a holds pulls it by hash
+        cold = body([{"role": "user", "content": fleet_text(rng, 250)}], 0, 4)
+        status, _, _ = a.request("POST", "/v1/chat/completions", dict(cold), {})
+        check(status == 200, f"a answered {status}")
+        h0, t0 = counter("kv.prefix_hits_remote"), counter("kv.prefix_hits_tier")
+        with fleet_path():
+            g = read_sse(router.stream_chat(dict(cold), {"X-FEI-Session": "cold"}))
+        check(not g["errors"] and counter("kv.prefix_hits_remote") - h0 >= 1
+              and counter("kv.prefix_hits_tier") - t0 >= 1,
+              "the cold session did not pull its prefix off a")
+        wall("prefix fetch")
+
+        # (6) observability over b's HTTP server
+        with urllib.request.urlopen(base + "/v1/traces?limit=1000", timeout=60) as r:
+            traces = json.loads(r.read())["data"]
+        mine = [t for t in traces if t["spans"] and t["spans"][0]["ts"] >= t_epoch]
+        for t in mine:
+            phases = [s["phase"] for s in t["spans"]]
+            ts = [s["ts"] for s in t["spans"]]
+            check(ts == sorted(ts) and phases[0] == "queued", f"trace {t['id']}: {phases}")
+            check(t["status"] == "active" or phases[-1] == t["status"],
+                  f"trace {t['id']} ends {phases[-1]} with status {t['status']}")
+        done = [t for t in mine if t["status"] == "completed"]
+        check(len(done) >= 2 * len(FLEET_LENS), f"{len(done)} completed traces in the phase")
+        order = ("queued", "admitted", "prefill", "first_token", "completed")
+        plain = [t for t in done if [s["phase"] for s in t["spans"]] == list(order)]
+        check(plain, "no trace with the plain lifecycle")
+        with urllib.request.urlopen(f"{base}/v1/traces/{plain[0]['id']}", timeout=60) as r:
+            one = json.loads(r.read())
+        check(one["flight"] and one["id"] == plain[0]["id"], "a trace without its flight slice")
+        with urllib.request.urlopen(base + "/debug/timeline", timeout=60) as r:
+            timeline = json.loads(r.read())
+        names = {e["name"] for e in timeline["traceEvents"]}
+        check({"dispatch.step.issue", "dispatch.step.sync"} <= names,
+              f"the timeline lacks the paged dispatches: {sorted(names)[:20]}")
+        check(prof.get("status") == 200 and prof.get("object") == "profile", f"profile: {prof}")
+        with open(Path(prof["trace_dir"]) / "trace.json") as f:
+            kernels = {e.get("name", "") for e in json.load(f).get("traceEvents", [])
+                       if e.get("cat") == "kernel"}
+        paged_k = sorted(k for k in kernels if "paged_attn" in k)
+        check(paged_k, f"the profile names no K2/K3 kernel: {sorted(kernels)[:10]}")
+        with urllib.request.urlopen(base + "/metrics", timeout=60) as r:
+            check(r.status == 200 and b"fei_router_requests_total" in r.read(), "/metrics")
+        snap = METRICS.snapshot()
+        undeclared = [n for sec in ("counters", "gauges", "spans", "histograms")
+                      for n in snap[sec] if help_for(n) is None]
+        check(not undeclared, f"/metrics lists undeclared names: {undeclared}")
+        frac = snap["gauges"].get("roofline.frac", 0.0)
+        check(0 < frac <= 1.05, f"roofline.frac {frac} against {costmodel.hbm_gbps()} GB/s")
+        check(grew("engine.recompiles") == 0, f"{grew('engine.recompiles')} recompiles")
+        log(f"fleet: observability: {len(mine)} traces of the phase (ordered), timeline "
+            f"{len(timeline['traceEvents'])} events, profile {prof['trace_dir']} names "
+            f"{paged_k[:2]}, roofline.frac {frac} (tok_s_per_chip "
+            f"{snap['gauges'].get('roofline.tok_s_per_chip')}) against {costmodel.hbm_gbps()} "
+            f"GB/s, engine.recompiles +0, engine.compiles {snap['counters'].get('engine.compiles')}")
+        wall("observability")
+
+        # (7) a rolling restart under four live streams, over in-process
+        # replicas (an HTTP replica restarts through its supervisor)
+        restored: list = []
+
+        def factory(first, role):
+            state = {"api": first, "made": False}
+
+            def make():
+                if state["made"]:
+                    eng = engine()
+                    engines.append(eng)
+                    warm = eng.warm_restart
+
+                    def capture(d=None):
+                        seqs = warm(d)
+                        restored.extend(seqs)
+                        return seqs
+
+                    eng.warm_restart = capture
+                    old = state["api"].provider.engine
+                    state["api"] = api(eng, role)
+                    old.close()
+                state["made"] = True
+                return state["api"]
+            return make
+
+        tmp = tempfile.mkdtemp(prefix="fleet-drain-")
+        scratch.append(tmp)
+        # b first: the live (short) streams run there, so its drain strands them
+        rr = Router([InProcessReplica("b", factory=factory(b_api, "decode-heavy"),
+                                      drain_dir=f"{tmp}/b"),
+                     InProcessReplica("a", factory=factory(a_api, "prefill-heavy"),
+                                      drain_dir=f"{tmp}/a")],
+                    retries=2, backoff_s=0.05, health_ttl_s=0.0)
+        rr.prewarm_k = 1
+        rr_s: dict = {}
+
+        def timed(name, fn):
+            def run(*args, **kw):
+                t0 = time.perf_counter()
+                try:
+                    return fn(*args, **kw)
+                finally:
+                    rr_s[name] = round(rr_s.get(name, 0.0) + time.perf_counter() - t0, 3)
+            return run
+
+        rr.prewarm = timed("prewarm", rr.prewarm)
+        for rep_ in rr.replicas.values():
+            rep_.restart = timed(f"restart {rep_.rid}", rep_.restart)
+            rep_.wait_drained = timed(f"drain {rep_.rid}", rep_.wait_drained)
+        live = [body([{"role": "user", "content": fleet_text(rng, n)}], i)
+                for i, n in enumerate((96, 160, 200, 250))]
+        live_ref = run_ref(live)
+        started = [threading.Event() for _ in live]
+        outs: list = [None] * len(live)
+
+        def stream_live(i):
+            frames = []
+            for f in rr.stream_chat(dict(live[i]), {}):
+                frames.append(f)
+                if b'"content"' in f:
+                    started[i].set()
+            started[i].set()
+            outs[i] = read_sse(frames)
+
+        with fleet_path():
+            ts = [threading.Thread(target=stream_live, args=(i,)) for i in range(len(live))]
+            [t.start() for t in ts]
+            for e in started:
+                e.wait(120)
+            report = rr.rolling_restart(drain_deadline_s=0.2, wait_s=120)
+            [t.join() for t in ts]
+            deadline = time.monotonic() + 120
+            # the terminal status is set after ``finished``: wait for it
+            while any(s.status is None for s in restored) and time.monotonic() < deadline:
+                time.sleep(0.05)
+        check(all(r["healthy"] for r in report.values()), f"rolling restart: {report}")
+        finished = restored_ok = 0
+        for i, (out, ref) in enumerate(zip(outs, live_ref)):
+            if out["finish"] == "stop" and not out["errors"]:
+                agree(f"live stream {i}", live[i], tokens("ref", live[i]),
+                      tokens("fleet", live[i]))
+                finished += 1
+                continue
+            check(any("snapshotted" in e.get("message", "") for e in out["errors"]),
+                  f"live stream {i} lost: {out['errors']}")
+            ids = ref_api._prompt_ids(live[i])
+            seq = next((s for s in restored if s.prompt_ids == ids), None)
+            check(seq is not None and seq.status == "completed",
+                  f"live stream {i} was snapshotted but not restored to completion: "
+                  f"{None if seq is None else (seq.finished, seq.status)}, "
+                  f"{len(restored)} restored")
+            agree(f"restored stream {i}", live[i], tokens("ref", live[i]), list(seq.generated))
+            restored_ok += 1
+        check(finished + restored_ok == len(live) and restored_ok >= 1,
+              f"live streams: {finished} finished, {restored_ok} restored of {len(live)}")
+        log(f"fleet: rolling restart (drain deadline 0.2 s) under 4 live streams: {report}; "
+            f"seconds {rr_s}; "
+            f"{finished} finished in place, {restored_ok} snapshotted and restored bitwise")
+        wall("rolling restart")
+    finally:
+        server.stop()
+        for eng in engines:
+            eng.close()
+        for d in scratch:
+            if d:
+                shutil.rmtree(d, ignore_errors=True)
+        for k, v in old_env.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        gc.collect()
+        torch.cuda.empty_cache()
+    log(f"fleet: phase took {time.perf_counter() - t_phase:.1f} s on {card}; wall seconds "
+        f"{json.dumps(walls)}; counters {json.dumps({k: grew(k) for k in ('router.requests', 'router.migrations', 'router.role_routed', 'router.affinity_hits', 'router.resurrections', 'router.ejections', 'router.readmissions', 'router.deadline_expired', 'kv.prefix_hits_remote', 'router.prewarm_pushes', 'router.rolling_restarts')})}; "
+        f"launches {launched}")
+    return launched
+
+
+def serve_rates(card: str) -> None:
+    """Dense decode tok/s and paged aggregate tok/s of the tree this file
+    runs from (a copy run from an older tree's root measures that tree):
+    the engine phase's prompt and 128 greedy tokens (chunk 16), twice, then
+    eight requests of 128 tokens after a warm-up, once straight into the
+    scheduler (the paged phase's traffic) and once through
+    ``ServeAPI.stream_chat``, the SSE path a served stream takes (from this
+    tree on it exports every token's id and key). Uses only what every tree
+    since the paged path has."""
+    import fei_tpu_torch
+    from fei_tpu_torch.agent.providers import TorchLocalProvider
+    from fei_tpu_torch.engine import GenerationConfig, InferenceEngine
+    from fei_tpu_torch.ui.server import ServeAPI
+
+    engine = InferenceEngine.from_config("llama3-8b", dtype=torch.bfloat16, seed=SEED,
+                                         max_seq_len=8192, device="cuda")
+    cfg = engine.cfg
+    prompt = np.random.default_rng(SEED).integers(8, cfg.vocab_size, size=1500).tolist()
+    engine.generate(prompt, GenerationConfig(max_new_tokens=16, ignore_eos=True, chunk=16))
+    gen = GenerationConfig(max_new_tokens=128, ignore_eos=True, chunk=16)
+    dense = [engine.generate(prompt, gen).decode_tokens_per_s for _ in range(2)]
+    paged = InferenceEngine.from_config(
+        "llama3-8b", dtype=torch.bfloat16, params=engine.params, max_seq_len=8192,
+        device="cuda", paged=True, batch_size=8, page_size=PAGE)
+    rng = np.random.default_rng(SEED + 1)
+    prompts = [rng.integers(8, cfg.vocab_size, size=n).tolist() for n in SHORT_LENS + LONG_LENS]
+    traffic(paged, prompts, 16)
+    agg = len(prompts) * NEW_TOKENS / traffic(paged, prompts, NEW_TOKENS)["wall"]
+    api = ServeAPI(TorchLocalProvider(engine=paged), model_name=cfg.name)
+    bodies = [{"messages": [{"role": "user", "content": fleet_text(rng, n)}],
+               "max_tokens": NEW_TOKENS, "ignore_eos": True, "temperature": 0}
+              for n in SHORT_LENS + LONG_LENS]
+    frames, errors = [0] * len(bodies), []
+
+    def sse(i):
+        try:
+            for f in api.stream_chat(dict(bodies[i]), api._parse_request(dict(bodies[i]), {})):
+                frames[i] += f.startswith(b"data: {")
+                if f.startswith(b'data: {"error"'):
+                    errors.append(f"SSE stream {i}: {f[:200]!r}")
+        except BaseException as exc:  # noqa: BLE001 — checked below
+            errors.append(f"SSE stream {i}: {exc!r}")
+
+    t0 = time.perf_counter()
+    ts = [threading.Thread(target=sse, args=(i,)) for i in range(len(bodies))]
+    [t.start() for t in ts]
+    [t.join() for t in ts]
+    check(not errors, f"{errors}")
+    sse_agg = len(bodies) * NEW_TOKENS / (time.perf_counter() - t0)
+    paged.close()
+    log(f"serve rates of {Path(fei_tpu_torch.__file__).parent.parent} on {card}: dense decode "
+        f"{dense[0]:.3f}, {dense[1]:.3f} tok/s (1500-token prompt, 128 tokens); paged "
+        f"aggregate {agg:.3f} tok/s into the scheduler, {sse_agg:.3f} tok/s through the SSE "
+        f"path ({sum(frames)} frames) (8 x {NEW_TOKENS})")
 
 
 # ------------------------------------------------------ quantized weights
@@ -3954,6 +4657,8 @@ def train_phase(card: str) -> dict:
 
 
 def main() -> int:
+    # a native crash (SIGSEGV in a library) prints every thread's stack
+    faulthandler.enable()
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this script "
               "drives the port on an NVIDIA GPU", file=sys.stderr)
@@ -3980,7 +4685,17 @@ def main() -> int:
     if sys.argv[1:] == ["--kv"]:
         with ThreadPoolExecutor(3) as pool:
             list(pool.map(build.build, KERNELS[:1] + KERNELS[2:4]))
-        kv_phase(kv_weights(), card)
+        kv_phase(kv_depth(kv_weights()), card)
+        return 0
+    if sys.argv[1:] == ["--fleet"]:
+        with ThreadPoolExecutor(3) as pool:
+            list(pool.map(build.build, KERNELS[:1] + KERNELS[2:4]))
+        log(f"fleet path: launches {fleet_phase(kv_depth(kv_weights()), card)}")
+        return 0
+    if sys.argv[1:] == ["--serve-rates"]:
+        with ThreadPoolExecutor(3) as pool:
+            list(pool.map(build.build, KERNELS[:1] + KERNELS[2:4]))
+        serve_rates(card)
         return 0
     if sys.argv[1:] == ["--tools"]:
         from fei_tpu_torch.engine import InferenceEngine
@@ -4051,9 +4766,15 @@ def main() -> int:
     stamp("survival")
     paged_engine.close()
     # the KV tier path (counts each of its tier-on runs from 0 itself)
-    launches_kv = kv_phase(engine, card)
+    kv16 = kv_depth(engine)
+    launches_kv = kv_phase(kv16, card)
     log(f"kv path: launches {launches_kv}")
     stamp("kv")
+    # the fleet path (counts each of its runs from 0 itself), same 16 layers
+    launches_f = fleet_phase(kv16, card)
+    del kv16
+    log(f"fleet path: launches {launches_f}")
+    stamp("fleet")
     for rec in records:
         rec["launches"] = launches[rec["name"]]
         check(rec["launches"] > 0, f"the paged path never launched {rec['name']}")
@@ -4072,6 +4793,10 @@ def main() -> int:
         # merges chunks with decode and tier-hit suffixes (K3)
         rec["launches_kv"] = launches_kv[rec["name"]]
         check(rec["launches_kv"] > 0, f"the KV path never launched {rec['name']}")
+        # the fleet admits short first turns densely (K1), decodes on both
+        # replicas (K2) and merges long prompts' chunks with decode (K3)
+        rec["launches_fleet"] = launches_f[rec["name"]]
+        check(rec["launches_fleet"] > 0, f"the fleet path never launched {rec['name']}")
     log(f"paged path (main run): launches {launches}")
 
     # the quantized paths, after the bf16 engines are released

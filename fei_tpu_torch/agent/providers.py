@@ -299,9 +299,9 @@ class TorchLocalProvider(Provider):
         return out
 
     def complete(self, messages, system=None, tools=None, max_tokens=4000,
-                 gen_overrides=None, resume=None):
+                 gen_overrides=None, export=None, resume=None):
         gen = self.stream(messages, system, tools, max_tokens,
-                          gen_overrides=gen_overrides, resume=resume)
+                          gen_overrides=gen_overrides, export=export, resume=resume)
         while True:
             try:
                 next(gen)
@@ -309,16 +309,19 @@ class TorchLocalProvider(Provider):
                 return fin.value
 
     def stream(self, messages, system=None, tools=None, max_tokens=4000,
-               gen_overrides=None, resume=None):
+               gen_overrides=None, export=None, resume=None):
         """Yield visible text deltas; return the ProviderResponse.
         ``gen_overrides`` (per-request sampling knobs from the serving
         endpoint) layer over the provider-level defaults. A tool turn
         decodes under the tool-call grammar (``generate_stream_toolcalls``).
-        ``resume`` (``generated`` ids and their ``resume_key``, a mid-stream
-        failover payload) teacher-forces a plain turn's delivered suffix on
-        a paged engine: the turn replays those tokens, then continues with
-        the uninterrupted run's tokens. A grammar turn refuses it, as in
-        the JAX package: its walk would restart from token 0."""
+        ``export``/``resume`` are the mid-stream failover side channel of a
+        plain turn on a paged engine: ``export`` is filled in place with
+        the delivered token ids and their threefry keys (the SSE stream's
+        ``fei`` frames); ``resume`` (``generated`` ids and their
+        ``resume_key``) teacher-forces a delivered suffix: the turn replays
+        those tokens, then continues with the uninterrupted run's tokens.
+        A grammar turn refuses it, as in the JAX package: its walk would
+        restart from token 0."""
         grammar = self._tool_grammar(tools)
         if resume is not None and grammar is not None:
             raise ProviderError(
@@ -329,7 +332,8 @@ class TorchLocalProvider(Provider):
                 grammar=grammar, trigger=self.tool_trigger,
             )
         else:
-            stream_fn = functools.partial(self.engine.generate_stream, resume=resume)
+            stream_fn = functools.partial(self.engine.generate_stream,
+                                          export=export, resume=resume)
         full = self._messages_with_system(messages, system, tools)
         ids = self.engine.tokenizer.apply_chat_template(full, add_generation_prompt=True)
         gen = self._GenerationConfig(

@@ -61,6 +61,8 @@ from fei_tpu_torch.models.llama import (
     forward,
     init_params,
 )
+from fei_tpu_torch.obs import costmodel
+from fei_tpu_torch.obs.flight import FLIGHT, CompileObserver
 from fei_tpu_torch.utils.errors import EngineError
 from fei_tpu_torch.utils.logging import get_logger
 from fei_tpu_torch.utils.metrics import METRICS
@@ -166,6 +168,10 @@ class InferenceEngine:
         self.batch_size = batch_size
         self.dtype = dtype
         self.device = resolve_device(device)
+        # first builds this engine caused: its grammar table uploads (the
+        # kernel libraries, process-wide, count in ops/kernels/build.py)
+        self._compiles = CompileObserver()
+        self._pending_prefill: tuple | None = None  # (t0, t_issue, tokens)
         self.paged = paged
         self.page_size = page_size
         self.num_pages = num_pages  # None: worst case for batch_size sequences
@@ -371,6 +377,7 @@ class InferenceEngine:
             saved_ps = sess.get("page_size")
             if saved_ps is not None and int(saved_ps) != self.page_size:
                 METRICS.incr("engine.recovery_skipped.page_size")
+                FLIGHT.event("recovery_skip", rid=rid, reason="page_size", saved=int(saved_ps))
                 log.warning("journal session %s was served under page_size=%s, not "
                             "this engine's %s; dropping it", rid, saved_ps, self.page_size)
                 continue
@@ -384,6 +391,7 @@ class InferenceEngine:
                 rem = deadline_remaining(sess["deadline_epoch"])
                 if rem <= 0:
                     METRICS.incr("engine.recovery_skipped.deadline_expired")
+                    FLIGHT.event("recovery_skip", rid=rid, reason="deadline_expired")
                     log.info("journal session %s expired its deadline during the "
                              "outage; dropping it", rid)
                     continue
@@ -508,8 +516,11 @@ class InferenceEngine:
     def _prefill_sample(self, prompt_ids, gen: GenerationConfig, mask=None):
         """Shared prologue: prefill, optional first-token logit mask,
         sample. Returns (tok [1] int32, cache, key): the key is
-        ``PRNGKey(seed)`` after the first token's split."""
-        with METRICS.span("prefill"):
+        ``PRNGKey(seed)`` after the first token's split. The flight record
+        of the prefill waits for the caller's host copy of the token
+        (``_host_first``): the prologue adds no sync of its own."""
+        t0 = time.perf_counter()
+        with METRICS.span("prefill", nvtx=True):
             last_logits, cache = self.prefill([list(prompt_ids)], self.new_cache(1))
             if mask is not None:
                 last_logits = torch.where(mask[None, :], last_logits, float("-inf"))
@@ -518,7 +529,19 @@ class InferenceEngine:
                 last_logits, sub, temperature=gen.temperature,
                 top_k=gen.top_k, top_p=gen.top_p, min_p=gen.min_p,
             )
+        self._pending_prefill = (t0, time.perf_counter(), len(prompt_ids))
         return tok, cache, key
+
+    def _host_first(self, tok) -> int:
+        """The first token on the host: the prefill's one host copy, which
+        closes its flight record (issue return → sync)."""
+        first = int(tok[0])
+        pending, self._pending_prefill = self._pending_prefill, None
+        if pending is not None:
+            t0, t_issue, n = pending
+            FLIGHT.dispatch("dispatch.prefill", t0, t_issue, time.perf_counter(),
+                            mesh=costmodel.MESH_TAG, tokens=n)
+        return first
 
     def _make_result(
         self, out: list[int], prompt_len: int, ttft: float, total: float
@@ -541,6 +564,7 @@ class InferenceEngine:
         prompt_ids: Sequence[int],
         gen: GenerationConfig | None = None,
         logit_mask_fn: Callable[[list[int]], object] | None = None,
+        export: dict | None = None,
         resume: dict | None = None,
     ) -> Iterator[int]:
         """Stream sampled token ids for a single prompt (batch=1).
@@ -549,15 +573,17 @@ class InferenceEngine:
         mask of allowed next tokens (or None); it forces the per-token
         loop, since the mask needs every token on the host. Unmasked
         decoding is fused-chunked (``gen.chunk``; 1 = per-token loop).
-        ``resume`` (``generated`` and an optional ``resume_key``) teacher-
-        forces an already-delivered suffix, replayed first; paged engines
-        only, as in the JAX package."""
+        ``export`` (paged engines; see ``PagedScheduler.submit``) receives
+        each delivered token's id and key, the SSE stream's failover
+        channel; ``resume`` (``generated`` and an optional ``resume_key``)
+        teacher-forces an already-delivered suffix, replayed first; paged
+        engines only, as in the JAX package."""
         gen = gen or GenerationConfig()
         if self.paged:
             # continuous batching: the scheduler admits this request into a
             # batch slot; concurrent streams share the pool and the steps
             yield from self.scheduler.stream(prompt_ids, gen, logit_mask_fn,
-                                             resume=resume)
+                                             export=export, resume=resume)
             return
         if resume is not None:
             raise EngineError(
@@ -572,7 +598,7 @@ class InferenceEngine:
         # never decode past the cache: each step writes one KV slot
         budget = min(gen.max_new_tokens, self.max_seq_len - len(prompt_ids))
         tok, cache, key = self._prefill_sample(prompt_ids, gen, mask)
-        tok_host = int(tok[0])
+        tok_host = self._host_first(tok)
         for i in range(budget):
             if tok_host in stops:
                 break
@@ -581,13 +607,17 @@ class InferenceEngine:
             if i == budget - 1:
                 break  # cache full: no step whose KV slot does not exist
             mask = self._pad_mask(logit_mask_fn(generated)) if logit_mask_fn else None
+            t0 = time.perf_counter()
             with METRICS.span("decode_step"):
                 METRICS.incr("engine.decode_dispatches")
                 tok, cache, key = self._step(
                     gen, cache, tok.reshape(1, 1), key,
                     None if mask is None else mask[None, :],
                 )
+                t_issue = time.perf_counter()
                 tok_host = int(tok[0])  # host sync inside the span
+            FLIGHT.dispatch("dispatch.decode", t0, t_issue, time.perf_counter(),
+                            mesh=costmodel.MESH_TAG, n_steps=1, slots=1)
 
     def _stream_chunked(
         self, prompt_ids: Sequence[int], gen: GenerationConfig, chunk: int
@@ -597,7 +627,7 @@ class InferenceEngine:
         stops = self._stops(gen)
         budget = min(gen.max_new_tokens, self.max_seq_len - len(prompt_ids))
         tok, cache, key = self._prefill_sample(prompt_ids, gen)
-        first = int(tok[0])
+        first = self._host_first(tok)
         if budget <= 0 or first in stops:
             return
         yield first
@@ -640,14 +670,15 @@ class InferenceEngine:
         stops = self._stops(gen)
         budget = min(gen.max_new_tokens, self.max_seq_len - len(prompt_ids))
         t0 = time.perf_counter()
-        table, min_dist = grammar.device_tables(self.cfg.vocab_size, self.device)
+        table, min_dist = grammar.device_tables(self.cfg.vocab_size, self.device,
+                                                observer=self._compiles)
         # first token: the prefill logits masked by the entry row, with the
         # budget-feasibility rule the device steps apply
         entry_mask = self._pad_mask(
             feasible_mask(grammar.table[grammar.entry], grammar.min_dist, budget))
         tok, cache, key = self._prefill_sample(prompt_ids, gen, entry_mask)
         slots_left = self.max_seq_len - len(prompt_ids) - 1
-        first = int(tok[0])
+        first = self._host_first(tok)
         ttft = time.perf_counter() - t0
         out: list[int] = []
         if budget > 0 and first not in stops:
@@ -743,7 +774,7 @@ class InferenceEngine:
             # chunk while the next one computes; a mid-chunk trigger rolls
             # the cache and key back to the exact token and enters
             # the constrained phase as the per-token path would
-            first = int(tok[0])
+            first = self._host_first(tok)
             if budget <= 0 or first in stops:
                 return
             yield first
@@ -785,7 +816,7 @@ class InferenceEngine:
         else:
             # free phase, per token (gen.chunk = 1): the in-tree oracle of
             # the fused path
-            tok_host = int(tok[0])
+            tok_host = self._host_first(tok)
             while i < budget:
                 if tok_host in stops:
                     return
@@ -799,10 +830,14 @@ class InferenceEngine:
                     METRICS.incr("engine.grammar_trigger_suffix_rejected")
                 if i >= budget:
                     return
+                t0 = time.perf_counter()
                 with METRICS.span("decode_step"):
                     METRICS.incr("engine.decode_dispatches")
                     tok, cache, key = self._step(gen, cache, tok.reshape(1, 1), key)
+                    t_issue = time.perf_counter()
                     tok_host = int(tok[0])
+                FLIGHT.dispatch("dispatch.decode", t0, t_issue, time.perf_counter(),
+                                mesh=costmodel.MESH_TAG, n_steps=1, slots=1)
             token = tok.reshape(1, 1)
         if gstate < 0 or i >= budget:
             return
@@ -814,7 +849,8 @@ class InferenceEngine:
         if int(grammar.min_dist[gstate]) > budget - i:
             METRICS.incr("engine.grammar_budget_too_small")
             return  # no valid call fits: truncate like any budget
-        table, min_dist = grammar.device_tables(self.cfg.vocab_size, self.device)
+        table, min_dist = grammar.device_tables(self.cfg.vocab_size, self.device,
+                                                observer=self._compiles)
         gstate_dev = torch.tensor([gstate], dtype=torch.int32, device=self.device)
         remaining = torch.tensor(budget - i, dtype=torch.int32, device=self.device)
         stop_ids = set(self.tokenizer.stop_token_ids)

@@ -10,13 +10,17 @@ so a test can doom one request out of a concurrent batch with no race
 against the scheduler thread. Or from the environment, as the JAX package
 arms it: ``FEI_TPU_FAULT="point:kind:count"`` (comma-separated for
 several), parsed at import; an entry naming a point or kind this copy
-does not have is logged and skipped.
+does not have (``grammar.compile``, ``provider.http``) is logged and
+skipped. Every fault that fires is a ``fault`` event in the flight
+recorder.
 
 Points:
 - ``admission.prefill``  — before a prefill/chunk dispatch
 - ``decode.dispatch``    — before a batched decode dispatch
 - ``delivery.detok``     — per-token delivery
 - ``pool.alloc``         — inside the scheduler's page-allocation seam
+- ``router.forward``     — fleet router, before forwarding to a replica
+- ``replica.health``     — fleet router, before a replica health probe
 - ``kv.spill``           — KV tier, before a page spill lands
 - ``kv.fetch``           — KV tier, before a page fetch returns
 - ``journal.append``     — session journal, before a record append
@@ -24,13 +28,17 @@ Points:
 - ``replica.crash``      — the hard-kill seam (SIGKILL), per delivered
   token or frame
 
-Kinds: ``request`` → RequestError, ``device`` → DeviceError,
+Kinds: ``request`` → RequestError, ``device`` → DeviceError, ``conn`` →
+urllib URLError, ``http429``/``http503`` → urllib HTTPError (with
+Retry-After: 0 so retry tests stay fast; the router diverts without
+charging the breaker),
 ``exhausted``/``transient`` → PoolPressure (``pool.alloc``: the
 scheduler's pressure handler swallows it like a real exhaustion, so a
 test forces preemption on a roomy pool), ``io`` → OSError (a journal
 write or a tier file that fails), ``corrupt`` → KVTierError (a tier entry
 whose checksum fails), ``hang`` → TimeoutError (what a fetch that never
-answers turns into after its timeout; raised at once, never slept).
+answers — a replica or a fetch — turns into after its timeout; raised
+at once, never slept).
 
 ``crash`` is the one kind that does not raise: it kills the whole process
 with SIGKILL — no handlers, no drain, no atexit — the kill -9 the session
@@ -45,6 +53,7 @@ import os
 import threading
 from typing import Callable
 
+from fei_tpu_torch.obs.flight import FLIGHT
 from fei_tpu_torch.utils.errors import (
     DeviceError,
     EngineError,
@@ -56,8 +65,10 @@ from fei_tpu_torch.utils.logging import get_logger
 log = get_logger("faults")
 
 POINTS = ("admission.prefill", "decode.dispatch", "delivery.detok", "pool.alloc",
+          "router.forward", "replica.health",
           "kv.spill", "kv.fetch", "journal.append", "journal.fsync", "replica.crash")
-KINDS = ("request", "device", "exhausted", "transient", "hang", "io", "corrupt", "crash")
+KINDS = ("request", "device", "conn", "http429", "http503",
+         "exhausted", "transient", "hang", "io", "corrupt", "crash")
 
 
 def _hard_kill(point: str) -> None:
@@ -88,6 +99,18 @@ def _make_exc(kind: str, point: str) -> BaseException:
         return DeviceError(msg)
     if kind in ("exhausted", "transient"):
         return PoolPressure(msg)
+    import io
+    import urllib.error
+    from email.message import Message
+
+    if kind == "conn":
+        return urllib.error.URLError(msg)
+    if kind in ("http429", "http503"):
+        hdrs = Message()
+        hdrs["Retry-After"] = "0"
+        return urllib.error.HTTPError("http://faults.invalid",
+                                      429 if kind == "http429" else 503,
+                                      msg, hdrs, io.BytesIO(b""))
     raise EngineError(f"unknown fault kind {kind!r} (one of {KINDS})")
 
 
@@ -163,6 +186,7 @@ class FaultInjector:
             self._fired[point] = self._fired.get(point, 0) + 1
             kind = fault.kind
         log.warning("firing injected %s fault at %s", kind, point)
+        FLIGHT.event("fault", point=point, kind=kind, rid=ctx.get("rid"))
         if kind == "crash":
             _hard_kill(point)
             return  # reached only when a test replaced _hard_kill

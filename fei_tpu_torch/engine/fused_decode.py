@@ -37,6 +37,8 @@ import torch
 
 from fei_tpu_torch.engine import prng
 from fei_tpu_torch.engine.sampling import sample_logits, stop_mask
+from fei_tpu_torch.obs import costmodel
+from fei_tpu_torch.obs.flight import FLIGHT
 from fei_tpu_torch.utils.metrics import METRICS
 
 DEFAULT_CHUNK = 16
@@ -167,16 +169,28 @@ class ChunkDecoder:
                     self._engine.params, self._cache, self._token,
                     self._key, self._done, self._stop_ids,
                 )
-                METRICS.timing("dispatch_issue", time.perf_counter() - t0)
-                nxt = (toks, keys, self._fed)
+                t_issue = time.perf_counter()
+                METRICS.timing("dispatch_issue", t_issue - t0)
+                # the sync is pipelined: chunk k is read in the NEXT
+                # iteration's decode_chunk span, so this record carries no
+                # sync time (the reference records its chunks the same way)
+                FLIGHT.dispatch(
+                    "dispatch.decode", t0, t_issue, t_issue,
+                    mesh=costmodel.MESH_TAG, n_steps=n,
+                    slots=int(self._token.shape[0]), pipelined=True,
+                )
+                nxt = (toks, keys, self._fed, t0, n)
                 self._fed += n
                 self._slots_left -= n
                 self._sched += n
             if pending is not None:
-                toks_p, keys_p, fed0_p = pending
+                toks_p, keys_p, fed0_p, t0_p, n_p = pending
                 with METRICS.span("decode_chunk"):
                     # the one blocking point: chunk k+1 is already issued
                     host = toks_p[0].tolist()
+                slots = int(self._token.shape[0])
+                costmodel.account_dispatch(self._engine, n_p, fed0_p * slots, slots,
+                                           time.perf_counter() - t0_p)
                 yield DecodedChunk(tokens=host, keys=keys_p, fed0=fed0_p)
             elif nxt is None:
                 return

@@ -27,6 +27,7 @@ DFA step that the dense chunk and the paged scheduler both run.
 
 from __future__ import annotations
 
+import itertools
 from typing import Callable
 
 import numpy as np
@@ -36,6 +37,7 @@ from fei_tpu_torch.utils.errors import EngineError
 
 _ESCAPES = b'"\\/bfnrt'
 _DIGITS = b"0123456789"
+_SERIALS = itertools.count()  # the compile observer's grammar identities
 
 
 class _DFA:
@@ -450,7 +452,8 @@ class TokenGrammar:
             dist = new
         return dist
 
-    def device_tables(self, vocab_size: int | None = None, device="cpu"):
+    def device_tables(self, vocab_size: int | None = None, device="cpu",
+                      observer=None):
         """Transition + min-distance tables as torch tensors on ``device``
         for the on-device constrained decode (engine.generate_constrained,
         the scheduler's grammared step): mask = table[state] >= 0, state' =
@@ -460,24 +463,44 @@ class TokenGrammar:
 
         Memoized per (vocab_size, device): a multi-tool union table at 128k
         vocab is hundreds of MB, so it is uploaded once and lives as long
-        as this TokenGrammar (the provider memoizes one per tool set)."""
+        as this TokenGrammar (the provider memoizes one per tool set).
+        ``observer`` (an engine's ``CompileObserver``) counts the upload as
+        a build of the table's content, so an upload of the same tables
+        twice reads as a recompile."""
         dev = torch.device(device)
         cache = getattr(self, "_dev_tables", None)
         if cache is None:
             cache = self._dev_tables = {}
         key = (vocab_size, str(dev))
         if key not in cache:
-            S, width = self.table.shape
-            host = torch.from_numpy(np.ascontiguousarray(self.table))
-            if vocab_size is not None and vocab_size > width:
-                # the -1 padding is filled on the device: only the
-                # tokenizer's columns cross from the host
-                table = torch.full((S, vocab_size), -1, dtype=host.dtype, device=dev)
-                table[:, :width] = host.to(dev)
-            else:
-                table = host.to(dev)
-            cache[key] = (table, torch.from_numpy(self.min_dist).to(dev))
+            upload = self._upload_tables
+            if observer is not None:
+                upload = observer.wrap("grammar_table",
+                                       (*self._signature(), *key), upload)
+            cache[key] = upload(vocab_size, dev)
         return cache[key]
+
+    def _upload_tables(self, vocab_size: int | None, dev):
+        S, width = self.table.shape
+        host = torch.from_numpy(np.ascontiguousarray(self.table))
+        if vocab_size is not None and vocab_size > width:
+            # the -1 padding is filled on the device: only the tokenizer's
+            # columns cross from the host
+            table = torch.full((S, vocab_size), -1, dtype=host.dtype, device=dev)
+            table[:, :width] = host.to(dev)
+        else:
+            table = host.to(dev)
+        return table, torch.from_numpy(self.min_dist).to(dev)
+
+    def _signature(self) -> tuple:
+        """The compile observer's signature: this grammar's serial and its
+        tables' shape, so an upload of the same tables twice reads as a
+        recompile (the provider memoizes one grammar per tool set). Cheap
+        at any vocabulary: nothing of the tables is read."""
+        serial = getattr(self, "_serial", None)
+        if serial is None:
+            serial = self._serial = next(_SERIALS)
+        return (serial, *self.table.shape, self.entry, self.accept)
 
     def walk(self, token_ids: list[int]) -> int:
         """State after consuming ``token_ids`` from entry; -1 if rejected."""

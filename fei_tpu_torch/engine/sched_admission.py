@@ -48,7 +48,9 @@ from fei_tpu_torch.engine.faults import FAULTS
 from fei_tpu_torch.engine.sampling import sample_logits
 from fei_tpu_torch.utils.errors import DeadlineExceededError, EngineError, PoolPressure
 from fei_tpu_torch.utils.logging import get_logger
-from fei_tpu_torch.utils.metrics import METRICS, account_kv_transfer
+from fei_tpu_torch.obs.costmodel import MESH_TAG, account_kv_transfer
+from fei_tpu_torch.obs.flight import FLIGHT
+from fei_tpu_torch.utils.metrics import METRICS
 
 log = get_logger("scheduler")
 
@@ -90,6 +92,8 @@ class AdmissionMixin:
                     if victim is None:
                         return
                     METRICS.incr("scheduler.priority_preemptions")
+                    FLIGHT.event("priority_preempt", rid=victim.rid, by_rid=seq.rid,
+                                 priority=victim.priority, by_priority=seq.priority)
                     self._preempt_seq(victim, locked=True)
                     free = [b for b, s in enumerate(self._slots) if s is None]
                     if not free:
@@ -135,7 +139,11 @@ class AdmissionMixin:
                 if prefix:
                     alloc.share(slot, prefix)
                     alloc.drop_ref(prefix)  # the pin became the slot's ref
+            if seq.trace is not None:
+                seq.trace.event("admitted")
             METRICS.observe("queue_wait_seconds", time.perf_counter() - seq.t_queued)
+            FLIGHT.event("admit", rid=seq.rid, slot=slot, lazy=seq.lazy,
+                         prefix_pages=len(prefix))
             self._update_sched_gauges()
             try:
                 # streamed resume: a preempted sequence whose pages live in
@@ -256,9 +264,11 @@ class AdmissionMixin:
         if self._alloc_pages(seq, slot, need) is None:
             raise PoolPressure(f"no viable victim could free {need} pages for "
                                f"{seq.rid} at admission")
+        t0 = time.perf_counter()
         last_logits, dense = self._dense_prefill(ids)
         seq.dense_admitted = True
-        self._complete_admission(seq, slot, dense, last_logits)
+        self._complete_admission(seq, slot, dense, last_logits,
+                                 flight=(t0, time.perf_counter()))
 
     def _dense_prefill(self, ids: list[int]):
         """One bucketed dense forward of ``ids``: (last logits, the dense
@@ -269,17 +279,23 @@ class AdmissionMixin:
         eng = self.engine
         bucket = min(_next_bucket(len(ids)), eng.max_seq_len)
         dense = KVCache.create(eng.cfg, 1, bucket, dtype=eng.dtype, device=eng.device)
-        with METRICS.span("prefill"):
+        with METRICS.span("prefill", nvtx=True):
             return eng.prefill([ids], dense)
 
-    def _complete_admission(self, seq, slot: int, dense, last_logits) -> None:
+    def _complete_admission(self, seq, slot: int, dense, last_logits,
+                            flight: tuple | None = None) -> None:
         """Dense-path tail: sample the first token, scatter the prompt's
-        K/V into its pages, arm the slot."""
+        K/V into its pages, arm the slot. ``flight`` is the prefill's
+        (call, issue-return) times: its record closes at the first token's
+        host copy, the admission's one sync."""
         eng = self.engine
         alloc = eng._allocator
         ids = self._prefill_ids(seq)
         n = len(ids)
         tok0, key = self._first_token(seq, last_logits)
+        if flight is not None:
+            FLIGHT.dispatch("dispatch.prefill", *flight, time.perf_counter(),
+                            rid=seq.rid, mesh=MESH_TAG, slot=slot, tokens=n)
         pages = alloc.pages_for(slot)
         n_prompt_pages = alloc.pages_needed(n)
         self._scatter_dense(dense, pages[:n_prompt_pages])
@@ -288,6 +304,8 @@ class AdmissionMixin:
         self._keys[slot] = key
         seq.prefilling = False
         seq.row = row
+        if seq.trace is not None:
+            seq.trace.event("prefill")
         if self._prefix is not None:
             self._prefix.register(ids, pages[:n_prompt_pages])
         METRICS.incr("scheduler.prefill_tokens", n)
@@ -295,7 +313,13 @@ class AdmissionMixin:
         if seq.budget <= 0:
             self._finish(seq)
             return
-        self._deliver(seq, tok0, key=key if seq.journaled else None)
+        self._deliver(seq, tok0, key=key if self._wants_key(seq) else None)
+
+    @staticmethod
+    def _wants_key(seq) -> bool:
+        """The first token's key goes to the host only for a request that
+        records it (journaled) or exports it (the SSE failover channel)."""
+        return seq.journaled or seq.export is not None
 
     def _scatter_dense(self, dense, page_ids: list[int]) -> None:
         """Copy the first len(page_ids)*ps positions of a [L, 1, S, K, D]
@@ -411,8 +435,13 @@ class AdmissionMixin:
             if lo >= end:
                 if lo < n:
                     hi = min(lo + max(1, self.multistep), n)
-                    with METRICS.span("prefill_chunk"):
+                    t0 = time.perf_counter()
+                    with METRICS.span("prefill_chunk", nvtx=True):
                         self._replay(prompt[lo:hi], st["row"], st["slot"], lo)
+                    t1 = time.perf_counter()
+                    FLIGHT.dispatch("dispatch.prefill_chunk", t0, t1, t1, rid=seq.rid,
+                                    mesh=MESH_TAG, slot=st["slot"], tokens=hi - lo,
+                                    replay=True)
                     METRICS.incr("scheduler.resume_replayed_tokens", hi - lo)
                     st["pos"] = hi
                     if hi < n:
@@ -437,11 +466,17 @@ class AdmissionMixin:
 
     def _dispatch_chunk_solo(self, st: dict, seq, toks: np.ndarray, lo: int, hi: int,
                              final: bool, end: int) -> None:
-        """Run one paged-native prefill chunk as its own forward."""
-        with METRICS.span("prefill_chunk"):
+        """Run one paged-native prefill chunk as its own forward. Its result
+        is read at the admission's first token, so its record carries no
+        sync time (the dispatch itself adds no sync)."""
+        t0 = time.perf_counter()
+        with METRICS.span("prefill_chunk", nvtx=True):
             # a resume's prompt chunks need no logits: it samples nothing
             last_logits = self._paged_chunk(toks, st["row"], lo, end - 1 - lo,
                                             final and not seq.generated)
+        t1 = time.perf_counter()
+        FLIGHT.dispatch("dispatch.prefill_chunk", t0, t1, t1, rid=seq.rid,
+                        mesh=MESH_TAG, slot=st["slot"], tokens=hi - lo, paged=True)
         st["pos"] = hi
         if not final or seq.generated:
             return  # more prompt chunks, or a resume's replay still to run
@@ -539,6 +574,8 @@ class AdmissionMixin:
         self._keys[slot] = key
         seq.prefilling = False
         seq.row = np.array(row)
+        if seq.trace is not None:
+            seq.trace.event("prefill")
         if self._prefix is not None:
             self._prefix.register(ids, pages[: alloc.pages_needed(n)])
         if resume:
@@ -549,7 +586,7 @@ class AdmissionMixin:
         if seq.budget <= 0:
             self._finish(seq)
             return
-        self._deliver(seq, tok0, key=key if seq.journaled else None)
+        self._deliver(seq, tok0, key=key if self._wants_key(seq) else None)
 
     def _resume_delivered(self, seq, n: int, prefix_pages: int,
                           recomputed: int | None = None) -> None:
@@ -560,6 +597,10 @@ class AdmissionMixin:
         resume passes 0 (it recomputes nothing)."""
         alloc = self.engine._allocator
         seq.next_input = seq.generated[-1]
+        if seq.trace is not None:
+            seq.trace.event("resumed")
+        FLIGHT.event("resume", rid=seq.rid, slot=seq.slot,
+                     generated=len(seq.generated), prefix_pages=prefix_pages)
         METRICS.incr("scheduler.preempted_tokens_recomputed",
                      max(0, n - prefix_pages * alloc.page_size)
                      if recomputed is None else recomputed)
@@ -636,12 +677,16 @@ class AdmissionMixin:
         t1 = time.perf_counter()
         seq.prefilling = False
         seq.row = row
+        if seq.trace is not None:
+            seq.trace.event("prefill")
         if self._prefix is not None:
             self._prefix.register(ids, pages[:need])
         METRICS.incr("kv.fetches")
         METRICS.incr("kv.pages_restored", need - m)
-        account_kv_transfer("fetched", sum(int(v[m:need].nbytes) for v in arrays.values()),
-                            t1 - t0)
+        nbytes = sum(int(v[m:need].nbytes) for v in arrays.values())
+        account_kv_transfer("fetched", nbytes, t1 - t0)
+        FLIGHT.dispatch("dispatch.kv_fetch", t0, t1, t1, rid=seq.rid, mesh=MESH_TAG,
+                        slot=slot, pages=need - m, bytes=nbytes)
         tier.drop(seq.rid)  # one-shot: a later preemption re-spills
         self._resume_delivered(seq, n, prefix_pages=m, recomputed=0)
         return True
@@ -718,8 +763,10 @@ class AdmissionMixin:
                     alloc.free(_CAS_ID)
                 METRICS.incr("kv.prefix_hits_tier")
                 METRICS.incr("kv.prefix_tokens_saved", grow * ps)
-                account_kv_transfer(
-                    "fetched", sum(int(v[have:m].nbytes) for v in entry.arrays.values()), t1 - t0)
+                nbytes = sum(int(v[have:m].nbytes) for v in entry.arrays.values())
+                account_kv_transfer("fetched", nbytes, t1 - t0)
+                FLIGHT.dispatch("dispatch.kv_cas_fetch", t0, t1, t1, rid=seq.rid,
+                                mesh=MESH_TAG, slot=slot, pages=grow, bytes=nbytes)
                 return full
         except Exception as exc:  # noqa: BLE001 — corrupt entry, I/O error,
             # injected hang: all mean "prefill instead"

@@ -33,7 +33,8 @@ class ConstraintMixin:
         if self._ggrammar is not None and inflight:
             return False
         if prebuilt is None:
-            prebuilt = grammar.device_tables(self.engine.cfg.vocab_size, self.engine.device)
+            prebuilt = grammar.device_tables(self.engine.cfg.vocab_size, self.engine.device,
+                                              observer=self.engine._compiles)
         self._gtable, self._gmind = prebuilt
         self._ggrammar = grammar
         return True

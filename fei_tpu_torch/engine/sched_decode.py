@@ -15,12 +15,16 @@ Prompt-lookup speculation (C3) is a later slice.
 
 from __future__ import annotations
 
+import time
+
 import numpy as np
 import torch
 
 from fei_tpu_torch.engine import prng
 from fei_tpu_torch.engine.faults import FAULTS
 from fei_tpu_torch.engine.sampling import RowKnobs, sample_rows
+from fei_tpu_torch.obs import costmodel
+from fei_tpu_torch.obs.flight import FLIGHT
 from fei_tpu_torch.utils.metrics import METRICS
 
 
@@ -131,10 +135,13 @@ class DecodeMixin:
             n *= 2
         if n <= 1:
             return False
+        under_admission = bool(self._waiting) or self._admitting is not None
+        FLIGHT.event("turbo_arm", depth=n, slots=len(active),
+                     under_admission=under_admission)
         toks, keys_h, active = self._dispatch_steps(active, n)
         METRICS.incr("scheduler.multi_steps")
         METRICS.incr("scheduler.multi_tokens", n)
-        if self._waiting or self._admitting is not None:
+        if under_admission:
             METRICS.incr("scheduler.turbo_under_admission")
         rollback: dict[int, int] = {}
         for b, s in active:
@@ -178,9 +185,12 @@ class DecodeMixin:
         if self._step_keys is not None:  # a greedy dispatch moved no key
             for b, i in rollback.items():
                 self._keys[b] = self._step_keys[i, b]
+        discarded = sum(n - 1 - i for i in rollback.values())
         METRICS.incr("scheduler.turbo_rollbacks", len(rollback))
-        METRICS.incr("scheduler.turbo_rollback_tokens",
-                     sum(n - 1 - i for i in rollback.values()))
+        METRICS.incr("scheduler.turbo_rollback_tokens", discarded)
+        FLIGHT.event("rollback", slots=sorted(rollback), tokens=discarded,
+                     rids=[self._slots[b].rid for b in rollback
+                           if self._slots[b] is not None])
 
     def _grow_for_steps(self, active, n: int) -> None:
         """Pre-dispatch growth for LAZY reservations: every active lazy slot
@@ -267,6 +277,7 @@ class DecodeMixin:
         # per-step keys
         sampled = any(s.gen.temperature > 0.0 for _, s in active)
         outs, step_keys = [], []
+        t0 = time.perf_counter()
         with METRICS.span("decode_step"):
             for i in range(n):
                 if i == 0 and pc is not None:
@@ -292,6 +303,7 @@ class DecodeMixin:
             self._keys = keys
             self._step_keys = torch.stack(step_keys) if sampled else None
             toks = torch.stack(outs, dim=1).long()
+            t_issue = time.perf_counter()
             keys_h = None
             if self._want_token_keys():
                 # journaled slots record each delivered token's key: the
@@ -302,6 +314,24 @@ class DecodeMixin:
                 keys_h = both[toks.numel():].reshape(steps.shape).numpy()
             else:
                 out = toks.cpu().numpy()  # the one host sync
+        t1 = time.perf_counter()
+        METRICS.timing("dispatch_issue", t_issue - t0)
+        METRICS.timing("dispatch_sync", t1 - t_issue)
+        extra = {}
+        if pc is not None:
+            # no separate "dispatch.prefill_chunk" record for a merged chunk:
+            # that count dropping under overlap is the dispatch saving
+            extra = {"ragged": True, "chunk_tokens": pc["hi"] - pc["lo"],
+                     "chunk_rid": pc["st"]["seq"].rid}
+        FLIGHT.dispatch("dispatch.step", t0, t_issue, t1,
+                        rids=[s.rid for _, s in active], mesh=costmodel.MESH_TAG,
+                        n_steps=n, slots=len(active), **extra)
+        ctx = sum(len(s.prompt_ids) + len(s.generated) for _, s in active)
+        if pc is not None:
+            costmodel.account_ragged_dispatch(eng, n, ctx, len(active),
+                                              pc["hi"] - pc["lo"], pc["lo"], t1 - t0)
+        else:
+            costmodel.account_dispatch(eng, n, ctx, len(active), t1 - t0)
         for _, s in active:
             s.shield = False  # survived a dispatch: victimizable again
         if pc is not None:

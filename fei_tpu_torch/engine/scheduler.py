@@ -91,7 +91,6 @@ import os
 import queue
 import threading
 import time
-import uuid
 from collections import deque
 from dataclasses import dataclass, field
 from typing import Callable, Iterator, Sequence
@@ -105,6 +104,9 @@ from fei_tpu_torch.engine.sched_admission import AdmissionMixin
 from fei_tpu_torch.engine.sched_constrain import ConstraintMixin
 from fei_tpu_torch.engine.sched_decode import DecodeMixin
 from fei_tpu_torch.engine.tenancy import TenantBook, clamp_priority, sanitize_tenant
+from fei_tpu_torch.obs.costmodel import MESH_TAG
+from fei_tpu_torch.obs.flight import FLIGHT
+from fei_tpu_torch.obs.trace import TRACES
 from fei_tpu_torch.utils.errors import (
     DeadlineExceededError,
     DeviceError,
@@ -162,8 +164,13 @@ class _Seq:
     dense_admitted: bool = False
     # rolling-buffer SWA: leading pages already released to the pool
     released_pages: int = 0
+    # observability: request id + lifecycle trace (obs.trace.RequestTrace)
     rid: str = ""
+    trace: object | None = None
     status: str | None = None  # terminal lifecycle status, once set
+    # the caller's failover side channel (submit(_export=)): ``ids`` is the
+    # live generated list, ``keys`` each delivered token's key as [hi, lo]
+    export: dict | None = None
     t_queued: float = 0.0
     # absolute perf_counter deadline (0 = none)
     deadline: float = 0.0
@@ -306,14 +313,18 @@ class PagedScheduler(AdmissionMixin, DecodeMixin, ConstraintMixin):
     def stream(self, prompt_ids: Sequence[int], gen,
                logit_mask_fn: Callable | None = None, grammar=None,
                grammar_trigger: str | None = None,
+               export: dict | None = None,
                resume: dict | None = None) -> Iterator[int]:
         """Submit a request and yield its tokens as they decode. Closing
         the iterator (or abandoning it to GC) cancels the request and
-        returns its pages/slot to the pool. ``resume`` (``generated`` and
-        an optional ``resume_key``) teacher-forces an already-delivered
-        suffix, which the stream replays first."""
+        returns its pages/slot to the pool. ``export`` (a caller-owned
+        dict) receives the live resume state of every delivered token (see
+        ``submit``); ``resume`` (``generated`` and an optional
+        ``resume_key``) teacher-forces an already-delivered suffix, which
+        the stream replays first — the fleet's resurrection path."""
         seq = self.submit(prompt_ids, gen, logit_mask_fn, grammar=grammar,
-                          grammar_trigger=grammar_trigger, _restore=resume)
+                          grammar_trigger=grammar_trigger, _restore=resume,
+                          _export=export)
         yield from self.drain(seq)
 
     def drain(self, seq: _Seq) -> Iterator[int]:
@@ -331,7 +342,8 @@ class PagedScheduler(AdmissionMixin, DecodeMixin, ConstraintMixin):
 
     def submit(self, prompt_ids, gen, logit_mask_fn=None, grammar=None,
                grammar_trigger: str | None = None,
-               _restore: dict | None = None) -> _Seq:
+               _restore: dict | None = None,
+               _export: dict | None = None) -> _Seq:
         """``grammar`` (a TokenGrammar) runs device-native: the DFA mask is
         computed inside the batched step from the slot's state, with no
         per-step host mask and no [B, V] upload. With ``grammar_trigger``
@@ -342,7 +354,15 @@ class PagedScheduler(AdmissionMixin, DecodeMixin, ConstraintMixin):
         ``_restore`` (a drain snapshot or a journaled session: ``generated``,
         ``resume_key``, ``route``, ``deadline_remaining_s``) re-admits a
         request a previous process accepted: it resumes like a preempted
-        sequence and replays its delivered tokens to the new consumer."""
+        sequence and replays its delivered tokens to the new consumer.
+
+        ``_export`` (a caller-owned dict, the serving layer's failover side
+        channel) is filled in place: ``ids`` is the request's LIVE generated
+        list and ``keys`` stays index-aligned with it, each delivered
+        token's threefry key as the reference's ``[hi, lo]`` words (replayed
+        tokens carry None except the last, which carries the resume key).
+        The keys reach the host with the tokens' one copy per dispatch, as
+        for a journaled request."""
         eng = self.engine
         if self._draining:
             METRICS.incr("scheduler.requests_shed")
@@ -377,13 +397,22 @@ class PagedScheduler(AdmissionMixin, DecodeMixin, ConstraintMixin):
             )
         seq = _Seq(prompt_ids=list(prompt_ids), gen=gen, mask_fn=logit_mask_fn,
                    stops=eng._stops(gen), budget=budget, tenant=tenant,
-                   priority=priority, rid=f"req-{uuid.uuid4().hex[:12]}")
+                   priority=priority)
+        seq.trace = TRACES.start(prompt_tokens=n, mesh=MESH_TAG)
+        seq.rid = seq.trace.rid
         seq.t_queued = time.perf_counter()
         dl = getattr(gen, "deadline_s", 0.0) or self.default_deadline_s
         if dl > 0:
             seq.deadline = seq.t_queued + dl
         if _restore is not None:
             self._install_restore(seq, _restore)
+        if _export is not None:
+            seq.export = _export
+            _export["ids"] = seq.generated
+            keys = _export.setdefault("keys", [])
+            if seq.generated:
+                keys.extend([None] * (len(seq.generated) - 1))
+                keys.append(self._key_list(seq.resume_key))
         if grammar is not None and logit_mask_fn is not None:
             raise EngineError("grammar and logit_mask_fn are mutually exclusive")
         prebuilt = None
@@ -391,7 +420,8 @@ class PagedScheduler(AdmissionMixin, DecodeMixin, ConstraintMixin):
             # the [S, V] device tables are built OUTSIDE the lock: a union
             # grammar over a 128k vocab is a large upload and must not
             # stall the loop's token delivery
-            prebuilt = grammar.device_tables(eng.cfg.vocab_size, eng.device)
+            prebuilt = grammar.device_tables(eng.cfg.vocab_size, eng.device,
+                                             observer=eng._compiles)
         with self._lock:
             # a tenant going idle -> backlogged re-anchors its fair-share
             # clock at the busy tenants' floor (tenancy.TenantBook)
@@ -519,6 +549,8 @@ class PagedScheduler(AdmissionMixin, DecodeMixin, ConstraintMixin):
             v.finished = True
             self._trace_finish(v, "shed")
             METRICS.incr(f"tenant.{v.tenant}.sheds")
+            FLIGHT.event("queue_evict", rid=v.rid, priority=v.priority,
+                         by_priority=priority)
             v.out.put(QueueFullError(
                 f"request {v.rid} (priority {v.priority}) was evicted from "
                 f"the full queue by a priority-{priority} arrival",
@@ -703,8 +735,14 @@ class PagedScheduler(AdmissionMixin, DecodeMixin, ConstraintMixin):
             return
         if emit:
             if not seq.generated:
+                if seq.trace is not None:
+                    seq.trace.event("first_token")
                 METRICS.observe("ttft_seconds", time.perf_counter() - seq.t_queued)
             seq.generated.append(t)
+            # export and journal BEFORE the token is published: a consumer
+            # never sees a token whose resume state is still missing
+            if seq.export is not None:
+                seq.export["keys"].append(self._key_list(key))
             if seq.journaled:
                 # the record is queued BEFORE the token is published: a
                 # consumer never sees a token whose resume state is missing
@@ -783,10 +821,13 @@ class PagedScheduler(AdmissionMixin, DecodeMixin, ConstraintMixin):
         self._slots[slot] = None
 
     def _trace_finish(self, seq: _Seq, status: str) -> None:
-        """Terminal status + lifecycle counter (the first status wins)."""
+        """Terminal trace event + lifecycle counter (the first status wins,
+        matching TraceBuffer.finish)."""
         if seq.status is not None:
             return
         seq.status = status
+        if seq.trace is not None:
+            TRACES.finish(seq.trace, status, completion_tokens=len(seq.generated))
         METRICS.incr(f"scheduler.requests_{status}")
 
     def _update_sched_gauges(self) -> None:
@@ -843,6 +884,8 @@ class PagedScheduler(AdmissionMixin, DecodeMixin, ConstraintMixin):
         if len(self._fail_times) >= self.breaker_fails:
             self._degraded_until = now + self.breaker_cooldown_s
             METRICS.gauge("engine.degraded", 1)
+            FLIGHT.event("breaker_trip", fails=len(self._fail_times),
+                         cooldown_s=self.breaker_cooldown_s)
             log.error("crash-loop breaker tripped: %d device failures within %.0fs",
                       len(self._fail_times), self.breaker_window_s)
         with self._lock:
@@ -914,8 +957,12 @@ class PagedScheduler(AdmissionMixin, DecodeMixin, ConstraintMixin):
         seq.prefix_match = None
         seq.released_pages = 0
         seq.row = None
+        if seq.trace is not None:
+            seq.trace.event("preempted")
         METRICS.incr("scheduler.preemptions")
         METRICS.incr(f"tenant.{seq.tenant}.preemptions")
+        FLIGHT.event("preempt", rid=seq.rid, slot=slot,
+                     generated=len(seq.generated), requeue=requeue)
         log.info("preempted %s (%d/%d tokens) under pool pressure",
                  seq.rid, len(seq.generated), seq.budget)
         if requeue:
@@ -940,7 +987,7 @@ class PagedScheduler(AdmissionMixin, DecodeMixin, ConstraintMixin):
             return
         from fei_tpu_torch.kv.pagesio import gather_pages, pool_fingerprint, shard_layout
         from fei_tpu_torch.kv.tier import PageEntry
-        from fei_tpu_torch.utils.metrics import account_kv_transfer
+        from fei_tpu_torch.obs.costmodel import account_kv_transfer
 
         try:
             alloc = self.engine._allocator
@@ -963,9 +1010,12 @@ class PagedScheduler(AdmissionMixin, DecodeMixin, ConstraintMixin):
                 fingerprint=fp, arrays=arrays, layout=shard_layout(fp["kv_heads"]),
             )
             tier.put(seq.rid, entry)
+            t1 = time.perf_counter()
             METRICS.incr("kv.spills")
             METRICS.incr("kv.pages_spilled", need)
-            account_kv_transfer("spilled", entry.nbytes, time.perf_counter() - t0)
+            account_kv_transfer("spilled", entry.nbytes, t1 - t0)
+            FLIGHT.dispatch("dispatch.kv_spill", t0, t1, t1, rid=seq.rid, slot=slot,
+                            pages=need, bytes=entry.nbytes)
         except Exception as exc:  # noqa: BLE001 — a failed spill only costs
             # the fast resume; the preemption proceeds regardless
             METRICS.incr("kv.spill_failures")
@@ -1131,9 +1181,11 @@ class PagedScheduler(AdmissionMixin, DecodeMixin, ConstraintMixin):
         return [int(x) for x in np.asarray(key).reshape(-1).tolist()]
 
     def _want_token_keys(self) -> bool:
-        """True when an armed slot is journaled: only then does a dispatch
-        copy its per-step keys to the host (once, with its tokens)."""
-        return any(s is not None and not s.finished and s.journaled for s in self._slots)
+        """True when an armed slot is journaled or exporting: only then does
+        a dispatch copy its per-step keys to the host (once, with its
+        tokens), so unjournaled, unexported serving pays nothing."""
+        return any(s is not None and not s.finished
+                   and (s.journaled or s.export is not None) for s in self._slots)
 
     @staticmethod
     def _portable(seq: _Seq) -> bool:
@@ -1211,6 +1263,7 @@ class PagedScheduler(AdmissionMixin, DecodeMixin, ConstraintMixin):
             if busy:
                 self._start_thread()
         METRICS.gauge("engine.draining", 1)
+        FLIGHT.event("drain", deadline_s=round(self._drain_deadline - time.monotonic(), 3))
         log.info("drain started (deadline %.1fs, snapshot dir %s)",
                  self._drain_deadline - time.monotonic(), self._drain_dir or "-")
         thread = self._thread
@@ -1278,6 +1331,7 @@ class PagedScheduler(AdmissionMixin, DecodeMixin, ConstraintMixin):
                 self._journal_end(s, "failed")
             else:
                 snaps.append(snap)
+                FLIGHT.event("snapshot", rid=s.rid, generated=len(s.generated))
                 s.out.put(EngineDrainingError(
                     "engine drained before this request completed; it was "
                     "snapshotted for warm restart", retry_after_s=self.retry_after_s))

@@ -500,8 +500,11 @@ def forward_paged_block(
     B, T = tokens.shape
     dev = cache.k_pages.device
     tokens = tokens.to(device=dev, dtype=torch.long)
-    positions = cache.lengths.long()[:, None] + torch.arange(T, device=dev)[None, :]
     cos, sin = _paged_rope_tables(cfg, cache)
+    # the pad tail of a chunk may run past the table (its K/V land in the
+    # null page, its rows are never read): clamp as the JAX gather does
+    positions = (cache.lengths.long()[:, None]
+                 + torch.arange(T, device=dev)[None, :]).clamp(max=cos.shape[0] - 1)
     win = cfg.sliding_window or 0
     limits = (cache.lengths + 1).to(torch.int32)
     x = embed_tokens(params, cfg, tokens, _paged_dtype(params, cache))
@@ -560,9 +563,11 @@ def forward_paged_merged(
     Cp = nG * R
     ar = torch.arange(nG, device=dev, dtype=torch.int32)
     chunk_start = torch.full((1,), chunk_pos, dtype=torch.int32, device=dev)
-    chunk_positions = chunk_pos + torch.arange(C, device=dev)[None, :]
-    dec_positions = cache.lengths.long()[:, None]
     cos, sin = _paged_rope_tables(cfg, cache)
+    # a pad tail past the table: clamped as in forward_paged_block
+    chunk_positions = (chunk_pos + torch.arange(C, device=dev)[None, :]).clamp(
+        max=cos.shape[0] - 1)
+    dec_positions = cache.lengths.long()[:, None]
     win = cfg.sliding_window or 0
 
     # per-virtual-row metadata: decode rows, then chunk groups

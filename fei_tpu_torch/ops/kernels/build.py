@@ -7,6 +7,12 @@ shared headers beside it and the compiler flags: an edited source builds anew, a
 library already there. Nothing is built when a module is imported — only
 when a kernel is first launched, or when a caller (``chip_smoke.py``)
 asks for the build up front.
+
+Each library's first load in the process goes through ``COMPILES``, a
+``CompileObserver`` (obs/flight.py): it counts ``engine.compiles`` and
+times the build or the cache hit into ``compile_seconds``; loading a name
+again after its handle was dropped from ``_LOADED`` counts as
+``engine.recompiles``, which must read zero once the kernels are warm.
 """
 
 from __future__ import annotations
@@ -21,6 +27,8 @@ import time
 from dataclasses import dataclass
 from pathlib import Path
 
+from fei_tpu_torch.obs.flight import CompileObserver
+
 PACKAGE_DIR = Path(__file__).resolve().parents[2]
 CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR.parent / "build" / "fei_tpu_torch"
@@ -32,6 +40,8 @@ NVCC_FLAGS = (
 
 _LOCK = threading.Lock()
 _LOADED: dict[str, ctypes.CDLL] = {}
+# the kernel libraries are process-wide, so one observer counts their loads
+COMPILES = CompileObserver()
 
 
 @dataclass
@@ -87,11 +97,14 @@ def build(name: str) -> BuildResult:
     return BuildResult(name, out, time.perf_counter() - t0, proc.stdout)
 
 
+def _build_and_open(name: str) -> ctypes.CDLL:
+    return ctypes.CDLL(str(build(name).path))
+
+
 def load(name: str) -> ctypes.CDLL:
     """The loaded library for ``csrc/<name>.cu``, built at first use."""
     with _LOCK:
         lib = _LOADED.get(name)
         if lib is None:
-            res = build(name)
-            lib = _LOADED[name] = ctypes.CDLL(str(res.path))
+            lib = _LOADED[name] = COMPILES.wrap("kernel", name, _build_and_open)(name)
         return lib

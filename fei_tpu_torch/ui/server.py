@@ -20,9 +20,21 @@ pool), GET /kv/prefix (the content hashes the KV tier can serve), POST
 /kv/prefix/probe (the hashes a prompt would admit through) and GET
 /kv/prefix/<hash>. A blob that is not base64 answers 400, one whose
 invariant pool geometry can never match 409 with ``{ours, theirs}``, a
-corrupt one 422. /health carries ``kv_fingerprint`` and ``kv_layout``.
-The /debug and /v1/traces routes come with a later slice and answer 404
-like any unknown route.
+corrupt one 422. /health carries the reference's fields: ``mesh``
+(``ms1``: one device), ``role`` (``FEI_TPU_REPLICA_ROLE``, one of
+``REPLICA_ROLES``, read by the fleet router), ``queue_depth``/``running``
+/``slots`` (paged engines), ``kv_fingerprint`` and ``kv_layout``.
+
+Observability: GET /v1/traces?limit= (recent request traces, newest
+first; limit clamped to 1–1000), GET /v1/traces/<id> (one trace with its
+slice of the flight recorder), GET /debug/timeline (the flight recorder as
+Chrome-trace JSON, for ui.perfetto.dev) and POST /debug/profile
+(``seconds`` in (0, 60]: a torch.profiler capture of the card's kernels
+under live traffic, written as Chrome-trace JSON into ``trace_dir``; 409
+while another capture runs in the process). A streamed completion's content frames carry
+an ``fei`` extension (the token ids delivered since the last frame and
+the threefry key after them) so the fleet router can resurrect the stream
+on another replica.
 Built on stdlib http.server. Auth is optional (``--api-key`` /
 FEI_TPU_SERVER_API_KEY).
 """
@@ -35,13 +47,17 @@ import binascii
 import hmac
 import json
 import os
+import tempfile
 import threading
 import time
 import uuid
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
-from urllib.parse import urlsplit
+from urllib.parse import parse_qs, urlsplit
 
 from fei_tpu_torch.engine.faults import FAULTS
+from fei_tpu_torch.obs.costmodel import MESH_TAG
+from fei_tpu_torch.obs.flight import FLIGHT
+from fei_tpu_torch.obs.trace import TRACES
 from fei_tpu_torch.utils.errors import (
     DeadlineExceededError,
     EngineDegradedError,
@@ -56,6 +72,15 @@ from fei_tpu_torch.utils.metrics import METRICS
 log = get_logger("ui.server")
 
 DEFAULT_PORT = 8188
+
+# fleet role split: a prefill-heavy replica takes the long prompts, a
+# decode-heavy one the token streams, mixed does both. The router reads the
+# role off /health and hands the prefilled KV across (/kv/export ->
+# /kv/import).
+REPLICA_ROLES = ("mixed", "prefill-heavy", "decode-heavy")
+
+# one torch.profiler capture per process at a time: a second POST gets 409
+_PROFILE_LOCK = threading.Lock()
 
 
 def _content_text(content) -> str:
@@ -212,10 +237,16 @@ class ServeAPI:
     agent-layer Provider (TorchLocalProvider; MockProvider in tests)."""
 
     def __init__(self, provider, model_name: str = "fei-tpu-torch",
-                 api_key: str | None = None):
+                 api_key: str | None = None, role: str | None = None):
         self.provider = provider
         self.model_name = model_name
         self.api_key = api_key or ""
+        role = role or os.environ.get("FEI_TPU_REPLICA_ROLE", "") or "mixed"
+        if role not in REPLICA_ROLES:
+            raise ValueError(
+                f"replica role must be one of {REPLICA_ROLES}, got {role!r}")
+        self.role = role
+        self._profile_lock = _PROFILE_LOCK
 
     def authorized(self, headers: dict) -> bool:
         if not self.api_key:
@@ -236,24 +267,21 @@ class ServeAPI:
         """Route a request. Returns ``(status, payload)`` or ``(status,
         payload, headers)``; a ``str`` payload is plain text (the Prometheus
         exposition), dicts are JSON."""
-        route = urlsplit(path).path
+        parts = urlsplit(path)
+        route, query = parts.path, parse_qs(parts.query)
         METRICS.incr("server.requests")
         if route == "/health":
-            eng = getattr(self.provider, "engine", None)
-            device = str(getattr(eng, "device", "")) or None
-            out = {"status": "ok", "model": self.model_name, "device": device}
-            sched = getattr(eng, "_scheduler", None)
-            if sched is not None:
-                out.update(queue_depth=len(sched._waiting), slots=sched.B,
-                           running=sum(1 for s in sched._slots if s is not None),
-                           **self._kv_geometry())
-                if sched.draining():
-                    # a draining replica leaves the load balancer's rotation
-                    # while its in-flight set finishes
-                    return 503, dict(out, status="draining"), {"Retry-After": "5"}
-                if sched.degraded():
-                    return 503, dict(out, status="degraded"), {"Retry-After": "5"}
-            return 200, out
+            base = {"model": self.model_name, "mesh": MESH_TAG, "role": self.role,
+                    **self._kv_geometry(), **self._load_fields()}
+            sched = self._kv_scheduler()
+            if sched is not None and sched.draining():
+                # a draining replica leaves the load balancer's rotation
+                # while its in-flight set finishes
+                return 503, {"status": "draining", **base}, {"Retry-After": "5"}
+            if sched is not None and sched.degraded():
+                # the crash-loop breaker: balancers eject the replica
+                return 503, {"status": "degraded", **base}
+            return 200, {"status": "ok", **base}
         if route == "/metrics" and method == "GET":
             # pre-auth like /health: scrapers don't carry bearer tokens
             return 200, METRICS.prometheus_text()
@@ -266,6 +294,28 @@ class ServeAPI:
                 "data": [{"id": self.model_name, "object": "model",
                           "owned_by": "fei-tpu-torch"}],
             }
+        if route == "/v1/traces" and method == "GET":
+            try:
+                limit = int(query.get("limit", ["50"])[0])
+            except ValueError:
+                return _bad_request("limit must be an int")
+            limit = min(max(limit, 1), 1000)
+            return 200, {"object": "list", "data": TRACES.recent(limit)}
+        if route.startswith("/v1/traces/") and method == "GET":
+            rid = route.rsplit("/", 1)[1]
+            tr = TRACES.get(rid)
+            if tr is None:
+                return 404, {"error": {"message": f"no trace {rid!r} (unknown or evicted)",
+                                       "type": "invalid_request_error"}}
+            payload = tr.as_dict()
+            # the request's slice of the flight recorder: every dispatch and
+            # scheduler event tagged with this rid
+            payload["flight"] = FLIGHT.for_rid(rid)
+            return 200, payload
+        if route == "/debug/timeline" and method == "GET":
+            return 200, FLIGHT.chrome_trace()
+        if route == "/debug/profile" and method == "POST":
+            return self._profile(body)
         if route == "/v1/chat/completions" and method == "POST":
             return self._chat(body, headers)
         if route == "/drain" and method == "POST":
@@ -286,6 +336,64 @@ class ServeAPI:
             return self._kv_prefix_get(route.rsplit("/", 1)[1])
         return 404, {"error": {"message": f"no route {method} {route}",
                                "type": "invalid_request_error"}}
+
+    def _load_fields(self) -> dict:
+        """The /health load fields the fleet router's least-loaded scoring
+        reads: waiting-queue depth, running count (finished slots not yet
+        evicted excluded), slot count. Empty for non-paged providers (the
+        router reads a missing field as 0)."""
+        sched = self._kv_scheduler()
+        if sched is None:
+            return {}
+        try:
+            with sched._lock:
+                slots = list(sched._slots)
+                depth = len(sched._waiting)
+            running = sum(1 for s in slots if s is not None and not s.finished)
+            return {"queue_depth": depth, "running": running, "slots": len(slots)}
+        except Exception:  # noqa: BLE001 — /health must never 500
+            return {}
+
+    def _profile(self, body: dict) -> tuple:
+        """On-demand torch.profiler capture of the card's kernels for
+        ``seconds`` while live traffic keeps flowing (the scheduler launches
+        from its own thread; CUPTI records every kernel on the device). The
+        trace is Chrome-trace JSON in ``trace_dir``. Only the CUDA activity
+        is recorded where there is a card: with CPU ops recorded from this
+        handler's thread while the scheduler's threads dispatched, two of
+        three full smoke runs on an H100 died of SIGSEGV (unplaced), and
+        none of four since; a machine without a card records its CPU ops."""
+        try:
+            seconds = float(body.get("seconds", 2.0))
+        except (TypeError, ValueError):
+            return _bad_request("seconds must be a number")
+        if not 0 < seconds <= 60:
+            return _bad_request(f"seconds must be in (0, 60], got {seconds}")
+        if not self._profile_lock.acquire(blocking=False):
+            return 409, {"error": {"message": "a profile capture is already running",
+                                   "type": "conflict_error"}}
+        try:
+            import torch
+            from torch.profiler import ProfilerActivity, profile
+
+            trace_dir = str(body.get("trace_dir") or tempfile.mkdtemp(prefix="fei-profile-"))
+            os.makedirs(trace_dir, exist_ok=True)
+            activities = [ProfilerActivity.CUDA if torch.cuda.is_available()
+                          else ProfilerActivity.CPU]
+            prof = profile(activities=activities)
+            prof.start()
+            try:
+                time.sleep(seconds)
+            finally:
+                prof.stop()
+            prof.export_chrome_trace(os.path.join(trace_dir, "trace.json"))
+            METRICS.incr("server.profile_captures")
+            return 200, {"object": "profile", "trace_dir": trace_dir, "seconds": seconds}
+        except Exception as exc:  # noqa: BLE001 — profiler issues -> JSON
+            log.warning("profile capture failed: %r", exc)
+            return _server_error(exc)
+        finally:
+            self._profile_lock.release()
 
     # -- the KV control plane -------------------------------------------------
 
@@ -559,7 +667,7 @@ class ServeAPI:
         model = body.get("model") or self.model_name
         created = int(time.time())
 
-        def frame(delta: dict, finish=None) -> bytes:
+        def frame(delta: dict, finish=None, fei: dict | None = None) -> bytes:
             chunk = {
                 "id": rid,
                 "object": "chat.completion.chunk",
@@ -567,12 +675,25 @@ class ServeAPI:
                 "model": model,
                 "choices": [{"index": 0, "delta": delta, "finish_reason": finish}],
             }
+            if fei is not None:
+                chunk["fei"] = fei
             return b"data: " + json.dumps(chunk).encode() + b"\n\n"
 
         yield frame({"role": "assistant"})
         resp = None
+        # the failover side channel: the engine fills ``export`` in place
+        # with every delivered token id and its threefry key; each content
+        # frame carries the ids delivered since the previous frame and the
+        # key after the last of them, so the fleet router can resurrect this
+        # stream on a survivor if this process dies. OpenAI clients ignore
+        # the extra key.
+        kw = dict(kw)
+        export: dict | None = None
+        if getattr(self.provider, "supports_resume", False):
+            export = {}
+            kw["export"] = export
+        sent = 0
         try:
-            kw = dict(kw)
             msgs = kw.pop("messages")
             gen = self.provider.stream(msgs, **kw)
             while True:
@@ -582,7 +703,8 @@ class ServeAPI:
                     resp = fin.value
                     break
                 if delta:
-                    yield frame({"content": delta})
+                    yield frame({"content": delta}, fei=_fei_delta(export, sent))
+                    sent = len((export or {}).get("ids") or ())
                     # the hard-kill seam: a process that dies after a frame
                     # left, the worst case the journal must cover
                     FAULTS.check("replica.crash", rid=rid)
@@ -618,6 +740,18 @@ class ServeAPI:
             })
         yield frame({}, finish=finish)
         yield b"data: [DONE]\n\n"
+
+
+def _fei_delta(export: dict | None, sent: int) -> dict | None:
+    """The ``fei`` frame extension: the ids delivered past ``sent`` and
+    the key after the last of them (None when nothing new was delivered)."""
+    ids = (export or {}).get("ids")
+    if not ids or len(ids) <= sent:
+        return None
+    n = len(ids)
+    keys = export.get("keys") or []
+    return {"toks": [int(t) for t in ids[sent:n]],
+            "key": keys[n - 1] if n - 1 < len(keys) else None}
 
 
 def _retry_after(exc) -> dict:

@@ -72,6 +72,11 @@ def test_port_imports_without_jax_or_fei_tpu():
         "fei_tpu_torch.memory.memorychain.node", "fei_tpu_torch.memory.memorychain.cli",
         "fei_tpu_torch.memory.memorychain.embedding_exchange",
         "fei_tpu_torch.ui.textual_chat",
+        "fei_tpu_torch.fleet", "fei_tpu_torch.fleet.router",
+        "fei_tpu_torch.fleet.replica", "fei_tpu_torch.obs",
+        "fei_tpu_torch.obs.metrics", "fei_tpu_torch.obs.prom",
+        "fei_tpu_torch.obs.trace", "fei_tpu_torch.obs.flight",
+        "fei_tpu_torch.obs.registry", "fei_tpu_torch.obs.costmodel",
     ):
         assert name in got["imported"], name
     assert got["jax"] == [], got["jax"]
@@ -139,6 +144,31 @@ def test_tools_modules_load_neither_jax_nor_fei_tpu():
     scanner, the TUI, the federation) loads no module of the JAX package."""
     out = subprocess.run(
         [sys.executable, "-c", _TOOLS_PROBE], capture_output=True, text=True,
+        timeout=120, check=True, cwd=REPO,
+    )
+    assert json.loads(out.stdout.strip().splitlines()[-1]) == []
+
+
+_FLEET_PROBE = r"""
+import json, sys
+import fei_tpu_torch.fleet, fei_tpu_torch.obs
+from fei_tpu_torch.fleet import HttpReplica, InProcessReplica, Router
+from fei_tpu_torch.obs import FLIGHT, METRICS, TRACES, costmodel
+FLIGHT.event("probe")
+TRACES.finish(TRACES.start(prompt_tokens=1), "completed")
+METRICS.prometheus_text()
+costmodel.chips_for_tag("tp2dp2")
+loaded = sorted(sys.modules)
+print(json.dumps([m for m in loaded if m in ("jax", "fei_tpu")
+                  or m.startswith(("jax.", "fei_tpu."))]))
+"""
+
+
+def test_fleet_and_obs_modules_load_neither_jax_nor_fei_tpu():
+    """The router, the replicas, the flight recorder, the traces and the
+    cost model load no module of the JAX package, even when used."""
+    out = subprocess.run(
+        [sys.executable, "-c", _FLEET_PROBE], capture_output=True, text=True,
         timeout=120, check=True, cwd=REPO,
     )
     assert json.loads(out.stdout.strip().splitlines()[-1]) == []
