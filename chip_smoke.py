@@ -85,7 +85,9 @@ Phases (each raises on failure, so the script exits non-zero):
    built with the host compiler, equals the Python route; the TUI,
    headless, streams one reply from the dense engine and answers ``/mem
    list`` from the live server, which ``memory_server_stop`` then stops.
-10. Survival (the survival path), on the same weights: the threefry PRNG on
+10. Survival (the survival path), on the first 16 of the same weights'
+   32 layers (views, llama3-8b's widths; cut from 32 for time when the
+   speculation and MoE phases were added, every check kept): the threefry PRNG on
    the card against the CPU (the known-answer vector, a 128256-lane draw
    bitwise, 1000 chained splits); four seeded requests of 64 tokens
    equal densely and paged (or first apart at a noise+logit gap within 2
@@ -101,9 +103,23 @@ Phases (each raises on failure, so the script exits non-zero):
    drained, warm restart -> first replayed token per route, aggregate
    tok/s with the journal off / batch / always, and what a sampled step's
    sampling tail launches beside a greedy one's.
-11. KV tier (the KV path), on the first 16 of the same weights' 32 layers
-   (views, llama3-8b's widths; cut from 32 layers for time when the fleet
-   phase was added, every check kept), each run on a fresh paged
+11. Speculation (the C3 path), on the same weights and LM head: a ~1000-id
+   prompt (a code block repeated), 128 greedy tokens through
+   ``generate_lookahead`` (verify blocks of 9 tokens; the plain attention,
+   below K1's 64) equal to plain greedy decode, or first apart at a tie
+   within 2 bf16 ulps (F1); then a two-row paged engine built with
+   ``FEI_TPU_SPECULATE=1`` (``spec_ngram`` 3, ``spec_draft_len`` 8 read from
+   the environment): its speculated stream (natural drafts, then the
+   model's own continuation as the draft: more than 2 tokens a verify)
+   equals its unspeculated one or ties, every verify runs K2's block form
+   (``paged_attention.block_launches``), ``scheduler.spec_steps`` > 0 and
+   ``spec_disabled`` 0; a tool-call turn whose trigger completes inside a
+   verified block drops the rest of the block and makes a valid call.
+   Logged: verify steps, tokens accepted, tokens per dispatch, tok/s with
+   and without speculation.
+12. KV tier (the KV path), on the survival phase's 16 layers (cut from 32
+   for time when the fleet phase was added, every check kept), each run
+   on a fresh paged
    engine built with the tier's variables (``FEI_TPU_KV_TIER``, RAM
    budget 8 GiB); the eight prompts of phase 6 as four greedy and four
    top-p 0.9 requests. The roomy traffic (1025 pages, 128 tokens) gives
@@ -131,7 +147,7 @@ Phases (each raises on failure, so the script exits non-zero):
    -> next token streamed vs replayed, the tight traffic's wall time
    with the tier off / ram / disk, the publish cost per admission and the
    roomy tok/s with the tier off and on.
-12. Fleet and observability (the fleet path), on the KV phase's 16
+13. Fleet and observability (the fleet path), on the survival phase's 16
    layers (cut from 32 for time: the phase's share of the script's limit;
    every check kept): two paged replicas of 8 rows and 513 pages with the KV tier in RAM, ``a``
    prefill-heavy in process and ``b`` decode-heavy behind its HTTP server
@@ -171,16 +187,16 @@ bitwise the same at every M (the decode split of K and the prefill
 pipeline sum in one order).
 After the bf16 engines are released:
 
-13. Quantized dense path: llama3-8b with int4 weights (random, the same
+14. Quantized dense path: llama3-8b with int4 weights (random, the same
    seed): ``param_bytes``; a ~1500-token prefill launches K4 exactly 7
    times per layer and its logits are held against the same weights
    dequantized to bf16 and multiplied plainly; 128 greedy tokens. Then
    int8 weights: ``param_bytes``, 32 greedy tokens, no K4 launch.
-14. Quantized paged path: the int4 weights behind the paged engine, four
+15. Quantized paged path: the int4 weights behind the paged engine, four
    requests from threads; each stream must equal the dense int4 engine's,
    and must not change with the merged dispatch off or in a tight pool
    that preempts.
-15. Provider: ``TorchLocalProvider`` built from the configuration with
+16. Provider: ``TorchLocalProvider`` built from the configuration with
     quantize = int4 answers one completion through the server.
 
 Phase 3 also holds the flash backward: K1 with its logsumexp output
@@ -195,7 +211,30 @@ K5b and the pair eager and as device time (CUDA graph) at the training
 shape and at D = 64 beside the SDPA backward, and prints K5b's q-tile steps
 per block (largest and mean). After the quantized engines are released:
 
-16. Training (the training path): llama3-8b at full width and depth, bf16,
+17. MoE (the C2 path): mixtral-8x7b at full width and depth (32 layers,
+    h=4096, I=14336, 8 experts, top-2, vocab 32000) with int8 weights
+    (random, the seed's): ``param_bytes`` (bf16 would not fit); a
+    1500-token prefill launches K1 once a layer and routes every layer
+    (``FEI_TPU_ROUTED_MOE`` auto: per-expert matmuls over the sorted
+    token blocks, one host copy of the block sizes a layer); its
+    MoE output is held against the dense oracle's on the same input at
+    rel_l2 1e-2 a layer, its last-position logits at 0.25 (expert pairs
+    that flip under bf16 roundings grow with depth), a mutant that drops
+    each token's second expert breaks both bounds, and two routed runs are
+    bitwise equal; 32 greedy tokens (the dense formulation at one token,
+    every int8 expert cast to a bf16 copy, timed); a four-row paged
+    engine on the same weights (prompts 96 and 200 admitted densely, 700
+    and 1500 in chunks merged with live decode through K3), each stream
+    equal to the dense engine's under the formulation its route takes, or
+    first apart at a tie within 2 bf16 ulps as the dense engine itself
+    reads it (its prefill, then T=1 steps); a chunked prompt's first
+    token comes from its chunked prefill, whose logits are held against
+    the dense prefill's at rel_l2 0.25 instead; the same mutant on the
+    paged engine breaks both rules; one int4 prefill (K4 on wq/wk/wv/wo, the
+    experts int8); one training step on two layers at Mixtral's widths
+    (bf16, T = 2048: K1 4, K5a 2, K5b 2), its gradients through the
+    kernels against ``flash=False``.
+18. Training (the training path): llama3-8b at full width and depth, bf16,
     random weights from the seed, ``TrainConfig(remat=True)``, one sequence
     of 2049 ids: three steps on the same batch (finite loss near ln V,
     lower at the third step; K1 twice per layer and step, K5a and K5b once).
@@ -207,10 +246,11 @@ per block (largest and mean). After the quantized engines are released:
 ``python3 chip_smoke.py --paged-times`` only builds K2/K3 and times them at
 every shape of phase 3 through their public wrappers; ``--bwd-times`` does
 the same for K5a, K5b and the pair at the training shape and at D = 64;
-``--kv`` builds K1-K3 and runs phase 11 alone (on the seed's weights with
+``--kv`` builds K1-K3 and runs phase 12 alone (on the seed's weights with
 the serve phase's LM head, cut to 16 layers as in the full run),
-``--fleet`` phase 12 likewise, and ``--tools`` the serving controls and
-phase 9 on all 32 layers. ``--serve-rates`` logs only the dense
+``--fleet`` phase 13 likewise, ``--tools`` the serving controls and
+phase 9 on all 32 layers, ``--spec`` phase 11 (on the seed's weights with
+the serve phase's LM head) and ``--moe`` phase 17. ``--serve-rates`` logs only the dense
 decode tok/s (twice) and the paged aggregate tok/s of phases 4 and 6's
 traffic, straight into the scheduler and through the SSE path of
 ``ServeAPI.stream_chat``, so a copy run from an older tree's root measures
@@ -228,9 +268,13 @@ path's own runs: the dense and paged 15-tool turns, the 24-tool turn
 beside its neighbours and the TUI turn; and ``launches_survival``, the sum over the survival
 path's own runs: the seeded paged streams, the drained run, the warm
 restart, the journaled run and its recovery; ``launches_kv``, the sum
-over the KV path's tier-on runs; and ``launches_fleet``, the sum over the
-fleet path's runs, its reference scheduler not counted), the line before
-the last is the card,
+over the KV path's tier-on runs; ``launches_fleet``, the sum over the
+fleet path's runs, its reference scheduler not counted; K1 and K2 carry
+``launches_spec``, the sum over the speculated runs (the dense lookahead,
+the two paged streams, the tool turn); every kernel carries
+``launches_moe``, the sum over the MoE path's runs: the routed prefill,
+the dense decode, the paged traffic, the int4 prefill and the training
+step), the line before the last is the card,
 and the last line is the JSON verdict.
 """
 
@@ -273,6 +317,27 @@ def log(msg: str) -> None:
 def check(ok: bool, msg: str) -> None:
     if not ok:
         raise AssertionError(msg)
+
+
+@contextlib.contextmanager
+def env_vars(**over: str | None):
+    """Environment variables set (None: unset) for a block, then restored."""
+    import os
+
+    old = {k: os.environ.get(k) for k in over}
+    for k, v in over.items():
+        if v is None:
+            os.environ.pop(k, None)
+        else:
+            os.environ[k] = v
+    try:
+        yield
+    finally:
+        for k, v in old.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
 
 
 def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
@@ -1646,6 +1711,7 @@ def reset_counts():
         fn.launches = 0
         if hasattr(fn, "int8_launches"):
             fn.int8_launches = 0
+    paged_attention.block_launches = 0
     flash_attention_bwd.launches_dq = flash_attention_bwd.launches_dkv = 0
 
 
@@ -1662,6 +1728,7 @@ def read_counts() -> dict:
             "flash_attention_bwd_dq": flash_attention_bwd.launches_dq,
             "flash_attention_bwd_dkv": flash_attention_bwd.launches_dkv,
             "paged_attention_int8": paged_attention.int8_launches,
+            "paged_attention_block": paged_attention.block_launches,
             "ragged_paged_attention_int8": ragged_paged_attention.int8_launches}
 
 
@@ -1739,17 +1806,18 @@ def chunked_paged_logits(engine, prompt):
     n, C = len(prompt), 256
     width = -(-engine.max_seq_len // PAGE)
     need = -(-(n + C) // PAGE)
+    dev = engine.device
     pool = PagedKVCache.create(engine.cfg, need + 1, 1, width, page_size=PAGE,
-                               dtype=torch.bfloat16, device="cuda")
-    row = torch.zeros((1, width), dtype=torch.int32, device="cuda")
+                               dtype=engine.dtype, device=dev)
+    row = torch.zeros((1, width), dtype=torch.int32, device=dev)
     row[0, :need] = torch.arange(1, need + 1, dtype=torch.int32)
     pool = pool._replace(block_table=row)
     last = None
     for lo in range(0, n, C):
         toks = torch.zeros((1, C), dtype=torch.long)
         toks[0, : min(C, n - lo)] = torch.tensor(prompt[lo:lo + C])
-        pool = pool._replace(lengths=torch.tensor([lo], dtype=torch.int32, device="cuda"))
-        hidden, _ = forward_paged_block(engine.params, engine.cfg, toks.cuda(), pool,
+        pool = pool._replace(lengths=torch.tensor([lo], dtype=torch.int32, device=dev))
+        hidden, _ = forward_paged_block(engine.params, engine.cfg, toks.to(dev), pool,
                                         lm_head=False)
         if lo + C >= n:
             i = n - 1 - lo
@@ -2919,20 +2987,11 @@ def survival_phase(dense, paged, card: str) -> dict:
             launched[k] += v
 
     def fresh(journal_dir=None, sync="batch"):
-        old = {k: os.environ.get(k) for k in ("FEI_TPU_JOURNAL_DIR", "FEI_TPU_JOURNAL_SYNC")}
-        os.environ["FEI_TPU_JOURNAL_DIR"] = journal_dir or ""
-        os.environ["FEI_TPU_JOURNAL_SYNC"] = sync
-        try:
+        with env_vars(FEI_TPU_JOURNAL_DIR=journal_dir or "", FEI_TPU_JOURNAL_SYNC=sync):
             return InferenceEngine.from_config(
                 cfg.name, dtype=dense.dtype, params=dense.params, max_seq_len=dense.max_seq_len,
                 device=dense.device, paged=True, batch_size=paged.batch_size,
-                page_size=paged.page_size)
-        finally:
-            for k, v in old.items():
-                if v is None:
-                    os.environ.pop(k, None)
-                else:
-                    os.environ[k] = v
+                page_size=paged.page_size, num_layers=cfg.num_layers)
 
     def release(eng):
         eng.close()
@@ -3136,8 +3195,10 @@ def survival_phase(dense, paged, card: str) -> dict:
 # ------------------------------------------------------------------ KV tier
 
 KV_RAM_BYTES = "8g"  # holds every victim of the tight traffic and every publish
-# the KV and fleet phases run on the first 16 of llama3-8b's 32 layers at
-# its widths (cut: time, to fit the fleet phase; every check kept)
+# the survival, KV and fleet phases run on the first 16 of llama3-8b's 32
+# layers at its widths (cut: time; the KV and fleet phases when the fleet
+# phase came, the survival phase when the speculation and MoE phases did;
+# every check kept)
 KV_LAYERS = 16
 KV_NEW = 32  # tokens a request of the int8, fault and prefix runs (cut: time)
 KV_SAMPLED = dict(temperature=0.8, top_p=0.9)
@@ -3251,8 +3312,9 @@ def kv_weights():
 
 
 def kv_depth(dense):
-    """The KV phase's model: the first ``KV_LAYERS`` layers of ``dense``'s
-    weights at llama3-8b's widths (views of the same tensors, no copy)."""
+    """The survival, KV and fleet phases' model: the first ``KV_LAYERS``
+    layers of ``dense``'s weights at llama3-8b's widths (views of the same
+    tensors, no copy)."""
     from fei_tpu_torch.engine import InferenceEngine
 
     params = {**dense.params,
@@ -3297,21 +3359,12 @@ def kv_phase(dense, card: str) -> dict:
             launched[k] += v
 
     def fresh(mode="off", num_pages=None, kv_quant=None, prefix_cache=False, **env):
-        over = {"FEI_TPU_KV_TIER": mode, "FEI_TPU_KV_RAM_BYTES": KV_RAM_BYTES, **env}
-        old = {k: os.environ.get(k) for k in over}
-        os.environ.update(over)
-        try:
+        with env_vars(**{"FEI_TPU_KV_TIER": mode, "FEI_TPU_KV_RAM_BYTES": KV_RAM_BYTES, **env}):
             return InferenceEngine.from_config(
                 cfg.name, dtype=dense.dtype, params=dense.params, max_seq_len=dense.max_seq_len,
                 num_layers=cfg.num_layers,
                 device=dev, paged=True, batch_size=8, page_size=PAGE, num_pages=num_pages,
                 kv_quant=kv_quant, prefix_cache=prefix_cache)
-        finally:
-            for k, v in old.items():
-                if v is None:
-                    os.environ.pop(k, None)
-                else:
-                    os.environ[k] = v
 
     def release(eng):
         eng.close()
@@ -4512,6 +4565,622 @@ def quant_provider_phase(dense4, card: str) -> None:
         server.stop()
 
 
+# ------------------------------------------------------------- speculation
+
+SPEC_TOKENS = 128
+SPEC_PAGED_SEQ = 4096  # the speculating scheduler's rows: one stream at a time
+SPEC_TOOLS = [{
+    "name": "LS", "description": "List a directory.",
+    "input_schema": {"type": "object", "properties": {"path": {"type": "string"}},
+                     "required": ["path"]},
+}]
+
+
+def spec_prompt(tokenizer) -> list[int]:
+    """About 1000 byte ids: one block of code repeated."""
+    block = ("def merge(a, b):\n    out = []\n    while a and b:\n"
+             "        out.append(a.pop(0) if a[0] < b[0] else b.pop(0))\n"
+             "    return out + a + b\n\n")
+    return tokenizer.encode((block * (1000 // len(block) + 1))[:1000], add_bos=True)
+
+
+def span_count(name: str) -> int:
+    from fei_tpu_torch.utils.metrics import METRICS
+
+    return METRICS.snapshot()["spans"].get(name, {}).get("count", 0)
+
+
+def spec_phase(dense, card: str) -> dict:
+    """Prompt-lookup speculation on the card (bf16 llama3-8b, the serve
+    phase's LM head): the dense lookahead against plain greedy decode, the
+    paged scheduler with ``FEI_TPU_SPECULATE=1`` against its own
+    unspeculated stream (natural drafts, then the model's own continuation
+    as the draft), and a tool-call turn that speculates in its free phase.
+    Returns the kernel launches of the speculated runs, each counted from 0
+    just before it (the plain references are not counted)."""
+    from fei_tpu_torch.engine import GenerationConfig, InferenceEngine
+    from fei_tpu_torch.engine.grammar import (
+        TriggerScanner,
+        char_walk,
+        compile_agent_tool_grammar,
+    )
+
+    launched = dict.fromkeys(read_counts(), 0)
+
+    def add(counts):
+        for k, v in counts.items():
+            launched[k] += v
+
+    L = dense.cfg.num_layers
+    prompt = spec_prompt(dense.tokenizer)
+    gen = GenerationConfig(max_new_tokens=SPEC_TOKENS, ignore_eos=True)
+
+    # dense: plain greedy (fused chunks of 16), then the lookahead
+    plain = dense.generate(prompt, gen)
+    s0, d0 = span_count("spec_step"), span_count("decode_step")
+    reset_counts()
+    spec = dense.generate_lookahead(prompt, gen)
+    add(read_counts())
+    steps, singles = span_count("spec_step") - s0, span_count("decode_step") - d0
+    check(len(spec.token_ids) == SPEC_TOKENS, f"lookahead decoded {len(spec.token_ids)} tokens")
+    verdict = same_or_tie(dense, prompt, plain.token_ids, spec.token_ids, "spec dense")
+    # tokens after the prefill's first one, over the dispatches that made them
+    after = SPEC_TOKENS - 1
+    log(f"spec dense: {len(prompt)}-token repeated code block, {SPEC_TOKENS} greedy tokens on "
+        f"{card}: lookahead {verdict} to plain greedy; {steps} verify blocks (T = 9) and "
+        f"{singles} single steps, {after - singles - steps} draft tokens accepted, "
+        f"{after / max(1, steps + singles):.2f} tokens per dispatch; decode "
+        f"{spec.decode_tokens_per_s:.2f} tok/s speculated vs {plain.decode_tokens_per_s:.2f} "
+        f"tok/s plain (fused chunks of 16)")
+
+    # paged: one stream through a scheduler built with FEI_TPU_SPECULATE=1
+    with env_vars(FEI_TPU_SPECULATE="1"):
+        eng = InferenceEngine.from_config(
+            dense.cfg.name, dtype=dense.dtype, params=dense.params, max_seq_len=SPEC_PAGED_SEQ,
+            device=dense.device, paged=True, batch_size=2, page_size=PAGE)
+    sched = eng.scheduler
+    check(sched.speculate and sched.spec_ngram == 3 and sched.spec_draft_len == 8,
+          "the scheduler did not read FEI_TPU_SPECULATE / FEI_TPU_SPEC_* with their defaults")
+    sched.speculate = False
+    t0 = time.perf_counter()
+    want = list(sched.stream(prompt, gen))
+    plain_s = time.perf_counter() - t0
+    sched.speculate = True
+    dis0 = counter("scheduler.spec_disabled")
+
+    def spec_run(label, drafts=None):
+        if drafts is not None:
+            eng._find_draft = drafts
+        s0, a0 = counter("scheduler.spec_steps"), counter("scheduler.spec_accepted")
+        reset_counts()
+        t0 = time.perf_counter()
+        got = list(sched.stream(prompt, gen))
+        wall = time.perf_counter() - t0
+        counts = read_counts()
+        add(counts)
+        eng.__dict__.pop("_find_draft", None)
+        n_steps = int(counter("scheduler.spec_steps") - s0)
+        n_acc = int(counter("scheduler.spec_accepted") - a0)
+        check(counts["paged_attention_block"] >= n_steps * L,
+              f"{label}: {n_steps} verify steps but {counts['paged_attention_block']} launches "
+              f"of K2's block form")
+        v = same_or_tie(dense, prompt, want, got, f"spec paged {label}")
+        log(f"spec paged ({label}): {v} to the unspeculated stream; {n_steps} verify steps, "
+            f"{n_acc} draft tokens accepted, {(n_acc + n_steps) / max(1, n_steps):.2f} tokens "
+            f"per verify; {len(got)} tokens in {wall:.3f} s ({len(got) / wall:.2f} tok/s; "
+            f"unspeculated {len(want) / plain_s:.2f} tok/s); launches {counts}")
+        return got, n_steps, n_acc
+
+    oracle, nat_steps, _ = spec_run("natural drafts")
+    n = len(prompt)
+    # the model's own continuation as the draft: the previous speculated
+    # stream, so that a verify reproduces it (the unspeculated stream may
+    # part from it at a tie, after which it is not the model's continuation)
+    for rnd in range(1, 4):
+        oracle, o_steps, o_acc = spec_run(
+            f"oracle drafts, round {rnd}",
+            lambda ids, ng, dl, prev=oracle: list(prev[len(ids) - n:len(ids) - n + dl]) or None)
+        if o_steps and (o_acc + o_steps) / o_steps > 2:
+            break
+    check(nat_steps + o_steps > 0, "the paged scheduler never speculated")
+    check(o_steps > 0 and (o_acc + o_steps) / o_steps > 2,
+          f"oracle drafts gave {(o_acc + o_steps) / max(1, o_steps):.2f} tokens per verify (<= 2)")
+
+    # a tool-call turn whose trigger the model reaches inside a verified
+    # block: the rest of the block is dropped and the DFA takes over
+    g = compile_agent_tool_grammar(SPEC_TOOLS, eng.tokenizer)
+
+    def completes_at(text: str, k: int) -> bool:
+        """The scheduler's trigger scan finds ``text`` first at token k."""
+        scan = TriggerScanner(eng.tokenizer, text)
+        return [scan.feed(t) is not None for t in oracle[:k]].index(True) == k - 1
+
+    trigger = next((t for k in range(3, 40) if (t := eng.tokenizer.decode(oracle[:k]))
+                    and completes_at(t, k)), None)
+    check(trigger is not None, "no trigger text completes in the model's first 40 tokens")
+    eng._find_draft = lambda ids, ng, dl: list(oracle[len(ids) - n:len(ids) - n + dl]) or None
+    s0 = counter("scheduler.spec_steps")
+    reset_counts()
+    toks = list(eng.generate_stream_toolcalls(
+        prompt, GenerationConfig(max_new_tokens=96, ignore_eos=True), grammar=g,
+        trigger=trigger))
+    add(read_counts())
+    del eng._find_draft
+    text = eng.tokenizer.decode(toks)
+    call = text.split(trigger, 1)[1] if trigger in text else ""
+    check(call.endswith("</tool_call>"), f"the speculated tool turn made no call: {text[-80:]!r}")
+    payload = call[: -len("</tool_call>")]
+    check(json.loads(payload)["name"] == "LS" and char_walk(g, payload) == g.accept,
+          f"the speculated tool call is not valid: {payload!r}")
+    tool_steps = int(counter("scheduler.spec_steps") - s0)
+    check(tool_steps > 0, "the tool turn's free phase did not speculate")
+    check(counter("scheduler.spec_disabled") == dis0, "speculation was disabled")
+    log(f"spec tool turn: trigger {trigger!r} reached inside a verified block ({tool_steps} "
+        f"verify steps), then the grammar: valid call {payload!r}")
+    eng.close()
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launched
+
+
+# --------------------------------------------------------------------- MoE
+
+MOE_PROMPT = 1500
+MOE_LENS = (96, 200, 700, 1500)  # two dense admissions, two chunked
+MOE_NEW = 32
+MOE_SEQ = 4096
+MOE_LAYER_TOL = 1e-2
+MOE_TOL = 0.25
+MOE_GAP_ULPS = 2.0  # a paged stream's first split from the dense engine's (F1)
+MOE_TRAIN_TOKENS = 2049
+
+
+def moe_decode_bounds(cfg, params) -> tuple[float, float]:
+    """Batch-1 decode tok/s at the memory peak: one read of every weight a
+    step streams (the dense formulation reads every expert), and the same
+    with only the top-k experts of each layer read."""
+    from fei_tpu_torch.ops.quant import param_bytes
+
+    every = weight_stream_bytes(params)
+    experts = sum(param_bytes(params["layers"][k]) for k in ("w_gate", "w_up", "w_down"))
+    topk = every - experts + experts * cfg.num_experts_per_tok / cfg.num_experts
+    return PEAK_BYTES_PER_S / every, PEAK_BYTES_PER_S / topk
+
+
+def stepped_divergence(dense, prompt, want, got) -> tuple[int, float, bool]:
+    """Where two streams first part, read by the dense engine as it decoded
+    ``want``: its prefill of the prompt (the form the engine's prefill
+    takes), then one T=1 forward a token of ``want`` with
+    ``routed_moe=True`` (under ``_ROUTED_MIN_TOKENS``, the oracle), as its
+    fused decode steps. Returns (position j, logit(want[j]) - logit(got[j])
+    in bf16 ulps of the larger, whether the read's argmax reproduces
+    ``want[:j + 1]``: that the witness is the dense stream itself)."""
+    from fei_tpu_torch.models.llama import forward
+
+    j = next(i for i, (a, b) in enumerate(zip(want, got)) if a != b)
+    logits, cache = dense.prefill([list(prompt)], dense.new_cache(1))
+    rows = [logits[0]]
+    live = torch.ones(1, dtype=torch.bool, device=dense.device)
+    for t in want[:j]:
+        tok = torch.tensor([[t]], dtype=torch.int32, device=dense.device)
+        out, cache = forward(dense.params, dense.cfg, tok, cache, live=live, routed_moe=True)
+        rows.append(out[0, -1])
+    rows = torch.stack(rows)
+    pair = rows[j, [want[j], got[j]]]
+    _, exp = torch.frexp(pair.abs().max())
+    gap = (pair[0] - pair[1]).item() / 2.0 ** (exp.item() - 8)
+    return j, gap, rows.argmax(-1).tolist() == list(want[:j + 1])
+
+
+def drop_second_expert(route):
+    """A mutant router: each token's second expert gets weight 0."""
+    def mutant(logits, k):
+        w, idx = route(logits, k)
+        keep = torch.zeros(k, dtype=w.dtype, device=w.device)
+        keep[0] = 1.0
+        return w * keep, idx
+
+    return mutant
+
+
+def moe_phase(card: str) -> dict:
+    """mixtral-8x7b at full width and depth on the card: int8 weights
+    (``moe_int8``), one int4 prefill (``moe_int4``), a training step on two
+    layers at Mixtral's widths (``moe_train``), each part's tensors freed
+    before the next. Returns the kernel launches of the MoE path's runs,
+    each counted from 0 just before it (the oracle, the mutant, the repeat,
+    the dense references and the plain-attention gradients are not
+    counted)."""
+    launched = dict.fromkeys(read_counts(), 0)
+
+    def add(counts):
+        for k, v in counts.items():
+            launched[k] += v
+
+    for part in (moe_int8, moe_int4, moe_train):
+        part(card, add)
+        gc.collect()
+        torch.cuda.empty_cache()
+    return launched
+
+
+def moe_int8(card: str, add) -> None:
+    """int8 mixtral-8x7b: routed prefill against the dense oracle per layer
+    and at the logits, a mutant, two runs bitwise, dense decode, the paged
+    engine against the dense engine. ``add`` takes each run's launches."""
+    from fei_tpu_torch.engine import GenerationConfig, InferenceEngine
+    from fei_tpu_torch.models import llama
+    from fei_tpu_torch.ops import moe
+    from fei_tpu_torch.ops.quant import QTensor, param_bytes
+
+    t0 = time.perf_counter()
+    eng = InferenceEngine.from_config("mixtral-8x7b", dtype=torch.bfloat16, seed=SEED,
+                                      max_seq_len=MOE_SEQ, device="cuda", quantize="int8")
+    torch.cuda.synchronize()
+    cfg, L = eng.cfg, eng.cfg.num_layers
+    nbytes = param_bytes(eng.params)
+    bf16 = 2 * cfg.num_params()
+    log(f"moe: {cfg.name} L={L} h={cfg.hidden_size} I={cfg.intermediate_size} "
+        f"E={cfg.num_experts} top-{cfg.num_experts_per_tok} V={cfg.vocab_size}, int8: "
+        f"param_bytes {nbytes / 1e9:.3f} GB (bf16 {bf16 / 1e9:.3f} GB, past the card's "
+        f"80); random init in {time.perf_counter() - t0:.1f} s, "
+        f"{torch.cuda.memory_allocated() / 1e9:.2f} GB allocated")
+    check(40e9 < nbytes < 50e9, f"mixtral int8 param_bytes {nbytes}")
+    check(isinstance(eng.params["layers"]["w_up"], QTensor), "the experts are not int8")
+    prompt, prompts = moe_prompts(cfg)
+
+    def prefill():
+        logits, _ = eng.prefill([prompt], eng.new_cache(1))
+        torch.cuda.synchronize()
+        return logits
+
+    # the MoE path starts here: the routed prefill, every kernel count from 0;
+    # each layer's MoE input and output are kept for the per-layer checks
+    routed_io, oracle_in = [], []
+    real_moe = llama._moe
+
+    def keep(store, with_out):
+        def spy(cfg_, y, lp, allow_routed, moe_mesh=None):
+            out = real_moe(cfg_, y, lp, allow_routed, moe_mesh)
+            store.append((y, out) if with_out else y)
+            return out
+        return spy
+
+    routed_calls = []
+    real_routed = llama.moe_mlp_routed
+    llama.moe_mlp_routed = lambda *a: routed_calls.append(1) or real_routed(*a)
+    llama._moe = keep(routed_io, True)
+    try:
+        reset_counts()
+        logits = prefill()
+        counts = read_counts()
+        add(counts)
+    finally:
+        llama.moe_mlp_routed = real_routed
+        llama._moe = real_moe
+    check(counts["flash_attention_fwd"] == L, f"MoE prefill launches {counts} (K1 once a layer)")
+    check(len(routed_calls) == L, f"{len(routed_calls)} of {L} layers routed the prefill")
+    check(torch.isfinite(logits).all().item() and tuple(logits.shape) == (1, cfg.vocab_size),
+          "MoE prefill logits not finite or of the wrong shape")
+    t0 = time.perf_counter()
+    again = prefill()
+    t_routed = time.perf_counter() - t0
+    check(torch.equal(again, logits), "two routed prefills are not bitwise equal")
+    with env_vars(FEI_TPU_ROUTED_MOE="0"):
+        prefill()
+        t0 = time.perf_counter()
+        llama._moe = keep(oracle_in, False)
+        try:
+            oracle = prefill()
+        finally:
+            llama._moe = real_moe
+        t_dense = time.perf_counter() - t0
+    real_route = moe._route
+    moe._route = drop_second_expert(real_route)
+    try:
+        mutant = prefill()
+    finally:
+        moe._route = real_route
+
+    def rel(a, b):
+        return ((a.float() - b.float()).norm() / b.float().norm()).item()
+
+    # per layer, on the same input: the routed form against the oracle, and
+    # the mutant against the oracle. Tolerance: the two forms pick the same
+    # experts (one fp32 router product) and differ by bf16 roundings of the
+    # weighted expert outputs and their sum, ~2^-8 of the output; 1e-2
+    # leaves room for the per-expert products' other summation order
+    layer_rel, layer_mut, flips = [], [], []
+    k = cfg.num_experts_per_tok
+    for i, ((y, out), y_oracle) in enumerate(zip(routed_io, oracle_in)):
+        lp = llama.layer_params(eng.params, i)
+        args = (lp["router"], lp["w_gate"], lp["w_up"], lp["w_down"], k)
+        want = moe.moe_mlp(y, *args)
+        layer_rel.append(rel(out, want))
+        moe._route = drop_second_expert(real_route)
+        try:
+            layer_mut.append(rel(moe.moe_mlp_routed(y, *args), want))
+        finally:
+            moe._route = real_route
+        # tokens whose expert pair differs between the two runs' inputs
+        pick = [moe._route(t.reshape(-1, t.shape[-1]).float() @ lp["router"].float(), k)[1]
+                .sort(dim=-1).values for t in (y, y_oracle)]
+        flips.append(int((pick[0] != pick[1]).any(dim=-1).sum()))
+    del routed_io, oracle_in
+    log(f"moe: per layer on the same input, routed vs the dense oracle: worst rel_l2 "
+        f"{max(layer_rel):.4g} (tol {MOE_LAYER_TOL}); the dropped-expert mutant: least rel_l2 "
+        f"{min(layer_mut):.4g}; tokens whose expert pair differs between the routed and the "
+        f"oracle run's inputs, by layer: {flips} (of {len(prompt)} real and "
+        f"{2048 - len(prompt)} pad rows)")
+    check(max(layer_rel) <= MOE_LAYER_TOL, f"a routed MoE layer differs from the oracle by "
+          f"rel_l2 {max(layer_rel)} > {MOE_LAYER_TOL}")
+    check(min(layer_mut) > MOE_LAYER_TOL, "the dropped-expert mutant stays within the per-layer "
+          "tolerance")
+
+    # the whole model: expert pairs that flip between the two runs (above)
+    # change a token's MoE output by O(1), and attention carries it to the
+    # last position, so the logits' tolerance is the model's, not a layer's
+    err = (logits - oracle).abs().max().item()
+    log(f"moe: last-position prefill logits of {MOE_PROMPT} tokens (bucket 2048), routed vs "
+        f"the dense oracle (FEI_TPU_ROUTED_MOE=0): max_abs_diff={err:.6g}, "
+        f"rel_l2={rel(logits, oracle):.6g} (tol {MOE_TOL}), argmax {int(logits.argmax())} vs "
+        f"{int(oracle.argmax())}; the mutant: rel_l2={rel(mutant, oracle):.6g}; two routed runs "
+        f"bitwise equal; warm prefill {t_routed * 1e3:.1f} ms routed, {t_dense * 1e3:.1f} ms "
+        f"the oracle; the routed form copied its expert block sizes to the host "
+        f"{moe.ROUTED_SYNCS_PER_LAYER * len(routed_calls)} times a forward "
+        f"({moe.ROUTED_SYNCS_PER_LAYER} a layer)")
+    check(rel(logits, oracle) <= MOE_TOL, f"routed vs oracle logits rel_l2 "
+          f"{rel(logits, oracle)} > {MOE_TOL}")
+    check(rel(mutant, oracle) > MOE_TOL, f"the dropped-expert mutant stays within {MOE_TOL}")
+    del oracle, mutant, again
+
+    # the dense formulation's bf16 copy of each int8 expert leaf
+    leaf = eng.params["layers"]["w_gate"].q[0]
+    copy_ms = cuda_ms(lambda: leaf.to(torch.bfloat16), iters=5, warmup=1)
+    ttft_bound, _ = serving_bounds(cfg, MOE_PROMPT, MOE_NEW, weight_stream_bytes(eng.params))
+    reset_counts()
+    res = eng.generate(prompt, GenerationConfig(max_new_tokens=MOE_NEW, ignore_eos=True,
+                                                chunk=16))
+    add(read_counts())
+    check(len(res.token_ids) == MOE_NEW and all(0 <= t < cfg.vocab_size for t in res.token_ids),
+          "MoE dense decode")
+    every, topk = moe_decode_bounds(cfg, eng.params)
+    log(f"moe: dense engine on {card}: TTFT {res.ttft_s * 1e3:.1f} ms (bound "
+        f"{ttft_bound:.1f} ms), {MOE_NEW} greedy tokens at {res.decode_tokens_per_s:.2f} tok/s, "
+        f"{1e3 / res.decode_tokens_per_s:.1f} ms a token; bound {every:.1f} tok/s reading every "
+        f"expert (the dense formulation), {topk:.1f} tok/s reading the top-"
+        f"{cfg.num_experts_per_tok}; each step casts every int8 expert leaf to a bf16 copy "
+        f"({leaf.numel() * 2 / 1e9:.3f} GB, {copy_ms:.3f} ms each, {3 * L * copy_ms:.1f} ms "
+        f"a token for the {3 * L} leaves)")
+
+    # the paged engine: short prompts through dense admission (a routed
+    # prefill, as the dense engine's), long ones in chunks (the oracle, as
+    # the JAX package's paged chunks) merged with live decode
+    gen = GenerationConfig(max_new_tokens=MOE_NEW, ignore_eos=True)
+    paged = InferenceEngine.from_config("mixtral-8x7b", dtype=torch.bfloat16, params=eng.params,
+                                        max_seq_len=MOE_SEQ, device="cuda", paged=True,
+                                        batch_size=4, page_size=PAGE)
+    chunk = paged.scheduler.prefill_chunk
+    merged0 = counter("engine.ragged_dispatches")
+    reset_counts()
+    run = traffic(paged, prompts, MOE_NEW)
+    counts = read_counts()
+    add(counts)
+    merged = counter("engine.ragged_dispatches") - merged0
+    check(counts["ragged_paged_attention"] > 0 and merged > 0, "no merged MoE dispatch (K3)")
+    check(counts["paged_attention_block"] > 0 and counts["flash_attention_fwd"] > 0,
+          f"MoE paged launches {counts}")
+    check(all(len(s) == MOE_NEW and all(0 <= t < cfg.vocab_size for t in s)
+              for s in run["streams"]), "MoE paged streams")
+    total = sum(len(s) for s in run["streams"])
+    log(f"moe: paged engine (4 rows, {PAGE}-slot pages), prompts {list(MOE_LENS)}, {MOE_NEW} "
+        f"tokens each on {card}: {merged:.0f} merged dispatches; {total} tokens in "
+        f"{run['wall']:.2f} s ({total / run['wall']:.2f} tok/s); TTFT "
+        f"{[round(x * 1e3, 1) for x in run['ttft']]} ms; launches {counts}")
+    # the merged dispatch off: the chunks through K2's block form alone
+    paged.scheduler.ragged_attention = False
+    check(traffic(paged, prompts, MOE_NEW)["streams"] == run["streams"],
+          "MoE paged streams changed with ragged_attention=False")
+    paged.scheduler.ragged_attention = True
+    # against the dense engine, under the formulation each route takes
+    # (dense admission routes; chunks take the oracle), each stream's first
+    # split read by the dense engine itself (stepped_divergence); then the
+    # same for the paged engine under the dropped-second-expert mutant
+    wants = []
+    for p in prompts:
+        with env_vars(FEI_TPU_ROUTED_MOE=None if len(p) <= chunk else "0"):
+            wants.append(eng.generate(p, gen).token_ids)
+
+    def splits(streams):
+        out = []
+        for p, want, got in zip(prompts, wants, streams):
+            if got == want:
+                out.append(None)
+                continue
+            with env_vars(FEI_TPU_ROUTED_MOE=None if len(p) <= chunk else "0"):
+                j, gap, same = stepped_divergence(eng, p, want, got)
+            out.append((j, round(gap, 3), same))
+        return out
+
+    longs = [p for p in prompts if len(p) > chunk]
+
+    def worst(found):
+        """The largest gap at a split F1's rule holds: every split but a
+        chunked prompt's first token, which its chunked prefill gives (held
+        below by its logits against the dense prefill's)."""
+        return max((s[1] for p, s in zip(prompts, found)
+                    if s is not None and (len(p) <= chunk or s[0] > 0)), default=0.0)
+
+    sound = splits(run["streams"])
+    for p, want, got in zip(prompts, wants, run["streams"]):
+        if len(p) <= chunk:  # the same routed prefill: the same first token
+            check(got[0] == want[0], f"MoE stream of prompt {len(p)}: first token {got[0]} "
+                  f"!= the dense engine's {want[0]}")
+
+    def chunked_rel(dense_logits):
+        """rel_l2 of each chunked prompt's last-position logits, the chunked
+        paged prefill against the dense engine's whole prefill (both the
+        oracle)."""
+        with env_vars(FEI_TPU_ROUTED_MOE="0"):
+            return [round(rel(chunked_paged_logits(paged, p), d), 6)
+                    for p, d in zip(longs, dense_logits)]
+
+    with env_vars(FEI_TPU_ROUTED_MOE="0"):
+        dls = [eng.prefill([p], eng.new_cache(1))[0] for p in longs]
+    sound_rel = chunked_rel(dls)
+    moe._route = drop_second_expert(real_route)
+    try:
+        mutant_streams = traffic(paged, prompts, MOE_NEW)["streams"]
+        mutant_rel = chunked_rel(dls)
+    finally:
+        moe._route = real_route
+    mutant = splits(mutant_streams)
+    log(f"moe: paged streams against the dense engine's, (first split, dense logit gap in "
+        f"bf16 ulps, the read reproduces the dense stream) or None where equal: {sound}, "
+        f"worst {worst(sound)} past a chunked prompt's first token (tol {MOE_GAP_ULPS}); the "
+        f"dropped-second-expert mutant on the paged engine: {mutant}, worst {worst(mutant)}; "
+        f"chunked paged prefill of {[len(p) for p in longs]} tokens vs the dense prefill "
+        f"(both the oracle): rel_l2 {sound_rel} (tol {MOE_TOL}), the mutant's {mutant_rel}; "
+        f"ragged_attention=False gives the same four streams")
+    check(all(s[2] for s in sound + mutant if s is not None), "a stepped read does not "
+          "reproduce the dense engine's stream")
+    check(worst(sound) <= MOE_GAP_ULPS, f"a MoE paged stream first leaves the dense engine's "
+          f"at a gap of {worst(sound)} bf16 ulps > {MOE_GAP_ULPS}")
+    check(worst(mutant) > MOE_GAP_ULPS, f"the mutant's paged streams stay within "
+          f"{MOE_GAP_ULPS} ulps of the dense engine's")
+    check(max(sound_rel) <= MOE_TOL, f"MoE chunked paged prefill rel_l2 {sound_rel} > {MOE_TOL}")
+    check(max(mutant_rel) > MOE_TOL, f"the mutant's chunked paged prefills stay within "
+          f"{MOE_TOL}: {mutant_rel}")
+    paged.close()
+
+
+def moe_prompts(cfg) -> tuple[list[int], list[list[int]]]:
+    """The MoE phase's prefill prompt (``MOE_PROMPT`` ids), then its paged
+    engine's prompts (``MOE_LENS``), drawn in that order from one generator."""
+    rng = np.random.default_rng(SEED + 7)
+    prompt = rng.integers(8, cfg.vocab_size, size=MOE_PROMPT).tolist()
+    return prompt, [rng.integers(8, cfg.vocab_size, size=n).tolist() for n in MOE_LENS]
+
+
+def moe_int4(card: str, add) -> None:
+    """int4 mixtral-8x7b: K4 on the attention projections, the experts int8."""
+    from fei_tpu_torch.engine import InferenceEngine
+    from fei_tpu_torch.ops.quant import QTensor, QTensor4, param_bytes
+
+    t0 = time.perf_counter()
+    eng4 = InferenceEngine.from_config("mixtral-8x7b", dtype=torch.bfloat16, seed=SEED,
+                                       max_seq_len=MOE_SEQ, device="cuda", quantize="int4")
+    torch.cuda.synchronize()
+    lay = eng4.params["layers"]
+    check(isinstance(lay["wq"], QTensor4) and isinstance(lay["w_down"], QTensor),
+          "int4 mode: the attention is not int4 or the experts are not int8")
+    L = eng4.cfg.num_layers
+    reset_counts()
+    logits4, _ = eng4.prefill([moe_prompts(eng4.cfg)[0]], eng4.new_cache(1))
+    torch.cuda.synchronize()
+    counts = read_counts()
+    add(counts)
+    check(counts["int4_matmul"] == 4 * L, f"int4 MoE prefill launched K4 {counts['int4_matmul']} "
+          f"times, expected {4 * L} (wq, wk, wv, wo)")
+    check(torch.isfinite(logits4).all().item(), "int4 MoE prefill logits not finite")
+    log(f"moe int4: param_bytes {param_bytes(eng4.params) / 1e9:.3f} GB (init "
+        f"{time.perf_counter() - t0:.1f} s); a {MOE_PROMPT}-token prefill launched K4 "
+        f"{counts['int4_matmul']} times, K1 {counts['flash_attention_fwd']}; logits finite")
+
+
+def moe_train(card: str, add) -> None:
+    """One training step on two layers at Mixtral's widths (the dense
+    oracle in every MoE layer, as the JAX package trains), then its
+    gradients through the kernels against ``flash=False``."""
+    from fei_tpu_torch.engine.train import TrainConfig, loss_and_grads, make_train_step
+    from fei_tpu_torch.models import llama
+    from fei_tpu_torch.models.configs import get_model_config
+    from fei_tpu_torch.ops import moe
+    from fei_tpu_torch.ops.quant import param_bytes
+    from fei_tpu_torch.utils.tree import flatten
+
+    rng = np.random.default_rng(SEED + 8)
+    cfg2 = get_model_config("mixtral-8x7b", num_layers=2)
+    params = llama.init_params(cfg2, seed=SEED, dtype=torch.bfloat16, device="cuda")
+    tokens = torch.from_numpy(rng.integers(8, cfg2.vocab_size, size=(1, MOE_TRAIN_TOKENS)))
+    opt, step = make_train_step(cfg2, TrainConfig(remat=True))
+    state = opt.init(params)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    params, state, loss = step(params, state, tokens)
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) * 1e3
+    counts = read_counts()
+    add(counts)
+    got = (counts["flash_attention_fwd"], counts["flash_attention_bwd_dq"],
+           counts["flash_attention_bwd_dkv"])
+    check(math.isfinite(float(loss)), f"MoE training loss {float(loss)}")
+    check(got == (4, 2, 2), f"the MoE step launched K1/K5a/K5b {got}, expected (4, 2, 2)")
+    log(f"moe train: 2 layers at {cfg2.name}'s widths ({param_bytes(params) / 1e9:.3f} GB bf16, "
+        f"two moments), T = {MOE_TRAIN_TOKENS - 1}: loss {float(loss):.4f}, step "
+        f"{step_ms:.1f} ms, peak {torch.cuda.max_memory_allocated() / 1e9:.2f} GB; K1/K5a/K5b {got}")
+    del opt, state
+    gc.collect()
+    torch.cuda.empty_cache()
+    # the gradients through the kernels against the plain attention's. The
+    # attention roundings differ, so a token whose router logits nearly tie
+    # may pick another expert pair in the plain run; the check holds the
+    # plain run to the kernel run's expert choices (the router's softmax
+    # over the chosen logits still its own) and logs the free run beside it
+    picks = []
+    real_route = moe._route
+
+    def recorded(logits, k):
+        w, idx = real_route(logits, k)
+        picks.append(idx)
+        return w, idx
+
+    def replayed(choices):
+        it = iter(choices)
+
+        def route(logits, k):
+            idx = next(it)
+            return torch.softmax(logits.gather(-1, idx), dim=-1), idx
+        return route
+
+    try:
+        moe._route = recorded
+        loss_k, grads_k = loss_and_grads(params, cfg2, tokens, remat=True)
+        kernel_picks, picks = picks, []
+        before = read_counts()
+        loss_f, grads_f = loss_and_grads(params, cfg2, tokens, remat=True, flash=False)
+        free_picks = picks
+        moe._route = replayed(kernel_picks)
+        loss_p, grads_p = loss_and_grads(params, cfg2, tokens, remat=True, flash=False)
+    finally:
+        moe._route = real_route
+    check(read_counts() == before, "flash=False launched a flash kernel")
+
+    def rel(a, b):
+        return ((a.float() - b.float()).norm() / b.float().norm().clamp_min(1e-30)).item()
+
+    flips = [int((a.sort(-1).values != b.sort(-1).values).any(-1).sum())
+             for a, b in zip(kernel_picks[:2], free_picks[:2])]
+    free_worst = max((rel(gk, gf), path) for (path, gk), gf in
+                     zip(flatten(grads_k).items(), flatten(grads_f).values()))
+    del grads_f
+    worst = ("", 0.0)
+    for (path, gk), gp in zip(flatten(grads_k).items(), flatten(grads_p).values()):
+        r = rel(gk, gp)
+        # tolerance: phase 18's at two layers (bf16 roundings of attention)
+        check(math.isfinite(r) and r <= 5e-2, f"MoE gradient of {path}: rel_l2 {r} > 5e-2")
+        worst = max(worst, (path, r), key=lambda x: x[1])
+    check(abs(float(loss_k) - float(loss_p)) <= 1e-2, "MoE kernel and plain losses differ")
+    log(f"moe train: gradients through K1/K5a/K5b vs the plain attention, the expert choices "
+        f"held: worst rel_l2 {worst[1]:.4g} at {worst[0]} (tol 5e-2), loss {float(loss_k):.6f} "
+        f"vs {float(loss_p):.6f}; free (the plain run routing itself: {flips} of "
+        f"{tokens.shape[1] - 1} tokens picked another expert pair in layers 1, 2): worst rel_l2 "
+        f"{free_worst[0]:.4g} at {free_worst[1]}, loss {float(loss_f):.6f}")
+
+
 # ---------------------------------------------------------------- training
 
 TRAIN_LAYERS = 32  # llama3-8b's full depth
@@ -4697,6 +5366,16 @@ def main() -> int:
             list(pool.map(build.build, KERNELS[:1] + KERNELS[2:4]))
         serve_rates(card)
         return 0
+    if sys.argv[1:] == ["--spec"]:
+        with ThreadPoolExecutor(3) as pool:
+            list(pool.map(build.build, KERNELS[:1] + KERNELS[2:4]))
+        log(f"speculation path: launches {spec_phase(kv_weights(), card)}")
+        return 0
+    if sys.argv[1:] == ["--moe"]:
+        with ThreadPoolExecutor(len(KERNELS)) as pool:
+            list(pool.map(build.build, KERNELS))
+        log(f"MoE path: launches {moe_phase(card)}")
+        return 0
     if sys.argv[1:] == ["--tools"]:
         from fei_tpu_torch.engine import InferenceEngine
 
@@ -4734,6 +5413,7 @@ def main() -> int:
     int4_record = int4_kernel_phase(card)
     stamp("kernels")
 
+    from fei_tpu_torch.engine import InferenceEngine
     from fei_tpu_torch.ops.kernels.flash_attention import flash_attention
 
     # the dense path (engine, then serve) and the paged path (paged engine,
@@ -4760,17 +5440,25 @@ def main() -> int:
     launches_tools = tools_phase(engine, paged_engine, card)
     log(f"agent tools path: launches {launches_tools}")
     stamp("agent tools")
-    # the survival path (counts each of its runs from 0 itself), same weights
-    launches_s = survival_phase(engine, paged_engine, card)
+    paged_engine.close()
+    # the survival, KV and fleet paths (each counts its runs from 0 itself),
+    # on the first KV_LAYERS layers of the same weights (cut for time)
+    kv16 = kv_depth(engine)
+    paged16 = InferenceEngine.from_config(
+        kv16.cfg.name, dtype=kv16.dtype, params=kv16.params, max_seq_len=kv16.max_seq_len,
+        device=kv16.device, paged=True, batch_size=8, page_size=PAGE, num_layers=KV_LAYERS)
+    launches_s = survival_phase(kv16, paged16, card)
+    paged16.close()
+    del paged16
     log(f"survival path: launches {launches_s}")
     stamp("survival")
-    paged_engine.close()
-    # the KV tier path (counts each of its tier-on runs from 0 itself)
-    kv16 = kv_depth(engine)
+    # the speculation path (counts each of its runs from 0 itself), all 32 layers
+    launches_spec = spec_phase(engine, card)
+    log(f"speculation path: launches {launches_spec}")
+    stamp("speculation")
     launches_kv = kv_phase(kv16, card)
     log(f"kv path: launches {launches_kv}")
     stamp("kv")
-    # the fleet path (counts each of its runs from 0 itself), same 16 layers
     launches_f = fleet_phase(kv16, card)
     del kv16
     log(f"fleet path: launches {launches_f}")
@@ -4797,6 +5485,12 @@ def main() -> int:
         # replicas (K2) and merges long prompts' chunks with decode (K3)
         rec["launches_fleet"] = launches_f[rec["name"]]
         check(rec["launches_fleet"] > 0, f"the fleet path never launched {rec['name']}")
+        # the speculation path prefills densely (K1) and verifies through
+        # K2's block form; one stream merges nothing (K3)
+        if launches_spec[rec["name"]]:
+            rec["launches_spec"] = launches_spec[rec["name"]]
+    check(launches_spec["paged_attention_block"] > 0 and launches_spec["flash_attention_fwd"] > 0,
+          f"the speculation path launched {launches_spec}")
     log(f"paged path (main run): launches {launches}")
 
     # the quantized paths, after the bf16 engines are released
@@ -4814,10 +5508,16 @@ def main() -> int:
     log(f"int4 paged path (main run): launches {launches4}")
     stamp("quantized")
 
-    # the training path, after the quantized engines are released
+    # the MoE path, after the quantized engines are released (counts each
+    # of its runs from 0 itself)
     del dense4
     gc.collect()
     torch.cuda.empty_cache()
+    launches_moe = moe_phase(card)
+    log(f"MoE path: launches {launches_moe}")
+    stamp("moe")
+
+    # the training path
     launches_t = train_phase(card)
     for rec in bwd_records:
         rec["launches"] = launches_t[rec["name"]]
@@ -4831,6 +5531,12 @@ def main() -> int:
           f"the training path launched K1 {records[0]['launches_training']} times")
     log(f"training path ({TRAIN_STEPS} steps): launches {launches_t}")
     stamp("training")
+    # the MoE path runs every kernel: K1 (prefills), K2 (paged decode, the
+    # block form in chunks), K3 (merged), K4 (int4), K5a/K5b (training)
+    for rec in records:
+        rec["launches_moe"] = launches_moe[rec["name"]]
+        check(rec["launches_moe"] > 0, f"the MoE path never launched {rec['name']}")
+    check(launches_moe["paged_attention_block"] > 0, "the MoE path never ran K2's block form")
     log(f"phase seconds on {card}: {json.dumps(phase_s)}; "
         f"in all {time.perf_counter() - t0:.1f} s")
 

@@ -326,20 +326,32 @@ class TorchLocalProvider(Provider):
         if resume is not None and grammar is not None:
             raise ProviderError(
                 "mid-stream resume is not supported for tool-grammar turns")
-        if grammar is not None:
-            stream_fn = functools.partial(
-                self.engine.generate_stream_toolcalls,
-                grammar=grammar, trigger=self.tool_trigger,
-            )
-        else:
-            stream_fn = functools.partial(self.engine.generate_stream,
-                                          export=export, resume=resume)
         full = self._messages_with_system(messages, system, tools)
         ids = self.engine.tokenizer.apply_chat_template(full, add_generation_prompt=True)
         gen = self._GenerationConfig(
             max_new_tokens=max_tokens,
             **{**self.gen_overrides, **(gen_overrides or {})},
         )
+        # prompt-lookup speculation is opt-in (FEI_TPU_SPECULATE=1), as in
+        # the JAX package: a greedy dense turn with no grammar and no
+        # resume takes the lookahead stream (greedy's tokens); a paged
+        # engine speculates inside its scheduler
+        speculate = (
+            gen.temperature == 0.0
+            and not self.engine.paged
+            and grammar is None
+            and os.environ.get("FEI_TPU_SPECULATE", "0") == "1"
+        )
+        if grammar is not None:
+            stream_fn = functools.partial(
+                self.engine.generate_stream_toolcalls,
+                grammar=grammar, trigger=self.tool_trigger,
+            )
+        elif speculate and resume is None:
+            stream_fn = self.engine.generate_stream_lookahead
+        else:
+            stream_fn = functools.partial(self.engine.generate_stream,
+                                          export=export, resume=resume)
         out_ids: list[int] = []
         # Incremental decode: decode a bounded pending window and fold it
         # into ``stable`` at every clean UTF-8 boundary (no trailing

@@ -23,6 +23,16 @@
   quantized at init or while a checkpoint is read (``ops.quant``); int4
   products run the K4 kernel, dense and paged alike.
 
+- **Prompt-lookup speculation** (``generate_stream_lookahead``, which
+  greedy ``chat`` turns use): a repeated n-gram proposes the tokens that
+  followed it, one forward of ``1 + draft_len`` tokens verifies them, and
+  the cache's length is cut back to the accepted ones.
+
+- **MoE** (Mixtral): every dense forward lets its MoE layers take the
+  token-routed form (``routed_moe=True``: the JAX engine's ``routed =
+  mesh is None``; one card has no mesh), which ``models.llama._moe``
+  takes from ``_ROUTED_MIN_TOKENS`` tokens (prefill, verify blocks of 16+).
+
 - **Constrained tool calls** (``generate_constrained``,
   ``generate_stream_toolcalls``): the grammar's DFA steps on the device
   inside each decode chunk (``_grammar_fused_fn``: the state's table row,
@@ -37,10 +47,12 @@ raises ``EngineError`` when CUDA is asked for and missing.
 
 from __future__ import annotations
 
+import functools
 import time
 from dataclasses import dataclass
 from typing import Callable, Iterator, Sequence
 
+import numpy as np
 import torch
 
 from fei_tpu_torch.engine.fused_decode import (
@@ -57,7 +69,6 @@ from fei_tpu_torch.models.llama import (
     QUANT_MODES,
     KVCache,
     _logits,
-    check_supported,
     forward,
     init_params,
 )
@@ -233,14 +244,12 @@ class InferenceEngine:
         dev = resolve_device(device)
         cfg = get_model_config(name, **overrides)
         tok = load_tokenizer(tokenizer)
-        if params is not None:
-            check_supported(cfg)
-        elif checkpoint_dir:
+        if params is None and checkpoint_dir:
             from fei_tpu_torch.engine.weights import load_checkpoint
 
             cfg, params = load_checkpoint(checkpoint_dir, cfg, dtype=dtype, device=dev,
                                           **qkw)
-        else:
+        elif params is None:
             params = init_params(cfg, seed=seed, dtype=dtype, device=dev, **qkw)
         return cls(
             cfg, params, tok, max_seq_len=max_seq_len, batch_size=batch_size,
@@ -414,7 +423,7 @@ class InferenceEngine:
     def _step(self, gen: GenerationConfig, cache, token, key, logit_mask=None):
         """One decode step: forward T=1, optional mask, split the key and
         sample on device. Returns (next_token [B] int32, cache, key)."""
-        logits, cache = forward(self.params, self.cfg, token, cache)
+        logits, cache = forward(self.params, self.cfg, token, cache, routed_moe=True)
         logits = logits[:, -1, :]
         if logit_mask is not None:
             logits = torch.where(logit_mask, logits, float("-inf"))
@@ -427,7 +436,8 @@ class InferenceEngine:
 
     def _free_fused_fn(self, gen: GenerationConfig, n_steps: int) -> Callable:
         """The N-step fused free-decode function (fused_decode)."""
-        return build_fused_decode(forward, self.cfg, gen, n_steps)
+        return build_fused_decode(functools.partial(forward, routed_moe=True),
+                                  self.cfg, gen, n_steps)
 
     def _grammar_fused_fn(self, gen: GenerationConfig, n_steps: int) -> Callable:
         """Constrained fused decode: the grammar's DFA steps on the device
@@ -451,7 +461,7 @@ class InferenceEngine:
         def fused(params, cache, token, key, gstate, remaining, table, min_dist):
             toks = []
             for _ in range(n_steps):
-                logits, cache = forward(params, cfg, token, cache)
+                logits, cache = forward(params, cfg, token, cache, routed_moe=True)
                 logits, advance = grammar_step(
                     logits[:, -1, :], table, min_dist, gstate, remaining)
                 key, sub = _split_if_sampled(gen, key)
@@ -505,7 +515,8 @@ class InferenceEngine:
         )
         true_len = torch.tensor(lengths, dtype=torch.int32, device=self.device)
         hidden, cache = forward(
-            self.params, self.cfg, padded, cache, lm_head=False, flash=flash
+            self.params, self.cfg, padded, cache, lm_head=False, flash=flash,
+            routed_moe=True,
         )
         # padding wrote garbage kv beyond each true length; resetting the
         # length masks it out of attention and decode overwrites it
@@ -903,6 +914,111 @@ class InferenceEngine:
         gen = gen or GenerationConfig()
         return self._collect(self.generate_stream(prompt_ids, gen, **kw), len(prompt_ids))
 
+    @staticmethod
+    def _find_draft(
+        ids: list[int], ngram: int, draft_len: int, window: int = 2048
+    ) -> list[int] | None:
+        """Prompt-lookup draft: the newest earlier occurrence of the last
+        ``ngram`` tokens (within ``window`` positions) proposes the tokens
+        that followed it."""
+        if len(ids) <= ngram:
+            return None
+        arr = np.asarray(ids[-window:], dtype=np.int32)
+        tail = arr[-ngram:]
+        if arr.size <= ngram:
+            return None
+        wins = np.lib.stride_tricks.sliding_window_view(arr[:-1], ngram)
+        hits = np.nonzero((wins == tail).all(axis=1))[0]
+        # the final window (ending at the tail itself) is not a repeat
+        hits = hits[hits < arr.size - ngram]
+        if hits.size == 0:
+            return None
+        j = int(hits[-1])  # the newest repeat predicts best in agent loops
+        draft = arr[j + ngram : j + ngram + draft_len].tolist()
+        return draft or None
+
+    def generate_stream_lookahead(
+        self,
+        prompt_ids: Sequence[int],
+        gen: GenerationConfig | None = None,
+        ngram: int = 3,
+        draft_len: int = 8,
+    ) -> Iterator[int]:
+        """Greedy streaming decode with prompt-lookup speculation: when the
+        last ``ngram`` tokens repeat earlier context, the tokens that
+        followed are verified in ONE forward of ``T = 1 + draft_len`` tokens
+        and accepted while they equal the model's own argmax, so the stream
+        is greedy ``generate_stream``'s. The verify writes T K/V rows;
+        the cache's length is cut to the accepted ones and later writes
+        overwrite the rest. No draft, or no room for a block: one plain
+        step. Sampled configs and paged engines take the normal stream."""
+        gen = gen or GenerationConfig()
+        if gen.temperature != 0.0 or self.paged:
+            yield from self.generate_stream(prompt_ids, gen)
+            return
+        stops = self._stops(gen)
+        budget = min(gen.max_new_tokens, self.max_seq_len - len(prompt_ids))
+        tok, cache, key = self._prefill_sample(prompt_ids, gen)
+        emitted_n = 0
+        last = self._host_first(tok)
+        all_ids = list(prompt_ids)
+        T = 1 + draft_len
+        while emitted_n < budget and last not in stops:
+            yield last
+            emitted_n += 1
+            all_ids.append(last)
+            if emitted_n >= budget:
+                break
+            pos = len(all_ids)  # tokens whose K/V the cache must hold next
+            draft = self._find_draft(all_ids, ngram, draft_len)
+            if draft is None or pos + T > self.max_seq_len:
+                with METRICS.span("decode_step"):
+                    tok, cache, key = self._step(
+                        gen, cache, torch.tensor([[last]], device=self.device), key)
+                    last = int(tok[0])
+                continue
+            draft = draft + [0] * (draft_len - len(draft))  # a static T
+            toks = torch.tensor([[last] + draft], dtype=torch.long, device=self.device)
+            with METRICS.span("spec_step"):
+                logits, cache = forward(self.params, self.cfg, toks, cache,
+                                        routed_moe=True)
+                greedy = torch.argmax(logits[0], dim=-1).tolist()
+            # greedy[i] is the model's token after toks[:i + 1]: accept the
+            # draft while it matches the model's own argmax
+            accept = 0
+            while accept < draft_len and draft[accept] == greedy[accept]:
+                accept += 1
+            block = greedy[: accept + 1]
+            # T rows were written, 1 + accept are real: the length masks
+            # the rest and later writes overwrite them
+            cache = cache._replace(length=torch.full(
+                (1,), pos + accept, dtype=torch.int32, device=self.device))
+            for t in block[:-1]:
+                if emitted_n >= budget or t in stops:
+                    last = t
+                    break
+                yield t
+                emitted_n += 1
+                all_ids.append(t)
+            else:
+                last = block[-1]
+                continue
+            break  # a stop or the budget inside the block
+
+    def generate_lookahead(
+        self,
+        prompt_ids: Sequence[int],
+        gen: GenerationConfig | None = None,
+        ngram: int = 3,
+        draft_len: int = 8,
+    ) -> GenerationResult:
+        """Collected form of ``generate_stream_lookahead`` with timings."""
+        gen = gen or GenerationConfig()
+        return self._collect(
+            self.generate_stream_lookahead(prompt_ids, gen, ngram=ngram,
+                                           draft_len=draft_len),
+            len(prompt_ids))
+
     def generate_fused(
         self,
         prompt_ids: Sequence[int],
@@ -920,8 +1036,11 @@ class InferenceEngine:
         )
 
     def chat(self, messages: list[dict], gen: GenerationConfig | None = None) -> GenerationResult:
-        """One chat turn. (The JAX engine's greedy turns speculate with
-        prompt lookup, token-identical to plain greedy; speculation is
-        roadmap module C3, so greedy turns here decode plainly.)"""
+        """One chat turn. A greedy turn on a dense engine speculates with
+        prompt lookup (chat turns echo the conversation), giving greedy's
+        tokens."""
         ids = self.tokenizer.apply_chat_template(messages, add_generation_prompt=True)
-        return self.generate(ids, gen or GenerationConfig())
+        gen = gen or GenerationConfig()
+        if gen.temperature == 0.0 and not self.paged:
+            return self.generate_lookahead(ids, gen)
+        return self.generate(ids, gen)

@@ -7,10 +7,9 @@ the ragged kernel). Every step runs one sampling tail (``_make_sampler``):
 the grammar's per-slot DFA mask and state step on the device, an optional
 host mask, one split of the sampled slots' threefry keys and the batched
 per-row draw. A tool-call slot whose trigger completes mid-scan rolls back
-to that token, key included (``_rollback_slots``). A mixin over
-PagedScheduler state.
-
-Prompt-lookup speculation (C3) is a later slice.
+to that token, key included (``_rollback_slots``). Prompt-lookup
+speculation (``_maybe_spec_step``) takes the step first when one greedy
+stream decodes alone. A mixin over PagedScheduler state.
 """
 
 from __future__ import annotations
@@ -70,7 +69,109 @@ def _make_sampler(active, B: int, vocab: int, device, table=None, mind=None):
 
 
 class DecodeMixin:
-    """Batched decode stepping: single and multi-step dispatches."""
+    """Batched decode stepping: speculative, single and multi-step
+    dispatches."""
+
+    def _maybe_spec_step(self) -> bool:
+        """Prompt-lookup speculation inside the scheduler: when exactly one
+        greedy, unconstrained stream is decoding (or a tool-call request is
+        still in its free phase), a repeated n-gram proposes draft tokens
+        and ONE multi-token paged dispatch (``_spec_fn``: the paged
+        kernel's block form) verifies them, giving the per-step stream's
+        tokens with up to ``1 + spec_draft_len`` of them per weight read.
+        A failed dispatch goes to the loop's ``_fail_all`` like every other
+        kernel failure; speculation is never turned off quietly. Returns
+        True if a spec step ran."""
+        from fei_tpu_torch.engine.paged_cache import replace_lengths
+
+        if not self.speculate or self._admitting is not None:
+            return False
+        active = [(b, s) for b, s in enumerate(self._slots) if s is not None]
+        if len(active) != 1:
+            return False
+        b, s = active[0]
+        if (
+            s.prefilling
+            or s.gen.temperature != 0.0
+            or s.mask_fn is not None
+            # a tool-call request speculates in its FREE phase only: the
+            # verify cannot apply the DFA mask
+            or (s.grammar is not None and s.gstate >= 0)
+        ):
+            return False
+        eng = self.engine
+        draft = eng._find_draft(s.prompt_ids + s.generated, self.spec_ngram,
+                                self.spec_draft_len)
+        if draft is None:
+            return False
+        T = 1 + self.spec_draft_len
+        # the slot's pool length: prompt + generated, less the pending next
+        # input whose K/V is written when it is fed
+        L0 = len(s.prompt_ids) + len(s.generated) - 1
+        # room is ABSOLUTE capacity: rolling-window releases drop leading
+        # pages from pages_for while the row keeps them
+        room = (s.released_pages + len(eng._allocator.pages_for(b))) * eng.page_size
+        if L0 + T > min(room, eng.max_seq_len):
+            return False
+        draft = draft + [0] * (self.spec_draft_len - len(draft))
+        tokens = torch.zeros((self.B, T), dtype=torch.long)
+        tokens[b] = torch.tensor([s.next_input] + draft)
+        dev = self._pool.k_pages.device
+        lengths = np.zeros((self.B,), dtype=np.int32)
+        lengths[b] = L0
+        # idle rows at length 0: their writes land in the null page
+        pool = replace_lengths(self._pool, lengths)
+        t0 = time.perf_counter()
+        with METRICS.span("spec_step"):
+            greedy_dev, pool = self._spec_fn(T)(eng.params, pool, tokens.to(dev))
+            t_issue = time.perf_counter()
+            greedy = greedy_dev[b].tolist()  # the host sync, inside the span
+        self._pool = pool
+        FLIGHT.dispatch("dispatch.spec", t0, t_issue, time.perf_counter(),
+                        rid=s.rid, mesh=costmodel.MESH_TAG, slot=b, draft=T - 1)
+        accept = 0
+        while accept < self.spec_draft_len and draft[accept] == greedy[accept]:
+            accept += 1
+        # greedy[:accept + 1] are all the model's own tokens (the verified
+        # draft prefix and the bonus token)
+        METRICS.incr("scheduler.spec_steps")
+        METRICS.incr("scheduler.spec_accepted", accept)
+        delivered = 0
+        spec_key = None
+        if s.journaled or s.export is not None:
+            # greedy: the slot's key does not move, so every token of the
+            # block shares its current key as its resume point
+            spec_key = self._keys[b].cpu().numpy()
+        for t in greedy[: accept + 1]:
+            self._deliver(s, t, key=spec_key)
+            if s.finished:
+                break
+            delivered += 1
+            if s.grammar is not None and s.gstate >= 0:
+                # the trigger completed inside the block: the rest was
+                # decoded unconstrained; the constrained phase re-decodes
+                # under the DFA mask from here
+                break
+        if not s.finished:
+            # K/V is real through L0 + delivered - 1; the next fed token is
+            # s.next_input at L0 + delivered. The block wrote T rows
+            lengths[b] = L0 + delivered
+            self._pool = replace_lengths(self._pool, lengths)
+        return True
+
+    def _spec_fn(self, T: int):
+        """The verify program: ``forward_paged_block`` over [B, T] tokens
+        (K2's block form), then the argmax of every position; returns
+        (greedy [B, T], pool with lengths += T)."""
+        from fei_tpu_torch.models.llama import forward_paged_block
+
+        eng = self.engine
+
+        def spec(params, pool, tokens):
+            logits, pool = forward_paged_block(params, eng.cfg, tokens, pool)
+            return torch.argmax(logits, dim=-1), pool
+
+        return spec
 
     def _step_active(self) -> None:
         self._step_active_impl()
@@ -80,6 +181,8 @@ class DecodeMixin:
         self._flush_pending_chunk()
 
     def _step_active_impl(self) -> None:
+        if self._maybe_spec_step():
+            return
         if self._try_multi_step():
             return
         # evaluate per-request masks FIRST: a mask_fn that raises must kill

@@ -15,6 +15,12 @@
   ``ragged_attention`` a pending prefill chunk rides the first step as ONE
   merged dispatch (models/llama.py ``forward_paged_merged``, the ragged
   kernel). Token streams are identical with it on or off.
+- Speculation (``FEI_TPU_SPECULATE=1``): while exactly one greedy stream
+  decodes (or a tool-call request is in its free phase), a repeated
+  n-gram's continuation is verified in ONE ``forward_paged_block`` of
+  ``1 + spec_draft_len`` tokens (the paged kernel's block form), and the
+  slot's length is cut back to the accepted tokens (sched_decode
+  ``_maybe_spec_step``).
 - Each slot carries the reference's threefry key chain in a [B, 2] device
   tensor (``PRNGKey(seed)`` split once at the first token and once per
   sampled step, engine/prng.py); the batched draw gives each row the
@@ -75,14 +81,16 @@ paged-native admission, so 0 raises), ``FEI_TPU_SCHED_MULTISTEP``
 the crash-loop breaker's ``FEI_TPU_BREAKER_FAILS`` (3) within
 ``FEI_TPU_BREAKER_WINDOW_S`` (60) for ``FEI_TPU_BREAKER_COOLDOWN_S`` (30),
 ``FEI_TPU_PREEMPT_POLICY`` (min-progress | off), and through
-``TenantBook`` ``FEI_TPU_TENANT_BUDGETS`` and ``FEI_TPU_DEFAULT_TENANT``.
-The speculation (``FEI_TPU_SPECULATE``, ``FEI_TPU_SPEC_*``) and
-sequence-parallel (``FEI_TPU_SP_*``) variables name features the port does
-not have and stay unread.
+``TenantBook`` ``FEI_TPU_TENANT_BUDGETS`` and ``FEI_TPU_DEFAULT_TENANT``,
+and speculation's ``FEI_TPU_SPECULATE`` (``speculate``, off),
+``FEI_TPU_SPEC_NGRAM`` (``spec_ngram`` 3) and ``FEI_TPU_SPEC_DRAFT``
+(``spec_draft_len`` 8). The sequence-parallel (``FEI_TPU_SP_*``) variables
+name a feature the port does not have and stay unread.
 
 A kernel that fails to launch fails every in-flight request through
 ``_fail_all`` (device scope); no path reroutes a failed kernel call to
-another program.
+another program, and a failed speculative dispatch does not turn
+speculation off (the JAX package's ``scheduler.spec_disabled``) either.
 """
 
 from __future__ import annotations
@@ -248,6 +256,11 @@ class PagedScheduler(AdmissionMixin, DecodeMixin, ConstraintMixin):
                 "FEI_TPU_PAGED_PREFILL=0 selects the dense-staging admission, "
                 "which fei_tpu_torch does not have (ROADMAP F3): unset it")
         self.multistep = max(1, int(os.environ.get("FEI_TPU_SCHED_MULTISTEP", "8")))
+        # prompt-lookup speculation for the single-stream case (opt-in, as
+        # in the JAX package)
+        self.spec_ngram = int(os.environ.get("FEI_TPU_SPEC_NGRAM", "3"))
+        self.spec_draft_len = int(os.environ.get("FEI_TPU_SPEC_DRAFT", "8"))
+        self.speculate = os.environ.get("FEI_TPU_SPECULATE", "0") == "1"
         # backpressure: bound the waiting queue (0 = unbounded); the server
         # maps the QueueFullError to 429 + Retry-After
         self.max_queue = int(os.environ.get("FEI_TPU_MAX_QUEUE", "0"))
@@ -775,11 +788,14 @@ class PagedScheduler(AdmissionMixin, DecodeMixin, ConstraintMixin):
     def _release_window_pages(self, seq: _Seq) -> None:
         """Rolling-buffer SWA: pages wholly below (pos - window - margin)
         return to the pool mid-stream; the kernel starts at the first
-        in-window page, so they are never read again. The margin covers a
-        multi-step scan plus one page of slack."""
+        in-window page, so they are never read again. The margin covers the
+        deepest mid-stream length cut, a rejected speculative draft or a
+        multi-step scan's rollback (a page released under the longer length
+        must still be below the window after the cut), plus one page of
+        slack."""
         W = self.engine.cfg.sliding_window
         ps = self.engine.page_size
-        margin = self.multistep + ps
+        margin = max(self.spec_draft_len, self.multistep) + ps
         cur = len(seq.prompt_ids) + len(seq.generated)
         releasable = max(0, (cur - W - margin)) // ps
         if releasable > seq.released_pages:

@@ -40,7 +40,7 @@ import torch.nn.functional as F
 
 from fei_tpu_torch.engine.engine import resolve_device
 from fei_tpu_torch.models.configs import ModelConfig
-from fei_tpu_torch.models.llama import check_supported, check_trainable, forward_train
+from fei_tpu_torch.models.llama import check_trainable, forward_train
 from fei_tpu_torch.utils.errors import TrainingError
 from fei_tpu_torch.utils.tree import flatten, tree_map
 
@@ -166,7 +166,6 @@ def loss_and_grads(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
     the CPU): without a card the default raises, and so do parameters that
     lie elsewhere."""
     device = resolve_device(device)
-    check_supported(cfg)
     check_trainable(params)
     _check_on_device(params, device)
     tokens = tokens.to(device=params["final_norm"].device, dtype=torch.long)

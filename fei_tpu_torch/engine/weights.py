@@ -1,9 +1,10 @@
 """Checkpoint loading: an HF safetensors directory -> the stacked param dict
 (counterpart of fei_tpu/engine/weights.py, eager unsharded path).
 
-Maps per-layer HF Llama / Qwen2 / Mistral / Gemma / Phi tensor names onto
+Maps per-layer HF Llama / Qwen2 / Mistral / Mixtral / Gemma / Phi tensor
+names onto
 the scan-stacked layout of models/llama.py (layers on a leading axis,
-linears transposed to [in, out]). Tensors are read with
+linears transposed to [in, out]; Mixtral's experts stacked [L, E, in, out]). Tensors are read with
 ``safetensors.torch`` one at a time and copied into preallocated stacked
 tensors on the target device, so the host never holds more than one
 layer's tensor. If ``config.json`` is present its architecture fields
@@ -25,7 +26,7 @@ import numpy as np
 import torch
 
 from fei_tpu_torch.models.configs import ModelConfig
-from fei_tpu_torch.models.llama import QUANT_MODES, check_supported
+from fei_tpu_torch.models.llama import QUANT_MODES
 from fei_tpu_torch.ops.quant import (
     INT4_GROUP,
     QUANT_KEYS,
@@ -54,6 +55,13 @@ _LAYER_MAP = {
     "bk": "model.layers.{i}.self_attn.k_proj.bias",
     "bv": "model.layers.{i}.self_attn.v_proj.bias",
     "bo": "model.layers.{i}.self_attn.o_proj.bias",
+}
+# Mixtral (block_sparse_moe): the router and the experts' w1/w2/w3
+_MOE_LAYER_MAP = {
+    "router": "model.layers.{i}.block_sparse_moe.gate.weight",
+    "w_gate": "model.layers.{i}.block_sparse_moe.experts.{e}.w1.weight",
+    "w_down": "model.layers.{i}.block_sparse_moe.experts.{e}.w2.weight",
+    "w_up": "model.layers.{i}.block_sparse_moe.experts.{e}.w3.weight",
 }
 _TOP_MAP = {
     "embed": "model.embed_tokens.weight",
@@ -97,7 +105,9 @@ def _open_index(ckpt_dir: str) -> dict[str, str]:
 
 def _leaf_specs(cfg: ModelConfig) -> dict:
     """{path: (hf name template, our per-layer shape, transpose)} for every
-    leaf of the tree; ``path`` is ("layers", key) for stacked leaves."""
+    leaf of the tree; ``path`` is ("layers", key) for stacked leaves. An
+    expert template (``{e}``) has the per-layer shape [E, in, out] and
+    names one expert's [out, in] tensor."""
     h, d = cfg.hidden_size, cfg.head_dim_
     H, K, I, V = cfg.num_heads, cfg.num_kv_heads, cfg.intermediate_size, cfg.vocab_size
     lmap = _PHI_LAYER_MAP if cfg.parallel_block else _LAYER_MAP
@@ -129,7 +139,13 @@ def _leaf_specs(cfg: ModelConfig) -> dict:
         specs[("layers", "bv")] = (lmap["bv"], (K * d,), False)
     if cfg.o_bias:
         specs[("layers", "bo")] = (lmap["bo"], (h,), False)
-    if cfg.mlp_gated:
+    if cfg.is_moe:
+        E = cfg.num_experts
+        specs[("layers", "router")] = (_MOE_LAYER_MAP["router"], (h, E), True)
+        specs[("layers", "w_gate")] = (_MOE_LAYER_MAP["w_gate"], (E, h, I), True)
+        specs[("layers", "w_up")] = (_MOE_LAYER_MAP["w_up"], (E, h, I), True)
+        specs[("layers", "w_down")] = (_MOE_LAYER_MAP["w_down"], (E, I, h), True)
+    elif cfg.mlp_gated:
         specs[("layers", "w_up")] = (lmap["w_up"], (h, I), True)
     elif cfg.mlp_bias:
         specs[("layers", "b_gate")] = (lmap["b_gate"], (I,), False)
@@ -190,13 +206,14 @@ def load_checkpoint(
     ``quantize="int4"``: the leaves ``ops.quant._int4_ok`` allows (not
     lm_head unless ``int4_lm_head``; contraction divisible by 256) land as
     ``QTensor4``, the rest as int8 ``QTensor``. ``quant_embed`` (with a
-    mode) row-quantizes the embedding table."""
+    mode) row-quantizes the embedding table. A Mixtral's experts load
+    stacked [L, E, in, out], quantized one layer at a time (int8 under
+    either mode)."""
     if quantize not in QUANT_MODES:
         raise CheckpointError(f"unsupported quantize mode: {quantize!r}")
     from safetensors import safe_open
 
     cfg = _merge_hf_config(ckpt_dir, cfg)
-    check_supported(cfg)
     weight_map = _open_index(ckpt_dir)
     files: dict[str, object] = {}
 
@@ -227,8 +244,14 @@ def load_checkpoint(
             return _quant4_host, QTensor4
         return _quant_host, QTensor
 
-    def quantized(name: str, shape: tuple, transpose: bool, quant, kind):
-        fields = quant(read(name, shape, transpose).float().numpy())
+    def layer(tmpl: str, i: int, shape: tuple, transpose: bool) -> torch.Tensor:
+        if "{e}" in tmpl:  # one tensor per expert, stacked [E, in, out]
+            return torch.stack([read(tmpl.format(i=i, e=e), shape[1:], transpose)
+                                for e in range(shape[0])])
+        return read(tmpl.format(i=i), shape, transpose)
+
+    def quantized(t: torch.Tensor, quant, kind):
+        fields = quant(t.float().numpy())
         return kind(*(torch.from_numpy(f).to(device) for f in fields))
 
     params: dict = {"layers": {}}
@@ -237,15 +260,15 @@ def load_checkpoint(
         if path[0] == "layers" and how is None:
             out = torch.empty((cfg.num_layers, *shape), dtype=dtype, device=device)
             for i in range(cfg.num_layers):
-                out[i].copy_(read(tmpl.format(i=i), shape, transpose))
+                out[i].copy_(layer(tmpl, i, shape, transpose))
             params["layers"][path[1]] = out
         elif path[0] == "layers":  # quantized one layer at a time
             params["layers"][path[1]] = stack_layers(
-                cfg.num_layers, lambda i: quantized(tmpl.format(i=i), shape, transpose, *how))
+                cfg.num_layers, lambda i: quantized(layer(tmpl, i, shape, transpose), *how))
         elif how is None:
             params[path[0]] = read(tmpl, shape, transpose).to(device=device, dtype=dtype)
         else:
-            params[path[0]] = quantized(tmpl, shape, transpose, *how)
+            params[path[0]] = quantized(read(tmpl, shape, transpose), *how)
     log.info("loaded checkpoint from %s (%d layers%s)", ckpt_dir, cfg.num_layers,
              f", {quantize}" if quantize else "")
     return cfg, params

@@ -17,15 +17,17 @@ the card, each layer recomputed in the backward when ``remat`` is set.
 
 Covered here: GQA, q/k/v/o biases, the Phi parallel block with LayerNorm
 and partial rotary, tied and biased LM heads, sliding windows, the Gemma
-norm offset / GeGLU / scaled embeddings, and weight-only int8 / int4
+norm offset / GeGLU / scaled embeddings, weight-only int8 / int4
 linears (``ops.quant``: every big linear goes through ``mm``, int4 leaves
-through the K4 kernel). MoE is a later slice and raises
-``NotImplementedError``.
+through the K4 kernel), and Mixtral-style MoE layers (``_moe``: the dense
+oracle or the token-routed form of ``ops.moe``, int8 experts raw with their
+scales on the products).
 """
 
 from __future__ import annotations
 
 import functools
+import os
 from types import SimpleNamespace
 from typing import NamedTuple
 
@@ -36,6 +38,7 @@ from torch.utils.checkpoint import checkpoint
 from fei_tpu_torch.models.configs import ModelConfig
 from fei_tpu_torch.ops.attention import attention
 from fei_tpu_torch.ops.kernels.flash_attention import flash_attention
+from fei_tpu_torch.ops.moe import moe_mlp, moe_mlp_routed
 from fei_tpu_torch.ops.quant import (
     QTensor,
     QTensor4,
@@ -53,6 +56,7 @@ from fei_tpu_torch.ops.rope import apply_rope, compute_rope_freqs
 from fei_tpu_torch.utils.errors import TrainingError
 
 _FLASH_MIN_T = 64  # below this, the plain path (decode is T = 1)
+_ROUTED_MIN_TOKENS = 16  # below this, the sort and gather outweigh the k/E saving
 
 
 class KVCache(NamedTuple):
@@ -72,15 +76,6 @@ class KVCache(NamedTuple):
             k=torch.zeros(shape, dtype=dtype, device=device),
             v=torch.zeros(shape, dtype=dtype, device=device),
             length=torch.zeros((batch,), dtype=torch.int32, device=device),
-        )
-
-
-def check_supported(cfg: ModelConfig) -> None:
-    """Raise for the model families this slice of the port does not run."""
-    if cfg.is_moe:
-        raise NotImplementedError(
-            f"{cfg.name}: MoE layers (fei_tpu/ops/moe.py) are not ported yet "
-            "— roadmap module C2"
         )
 
 
@@ -106,8 +101,10 @@ def init_params(
     time so the fp32 transient stays one layer big): int4 where
     ``ops.quant._int4_ok`` allows it (``int4_lm_head`` opts the LM head
     in), int8 elsewhere. ``quant_embed`` (with a mode) row-quantizes the
-    embedding table to int8."""
-    check_supported(cfg)
+    embedding table to int8. MoE configs draw ``router`` [L, h, E] and the
+    stacked experts ``w_gate``/``w_up`` [L, E, h, I] and ``w_down``
+    [L, E, I, h] (int8 under either mode), one layer's [E, in, out] at a
+    time."""
     if quantize not in QUANT_MODES:
         raise ValueError(f"unsupported quantize mode {quantize!r}; one of {QUANT_MODES}")
     gen = torch.Generator(device=device).manual_seed(seed)
@@ -158,12 +155,21 @@ def init_params(
         )
     if cfg.o_bias:
         layers["bo"] = const((L, h), 0.0)
-    layers["w_gate"] = init((L, h, I), h, "w_gate")
-    if cfg.mlp_gated:
-        layers["w_up"] = init((L, h, I), h, "w_up")
-    elif cfg.mlp_bias:
-        layers.update(b_gate=const((L, I), 0.0), b_down=const((L, h), 0.0))
-    layers["w_down"] = init((L, I, h), I, "w_down")
+    if cfg.is_moe:
+        E = cfg.num_experts
+        layers.update(
+            router=init((L, h, E), h),
+            w_gate=init((L, E, h, I), h, "w_gate"),
+            w_up=init((L, E, h, I), h, "w_up"),
+            w_down=init((L, E, I, h), I, "w_down"),
+        )
+    else:
+        layers["w_gate"] = init((L, h, I), h, "w_gate")
+        if cfg.mlp_gated:
+            layers["w_up"] = init((L, h, I), h, "w_up")
+        elif cfg.mlp_bias:
+            layers.update(b_gate=const((L, I), 0.0), b_down=const((L, h), 0.0))
+        layers["w_down"] = init((L, I, h), I, "w_down")
     embed = init((cfg.vocab_size, h), h)
     params = {
         "embed": quantize_embed(embed) if quantize and quant_embed else embed,
@@ -227,6 +233,34 @@ def _mlp_dense(cfg: ModelConfig, y, lp):
     return mm(act * mm(y, lp["w_up"]), lp["w_down"])
 
 
+def _moe(cfg: ModelConfig, y, lp, allow_routed: bool, moe_mesh=None):
+    """Pick the MoE formulation, as the JAX package does:
+    ``FEI_TPU_ROUTED_MOE=1`` forces the token-routed form, ``0`` the dense
+    oracle everywhere, and the default ``auto`` routes when the caller
+    allows it and the forward carries at least ``_ROUTED_MIN_TOKENS``
+    tokens. ``moe_mesh`` is the JAX package's expert-parallel mesh: no
+    caller in the port passes one (it has no mesh), and a mesh raises,
+    since expert parallelism is roadmap module C4."""
+    mode = os.environ.get("FEI_TPU_ROUTED_MOE", "auto")
+    if moe_mesh is not None and mode != "0":
+        raise NotImplementedError(
+            "expert-parallel MoE over a mesh (fei_tpu/parallel/expert.py) is "
+            "not ported yet — roadmap module C4")
+    N = y.shape[0] * y.shape[1]
+    use_routed = mode == "1" or (
+        mode == "auto" and allow_routed and N >= _ROUTED_MIN_TOKENS)
+    fn = moe_mlp_routed if use_routed else moe_mlp
+    return fn(y, lp["router"], lp["w_gate"], lp["w_up"], lp["w_down"],
+              cfg.num_experts_per_tok)
+
+
+def _mlp(cfg: ModelConfig, y, lp, allow_routed: bool):
+    """The block's MLP: the MoE layer or the dense one."""
+    if cfg.is_moe:
+        return _moe(cfg, y, lp, allow_routed)
+    return _mlp_dense(cfg, y, lp)
+
+
 def model_dtype(params: dict):
     """The compute dtype, read from a leaf that is never quantized (a
     row-quantized embed table's ``dtype`` is its fp32 scale's)."""
@@ -286,10 +320,11 @@ def _write_kv(buf, new, positions, live):
 
 
 def _layer(cfg: ModelConfig, x, lp, cache_k, cache_v, kv_length, positions,
-           cos, sin, live=None, flash=None):
+           cos, sin, live=None, flash=None, allow_routed=False):
     """One decoder block. x: [B,T,h]; cache_k/v: this layer's [B,S,K,D],
     written in place, or None for the cache-free training path (attention
-    over the [B,T,K,D] projections themselves). Returns x_out."""
+    over the [B,T,K,D] projections themselves). ``allow_routed`` lets an
+    MoE layer take the token-routed form (``_moe``). Returns x_out."""
     B, T, _ = x.shape
     K, d, Hq = cfg.num_kv_heads, cfg.head_dim_, cfg.num_heads
 
@@ -309,10 +344,10 @@ def _layer(cfg: ModelConfig, x, lp, cache_k, cache_v, kv_length, positions,
     if "bo" in lp:
         o = o + lp["bo"]
     if cfg.parallel_block:  # Phi: x + attn(ln x) + mlp(ln x)
-        return x + o + _mlp_dense(cfg, y, lp)
+        return x + o + _mlp(cfg, y, lp, allow_routed)
     x = x + o
     y = _norm(x, lp["mlp_norm"], cfg, b=lp.get("mlp_norm_b"))
-    return x + _mlp_dense(cfg, y, lp)
+    return x + _mlp(cfg, y, lp, allow_routed)
 
 
 def _logits(x, params, cfg: ModelConfig) -> torch.Tensor:
@@ -340,6 +375,7 @@ def forward(
     lm_head: bool = True,
     live: torch.Tensor | None = None,
     flash: bool | None = None,
+    routed_moe: bool = False,
 ) -> tuple[torch.Tensor, KVCache]:
     """Run T tokens through the model against the cache.
 
@@ -350,8 +386,8 @@ def forward(
     ``live`` ([B] bool, optional) freezes finished rows: their KV slots
     keep their contents and their length does not advance. ``flash``
     picks the attention path (``_attend``): None chooses by T and device.
+    ``routed_moe`` lets MoE layers take the token-routed form (``_moe``).
     """
-    check_supported(cfg)
     B, T = tokens.shape
     tokens = tokens.to(device=cache.k.device, dtype=torch.long)
     positions = (
@@ -365,7 +401,7 @@ def forward(
     for i in range(cfg.num_layers):
         lp = layer_params(params, i)
         x = _layer(cfg, x, lp, cache.k[i], cache.v[i], cache.length, positions,
-                   cos, sin, live=live, flash=flash)
+                   cos, sin, live=live, flash=flash, allow_routed=routed_moe)
     x = _norm(x, params["final_norm"], cfg, b=params.get("final_norm_b"))
     step = T if live is None else live.to(torch.int32) * T
     new_cache = KVCache(k=cache.k, v=cache.v, length=cache.length + step)
@@ -403,8 +439,8 @@ def forward_train(
     ``layer_leaves`` (a sequence of one dict per layer) stands in for
     ``layer_params(params, i)``: the train step passes each layer's leaves
     as autograd leaves of their own over the stacked storage.
+    MoE layers take the dense oracle unless ``FEI_TPU_ROUTED_MOE=1``.
     Returns logits [B, T, V] fp32."""
-    check_supported(cfg)
     check_trainable(params)
     B, T = tokens.shape
     dtype = model_dtype(params)
@@ -454,25 +490,26 @@ def _qkv_roped(cfg: ModelConfig, lp, x, positions, cos, sin):
     return y, q, k, v
 
 
-def _block_tail(cfg: ModelConfig, lp, x, y, attn):
+def _block_tail(cfg: ModelConfig, lp, x, y, attn, allow_routed: bool = False):
     """Output projection, residual and MLP of one decoder block."""
     B, T = x.shape[:2]
     o = mm(attn.reshape(B, T, cfg.num_heads * cfg.head_dim_), lp["wo"])
     if "bo" in lp:
         o = o + lp["bo"]
     if cfg.parallel_block:  # Phi: x + attn(ln x) + mlp(ln x)
-        return x + o + _mlp_dense(cfg, y, lp)
+        return x + o + _mlp(cfg, y, lp, allow_routed)
     x = x + o
     y = _norm(x, lp["mlp_norm"], cfg, b=lp.get("mlp_norm_b"))
-    return x + _mlp_dense(cfg, y, lp)
+    return x + _mlp(cfg, y, lp, allow_routed)
 
 
 @torch.no_grad()
-def forward_paged(params: dict, cfg: ModelConfig, tokens: torch.Tensor, cache):
+def forward_paged(params: dict, cfg: ModelConfig, tokens: torch.Tensor, cache,
+                  routed_moe: bool = False):
     """Single-token decode against a paged KV cache (``PagedKVCache``,
     engine/paged_cache.py): the T = 1 case of ``forward_paged_block``.
     Returns (logits [B, 1, V], cache with lengths += 1)."""
-    return forward_paged_block(params, cfg, tokens, cache)
+    return forward_paged_block(params, cfg, tokens, cache, routed_moe=routed_moe)
 
 
 @torch.no_grad()
@@ -482,13 +519,15 @@ def forward_paged_block(
     tokens: torch.Tensor,  # [B, T] int
     cache,  # PagedKVCache
     lm_head: bool = True,
+    routed_moe: bool = False,
 ):
     """T tokens per row through the model against the paged pool: K/V of
     all T positions are written into the rows' pages (one indexed write
     per pool and layer), then attention reads through the block table —
     the paged decode kernel (K2) with one query position for T = 1, its
     block form for T > 1. ``lm_head=False`` returns the final-normed
-    hidden states [B, T, h] (the chunk body of paged-native prefill).
+    hidden states [B, T, h] (the chunk body of paged-native prefill);
+    ``routed_moe`` lets MoE layers take the token-routed form.
     Returns (out, cache with lengths += T); the pools change in place."""
     from fei_tpu_torch.engine.paged_cache import write_token_kv
     from fei_tpu_torch.ops.kernels.paged_attention import (
@@ -496,7 +535,6 @@ def forward_paged_block(
         paged_attention_block,
     )
 
-    check_supported(cfg)
     B, T = tokens.shape
     dev = cache.k_pages.device
     tokens = tokens.to(device=dev, dtype=torch.long)
@@ -519,7 +557,7 @@ def forward_paged_block(
         else:
             attn = paged_attention_block(q, kp, vp, cache.block_table, cache.lengths,
                                          k_scales=ks, v_scales=vs, window=win)
-        x = _block_tail(cfg, lp, x, y, attn)
+        x = _block_tail(cfg, lp, x, y, attn, routed_moe)
     x = _norm(x, params["final_norm"], cfg, b=params.get("final_norm_b"))
     new_cache = cache._replace(lengths=(cache.lengths + T).to(torch.int32))
     return (_logits(x, params, cfg) if lm_head else x), new_cache
@@ -535,6 +573,7 @@ def forward_paged_merged(
     dec_tokens: torch.Tensor,  # [B, 1] one decode token per slot
     cache,  # PagedKVCache under the LIVE table/lengths
     rows: int = 8,
+    routed_moe: bool = False,
 ):
     """One dispatch serves a prefill chunk AND a decode step. Per layer the
     chunk's [1, C] tokens and the decode batch's [B, 1] tokens each keep
@@ -553,7 +592,6 @@ def forward_paged_merged(
     from fei_tpu_torch.engine.paged_cache import write_token_kv
     from fei_tpu_torch.ops.kernels.ragged_paged_attention import ragged_paged_attention
 
-    check_supported(cfg)
     B = dec_tokens.shape[0]
     C = chunk_toks.shape[1]
     dev = cache.k_pages.device
@@ -597,8 +635,8 @@ def forward_paged_merged(
                                     k_scales=ks, v_scales=vs, window=win)
         dec_attn = av[:B, :1]
         chunk_attn = av[B:].reshape(1, Cp, Hq, d)[:, :C]
-        xc = _block_tail(cfg, lp, xc, yc, chunk_attn)
-        xd = _block_tail(cfg, lp, xd, yd, dec_attn)
+        xc = _block_tail(cfg, lp, xc, yc, chunk_attn, routed_moe)
+        xd = _block_tail(cfg, lp, xd, yd, dec_attn, routed_moe)
     xc = _norm(xc, params["final_norm"], cfg, b=params.get("final_norm_b"))
     xd = _norm(xd, params["final_norm"], cfg, b=params.get("final_norm_b"))
     new_cache = cache._replace(lengths=(cache.lengths + 1).to(torch.int32))

@@ -15,7 +15,8 @@ positions below ``limit_b + t`` (and, with a window W, above
 ``paged_attention`` / ``paged_attention_block`` launch the kernel for CUDA
 tensors and raise when they cannot; tensors on the CPU take the plain
 version (``paged_rows_plain``). ``paged_attention.launches`` counts kernel
-launches of both (``int8_launches`` those over int8 pools).
+launches of both (``int8_launches`` those over int8 pools,
+``block_launches`` those of the block form).
 ``paged_rows_tolerance`` is the per-element bound the kernel is held to
 against the plain version.
 
@@ -328,10 +329,11 @@ def launch(name: str, symbol: str, q, k_pages, v_pages, block_table, row_arrays,
     return out
 
 
-def _count(int8: bool):
+def _count(int8: bool, block: bool = False):
     with _COUNT_LOCK:
         paged_attention.launches += 1
         paged_attention.int8_launches += int(int8)
+        paged_attention.block_launches += int(block)
 
 
 def paged_attention(
@@ -380,9 +382,10 @@ def paged_attention_block(
         raise ValueError(f"paged_attention_block runs on cuda or cpu, not {q.device}")
     out = launch(KERNEL, "fei_paged_attention", q, k_pages, v_pages, block_table,
                  [("limits", limits)], scale, k_scales, v_scales, window)
-    _count(k_scales is not None)
+    _count(k_scales is not None, block=True)
     return out
 
 
 paged_attention.launches = 0
 paged_attention.int8_launches = 0
+paged_attention.block_launches = 0

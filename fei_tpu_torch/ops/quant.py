@@ -1,5 +1,5 @@
 """Weight-only int8/int4 quantization for the stacked Llama param dict
-(counterpart of fei_tpu/ops/quant.py; the MoE helpers wait for C2).
+(counterpart of fei_tpu/ops/quant.py).
 
 Scheme, the JAX package's exactly, so the packed bytes are bit-equal:
 
@@ -18,7 +18,10 @@ Scheme, the JAX package's exactly, so the packed bytes are bit-equal:
 
 ``QTensor``/``QTensor4`` are NamedTuples of tensors; a stacked leaf
 carries the layer axis on both fields, and ``models.llama`` slices a
-layer's leaf field by field.
+layer's leaf field by field. MoE expert leaves are [L, E, in, out] int8
+with [L, E, 1, out] scales (they stay int8 under int4: ``_int4_ok``); the
+expert products take the raw int8 through ``wcast`` and apply the scale
+to their results (``scale_expert_out``, ``scale_rows``).
 """
 
 from __future__ import annotations
@@ -179,6 +182,41 @@ def mm(x: torch.Tensor, w) -> torch.Tensor:
 
         return int4_mm(x, w)
     return x @ w
+
+
+def wcast(w, dtype) -> torch.Tensor:
+    """The raw weight as a product operand: a QTensor's int8 cast to the
+    compute dtype (its scale goes on the result: ``scale_expert_out`` /
+    ``scale_rows``), a plain tensor as it is. In eager PyTorch the cast
+    writes a dense copy of the weight each call; the JAX package's XLA fuses
+    it into the product."""
+    if isinstance(w, QTensor):
+        return w.q.to(dtype)
+    if isinstance(w, QTensor4):  # MoE experts are kept int8 (_int4_ok)
+        raise TypeError("QTensor4 has no raw-operand form; use mm/dequantize")
+    return w
+
+
+def scale_expert_out(out: torch.Tensor, w, expert_axis: int) -> torch.Tensor:
+    """Apply a stacked-expert QTensor's scale ([E, 1, out]) to a product
+    whose last axis is the out dim and whose ``expert_axis`` indexes the
+    experts. Exact (the scale is constant along the contraction); a no-op
+    for plain weights. Runs before any nonlinearity."""
+    if not isinstance(w, QTensor):
+        return out
+    s = w.s.squeeze(-2)  # [E, out]
+    shape = [1] * out.ndim
+    shape[expert_axis] = s.shape[0]
+    shape[-1] = s.shape[1]
+    return out * s.reshape(shape).to(out.dtype)
+
+
+def scale_rows(out: torch.Tensor, w, expert_ids: torch.Tensor) -> torch.Tensor:
+    """Per-row scale of a grouped product: row i belongs to expert
+    ``expert_ids[i]`` and takes that expert's [out] scale."""
+    if not isinstance(w, QTensor):
+        return out
+    return out * w.s.squeeze(-2)[expert_ids].to(out.dtype)
 
 
 def _int4_ok(key: str, w, moe: bool, int4_lm_head: bool = False) -> bool:

@@ -170,12 +170,23 @@ def test_cuda_default_raises_without_card():
 
 
 def test_later_slices_raise():
-    """MoE is a later slice; weight quantization is ported (int8/int4) and
-    only a mode that does not exist raises."""
+    """Weight quantization is ported (int8/int4) and only a mode that does
+    not exist raises. MoE is ported (C2): a ``tiny-moe`` engine builds and
+    decodes on the CPU; only expert parallelism over a mesh is a later
+    slice (C4)."""
+    from fei_tpu_torch.models import llama as pt_llama
+
     with pytest.raises(EngineError, match="unsupported quantize mode"):
         InferenceEngine.from_config("tiny", device="cpu", quantize="int2")
-    with pytest.raises(NotImplementedError, match="C2"):
-        InferenceEngine.from_config("tiny-moe", device="cpu")
+    eng = InferenceEngine.from_config("tiny-moe", device="cpu", dtype=torch.float32,
+                                      max_seq_len=64)
+    assert eng.cfg.is_moe and "router" in eng.params["layers"]
+    gen = GenerationConfig(max_new_tokens=5, ignore_eos=True)
+    assert len(eng.generate([1, 2, 3], gen).token_ids) == 5
+    lp = pt_llama.layer_params(eng.params, 0)
+    with pytest.raises(NotImplementedError, match="C4"):
+        pt_llama._moe(eng.cfg, torch.zeros((1, 2, eng.cfg.hidden_size)), lp, True,
+                      moe_mesh=object())
 
 
 def test_torch_local_config_section(tmp_path):

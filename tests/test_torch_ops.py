@@ -124,8 +124,15 @@ def test_mlp_activations_match():
 
 
 def test_unported_families_raise():
-    with pytest.raises(NotImplementedError, match="C2"):
-        pt_llama.init_params(pt_get_model_config("tiny-moe"))
+    """Every model family is ported: MoE configs (C2) draw the router and
+    the stacked experts, also on a dense preset given experts; only
+    expert parallelism over a mesh raises, naming roadmap module C4."""
+    params = pt_llama.init_params(pt_get_model_config("tiny-moe"))
+    assert params["layers"]["router"].shape == (2, 64, 4)
+    assert params["layers"]["w_down"].shape == (2, 4, 128, 64)
     cfg = replace(pt_get_model_config("tiny"), num_experts=2)
-    with pytest.raises(NotImplementedError, match="MoE"):
-        pt_llama.check_supported(cfg)
+    lay = pt_llama.init_params(cfg, dtype=torch.float32)["layers"]
+    assert lay["w_gate"].shape == (cfg.num_layers, 2, cfg.hidden_size, cfg.intermediate_size)
+    with pytest.raises(NotImplementedError, match="C4"):
+        pt_llama._moe(cfg, torch.zeros((1, 2, cfg.hidden_size)),
+                      pt_llama.layer_params({"layers": lay}, 0), True, moe_mesh=object())

@@ -306,9 +306,20 @@ def test_params_off_the_step_device_raise(tmp_path):
 
 
 def test_moe_raises_naming_its_roadmap_module():
-    pcfg = pt_get_model_config("tiny-moe")
-    with pytest.raises(NotImplementedError, match="C2"):
-        pt_llama.forward_train({}, pcfg, torch.zeros((1, 4), dtype=torch.long))
+    """MoE training is ported (C2): ``forward_train`` on ``tiny-moe``
+    matches the JAX package's logits. Only expert parallelism over a mesh
+    is a later slice, and raises naming it (C4)."""
+    jparams, host = _shared_params("tiny-moe")
+    jcfg, pcfg = get_model_config("tiny-moe"), pt_get_model_config("tiny-moe")
+    toks = _tokens(jcfg, 2, 20)
+    want = np.asarray(jax_llama.forward_train(jparams, jcfg, jnp.asarray(toks), remat=True))
+    pparams = params_from_jax(host)
+    with torch.no_grad():
+        got = pt_llama.forward_train(pparams, pcfg, torch.from_numpy(toks))
+    np.testing.assert_allclose(got.numpy(), want, atol=LOGITS_ATOL, rtol=0)
+    with pytest.raises(NotImplementedError, match="C4"):
+        pt_llama._moe(pcfg, torch.zeros((1, 2, pcfg.hidden_size)),
+                      pt_llama.layer_params(pparams, 0), False, moe_mesh=object())
 
 
 def test_optimizer_refuses_a_state_that_does_not_fit():
