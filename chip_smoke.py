@@ -31,9 +31,12 @@ Phases (each raises on failure, so the script exits non-zero):
    max_seq_len 8192. A ~1500-token prefill must launch the flash kernel
    once per layer; its last-position logits are held against the same
    engine on the plain attention; 128 greedy tokens decode chunked.
+   Phases 5-13 run on the first 16 of these 32 layers (views of the same
+   tensors, ``SERVE_LAYERS``; cut for time, every check kept), the KV
+   phase on the first 8 (``KV_LAYERS``).
 5. Serve (dense path): the OpenAI-compatible server over the same engine
    answers /health and three /v1/chat/completions (one streamed).
-6. Paged engine (the paged path): the same weights behind
+6. Paged engine (the paged path): the same 16 layers behind
    ``InferenceEngine(paged=True, batch_size=8)``; eight requests from eight
    threads (short prompts through dense admission, long ones chunked and
    merged with live decode), 128 greedy tokens each. The streams must not
@@ -85,9 +88,8 @@ Phases (each raises on failure, so the script exits non-zero):
    built with the host compiler, equals the Python route; the TUI,
    headless, streams one reply from the dense engine and answers ``/mem
    list`` from the live server, which ``memory_server_stop`` then stops.
-10. Survival (the survival path), on the first 16 of the same weights'
-   32 layers (views, llama3-8b's widths; cut from 32 for time when the
-   speculation and MoE phases were added, every check kept): the threefry PRNG on
+10. Survival (the survival path), on a fresh engine over the same 16
+   layers (at 8 its drain finds no stream mid-decode): the threefry PRNG on
    the card against the CPU (the known-answer vector, a 128256-lane draw
    bitwise, 1000 chained splits); four seeded requests of 64 tokens
    equal densely and paged (or first apart at a noise+logit gap within 2
@@ -117,9 +119,9 @@ Phases (each raises on failure, so the script exits non-zero):
    verified block drops the rest of the block and makes a valid call.
    Logged: verify steps, tokens accepted, tokens per dispatch, tok/s with
    and without speculation.
-12. KV tier (the KV path), on the survival phase's 16 layers (cut from 32
-   for time when the fleet phase was added, every check kept), each run
-   on a fresh paged
+12. KV tier (the KV path), on the first 8 of the same weights' layers
+   (cut for time: to 16 when the fleet phase was added, to 8 when the tp
+   phase was; every check kept), each run on a fresh paged
    engine built with the tier's variables (``FEI_TPU_KV_TIER``, RAM
    budget 8 GiB); the eight prompts of phase 6 as four greedy and four
    top-p 0.9 requests. The roomy traffic (1025 pages, 128 tokens) gives
@@ -148,8 +150,8 @@ Phases (each raises on failure, so the script exits non-zero):
    with the tier off / ram / disk, the publish cost per admission and the
    roomy tok/s with the tier off and on.
 13. Fleet and observability (the fleet path), on the survival phase's 16
-   layers (cut from 32 for time: the phase's share of the script's limit;
-   every check kept): two paged replicas of 8 rows and 513 pages with the KV tier in RAM, ``a``
+   layers (at 8 its greedy stream gives too few frames to be dropped):
+   two paged replicas of 8 rows and 513 pages with the KV tier in RAM, ``a``
    prefill-heavy in process and ``b`` decode-heavy behind its HTTP server
    (``HttpReplica``), one ``Router`` over both; a third engine alone is
    the reference. Eight sessions (first turns of 96-5000 characters, one
@@ -187,8 +189,8 @@ bitwise the same at every M (the decode split of K and the prefill
 pipeline sum in one order).
 After the bf16 engines are released:
 
-14. Quantized dense path: llama3-8b with int4 weights (random, the same
-   seed): ``param_bytes``; a ~1500-token prefill launches K4 exactly 7
+14. Quantized dense path: llama3-8b at 16 layers (cut for time) with int4
+   weights (random, the same seed): ``param_bytes``; a ~1500-token prefill launches K4 exactly 7
    times per layer and its logits are held against the same weights
    dequantized to bf16 and multiplied plainly; 128 greedy tokens. Then
    int8 weights: ``param_bytes``, 32 greedy tokens, no K4 launch.
@@ -242,15 +244,32 @@ per block (largest and mean). After the quantized engines are released:
     kernels against ``flash=False`` (autograd through the plain attention),
     and ``save_checkpoint`` -> ``restore_checkpoint`` -> one more step
     bitwise equal to the uninterrupted run's.
+19. Tensor parallel (the tp path, roadmap C4's first half): two ranks
+    spawned here join one group (gloo with both on the one card; NCCL on
+    a card each where there are two) and each prints its backend and
+    device. The sharded wrappers of K2/K3/K4 equal the unsharded kernels
+    bitwise at the paged cell's shapes, and a gather in the wrong head
+    order breaks that. On llama3-8b's widths at 16 layers: the paged
+    cell's eight prompts, a seeded stream and a dense chat turn on a tp2
+    engine with replicated weights are bitwise one rank's; with Megatron
+    weights the 1500-token logits are within rel_l2 3e-2 of one rank's,
+    the streams equal or first apart at <= 2 bf16 ulps, and each rank
+    holds half the weights; an int4 tp2 prefill (K4 column-sharded,
+    wo/w_down int8) is held to one rank on the same weights; a sharded
+    load of a 2-layer checkpoint peaks under a rank's share plus one
+    tensor; the tp2 engine's exported prefix is one rank's bytes and
+    lands on one rank. It prints the collectives' times and tp2 against
+    one rank's tok/s. Last, ``FEI_TPU_MESH=tp2`` makes ``from_config``
+    start its own follower, the server's handler answers with ``/health``
+    ``mesh: "tp2"``, and a drain and ``close`` stop the follower.
 
 ``python3 chip_smoke.py --paged-times`` only builds K2/K3 and times them at
 every shape of phase 3 through their public wrappers; ``--bwd-times`` does
 the same for K5a, K5b and the pair at the training shape and at D = 64;
 ``--kv`` builds K1-K3 and runs phase 12 alone (on the seed's weights with
-the serve phase's LM head, cut to 16 layers as in the full run),
-``--fleet`` phase 13 likewise, ``--tools`` the serving controls and
-phase 9 on all 32 layers, ``--spec`` phase 11 (on the seed's weights with
-the serve phase's LM head) and ``--moe`` phase 17. ``--serve-rates`` logs only the dense
+the serve phase's LM head, cut to 8 layers as in the full run),
+``--fleet`` phase 13 likewise (16 layers), ``--tp`` phase 19 (K1-K4 built), ``--tools`` the serving controls and
+phase 9, ``--spec`` phase 11 (both on the same 16 layers) and ``--moe`` phase 17. ``--serve-rates`` logs only the dense
 decode tok/s (twice) and the paged aggregate tok/s of phases 4 and 6's
 traffic, straight into the scheduler and through the SSE path of
 ``ServeAPI.stream_chat``, so a copy run from an older tree's root measures
@@ -274,7 +293,8 @@ fleet path's runs, its reference scheduler not counted; K1 and K2 carry
 the two paged streams, the tool turn); every kernel carries
 ``launches_moe``, the sum over the MoE path's runs: the routed prefill,
 the dense decode, the paged traffic, the int4 prefill and the training
-step), the line before the last is the card,
+step; K1-K4 carry ``launches_tp``, each rank's count over the tp path,
+its one-rank references not counted), the line before the last is the card,
 and the last line is the JSON verdict.
 """
 
@@ -1851,7 +1871,8 @@ def paged_engine_phase(dense, card: str) -> tuple:
     def paged(**kw):
         return InferenceEngine.from_config(
             "llama3-8b", dtype=torch.bfloat16, params=dense.params, max_seq_len=8192,
-            device="cuda", paged=True, batch_size=8, page_size=PAGE, **kw)
+            device="cuda", paged=True, batch_size=8, page_size=PAGE,
+            num_layers=cfg.num_layers, **kw)
 
     eng = paged()
     # the main path starts here: every kernel count from 0
@@ -2026,7 +2047,8 @@ def serving_controls(eng, card: str) -> None:
     try:
         capped = InferenceEngine.from_config(
             "llama3-8b", dtype=torch.bfloat16, params=eng.params, max_seq_len=8192,
-            device="cuda", paged=True, batch_size=2, page_size=PAGE)
+            device="cuda", paged=True, batch_size=2, page_size=PAGE,
+            num_layers=eng.cfg.num_layers)
     finally:
         for k in env:
             del os.environ[k]
@@ -3195,11 +3217,13 @@ def survival_phase(dense, paged, card: str) -> dict:
 # ------------------------------------------------------------------ KV tier
 
 KV_RAM_BYTES = "8g"  # holds every victim of the tight traffic and every publish
-# the survival, KV and fleet phases run on the first 16 of llama3-8b's 32
-# layers at its widths (cut: time; the KV and fleet phases when the fleet
-# phase came, the survival phase when the speculation and MoE phases did;
-# every check kept)
-KV_LAYERS = 16
+# every bf16 serving phase after the engine phase (paged engine through
+# fleet) and the quantized and tp phases run on the first 16 of llama3-8b's
+# 32 layers at its widths, the KV phase on the first 8 (cut: time, every
+# check kept; at 8 the survival drain finds no stream mid-decode and the
+# fleet's greedy stream too few frames to drop)
+SERVE_LAYERS = 16
+KV_LAYERS = 8
 KV_NEW = 32  # tokens a request of the int8, fault and prefix runs (cut: time)
 KV_SAMPLED = dict(temperature=0.8, top_p=0.9)
 
@@ -3299,29 +3323,28 @@ def pinned_copy_gbps(nbytes: int) -> tuple[float, float]:
 
 
 def kv_weights():
-    """The dense engine the KV and fleet phases run on after the serve
+    """The dense engine the later serving phases run on after the serve
     phase: the seed's llama3-8b with the LM head zeroed past the byte
-    tokenizer's ids (for ``--kv``, ``--fleet`` and ``--tools``, which run
-    their phase alone)."""
+    tokenizer's ids, its first ``SERVE_LAYERS`` layers (for ``--kv``,
+    ``--fleet``, ``--spec`` and ``--tools``, which run their phase alone)."""
     from fei_tpu_torch.engine import InferenceEngine
 
     dense = InferenceEngine.from_config("llama3-8b", dtype=torch.bfloat16, seed=SEED,
                                         max_seq_len=8192, device="cuda")
     dense.params["lm_head"][:, dense.tokenizer.vocab_size:] = 0
-    return dense
+    return depth(dense, SERVE_LAYERS)
 
 
-def kv_depth(dense):
-    """The survival, KV and fleet phases' model: the first ``KV_LAYERS``
-    layers of ``dense``'s weights at llama3-8b's widths (views of the same
-    tensors, no copy)."""
+def depth(dense, layers: int):
+    """A dense engine on the first ``layers`` layers of ``dense``'s weights
+    at llama3-8b's widths (views of the same tensors, no copy)."""
     from fei_tpu_torch.engine import InferenceEngine
 
     params = {**dense.params,
-              "layers": {k: v[:KV_LAYERS] for k, v in dense.params["layers"].items()}}
+              "layers": {k: v[:layers] for k, v in dense.params["layers"].items()}}
     return InferenceEngine.from_config(
         dense.cfg.name, dtype=dense.dtype, params=params, max_seq_len=dense.max_seq_len,
-        device=dense.device, num_layers=KV_LAYERS)
+        device=dense.device, num_layers=layers)
 
 
 def kv_phase(dense, card: str) -> dict:
@@ -4363,15 +4386,15 @@ QUANT_NEW = 64
 
 
 def quant_dense_phase(card: str, bf16_bytes: int):
-    """llama3-8b at full width and depth with int4 weights (K4 in every big
-    linear), then with int8 weights. Returns the int4 engine."""
+    """llama3-8b at full width, SERVE_LAYERS deep, with int4 weights (K4 in
+    every big linear), then with int8 weights. Returns the int4 engine."""
     from fei_tpu_torch.engine import GenerationConfig, InferenceEngine
     from fei_tpu_torch.ops.quant import QTensor4, dequantize_params, param_bytes
 
     t0 = time.perf_counter()
     eng = InferenceEngine.from_config(
         "llama3-8b", dtype=torch.bfloat16, seed=SEED, max_seq_len=8192, device="cuda",
-        quantize="int4")
+        quantize="int4", num_layers=SERVE_LAYERS)
     torch.cuda.synchronize()
     cfg, L = eng.cfg, eng.cfg.num_layers
     nbytes = param_bytes(eng.params)
@@ -4397,7 +4420,7 @@ def quant_dense_phase(card: str, bf16_bytes: int):
     # the same weights with every QTensor4 dequantized to bf16 and
     # multiplied plainly (cuBLAS); the int8 LM head stays as it is
     deq = InferenceEngine.from_config(
-        "llama3-8b", dtype=torch.bfloat16, max_seq_len=8192, device="cuda",
+        "llama3-8b", dtype=torch.bfloat16, max_seq_len=8192, device="cuda", num_layers=L,
         params=dequantize_params(eng.params, torch.bfloat16, only=(QTensor4,)))
     reset_counts()
     plain, _ = deq.prefill([prompt], deq.new_cache(1))
@@ -4408,7 +4431,7 @@ def quant_dense_phase(card: str, bf16_bytes: int):
     rel = ((logits - plain).norm() / plain.norm()).item()
     # tolerance: the two runs multiply the same bf16 weight values and
     # round each product to bf16; only the fp32 summation order differs,
-    # and 32 layers of such perturbations stay within a few percent of the
+    # and 16 layers of such perturbations stay within a few percent of the
     # logits' norm, as the bf16 engine's flash-vs-plain gap above does
     log(f"int4 engine: last-position prefill logits vs the dequantized weights: "
         f"max_abs_diff={(logits - plain).abs().max().item():.6g}, rel_l2={rel:.6g} "
@@ -4427,7 +4450,7 @@ def quant_dense_phase(card: str, bf16_bytes: int):
     t0 = time.perf_counter()
     eng8 = InferenceEngine.from_config(
         "llama3-8b", dtype=torch.bfloat16, seed=SEED, max_seq_len=8192, device="cuda",
-        quantize="int8")
+        quantize="int8", num_layers=L)
     torch.cuda.synchronize()
     init8 = time.perf_counter() - t0
     reset_counts()
@@ -4461,7 +4484,8 @@ def quant_paged_phase(dense4, card: str) -> dict:
     def paged(**kw):
         return InferenceEngine.from_config(
             "llama3-8b", dtype=torch.bfloat16, params=dense4.params, max_seq_len=8192,
-            device="cuda", paged=True, batch_size=8, page_size=PAGE, **kw)
+            device="cuda", paged=True, batch_size=8, page_size=PAGE,
+            num_layers=cfg.num_layers, **kw)
 
     eng = paged()
     # the int4 paged path starts here: every kernel count from 0
@@ -4529,7 +4553,10 @@ def quant_provider_phase(dense4, card: str) -> None:
         provider = TorchLocalProvider()
     engine = provider.engine
     check(isinstance(engine.params["layers"]["wq"], QTensor4), "the provider's engine is not int4")
-    check(torch.equal(engine.params["layers"]["wq"].p, dense4.params["layers"]["wq"].p),
+    # the provider's engine has all 32 layers; wq is drawn first, layer by
+    # layer, so its first layers are the cut engine's
+    L = dense4.cfg.num_layers
+    check(torch.equal(engine.params["layers"]["wq"].p[:L], dense4.params["layers"]["wq"].p),
           "the provider's int4 weights differ from the same seed's")
     # as in the serve phase: an LM head zeroed past the byte tokenizer's
     # ids (the int8 head's values) makes the random model's picks text
@@ -4637,7 +4664,8 @@ def spec_phase(dense, card: str) -> dict:
     with env_vars(FEI_TPU_SPECULATE="1"):
         eng = InferenceEngine.from_config(
             dense.cfg.name, dtype=dense.dtype, params=dense.params, max_seq_len=SPEC_PAGED_SEQ,
-            device=dense.device, paged=True, batch_size=2, page_size=PAGE)
+            device=dense.device, paged=True, batch_size=2, page_size=PAGE,
+            num_layers=dense.cfg.num_layers)
     sched = eng.scheduler
     check(sched.speculate and sched.spec_ngram == 3 and sched.spec_draft_len == 8,
           "the scheduler did not read FEI_TPU_SPECULATE / FEI_TPU_SPEC_* with their defaults")
@@ -4728,7 +4756,11 @@ def spec_phase(dense, card: str) -> dict:
 
 MOE_PROMPT = 1500
 MOE_LENS = (96, 200, 700, 1500)  # two dense admissions, two chunked
-MOE_NEW = 32
+MOE_NEW = 32  # tokens of the dense engine's timed decode
+# tokens a stream of the paged traffic and of the dense streams it is held
+# to: every sound and mutant stream first left the dense engine's by token
+# 8 in every recorded run, so 16 keeps each split the F1 rule reads
+MOE_PAGED_NEW = 16
 MOE_SEQ = 4096
 MOE_LAYER_TOL = 1e-2
 MOE_TOL = 0.25
@@ -4957,30 +4989,30 @@ def moe_int8(card: str, add) -> None:
     # the paged engine: short prompts through dense admission (a routed
     # prefill, as the dense engine's), long ones in chunks (the oracle, as
     # the JAX package's paged chunks) merged with live decode
-    gen = GenerationConfig(max_new_tokens=MOE_NEW, ignore_eos=True)
+    gen = GenerationConfig(max_new_tokens=MOE_PAGED_NEW, ignore_eos=True)
     paged = InferenceEngine.from_config("mixtral-8x7b", dtype=torch.bfloat16, params=eng.params,
                                         max_seq_len=MOE_SEQ, device="cuda", paged=True,
                                         batch_size=4, page_size=PAGE)
     chunk = paged.scheduler.prefill_chunk
     merged0 = counter("engine.ragged_dispatches")
     reset_counts()
-    run = traffic(paged, prompts, MOE_NEW)
+    run = traffic(paged, prompts, MOE_PAGED_NEW)
     counts = read_counts()
     add(counts)
     merged = counter("engine.ragged_dispatches") - merged0
     check(counts["ragged_paged_attention"] > 0 and merged > 0, "no merged MoE dispatch (K3)")
     check(counts["paged_attention_block"] > 0 and counts["flash_attention_fwd"] > 0,
           f"MoE paged launches {counts}")
-    check(all(len(s) == MOE_NEW and all(0 <= t < cfg.vocab_size for t in s)
+    check(all(len(s) == MOE_PAGED_NEW and all(0 <= t < cfg.vocab_size for t in s)
               for s in run["streams"]), "MoE paged streams")
     total = sum(len(s) for s in run["streams"])
-    log(f"moe: paged engine (4 rows, {PAGE}-slot pages), prompts {list(MOE_LENS)}, {MOE_NEW} "
-        f"tokens each on {card}: {merged:.0f} merged dispatches; {total} tokens in "
+    log(f"moe: paged engine (4 rows, {PAGE}-slot pages), prompts {list(MOE_LENS)}, "
+        f"{MOE_PAGED_NEW} tokens each on {card}: {merged:.0f} merged dispatches; {total} tokens in "
         f"{run['wall']:.2f} s ({total / run['wall']:.2f} tok/s); TTFT "
         f"{[round(x * 1e3, 1) for x in run['ttft']]} ms; launches {counts}")
     # the merged dispatch off: the chunks through K2's block form alone
     paged.scheduler.ragged_attention = False
-    check(traffic(paged, prompts, MOE_NEW)["streams"] == run["streams"],
+    check(traffic(paged, prompts, MOE_PAGED_NEW)["streams"] == run["streams"],
           "MoE paged streams changed with ragged_attention=False")
     paged.scheduler.ragged_attention = True
     # against the dense engine, under the formulation each route takes
@@ -5031,7 +5063,7 @@ def moe_int8(card: str, add) -> None:
     sound_rel = chunked_rel(dls)
     moe._route = drop_second_expert(real_route)
     try:
-        mutant_streams = traffic(paged, prompts, MOE_NEW)["streams"]
+        mutant_streams = traffic(paged, prompts, MOE_PAGED_NEW)["streams"]
         mutant_rel = chunked_rel(dls)
     finally:
         moe._route = real_route
@@ -5325,6 +5357,479 @@ def train_phase(card: str) -> dict:
     return launches
 
 
+# ------------------------------------------------------------------ tp phase
+
+TP_RANKS = 2
+TP_NEW = 32  # greedy tokens per stream of the tp phase
+TP_PAGES = 400  # pool pages of the tp phase's paged engines (the traffic needs ~190)
+TP_LOAD_LAYERS = 2  # depth of the checkpoint the sharded load reads
+TP_GAP_ULPS = 2.0  # F1's rule for the Megatron profile's streams
+TP_TOL = 3e-2  # rel_l2 of the Megatron and int4 logits against one rank's
+
+
+def tp_params(quantize: str | None = None) -> dict:
+    """The tp phase's weights, made identically on every rank: llama3-8b
+    at its published widths, SERVE_LAYERS layers deep, from the seed; a
+    bf16 LM head zeroed past the byte tokenizer's ids (as the serve phases
+    do); under int4, wo/w_down int8, as a tp mesh's engine keeps them."""
+    from fei_tpu_torch.engine.tokenizer import load_tokenizer
+    from fei_tpu_torch.models.configs import get_model_config
+    from fei_tpu_torch.models.llama import init_params
+
+    cfg = get_model_config("llama3-8b", num_layers=SERVE_LAYERS)
+    excl = frozenset({"wo", "w_down"}) if quantize == "int4" else frozenset()
+    params = init_params(cfg, seed=SEED, dtype=torch.bfloat16, device="cuda",
+                         quantize=quantize, int4_exclude=excl)
+    if quantize is None:
+        params["lm_head"][:, load_tokenizer("byte").vocab_size:] = 0
+    return params
+
+
+def tp_prompts(cfg) -> list:
+    """The paged phase's eight prompts (96-5000 tokens)."""
+    rng = np.random.default_rng(SEED + 1)
+    return [rng.integers(8, cfg.vocab_size, size=n).tolist() for n in SHORT_LENS + LONG_LENS]
+
+
+def tp_wrappers(mesh, lead: bool) -> dict:
+    """Each sharded wrapper on this rank's kv heads (output columns)
+    against the unsharded kernel on all of them, at the paged cell's
+    shapes: 8 decode rows at the traffic's context lengths, 32/8 heads,
+    D 128, a 64-token block, a merged chunk of 256; K4 at llama3-8b's wq
+    and w_gate, M 1/8/256. Bitwise, or K4's tolerance where its narrower
+    N changes its tile (said in the result). A gather in the wrong head
+    order (the mutant) must break the check."""
+    from fei_tpu_torch.ops.kernels.int4_matmul import int4_mm, int4_mm_sharded, int4_mm_tolerance
+    from fei_tpu_torch.ops.kernels.paged_attention import (
+        paged_attention, paged_attention_block, paged_attention_block_sharded,
+        paged_attention_sharded)
+    from fei_tpu_torch.ops.kernels.ragged_paged_attention import (
+        ragged_paged_attention, ragged_paged_attention_sharded)
+    from fei_tpu_torch.ops.quant import quantize4
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 5)
+    H, K, D, width, n_pages = 32, 8, 128, 128, 256
+    lengths = [n + TP_NEW // 2 for n in SHORT_LENS + LONG_LENS]
+    kp, vp, _, _ = paged_pool(n_pages, K, D, False, gen)
+    bt = paged_table([n + 256 for n in lengths], width, n_pages, SEED + 5)
+    ln = torch.tensor(lengths, dtype=torch.int32, device="cuda")
+    c = mesh.coords["tp"]
+    kl, hl = slice(c * K // 2, (c + 1) * K // 2), slice(c * H // 2, (c + 1) * H // 2)
+    mine = (kp[:, kl].contiguous(), vp[:, kl].contiguous())
+    q = torch.randn(8, H, D, generator=gen, device="cuda").bfloat16()
+    qb = torch.randn(8, 64, H, D, generator=gen, device="cuda").bfloat16()
+    cq = torch.randn(1, 256, H, D, generator=gen, device="cuda").bfloat16()
+    qv, btv, limits, q_lens, modes = merged_inputs(q, cq, bt, ln + 1, 6, lengths[6] - 256)
+    out = {}
+    want = paged_attention(q, kp, vp, bt, ln)
+    got = paged_attention_sharded(q[:, hl].contiguous(), *mine, bt, ln, mesh)
+    out["paged_attention"] = bool(torch.equal(got, want))
+    want = paged_attention_block(qb, kp, vp, bt, ln)
+    got = paged_attention_block_sharded(qb[:, :, hl].contiguous(), *mine, bt, ln, mesh)
+    out["paged_attention_block"] = bool(torch.equal(got, want))
+    want = ragged_paged_attention(qv, kp, vp, btv, limits, q_lens, modes)
+    got = ragged_paged_attention_sharded(qv[:, :, hl].contiguous(), *mine, btv, limits,
+                                         q_lens, modes, mesh)
+    out["ragged_paged_attention"] = bool(torch.equal(got, want))
+    for name, N in (("wq", 4096), ("w_gate", 14336)):
+        w = quantize4(torch.randn(4096, N, generator=gen, device="cuda").bfloat16() * 0.02)
+        for m in (1, 8, 256):
+            x = torch.randn(m, 4096, generator=gen, device="cuda").bfloat16()
+            got, want = int4_mm_sharded(x, w, mesh), int4_mm(x, w)
+            key = f"int4_mm {name} M{m}"
+            if torch.equal(got, want):
+                out[key] = True
+            else:
+                err = (got.float() - want.float()).abs()
+                out[key] = bool((err <= 2 * int4_mm_tolerance(x, w)).all())
+                out[key + " (K4's tolerance: the N/2 product sums in another order)"] = True
+    gather = mesh.all_gather
+
+    def reversed_gather(t, axis, dim):  # the mutant: rank order reversed
+        return torch.cat(list(reversed(gather(t, axis, dim).chunk(mesh.shape[axis], dim))), dim)
+
+    mesh.all_gather = reversed_gather
+    try:
+        got = paged_attention_sharded(q[:, hl].contiguous(), *mine, bt, ln, mesh)
+    finally:
+        mesh.all_gather = gather
+    out["mutant breaks the check"] = not torch.equal(got, paged_attention(q, kp, vp, bt, ln))
+    return out
+
+
+def tp_checkpoint(path: str) -> int:
+    """A TP_LOAD_LAYERS-layer llama3-8b safetensors checkpoint (HF names,
+    bf16, random from the seed) written to ``path``; returns its largest
+    tensor's bytes."""
+    from safetensors.torch import save_file
+
+    from fei_tpu_torch.models.configs import get_model_config
+
+    cfg = get_model_config("llama3-8b")
+    h, I, V, d = cfg.hidden_size, cfg.intermediate_size, cfg.vocab_size, cfg.head_dim_
+    H, K = cfg.num_heads, cfg.num_kv_heads
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 9)
+
+    def rnd(*shape):
+        return (torch.randn(*shape, generator=gen, device="cuda") * 0.02).bfloat16().cpu()
+
+    ts = {"model.embed_tokens.weight": rnd(V, h), "lm_head.weight": rnd(V, h),
+          "model.norm.weight": torch.ones(h, dtype=torch.bfloat16)}
+    for i in range(TP_LOAD_LAYERS):
+        pre = f"model.layers.{i}."
+        ts.update({
+            pre + "input_layernorm.weight": torch.ones(h, dtype=torch.bfloat16),
+            pre + "post_attention_layernorm.weight": torch.ones(h, dtype=torch.bfloat16),
+            pre + "self_attn.q_proj.weight": rnd(H * d, h),
+            pre + "self_attn.k_proj.weight": rnd(K * d, h),
+            pre + "self_attn.v_proj.weight": rnd(K * d, h),
+            pre + "self_attn.o_proj.weight": rnd(h, H * d),
+            pre + "mlp.gate_proj.weight": rnd(I, h),
+            pre + "mlp.up_proj.weight": rnd(I, h),
+            pre + "mlp.down_proj.weight": rnd(h, I),
+        })
+    Path(path).mkdir(parents=True, exist_ok=True)
+    save_file(ts, str(Path(path) / "model.safetensors"))
+    return max(t.numel() * t.element_size() for t in ts.values())
+
+
+def tp_rank_work(rank: int, workdir: str) -> dict:
+    """One rank's share of the tp phase. Every mesh engine is built on both
+    ranks in the same order; rank 0 leads each (its traffic, its checks)
+    and closes it, and rank 1 follows inside ``from_config`` until then.
+    Rank 0 runs the one-rank references first, then both ranks count K1-K4
+    from 0 over the tp path, then rank 0 lands the tp2 prefix on one rank."""
+    import torch.distributed as dist
+
+    from fei_tpu_torch.engine import GenerationConfig, InferenceEngine
+    from fei_tpu_torch.ops.quant import param_bytes
+    from fei_tpu_torch.parallel.mesh import make_mesh
+    from fei_tpu_torch.utils.metrics import METRICS
+
+    lead = rank == 0
+    dev = torch.device("cuda", torch.cuda.current_device())
+    mesh = make_mesh({"tp": TP_RANKS}, device=dev)
+    res = {"backend": mesh.backend, "device": str(mesh.device),
+           "cards": torch.cuda.device_count()}
+    log(f"tp rank {rank}: backend {mesh.backend}, device {mesh.device}, "
+        f"{torch.cuda.device_count()} card(s) visible")
+    check(mesh.device.type == "cuda", f"tp rank {rank} is not on the card")
+    t0 = time.perf_counter()
+    res["wrappers"] = tp_wrappers(mesh, lead)
+    res["wrapper_s"] = time.perf_counter() - t0
+
+    ckpt = str(Path(workdir) / "ckpt")
+    if lead:
+        res["largest_tensor"] = tp_checkpoint(ckpt)
+    dist.barrier()
+    params = tp_params()
+    kw = dict(dtype=torch.bfloat16, params=params, max_seq_len=8192, device="cuda",
+              num_layers=SERVE_LAYERS)
+    paged_kw = dict(kw, paged=True, batch_size=8, page_size=PAGE, num_pages=TP_PAGES,
+                    prefix_cache=True)
+    from fei_tpu_torch.models.configs import get_model_config
+
+    cfg = get_model_config("llama3-8b", num_layers=SERVE_LAYERS)
+    prompts = tp_prompts(cfg)
+    p1500 = prompts[len(SHORT_LENS) + 1]
+    seeded = GenerationConfig(max_new_tokens=TP_NEW, temperature=0.8, top_k=40, seed=7,
+                              ignore_eos=True)
+    turn = [{"role": "user", "content": "Summarise the tensor-parallel slice in a line."}]
+    turn_gen = GenerationConfig(max_new_tokens=TP_NEW)
+
+    # -- one-rank references (rank 0; not the tp path: not counted)
+    if lead:
+        one = InferenceEngine.from_config("llama3-8b", mesh="ms1", **paged_kw)
+        ref = traffic(one, prompts, TP_NEW)
+        res["ms1_tok_s"] = sum(map(len, ref["streams"])) / ref["wall"]
+        ref_seeded = list(one.scheduler.stream(prompts[0], seeded))
+        ref_blob = one.scheduler.export_prefix(p1500)
+        one.close()
+        del one
+        dense1 = InferenceEngine.from_config("llama3-8b", mesh="ms1", **kw)
+        ref_turn = dense1.chat(turn, turn_gen).token_ids
+        ref_logits = dense1.prefill([p1500], dense1.new_cache(1))[0]
+        one4 = InferenceEngine.from_config("llama3-8b", mesh="ms1", **dict(
+            kw, params=tp_params("int4")))
+        ref4 = one4.prefill([p1500], one4.new_cache(1))[0]
+        del one4
+        loaded1 = InferenceEngine.from_config("llama3-8b", mesh="ms1", checkpoint_dir=ckpt,
+                                              dtype=torch.bfloat16, device="cuda",
+                                              num_layers=TP_LOAD_LAYERS, max_seq_len=4096)
+        ref_load = loaded1.prefill([p1500], loaded1.new_cache(1))[0]
+        res["load_bytes_one_rank"] = param_bytes(loaded1.params)
+        del loaded1
+        torch.cuda.empty_cache()
+
+    # -- the tp path: every kernel count from 0 on both ranks
+    reset_counts()
+    METRICS.reset()
+    t_path = time.perf_counter()
+    eng = InferenceEngine.from_config("llama3-8b", mesh="tp2", mesh_weights="replicated",
+                                      **paged_kw)
+    res["replicated_bytes"] = param_bytes(eng.params)
+    if lead:
+        got = traffic(eng, prompts, TP_NEW)
+        res["tp2_tok_s"] = sum(map(len, got["streams"])) / got["wall"]
+        res["streams_equal"] = [a == b for a, b in zip(got["streams"], ref["streams"])]
+        res["seeded_equal"] = list(eng.scheduler.stream(prompts[0], seeded)) == ref_seeded
+        res["blob"] = eng.scheduler.export_prefix(p1500)
+        # the prompt again, now a prefix-cache hit: the route a landed prefix takes
+        res["tp2_p1500_stream"] = list(eng.scheduler.stream(p1500, GenerationConfig(
+            max_new_tokens=TP_NEW, ignore_eos=True)))
+        span = METRICS.snapshot()["spans"].get("collective.tp", {})
+        res["collective_dispatch"] = span
+        res["collective_inside"] = {ax: list(v) for ax, v in eng.mesh.stats.items()}
+        res["tp2_dispatches"] = eng._spmd_leader.dispatches
+        eng.close()
+    del eng
+    dense = InferenceEngine.from_config("llama3-8b", mesh="tp2", mesh_weights="replicated", **kw)
+    if lead:
+        res["turn_equal"] = dense.chat(turn, turn_gen).token_ids == ref_turn
+        res["turn_len"] = len(ref_turn)
+        dense.close()
+    del dense
+
+    # the Megatron profile: sharded weights, paged traffic and a 1500-token prefill
+    meg = InferenceEngine.from_config("llama3-8b", mesh="tp2", mesh_weights="sharded",
+                                      **paged_kw)
+    res["sharded_bytes"] = param_bytes(meg.params)
+    if lead:
+        res["megatron_streams"] = traffic(meg, prompts, TP_NEW)["streams"]
+        meg.close()
+    del meg
+    megd = InferenceEngine.from_config("llama3-8b", mesh="tp2", mesh_weights="sharded", **kw)
+    if lead:
+        lg = megd.prefill([p1500], megd.new_cache(1))[0]
+        res["megatron_rel"] = ((lg - ref_logits).norm() / ref_logits.norm()).item()
+        megd.close()
+    del megd
+
+    # int4: K4 column-sharded (int4_mm_sharded), wo/w_down int8
+    q4 = InferenceEngine.from_config("llama3-8b", mesh="tp2", mesh_weights="replicated",
+                                     **dict(kw, params=tp_params("int4")))
+    if lead:
+        lg4 = q4.prefill([p1500], q4.new_cache(1))[0]
+        res["int4_bitwise"] = bool(torch.equal(lg4, ref4))
+        res["int4_rel"] = ((lg4 - ref4).norm() / ref4.norm()).item()
+        q4.close()
+    del q4
+
+    # a sharded streaming load: each rank's slices of each tensor (the
+    # engines above are collected first, so no free lands inside the window)
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    loaded = InferenceEngine.from_config("llama3-8b", mesh="tp2", mesh_weights="sharded",
+                                         checkpoint_dir=ckpt, dtype=torch.bfloat16,
+                                         device="cuda", num_layers=TP_LOAD_LAYERS,
+                                         max_seq_len=4096)
+    res["load_peak"] = torch.cuda.max_memory_allocated() - base
+    res["load_bytes"] = param_bytes(loaded.params)
+    if lead:
+        lg = loaded.prefill([p1500], loaded.new_cache(1))[0]
+        res["load_rel"] = ((lg - ref_load).norm() / ref_load.norm()).item()
+        loaded.close()
+    del loaded
+    res["launches_tp"] = read_counts()
+    res["tp_path_s"] = time.perf_counter() - t_path
+
+    # -- the tp2 prefix lands on one rank (after the count: one-rank engine)
+    if lead:
+        from fei_tpu_torch.kv.tier import unpack_entry
+
+        blob = res.pop("blob")
+        mine, theirs = unpack_entry(blob)[0], unpack_entry(ref_blob)[0]
+        res["blob_layout"] = mine.layout
+        res["blob_bitwise"] = mine.n_tokens == theirs.n_tokens and all(
+            np.array_equal(mine.arrays[k], theirs.arrays[k]) for k in theirs.arrays)
+        fresh = InferenceEngine.from_config("llama3-8b", mesh="ms1", **paged_kw)
+        res["landed"] = fresh.scheduler.import_prefix(blob)
+        hits = METRICS.snapshot()["counters"].get("prefix.hits", 0)
+        nxt = list(fresh.scheduler.stream(p1500, GenerationConfig(max_new_tokens=TP_NEW,
+                                                                  ignore_eos=True)))
+        res["landed_hit"] = METRICS.snapshot()["counters"].get("prefix.hits", 0) > hits
+        res["landed_equal"] = nxt == res.pop("tp2_p1500_stream")
+        fresh.close()
+        # the Megatron streams: equal, or first apart at <= TP_GAP_ULPS
+        gaps = []
+        for p, want, got_s in zip(prompts, ref["streams"], res.pop("megatron_streams")):
+            if want == got_s:
+                gaps.append(None)
+                continue
+            j, gap, ulp = first_divergence(dense1, p, want, got_s)
+            gaps.append((j, gap / ulp))
+        res["megatron_gaps"] = gaps
+    return res
+
+
+def tp_rank_main(rank: int, port: int, workdir: str) -> None:
+    """A spawned rank of the tp phase: NCCL on card ``rank`` when the
+    machine has a card per rank, else gloo with both ranks on card 0."""
+    import os
+    import pickle
+    import traceback
+
+    import torch.distributed as dist
+
+    from fei_tpu_torch.parallel.distributed import choose_backend
+
+    backend, shared = choose_backend("cuda", TP_RANKS)
+    torch.cuda.set_device(0 if shared else rank)
+    out = {}
+    try:
+        dist.init_process_group(backend, init_method=f"tcp://127.0.0.1:{port}",
+                                world_size=TP_RANKS, rank=rank)
+        out = {"ok": tp_rank_work(rank, workdir)}
+    except BaseException:  # noqa: BLE001 — the parent reports it
+        out = {"error": traceback.format_exc()}
+    with open(os.path.join(workdir, f"rank{rank}.pkl"), "wb") as f:
+        pickle.dump(out, f)
+    if dist.is_initialized():
+        dist.destroy_process_group()
+
+
+def tp_serve_check(card: str) -> None:
+    """The entry points start their own ranks: ``from_config`` under
+    ``FEI_TPU_MESH=tp2`` (as ``fei serve`` builds its engine) spawns the
+    follower, the server's handler answers a completion with ``/health``
+    reporting ``tp2``, and a drain then ``close`` (what SIGTERM does)
+    stops the follower process."""
+    from fei_tpu_torch.agent.providers import TorchLocalProvider
+    from fei_tpu_torch.engine import InferenceEngine
+    from fei_tpu_torch.ui.server import ServeAPI
+
+    t0 = time.perf_counter()
+    with env_vars(FEI_TPU_MESH="tp2", FEI_TPU_MESH_WEIGHTS=None):
+        eng = InferenceEngine.from_config("llama3-8b", dtype=torch.bfloat16, seed=SEED,
+                                          device="cuda", paged=True, batch_size=2,
+                                          max_seq_len=1024, num_layers=TP_LOAD_LAYERS)
+    procs = list(eng.mesh.launched)
+    api = ServeAPI(TorchLocalProvider(engine=eng), model_name="llama3-8b")
+    status, health = api.handle("GET", "/health", {}, {})[:2]
+    check(status == 200 and health["mesh"] == "tp2" and health["kv_layout"]["tp"] == 2,
+          f"/health under FEI_TPU_MESH=tp2: {status} {health}")
+    body = {"model": "llama3-8b", "max_tokens": 8, "temperature": 0,
+            "messages": [{"role": "user", "content": "hello"}]}
+    status, resp = api.handle("POST", "/v1/chat/completions", body, {})[:2]
+    check(status == 200, f"completion on the tp2 server: {status} {resp}")
+    eng.begin_drain(deadline_s=5)
+    check(eng.wait_drained(30), "the tp2 engine did not drain")
+    eng.close()
+    for p in procs:
+        p.join(30)
+    check(len(procs) == 1 and all(p.exitcode == 0 for p in procs),
+          f"the follower rank did not stop with the engine: {[p.exitcode for p in procs]}")
+    log(f"tp phase: FEI_TPU_MESH=tp2 engine started its follower (pid {procs[0].pid}), "
+        f"/health mesh {health['mesh']}, a completion answered, drained and closed; the "
+        f"follower exited 0 ({time.perf_counter() - t0:.1f} s on {card})")
+
+
+def tp_phase(card: str) -> dict:
+    """The tensor-parallel path (roadmap C4, first half) on the card: two
+    ranks spawned here share it over gloo (one rank per card over NCCL
+    where there are two cards). Returns each rank's K1-K4 launches."""
+    import pickle
+
+    import torch.multiprocessing as mp
+
+    work = tempfile.mkdtemp(prefix="fei-tp-")
+    t0 = time.perf_counter()
+    try:
+        ctx = mp.get_context("spawn")
+        port = free_port()
+        procs = [ctx.Process(target=tp_rank_main, args=(r, port, work))
+                 for r in range(TP_RANKS)]
+        for p in procs:
+            p.start()
+        for p in procs:
+            p.join(600)
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+        ranks = []
+        for r in range(TP_RANKS):
+            f = Path(work) / f"rank{r}.pkl"
+            check(f.exists(), f"tp rank {r} left no result (exit code {procs[r].exitcode})")
+            got = pickle.loads(f.read_bytes())
+            check("ok" in got, f"tp rank {r} failed:\n{got.get('error')}")
+            ranks.append(got["ok"])
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    r0, r1 = ranks
+    for r, res in enumerate(ranks):
+        check(res["device"].startswith("cuda"), f"tp rank {r} ran on {res['device']}")
+        check((res["backend"] == "gloo") == (res["cards"] < TP_RANKS),
+              f"tp rank {r}: backend {res['backend']} with {res['cards']} card(s)")
+    shared = r0["cards"] < TP_RANKS
+    where = (f"{TP_RANKS} ranks share one card ({r0['device']}) over gloo" if shared
+             else "one rank per card over NCCL")
+    log(f"tp phase: {where}; {card}")
+    for name, ok in r0["wrappers"].items():
+        log(f"tp phase: sharded wrapper {name}: {'bitwise' if ok else 'FAILED'}"
+            if name != "mutant breaks the check" else f"tp phase: head-order mutant caught: {ok}")
+        check(ok, f"tp phase: {name}")
+    check(all(r0["streams_equal"]), f"tp2 streams vs one rank: {r0['streams_equal']}")
+    check(r0["seeded_equal"], "the tp2 seeded stream differs from one rank's")
+    check(r0["turn_equal"], "the tp2 dense chat turn differs from one rank's")
+    log(f"tp phase (replicated weights): the 8 paged streams x {TP_NEW}, a seeded stream "
+        f"and a {r0['turn_len']}-token dense chat turn are bitwise one rank's")
+    # the gap is read by the one-rank dense engine's prefill, which may rank
+    # a near tie either way (F1), so its size is held, not its sign
+    bad = [g for g in r0["megatron_gaps"] if g is not None and abs(g[1]) > TP_GAP_ULPS]
+    log(f"tp phase (Megatron weights): 1500-token prefill logits rel_l2 "
+        f"{r0['megatron_rel']:.6g} (tol {TP_TOL}); stream first splits "
+        f"(token, ulps) {r0['megatron_gaps']}")
+    check(r0["megatron_rel"] <= TP_TOL, f"Megatron logits rel_l2 {r0['megatron_rel']}")
+    check(not bad, f"Megatron streams split above {TP_GAP_ULPS} bf16 ulps: {bad}")
+    for r, res in enumerate(ranks):
+        ratio = res["sharded_bytes"] / res["replicated_bytes"]
+        log(f"tp phase: rank {r} param_bytes {res['sharded_bytes']} (Megatron) vs "
+            f"{res['replicated_bytes']} (replicated): {ratio:.4f}")
+        check(0.45 <= ratio <= 0.55, f"rank {r}'s Megatron share is {ratio:.4f}")
+    log(f"tp phase (int4, wo/w_down int8): logits vs one rank on the same weights "
+        f"bitwise {r0['int4_bitwise']}, rel_l2 {r0['int4_rel']:.6g} (tol {TP_TOL})")
+    check(r0["int4_rel"] <= TP_TOL, f"int4 tp2 logits rel_l2 {r0['int4_rel']}")
+    share = r0["load_bytes_one_rank"] / TP_RANKS
+    for r, res in enumerate(ranks):
+        log(f"tp phase: rank {r} sharded load of a {TP_LOAD_LAYERS}-layer llama3-8b "
+            f"checkpoint: params {res['load_bytes']} B, peak allocated while loading "
+            f"{res['load_peak']} B (share {share:.0f} + largest tensor "
+            f"{r0['largest_tensor']})")
+        check(res["load_peak"] <= share + r0["largest_tensor"],
+              f"rank {r}'s load peaked at {res['load_peak']} B")
+    check(r0["load_rel"] <= TP_TOL, f"sharded-load logits rel_l2 {r0['load_rel']}")
+    check(r0["blob_bitwise"] and r0["blob_layout"]["tp"] == TP_RANKS,
+          f"the tp2 FKV1 blob (layout {r0['blob_layout']}) is not one rank's bytes")
+    check(r0["landed"] > 0 and r0["landed_hit"] and r0["landed_equal"],
+          f"the tp2 prefix on one rank: pages {r0['landed']}, hit {r0['landed_hit']}, "
+          f"stream equal {r0['landed_equal']}")
+    log(f"tp phase: the tp2 engine's exported 1500-token prefix (layout "
+        f"{r0['blob_layout']}, bitwise one rank's blob) landed on a one-rank engine "
+        f"({r0['landed']} pages), which hit it and streamed the tp2 engine's tokens")
+    span, inside = r0["collective_dispatch"], r0["collective_inside"].get("tp", [0.0, 0])
+    log(f"tp phase: collective.tp (per decode dispatch, upper bound) count "
+        f"{span.get('count', 0)} mean {span.get('mean_s', 0) * 1e3:.3f} ms; inside the "
+        f"collectives {inside[0]:.3f} s over {inside[1]} calls "
+        f"({inside[0] / max(1, inside[1]) * 1e3:.3f} ms each); "
+        f"{r0['tp2_dispatches']} dispatches broadcast")
+    log(f"tp phase: paged tok/s tp2 {r0['tp2_tok_s']:.2f} vs one rank {r0['ms1_tok_s']:.2f} "
+        f"on {card} ({'two ranks on one card: no interconnect is measured' if shared else 'NCCL'})")
+    launches = [res["launches_tp"] for res in ranks]
+    for r, c in enumerate(launches):
+        log(f"tp phase: rank {r} launches {c}")
+        for k in ("flash_attention_fwd", "paged_attention", "ragged_paged_attention",
+                  "int4_matmul"):
+            check(c[k] > 0, f"tp rank {r} never launched {k}")
+    log(f"tp phase: wrappers {r0['wrapper_s']:.1f} s, tp path {r0['tp_path_s']:.1f} s")
+    tp_serve_check(card)
+    log(f"tp phase: {time.perf_counter() - t0:.1f} s")
+    return {k: [c[k] for c in launches] for k in launches[0]}
+
+
+
 def main() -> int:
     # a native crash (SIGSEGV in a library) prints every thread's stack
     faulthandler.enable()
@@ -5354,12 +5859,12 @@ def main() -> int:
     if sys.argv[1:] == ["--kv"]:
         with ThreadPoolExecutor(3) as pool:
             list(pool.map(build.build, KERNELS[:1] + KERNELS[2:4]))
-        kv_phase(kv_depth(kv_weights()), card)
+        kv_phase(depth(kv_weights(), KV_LAYERS), card)
         return 0
     if sys.argv[1:] == ["--fleet"]:
         with ThreadPoolExecutor(3) as pool:
             list(pool.map(build.build, KERNELS[:1] + KERNELS[2:4]))
-        log(f"fleet path: launches {fleet_phase(kv_depth(kv_weights()), card)}")
+        log(f"fleet path: launches {fleet_phase(kv_weights(), card)}")
         return 0
     if sys.argv[1:] == ["--serve-rates"]:
         with ThreadPoolExecutor(3) as pool:
@@ -5376,6 +5881,11 @@ def main() -> int:
             list(pool.map(build.build, KERNELS))
         log(f"MoE path: launches {moe_phase(card)}")
         return 0
+    if sys.argv[1:] == ["--tp"]:
+        with ThreadPoolExecutor(4) as pool:
+            list(pool.map(build.build, KERNELS[:1] + KERNELS[2:]))
+        log(f"tp path: launches per rank {tp_phase(card)}")
+        return 0
     if sys.argv[1:] == ["--tools"]:
         from fei_tpu_torch.engine import InferenceEngine
 
@@ -5384,7 +5894,8 @@ def main() -> int:
         dense = kv_weights()
         paged = InferenceEngine.from_config(
             "llama3-8b", dtype=torch.bfloat16, params=dense.params, max_seq_len=8192,
-            device="cuda", paged=True, batch_size=8, page_size=PAGE)
+            device="cuda", paged=True, batch_size=8, page_size=PAGE,
+            num_layers=dense.cfg.num_layers)
         reset_counts()
         serving_controls(paged, card)
         log(f"agent tools path: launches {tools_phase(dense, paged, card)}")
@@ -5421,10 +5932,13 @@ def main() -> int:
     engine = engine_phase(card)  # zeroes the flash count itself
     dense_launches = flash_attention.launches
     stamp("engine")
-    paged_engine, launches = paged_engine_phase(engine, card)
+    # every later bf16 path runs on the first SERVE_LAYERS layers of the
+    # same weights (views; cut for time)
+    dense = depth(engine, SERVE_LAYERS)
+    paged_engine, launches = paged_engine_phase(dense, card)
     stamp("paged engine")
     reset_counts()
-    serve_phase(engine, card)
+    serve_phase(dense, card)
     dense_launches += flash_attention.launches
     check(dense_launches > 0, "the dense path never launched flash_attention_fwd")
     log(f"dense path: flash_attention_fwd launched {dense_launches} times")
@@ -5433,30 +5947,30 @@ def main() -> int:
     log(f"paged serve: launches {read_counts()}")
     stamp("serve, paged serve, serving controls")
     # the agent path (counts each of its runs from 0 itself), on the same engines
-    launches_a = agent_phase(engine, paged_engine, card)
+    launches_a = agent_phase(dense, paged_engine, card)
     log(f"agent path: launches {launches_a}")
     stamp("agent")
     # the agent tools path (counts each of its runs from 0 itself), same engines
-    launches_tools = tools_phase(engine, paged_engine, card)
+    launches_tools = tools_phase(dense, paged_engine, card)
     log(f"agent tools path: launches {launches_tools}")
     stamp("agent tools")
     paged_engine.close()
-    # the survival, KV and fleet paths (each counts its runs from 0 itself),
-    # on the first KV_LAYERS layers of the same weights (cut for time)
-    kv16 = kv_depth(engine)
+    # the survival and fleet paths (each counts its runs from 0 itself) on a
+    # fresh engine over the same views, the KV path on the first KV_LAYERS
+    kv16 = depth(engine, SERVE_LAYERS)
     paged16 = InferenceEngine.from_config(
         kv16.cfg.name, dtype=kv16.dtype, params=kv16.params, max_seq_len=kv16.max_seq_len,
-        device=kv16.device, paged=True, batch_size=8, page_size=PAGE, num_layers=KV_LAYERS)
+        device=kv16.device, paged=True, batch_size=8, page_size=PAGE, num_layers=SERVE_LAYERS)
     launches_s = survival_phase(kv16, paged16, card)
     paged16.close()
     del paged16
     log(f"survival path: launches {launches_s}")
     stamp("survival")
-    # the speculation path (counts each of its runs from 0 itself), all 32 layers
-    launches_spec = spec_phase(engine, card)
+    # the speculation path (counts each of its runs from 0 itself)
+    launches_spec = spec_phase(dense, card)
     log(f"speculation path: launches {launches_spec}")
     stamp("speculation")
-    launches_kv = kv_phase(kv16, card)
+    launches_kv = kv_phase(depth(engine, KV_LAYERS), card)
     log(f"kv path: launches {launches_kv}")
     stamp("kv")
     launches_f = fleet_phase(kv16, card)
@@ -5496,8 +6010,8 @@ def main() -> int:
     # the quantized paths, after the bf16 engines are released
     from fei_tpu_torch.ops.quant import param_bytes
 
-    bf16_bytes = param_bytes(engine.params)
-    del engine, paged_engine
+    bf16_bytes = param_bytes(dense.params)
+    del engine, dense, paged_engine
     gc.collect()
     torch.cuda.empty_cache()
     dense4 = quant_dense_phase(card, bf16_bytes)
@@ -5537,6 +6051,15 @@ def main() -> int:
         rec["launches_moe"] = launches_moe[rec["name"]]
         check(rec["launches_moe"] > 0, f"the MoE path never launched {rec['name']}")
     check(launches_moe["paged_attention_block"] > 0, "the MoE path never ran K2's block form")
+
+    # the tensor-parallel path: two ranks of its own (each counts from 0)
+    gc.collect()
+    torch.cuda.empty_cache()
+    launches_tp = tp_phase(card)
+    for rec in records:
+        if rec["name"] in launches_tp:
+            rec["launches_tp"] = launches_tp[rec["name"]]
+    stamp("tp")
     log(f"phase seconds on {card}: {json.dumps(phase_s)}; "
         f"in all {time.perf_counter() - t0:.1f} s")
 

@@ -26,6 +26,7 @@ from typing import Any
 import torch
 
 from fei_tpu_torch.engine.engine import resolve_device
+from fei_tpu_torch.parallel.mesh import mesh_geometry
 from fei_tpu_torch.utils.errors import CheckpointError
 from fei_tpu_torch.utils.fsync import fsync_dir, fsync_file
 from fei_tpu_torch.utils.logging import get_logger
@@ -35,10 +36,9 @@ log = get_logger("engine.checkpoint")
 
 _META = "meta.json"
 
-# the serving geometry recorded as provenance in snapshots and the journal:
-# one device, the JAX package's ``mesh_geometry(None)`` over its AXES
-AXES = ("dp", "tp", "ep", "sp", "pp")
-SINGLE_DEVICE_MESH = {axis: 1 for axis in AXES}
+# the geometry a snapshot without a mesh records: one device, the JAX
+# package's ``mesh_geometry(None)``
+SINGLE_DEVICE_MESH = mesh_geometry(None)
 
 
 def _steps(directory: str) -> list[int]:
@@ -91,6 +91,25 @@ def _encode(component: str, tree: Any) -> tuple[dict, dict]:
 
     walk(tree, "")
     return flat, types
+
+
+def _flat_shardings(tree: Any) -> dict:
+    """{path: Sharding} of a shardings tree, paths as ``_encode`` writes
+    them (a NamedTuple of shardings by field)."""
+    flat: dict = {}
+
+    def walk(node, path):
+        if isinstance(node, dict):
+            for key, value in node.items():
+                walk(value, _join(path, str(key)))
+        elif isinstance(node, tuple) and hasattr(node, "_fields"):
+            for field in node._fields:
+                walk(getattr(node, field), _join(path, field))
+        elif node is not None:
+            flat[path] = node
+
+    walk(tree, "")
+    return flat
 
 
 def _decode(flat: dict, types: dict) -> Any:
@@ -182,16 +201,20 @@ def restore_checkpoint(
     - ``step=None`` restores the latest step.
     - ``device``: where the restored tensors live — the card unless the
       caller asks for the CPU; without a card the default raises.
-    - ``target``: a composite of trees matching what was saved, on
+    - ``target``: a composite of trees matching what was restored, on
       ``device``; each tensor is checked against its target's shape and
       lands in its target's dtype. Without it the tensors come back in the
-      dtypes they were saved in."""
+      dtypes they were saved in.
+    - ``shardings``: a composite of trees of ``parallel.sharding.Sharding``
+      (``param_shardings``; quantized leaves as NamedTuples of them, a
+      missing leaf restores whole): each tensor restores as this rank's
+      slice, and only the slice's bytes are read. A ``target`` then holds
+      the slices' shapes."""
+    from safetensors import safe_open
     from safetensors.torch import load_file
 
     device = resolve_device(device)
-    if shardings is not None:
-        raise NotImplementedError(
-            "sharded restore comes with the parallelism slice (roadmap C4)")
+    cuts = {name: _flat_shardings(tree) for name, tree in (shardings or {}).items()}
     directory = os.path.abspath(directory)
     if step is None:
         step = latest_step(directory)
@@ -206,8 +229,20 @@ def restore_checkpoint(
     components, named = saved["components"], saved.get("types", {})
     out = {}
     for name, order in components.items():
-        loaded = load_file(os.path.join(root, f"{name}.safetensors"))
-        flat = {path: loaded[path] for path in order}
+        file = os.path.join(root, f"{name}.safetensors")
+        if cuts.get(name):
+            flat = {}
+            with safe_open(file, framework="pt") as f:
+                for path in order:
+                    sh = cuts[name].get(path)
+                    if sh is None:
+                        flat[path] = f.get_tensor(path)
+                    else:
+                        view = f.get_slice(path)
+                        flat[path] = view[sh.slices(tuple(view.get_shape()))]
+        else:
+            loaded = load_file(file)
+            flat = {path: loaded[path] for path in order}
         if target is not None and name in target:
             want, _ = _encode(name, target[name])
             if set(want) != set(flat):

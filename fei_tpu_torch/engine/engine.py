@@ -30,8 +30,18 @@
 
 - **MoE** (Mixtral): every dense forward lets its MoE layers take the
   token-routed form (``routed_moe=True``: the JAX engine's ``routed =
-  mesh is None``; one card has no mesh), which ``models.llama._moe``
-  takes from ``_ROUTED_MIN_TOKENS`` tokens (prefill, verify blocks of 16+).
+  mesh is None``, and the port has no expert-parallel mesh), which
+  ``models.llama._moe`` takes from ``_ROUTED_MIN_TOKENS`` tokens
+  (prefill, verify blocks of 16+).
+
+- **Mesh** (``FEI_TPU_MESH=tp2|dp2|tp2dp2|auto`` or ``mesh=``): the engine
+  spans ranks, one process each (parallel/serving.py). Rank 0 is this
+  engine; ``from_config`` starts the followers, and each device call rank
+  0 makes runs on every rank's shard. ``FEI_TPU_MESH_WEIGHTS`` picks the
+  weights profile: ``replicated`` (the environment mesh's default; streams
+  bitwise the one-device engine's) or ``sharded`` (Megatron; an explicit
+  mesh's default). A paged engine's slots multiply by dp. A mesh with an
+  sp, ep or pp axis raises: those are the second half of roadmap C4.
 
 - **Constrained tool calls** (``generate_constrained``,
   ``generate_stream_toolcalls``): the grammar's DFA steps on the device
@@ -72,8 +82,9 @@ from fei_tpu_torch.models.llama import (
     forward,
     init_params,
 )
-from fei_tpu_torch.obs import costmodel
 from fei_tpu_torch.obs.flight import FLIGHT, CompileObserver
+from fei_tpu_torch.parallel.mesh import axis_size, mesh_geometry, mesh_tag
+from fei_tpu_torch.parallel.serving import spmd_op
 from fei_tpu_torch.utils.errors import EngineError
 from fei_tpu_torch.utils.logging import get_logger
 from fei_tpu_torch.utils.metrics import METRICS
@@ -156,6 +167,69 @@ def resolve_device(device: torch.device | str) -> torch.device:
     return dev
 
 
+@spmd_op(creates=True)
+def new_kv_cache(eng, batch: int, max_seq: int, kernel_mesh=None) -> KVCache:
+    """A zeroed dense cache of ``eng``; under a mesh, this rank's shard of
+    it (``parallel.sharding.cache_shardings``: its kv heads, and its rows
+    where the batch divides dp)."""
+    shape = None
+    if kernel_mesh is not None:
+        from fei_tpu_torch.parallel.sharding import cache_shardings
+
+        cfg = eng.cfg
+        whole = (cfg.num_layers, batch, max_seq, cfg.num_kv_heads, cfg.head_dim_)
+        shape = cache_shardings(kernel_mesh, batch).k.local_shape(whole)
+    return KVCache.create(eng.cfg, batch, max_seq, dtype=eng.dtype, device=eng.device,
+                          shape=shape)
+
+
+@spmd_op(creates=True)
+def new_page_pool(eng, num_pages: int, batch: int, table_width: int, kernel_mesh=None):
+    """A zeroed page pool of ``eng``; under a mesh, this rank's kv heads
+    of it (``parallel.sharding.paged_pool_specs``)."""
+    from fei_tpu_torch.engine.paged_cache import PagedKVCache
+
+    return PagedKVCache.create(
+        eng.cfg, num_pages, batch, table_width, page_size=eng.page_size,
+        dtype=eng.dtype, kv_quant=eng.kv_quant, device=eng.device,
+        num_kv_heads=eng.cfg.num_kv_heads // axis_size(kernel_mesh, "tp"),
+    )
+
+
+def _resolve_mesh(mesh, cfg, device):
+    """``(mesh or None, from_env)``: ``mesh=None`` reads ``FEI_TPU_MESH``;
+    a spec string is parsed; a ``Mesh`` passes. One rank is no mesh. With
+    a default process group initialized, an unbound mesh binds to it."""
+    import torch.distributed as dist
+
+    from fei_tpu_torch.parallel.mesh import Mesh, make_mesh, mesh_from_env
+
+    from_env = mesh is None
+    if from_env:
+        mesh = mesh_from_env(num_kv_heads=cfg.num_kv_heads, num_experts=cfg.num_experts)
+    elif isinstance(mesh, str):
+        mesh = mesh_from_env(num_kv_heads=cfg.num_kv_heads, num_experts=cfg.num_experts,
+                             env=mesh or "ms1")
+    elif not isinstance(mesh, Mesh):
+        raise EngineError(f"mesh must be a Mesh, a spec or None, not {type(mesh).__name__}")
+    if mesh is None or mesh.size == 1:
+        return None, from_env
+    idle = [ax for ax in ("sp", "ep", "pp") if mesh.shape[ax] > 1]
+    if idle:
+        raise EngineError(
+            f"mesh {mesh_tag(mesh)}: the {'/'.join(idle)} axis is not ported yet — "
+            "sequence, expert and pipeline parallelism are the second half of "
+            "roadmap C4; serve with tp and dp axes only")
+    if mesh.shape["tp"] > 1 and cfg.num_kv_heads % mesh.shape["tp"]:
+        raise EngineError(f"tp={mesh.shape['tp']} must divide the model's "
+                          f"{cfg.num_kv_heads} kv heads")
+    if not mesh.bound and dist.is_available() and dist.is_initialized():
+        if device.type == "cuda" and device.index is None:
+            device = torch.device("cuda", torch.cuda.current_device())
+        mesh = make_mesh(mesh.shape, device=device)
+    return mesh, from_env
+
+
 class InferenceEngine:
     def __init__(
         self,
@@ -171,10 +245,17 @@ class InferenceEngine:
         num_pages: int | None = None,
         kv_quant: str | None = None,
         prefix_cache: bool = False,
+        mesh=None,
     ):
         self.cfg = model_cfg
         self.params = params
         self.tokenizer = tokenizer
+        # the serving mesh (a bound parallel.mesh.Mesh) or None; a follower
+        # rank's engine has no scheduler (rank 0 schedules for the mesh)
+        self.mesh = mesh
+        self.mesh_tag = mesh_tag(mesh)
+        self.mesh_weights = None
+        self._spmd_leader = None
         self.max_seq_len = max_seq_len or model_cfg.max_seq_len
         self.batch_size = batch_size
         self.dtype = dtype
@@ -200,10 +281,15 @@ class InferenceEngine:
         self._pool = None  # lazy PagedKVCache
         self._allocator = None
         self._scheduler = None
-        if paged:
+        if paged and (mesh is None or mesh.rank == 0):
             from fei_tpu_torch.engine.scheduler import PagedScheduler
 
             self._scheduler = PagedScheduler(self)
+
+    @property
+    def tp(self) -> int:
+        """The tensor-parallel degree (1 without a mesh)."""
+        return axis_size(self.mesh, "tp")
 
     # -- construction -------------------------------------------------------
 
@@ -228,34 +314,102 @@ class InferenceEngine:
         params: dict | None = None,
         int4_lm_head: bool = False,
         quant_embed: bool = False,
+        mesh=None,
+        mesh_weights: str | None = None,
         **overrides,
     ) -> "InferenceEngine":
         """Random-init (from ``seed``, on ``device``) or checkpoint weights;
         ``params`` hands over an existing parameter dict instead (engines
         sharing weights). ``quantize`` ("int8" or "int4") quantizes the big
         linears as they are made or read; ``int4_lm_head`` puts the LM head
-        in int4 too and ``quant_embed`` row-quantizes the embedding table."""
+        in int4 too and ``quant_embed`` row-quantizes the embedding table.
+
+        ``mesh``: None reads ``FEI_TPU_MESH``; a spec ("tp2", "tp2dp2",
+        "dp=2,tp=2") or a ``parallel.mesh.Mesh``. A mesh of more than one
+        rank starts its follower ranks (``parallel.serving.launch``), or,
+        with a process group already initialized, binds to it. On rank 0
+        this returns the serving engine; on a follower rank it serves rank
+        0's dispatches and returns when rank 0 closes its engine.
+        ``mesh_weights`` ("replicated" | "sharded") overrides
+        ``FEI_TPU_MESH_WEIGHTS``; the default is "replicated" for the
+        environment's mesh and "sharded" for an explicit one. Under a tp
+        mesh, int4 keeps the row-parallel ``wo``/``w_down`` int8."""
         if quantize not in QUANT_MODES:
             raise EngineError(
                 f"unsupported quantize mode {quantize!r}; one of "
                 f"{[m for m in QUANT_MODES if m]} (or unset)"
             )
-        qkw = dict(quantize=quantize, int4_lm_head=int4_lm_head, quant_embed=quant_embed)
         dev = resolve_device(device)
         cfg = get_model_config(name, **overrides)
+        mesh, from_env = _resolve_mesh(mesh, cfg, dev)
+        weights = None
+        slots = batch_size
+        if mesh is not None:
+            import os
+
+            from fei_tpu_torch.parallel.sharding import rules_for
+
+            weights = mesh_weights or os.environ.get(
+                "FEI_TPU_MESH_WEIGHTS", "replicated" if from_env else "sharded")
+            rules_for(weights, cfg.is_moe)  # an unknown profile raises here
+            if paged:
+                # dp groups multiply the decode slots: each serves batch_size
+                slots = batch_size * axis_size(mesh, "dp")
+            if not mesh.bound:
+                from fei_tpu_torch.parallel.serving import launch
+
+                mesh = launch(mesh.shape, dev, name, dict(
+                    dtype=dtype, seed=seed, tokenizer=tokenizer,
+                    checkpoint_dir=checkpoint_dir, max_seq_len=max_seq_len,
+                    batch_size=batch_size, paged=paged, page_size=page_size,
+                    num_pages=num_pages, quantize=quantize, kv_quant=kv_quant,
+                    prefix_cache=prefix_cache, params=params,
+                    int4_lm_head=int4_lm_head, quant_embed=quant_embed,
+                    mesh_weights=weights, **overrides))
+            dev = mesh.device
+        qkw = dict(quantize=quantize, int4_lm_head=int4_lm_head, quant_embed=quant_embed)
+        if quantize == "int4" and axis_size(mesh, "tp") > 1:
+            # tp splits the row-parallel linears' contraction, which nibble
+            # pairs span: they stay int8 (the reference's int4_exclude)
+            qkw["int4_exclude"] = frozenset({"wo", "w_down"})
         tok = load_tokenizer(tokenizer)
+        loaded = False
         if params is None and checkpoint_dir:
             from fei_tpu_torch.engine.weights import load_checkpoint
 
+            # under a mesh each rank reads only its slices of each tensor
             cfg, params = load_checkpoint(checkpoint_dir, cfg, dtype=dtype, device=dev,
-                                          **qkw)
+                                          mesh=mesh, weights=weights, **qkw)
+            loaded = True
         elif params is None:
             params = init_params(cfg, seed=seed, dtype=dtype, device=dev, **qkw)
-        return cls(
-            cfg, params, tok, max_seq_len=max_seq_len, batch_size=batch_size,
+        elif mesh is not None:
+            from fei_tpu_torch.utils.tree import tree_map
+
+            params = tree_map(lambda t: type(t)(*(f.to(dev) for f in t))
+                              if isinstance(t, tuple) else t.to(dev), params)
+        engine = cls(
+            cfg, params, tok, max_seq_len=max_seq_len, batch_size=slots,
             dtype=dtype, device=dev, paged=paged, page_size=page_size,
             num_pages=num_pages, kv_quant=kv_quant, prefix_cache=prefix_cache,
+            mesh=mesh,
         )
+        if mesh is None:
+            return engine
+        from fei_tpu_torch.parallel.serving import Leader, follow
+        from fei_tpu_torch.parallel.sharding import shard_engine
+
+        if loaded:
+            engine.mesh_weights = weights  # the params landed sharded
+        else:
+            shard_engine(engine, mesh, weights=weights)
+        if mesh.rank != 0:
+            follow(engine, mesh)
+            return engine
+        Leader(engine, mesh)
+        log.info("engine %s on mesh %s (%s weights), rank 0 on %s over %s",
+                 cfg.name, engine.mesh_tag, weights, dev, mesh.backend)
+        return engine
 
     # -- paged pool ---------------------------------------------------------
 
@@ -263,16 +417,12 @@ class InferenceEngine:
         """Lazily create the shared page pool + allocator (paged mode). The
         default pool holds ``batch_size`` full-length sequences plus the
         null page; ``num_pages`` sizes it to a memory budget instead."""
-        from fei_tpu_torch.engine.paged_cache import PageAllocator, PagedKVCache
+        from fei_tpu_torch.engine.paged_cache import PageAllocator
 
         table_width = -(-self.max_seq_len // self.page_size)
         num_pages = self.num_pages or (self.batch_size * table_width + 1)
         if self._pool is None:
-            self._pool = PagedKVCache.create(
-                self.cfg, num_pages, self.batch_size, table_width,
-                page_size=self.page_size, dtype=self.dtype, kv_quant=self.kv_quant,
-                device=self.device,
-            )
+            self._pool = new_page_pool(self, num_pages, self.batch_size, table_width)
         if self._allocator is None:
             self._allocator = PageAllocator(num_pages, self.page_size)
         return self._pool
@@ -290,17 +440,17 @@ class InferenceEngine:
 
         pool = self._scheduler._pool
         if pool is not None:
-            return pool_fingerprint(pool)
+            return pool_fingerprint(pool, self.tp)
         return config_fingerprint(self.cfg, self.page_size, self.dtype, self.kv_quant)
 
     def kv_layout(self) -> dict | None:
-        """The LAYOUT half: how the kv-head extent is sliced over tp (one
-        device: ``tp`` 1). None for a dense engine."""
+        """The LAYOUT half: how the kv-head extent is sliced over tp. None
+        for a dense engine."""
         if self._scheduler is None:
             return None
         from fei_tpu_torch.kv.pagesio import shard_layout
 
-        return shard_layout(self.cfg.num_kv_heads)
+        return shard_layout(self.cfg.num_kv_heads, self.tp)
 
     @property
     def scheduler(self):
@@ -315,9 +465,12 @@ class InferenceEngine:
 
     def close(self) -> None:
         """Stop the paged scheduler's loop thread (a dense engine has none)
-        and flush its session journal."""
+        and flush its session journal; on a mesh, then stop the follower
+        ranks (the engine serves no more calls)."""
         if self._scheduler is not None:
             self._scheduler.close()
+        if self._spmd_leader is not None:
+            self._spmd_leader.stop()
 
     # -- survival ------------------------------------------------------------
 
@@ -357,7 +510,6 @@ class InferenceEngine:
         the uninterrupted run. Returns the sequence handles (stream each
         with ``scheduler.drain(seq)``)."""
         from fei_tpu_torch.engine.checkpoint import (
-            SINGLE_DEVICE_MESH,
             clear_request_snapshots,
             load_request_snapshots,
         )
@@ -368,7 +520,7 @@ class InferenceEngine:
         snaps: list[dict] = []
         if snapshot_dir:
             snaps = load_request_snapshots(
-                snapshot_dir, expect_mesh=SINGLE_DEVICE_MESH,
+                snapshot_dir, expect_mesh=mesh_geometry(self.mesh),
                 expect_page_size=self.page_size)
             if snaps:
                 clear_request_snapshots(snapshot_dir)
@@ -379,6 +531,7 @@ class InferenceEngine:
         sessions, torn = journal.recover_and_clear()
         snap_rids = {s.get("rid") for s in snaps}
         recovered = cross_mesh = 0
+        mesh_now = mesh_geometry(self.mesh)
         for sess in sessions:
             rid = sess.get("rid")
             if rid in snap_rids:
@@ -391,7 +544,7 @@ class InferenceEngine:
                             "this engine's %s; dropping it", rid, saved_ps, self.page_size)
                 continue
             mesh = {k: int(v) for k, v in (sess.get("mesh") or {}).items()}
-            if mesh != SINGLE_DEVICE_MESH:
+            if mesh != mesh_now:
                 cross_mesh += 1  # provenance only: replayed like any other
             restore = {"generated": sess.get("generated") or [],
                        "resume_key": sess.get("resume_key"),
@@ -478,11 +631,10 @@ class InferenceEngine:
 
     # -- generation ---------------------------------------------------------
 
-    def new_cache(self, batch: int | None = None) -> KVCache:
-        return KVCache.create(
-            self.cfg, batch or self.batch_size, self.max_seq_len,
-            dtype=self.dtype, device=self.device,
-        )
+    def new_cache(self, batch: int | None = None, max_seq: int | None = None) -> KVCache:
+        """A zeroed dense cache (``max_seq`` defaults to the engine's);
+        under a mesh every rank allocates its shard."""
+        return new_kv_cache(self, batch or self.batch_size, max_seq or self.max_seq_len)
 
     def _pad_mask(self, mask) -> torch.Tensor | None:
         mask = pad_vocab_mask(mask, self.cfg.vocab_size)
@@ -551,7 +703,7 @@ class InferenceEngine:
         if pending is not None:
             t0, t_issue, n = pending
             FLIGHT.dispatch("dispatch.prefill", t0, t_issue, time.perf_counter(),
-                            mesh=costmodel.MESH_TAG, tokens=n)
+                            mesh=self.mesh_tag, tokens=n)
         return first
 
     def _make_result(
@@ -628,7 +780,7 @@ class InferenceEngine:
                 t_issue = time.perf_counter()
                 tok_host = int(tok[0])  # host sync inside the span
             FLIGHT.dispatch("dispatch.decode", t0, t_issue, time.perf_counter(),
-                            mesh=costmodel.MESH_TAG, n_steps=1, slots=1)
+                            mesh=self.mesh_tag, n_steps=1, slots=1)
 
     def _stream_chunked(
         self, prompt_ids: Sequence[int], gen: GenerationConfig, chunk: int
@@ -848,7 +1000,7 @@ class InferenceEngine:
                     t_issue = time.perf_counter()
                     tok_host = int(tok[0])
                 FLIGHT.dispatch("dispatch.decode", t0, t_issue, time.perf_counter(),
-                                mesh=costmodel.MESH_TAG, n_steps=1, slots=1)
+                                mesh=self.mesh_tag, n_steps=1, slots=1)
             token = tok.reshape(1, 1)
         if gstate < 0 or i >= budget:
             return

@@ -176,7 +176,7 @@ class ChunkDecoder:
                 # sync time (the reference records its chunks the same way)
                 FLIGHT.dispatch(
                     "dispatch.decode", t0, t_issue, t_issue,
-                    mesh=costmodel.MESH_TAG, n_steps=n,
+                    mesh=self._engine.mesh_tag, n_steps=n,
                     slots=int(self._token.shape[0]), pipelined=True,
                 )
                 nxt = (toks, keys, self._fed, t0, n)

@@ -22,6 +22,7 @@ import numpy as np
 import torch
 
 from fei_tpu_torch.models.configs import ModelConfig
+from fei_tpu_torch.parallel.serving import spmd_op
 from fei_tpu_torch.utils.errors import EngineError
 from fei_tpu_torch.utils.metrics import METRICS
 
@@ -57,10 +58,13 @@ class PagedKVCache(NamedTuple):
         dtype=torch.bfloat16,
         kv_quant: str | None = None,
         device: torch.device | str = "cpu",
+        num_kv_heads: int | None = None,
     ) -> "PagedKVCache":
+        """A zeroed pool; ``num_kv_heads`` overrides the config's (a tp
+        rank's shard holds its kv heads)."""
         if kv_quant not in (None, "int8"):
             raise EngineError(f"unsupported kv_quant mode: {kv_quant!r}")
-        L, K, D = cfg.num_layers, cfg.num_kv_heads, cfg.head_dim_
+        L, K, D = cfg.num_layers, num_kv_heads or cfg.num_kv_heads, cfg.head_dim_
         shape = (L, num_pages, K, page_size, D)
         pool_dtype = torch.int8 if kv_quant == "int8" else dtype
 
@@ -79,6 +83,33 @@ class PagedKVCache(NamedTuple):
             k_scales=scales(),
             v_scales=scales(),
         )
+
+
+@spmd_op
+def scatter_dense(dense, pool: PagedKVCache, page_ids: list[int], kernel_mesh=None) -> None:
+    """Copy the first len(page_ids)*ps positions of a [L, 1, S, K, D] dense
+    cache into those pool pages (one indexed write per pool; int8 pools
+    quantize per (position, head) row). Under a mesh each rank copies its
+    own kv heads."""
+    ps = pool.page_size
+    n_pages = len(page_ids)
+    need = n_pages * ps
+    idx = torch.as_tensor(page_ids, dtype=torch.long, device=pool.k_pages.device)
+
+    def pages_of(x):  # [L, 1, S, K, D] -> [L, n_pages, K, ps, D]
+        x = x[:, 0, :need]
+        if x.shape[1] < need:
+            x = torch.nn.functional.pad(x, (0, 0, 0, 0, 0, need - x.shape[1]))
+        L, _, K, D = x.shape
+        return x.reshape(L, n_pages, ps, K, D).transpose(2, 3)
+
+    for src, dst, scales in ((dense.k, pool.k_pages, pool.k_scales),
+                             (dense.v, pool.v_pages, pool.v_scales)):
+        blocks = pages_of(src)
+        if scales is not None:
+            blocks, s = quant_kv_rows(blocks)  # s: [L, n, K, ps]
+            scales[:, idx] = s[:, :, :, None, :]
+        dst[:, idx] = blocks.to(dst.dtype)
 
 
 def replace_lengths(pool: PagedKVCache, lengths) -> PagedKVCache:

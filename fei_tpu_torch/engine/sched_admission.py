@@ -45,10 +45,11 @@ import torch
 
 from fei_tpu_torch.engine import prng
 from fei_tpu_torch.engine.faults import FAULTS
+from fei_tpu_torch.engine.paged_cache import scatter_dense
 from fei_tpu_torch.engine.sampling import sample_logits
 from fei_tpu_torch.utils.errors import DeadlineExceededError, EngineError, PoolPressure
 from fei_tpu_torch.utils.logging import get_logger
-from fei_tpu_torch.obs.costmodel import MESH_TAG, account_kv_transfer
+from fei_tpu_torch.obs.costmodel import account_kv_transfer
 from fei_tpu_torch.obs.flight import FLIGHT
 from fei_tpu_torch.utils.metrics import METRICS
 
@@ -274,11 +275,10 @@ class AdmissionMixin:
         """One bucketed dense forward of ``ids``: (last logits, the dense
         cache of the prompt's bucket, not of max_seq_len)."""
         from fei_tpu_torch.engine.engine import _next_bucket
-        from fei_tpu_torch.models.llama import KVCache
 
         eng = self.engine
         bucket = min(_next_bucket(len(ids)), eng.max_seq_len)
-        dense = KVCache.create(eng.cfg, 1, bucket, dtype=eng.dtype, device=eng.device)
+        dense = eng.new_cache(1, bucket)
         with METRICS.span("prefill", nvtx=True):
             return eng.prefill([ids], dense)
 
@@ -295,10 +295,10 @@ class AdmissionMixin:
         tok0, key = self._first_token(seq, last_logits)
         if flight is not None:
             FLIGHT.dispatch("dispatch.prefill", *flight, time.perf_counter(),
-                            rid=seq.rid, mesh=MESH_TAG, slot=slot, tokens=n)
+                            rid=seq.rid, mesh=self.engine.mesh_tag, slot=slot, tokens=n)
         pages = alloc.pages_for(slot)
         n_prompt_pages = alloc.pages_needed(n)
-        self._scatter_dense(dense, pages[:n_prompt_pages])
+        scatter_dense(dense, self._pool, pages[:n_prompt_pages])
         row = self._slot_row(slot)
         self._arm(slot, row, n)
         self._keys[slot] = key
@@ -320,33 +320,6 @@ class AdmissionMixin:
         """The first token's key goes to the host only for a request that
         records it (journaled) or exports it (the SSE failover channel)."""
         return seq.journaled or seq.export is not None
-
-    def _scatter_dense(self, dense, page_ids: list[int]) -> None:
-        """Copy the first len(page_ids)*ps positions of a [L, 1, S, K, D]
-        dense cache into those pool pages (one indexed write per pool;
-        int8 pools quantize per (position, head) row)."""
-        from fei_tpu_torch.engine.paged_cache import quant_kv_rows
-
-        pool = self._pool
-        ps = pool.page_size
-        n_pages = len(page_ids)
-        need = n_pages * ps
-        idx = torch.as_tensor(page_ids, dtype=torch.long, device=pool.k_pages.device)
-
-        def pages_of(x):  # [L, 1, S, K, D] -> [L, n_pages, K, ps, D]
-            x = x[:, 0, :need]
-            if x.shape[1] < need:
-                x = torch.nn.functional.pad(x, (0, 0, 0, 0, 0, need - x.shape[1]))
-            L, _, K, D = x.shape
-            return x.reshape(L, n_pages, ps, K, D).transpose(2, 3)
-
-        for src, dst, scales in ((dense.k, pool.k_pages, pool.k_scales),
-                                 (dense.v, pool.v_pages, pool.v_scales)):
-            blocks = pages_of(src)
-            if scales is not None:
-                blocks, s = quant_kv_rows(blocks)  # s: [L, n, K, ps]
-                scales[:, idx] = s[:, :, :, None, :]
-            dst[:, idx] = blocks.to(dst.dtype)
 
     def _first_token(self, seq, last_logits) -> tuple[int, torch.Tensor]:
         """Sample the admission's first token on the request's own key
@@ -429,7 +402,7 @@ class AdmissionMixin:
                 # (this call's one-chunk budget)
                 _, dense = self._dense_prefill(seq.prompt_ids)
                 pages = eng._allocator.pages_for(st["slot"])
-                self._scatter_dense(dense, pages[:eng._allocator.pages_needed(end)])
+                scatter_dense(dense, self._pool, pages[:eng._allocator.pages_needed(end)])
                 st["pos"] = end
                 return
             if lo >= end:
@@ -440,7 +413,7 @@ class AdmissionMixin:
                         self._replay(prompt[lo:hi], st["row"], st["slot"], lo)
                     t1 = time.perf_counter()
                     FLIGHT.dispatch("dispatch.prefill_chunk", t0, t1, t1, rid=seq.rid,
-                                    mesh=MESH_TAG, slot=st["slot"], tokens=hi - lo,
+                                    mesh=self.engine.mesh_tag, slot=st["slot"], tokens=hi - lo,
                                     replay=True)
                     METRICS.incr("scheduler.resume_replayed_tokens", hi - lo)
                     st["pos"] = hi
@@ -476,7 +449,8 @@ class AdmissionMixin:
                                             final and not seq.generated)
         t1 = time.perf_counter()
         FLIGHT.dispatch("dispatch.prefill_chunk", t0, t1, t1, rid=seq.rid,
-                        mesh=MESH_TAG, slot=st["slot"], tokens=hi - lo, paged=True)
+                        mesh=self.engine.mesh_tag, slot=st["slot"], tokens=hi - lo,
+                        paged=True)
         st["pos"] = hi
         if not final or seq.generated:
             return  # more prompt chunks, or a resume's replay still to run
@@ -649,7 +623,7 @@ class AdmissionMixin:
         if entry is None:
             return False
         need = alloc.pages_needed(n)
-        want = pool_fingerprint(self._pool)
+        want = pool_fingerprint(self._pool, self.engine.tp)
         if (entry.n_tokens != n or entry.page_size != self.engine.page_size
                 or entry.n_pages < need or entry.fingerprint != want):
             # stale (decoded past the spill) or invariant-incompatible:
@@ -685,7 +659,7 @@ class AdmissionMixin:
         METRICS.incr("kv.pages_restored", need - m)
         nbytes = sum(int(v[m:need].nbytes) for v in arrays.values())
         account_kv_transfer("fetched", nbytes, t1 - t0)
-        FLIGHT.dispatch("dispatch.kv_fetch", t0, t1, t1, rid=seq.rid, mesh=MESH_TAG,
+        FLIGHT.dispatch("dispatch.kv_fetch", t0, t1, t1, rid=seq.rid, mesh=self.engine.mesh_tag,
                         slot=slot, pages=need - m, bytes=nbytes)
         tier.drop(seq.rid)  # one-shot: a later preemption re-spills
         self._resume_delivered(seq, n, prefix_pages=m, recomputed=0)
@@ -726,7 +700,7 @@ class AdmissionMixin:
                 entry = tier.fetch(key)  # kv.fetch faults fire here
                 if entry is None:
                     continue
-                want = pool_fingerprint(self._pool)
+                want = pool_fingerprint(self._pool, self.engine.tp)
                 if (entry.n_tokens != m * ps or entry.page_size != ps
                         or entry.n_pages != m or entry.fingerprint != want):
                     tier.drop(key)  # stale or incompatible: try shorter
@@ -737,7 +711,7 @@ class AdmissionMixin:
                 except KVGeometryError:
                     tier.drop(key)
                     continue
-                if entry.layout is not None and entry.layout.get("tp") != 1:
+                if entry.layout is not None and entry.layout.get("tp") != self.engine.tp:
                     METRICS.incr("kv.resharded_imports")
                 # the blob carries all m pages from position 0; the first
                 # ``have`` are in the slot already: fetch only the tail
@@ -766,7 +740,8 @@ class AdmissionMixin:
                 nbytes = sum(int(v[have:m].nbytes) for v in entry.arrays.values())
                 account_kv_transfer("fetched", nbytes, t1 - t0)
                 FLIGHT.dispatch("dispatch.kv_cas_fetch", t0, t1, t1, rid=seq.rid,
-                                mesh=MESH_TAG, slot=slot, pages=grow, bytes=nbytes)
+                                mesh=self.engine.mesh_tag, slot=slot, pages=grow,
+                                bytes=nbytes)
                 return full
         except Exception as exc:  # noqa: BLE001 — corrupt entry, I/O error,
             # injected hang: all mean "prefill instead"
@@ -802,9 +777,9 @@ class AdmissionMixin:
             def make_entry() -> PageEntry:
                 with METRICS.span("kv_spill"):
                     arrays = gather_pages(self._pool, list(pages[:m]))
-                fp = pool_fingerprint(self._pool)
+                fp = pool_fingerprint(self._pool, self.engine.tp)
                 return PageEntry(key=key, n_tokens=m * ps, page_size=ps, fingerprint=fp,
-                                 arrays=arrays, layout=shard_layout(fp["kv_heads"]))
+                                 arrays=arrays, layout=shard_layout(fp["kv_heads"], self.engine.tp))
 
             tier.put_if_absent(key, make_entry)
         except Exception as exc:  # noqa: BLE001 — the admission stands

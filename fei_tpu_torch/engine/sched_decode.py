@@ -128,7 +128,7 @@ class DecodeMixin:
             greedy = greedy_dev[b].tolist()  # the host sync, inside the span
         self._pool = pool
         FLIGHT.dispatch("dispatch.spec", t0, t_issue, time.perf_counter(),
-                        rid=s.rid, mesh=costmodel.MESH_TAG, slot=b, draft=T - 1)
+                        rid=s.rid, mesh=self.engine.mesh_tag, slot=b, draft=T - 1)
         accept = 0
         while accept < self.spec_draft_len and draft[accept] == greedy[accept]:
             accept += 1
@@ -418,6 +418,7 @@ class DecodeMixin:
             else:
                 out = toks.cpu().numpy()  # the one host sync
         t1 = time.perf_counter()
+        self._record_collective_time(t1 - t0)
         METRICS.timing("dispatch_issue", t_issue - t0)
         METRICS.timing("dispatch_sync", t1 - t_issue)
         extra = {}
@@ -427,7 +428,7 @@ class DecodeMixin:
             extra = {"ragged": True, "chunk_tokens": pc["hi"] - pc["lo"],
                      "chunk_rid": pc["st"]["seq"].rid}
         FLIGHT.dispatch("dispatch.step", t0, t_issue, t1,
-                        rids=[s.rid for _, s in active], mesh=costmodel.MESH_TAG,
+                        rids=[s.rid for _, s in active], mesh=self.engine.mesh_tag,
                         n_steps=n, slots=len(active), **extra)
         ctx = sum(len(s.prompt_ids) + len(s.generated) for _, s in active)
         if pc is not None:
@@ -445,4 +446,18 @@ class DecodeMixin:
             except BaseException as exc:  # noqa: BLE001
                 self._abort_admission(st["seq"], st["slot"], exc)
         return out, keys_h, active
+
+    def _record_collective_time(self, dt: float) -> None:
+        """Attribute a sharded dispatch's wall time to each active mesh axis
+        (``collective.<axis>`` timings). An upper bound: the step includes
+        compute. The time spent inside the collectives themselves is the
+        mesh's own count (``Mesh.stats``)."""
+        from fei_tpu_torch.parallel.mesh import AXES, axis_size
+
+        mesh = self.engine.mesh
+        if mesh is None:
+            return
+        for ax in AXES:
+            if axis_size(mesh, ax) > 1:
+                METRICS.timing(f"collective.{ax}", dt)
 

@@ -100,21 +100,21 @@ import queue
 import threading
 import time
 from collections import deque
+from contextlib import contextmanager
 from dataclasses import dataclass, field
 from typing import Callable, Iterator, Sequence
 
 import numpy as np
 import torch
 
-from fei_tpu_torch.engine.checkpoint import SINGLE_DEVICE_MESH
 from fei_tpu_torch.engine.faults import FAULTS
 from fei_tpu_torch.engine.sched_admission import AdmissionMixin
 from fei_tpu_torch.engine.sched_constrain import ConstraintMixin
 from fei_tpu_torch.engine.sched_decode import DecodeMixin
 from fei_tpu_torch.engine.tenancy import TenantBook, clamp_priority, sanitize_tenant
-from fei_tpu_torch.obs.costmodel import MESH_TAG
 from fei_tpu_torch.obs.flight import FLIGHT
 from fei_tpu_torch.obs.trace import TRACES
+from fei_tpu_torch.parallel.mesh import mesh_geometry
 from fei_tpu_torch.utils.errors import (
     DeadlineExceededError,
     DeviceError,
@@ -129,6 +129,52 @@ from fei_tpu_torch.utils.metrics import METRICS
 log = get_logger("scheduler")
 
 _DONE = object()
+
+
+class DeviceGate:
+    """Process-wide gate between the schedulers' device work and a caller
+    that must see no kernel launched from another thread while it runs:
+    the profiler's start and stop (CUPTI's teardown while a scheduler
+    thread launched kernels died of SIGSEGV on the H100). Each scheduler
+    loop iteration holds it ``shared()``; ``quiesce()`` waits for the
+    iterations in flight, holds new ones back until it exits, and goes
+    first when both wait."""
+
+    def __init__(self) -> None:
+        self._cond = threading.Condition()
+        self._active = 0
+        self._closed = False
+
+    @contextmanager
+    def shared(self):
+        with self._cond:
+            while self._closed:
+                self._cond.wait()
+            self._active += 1
+        try:
+            yield
+        finally:
+            with self._cond:
+                self._active -= 1
+                self._cond.notify_all()
+
+    @contextmanager
+    def quiesce(self):
+        with self._cond:
+            while self._closed:
+                self._cond.wait()
+            self._closed = True
+            while self._active:
+                self._cond.wait()
+        try:
+            yield
+        finally:
+            with self._cond:
+                self._closed = False
+                self._cond.notify_all()
+
+
+DEVICE_GATE = DeviceGate()
 
 
 def gen_from_record(rec: dict | None):
@@ -411,7 +457,7 @@ class PagedScheduler(AdmissionMixin, DecodeMixin, ConstraintMixin):
         seq = _Seq(prompt_ids=list(prompt_ids), gen=gen, mask_fn=logit_mask_fn,
                    stops=eng._stops(gen), budget=budget, tenant=tenant,
                    priority=priority)
-        seq.trace = TRACES.start(prompt_tokens=n, mesh=MESH_TAG)
+        seq.trace = TRACES.start(prompt_tokens=n, mesh=self.engine.mesh_tag)
         seq.rid = seq.trace.rid
         seq.t_queued = time.perf_counter()
         dl = getattr(gen, "deadline_s", 0.0) or self.default_deadline_s
@@ -652,40 +698,45 @@ class PagedScheduler(AdmissionMixin, DecodeMixin, ConstraintMixin):
     def _loop(self) -> None:
         idle = 0
         while True:
+            park = False
             try:
-                if self._closed:
-                    self._drain(EngineError("scheduler closed"))
-                    with self._lock:
-                        if self._closed:
-                            self._thread = None
-                            return
-                    continue
-                self._reap_cancelled()
-                self._run_ctl_pending()
-                if self._draining:
-                    if self._admitting is not None:
-                        # an accepted chunked admission finishes its
-                        # prefill; nothing new leaves the queue
-                        self._admit_ready()
-                    if self._drain_step():
+                # device work holds the gate; an idle wait does not
+                with DEVICE_GATE.shared():
+                    if self._closed:
+                        self._drain(EngineError("scheduler closed"))
                         with self._lock:
-                            self._thread = None
-                            return
-                    continue
-                self._admit_ready()
-                if not any(self._slots):
-                    if not self._waiting and self._admitting is None:
-                        idle += 1
-                        if idle > self._IDLE_PARKS:
+                            if self._closed:
+                                self._thread = None
+                                return
+                        continue
+                    self._reap_cancelled()
+                    self._run_ctl_pending()
+                    if self._draining:
+                        if self._admitting is not None:
+                            # an accepted chunked admission finishes its
+                            # prefill; nothing new leaves the queue
+                            self._admit_ready()
+                        if self._drain_step():
                             with self._lock:
-                                if not self._waiting and not any(self._slots):
-                                    self._thread = None
-                                    return
+                                self._thread = None
+                                return
+                        continue
+                    self._admit_ready()
+                    if not any(self._slots):
+                        if not self._waiting and self._admitting is None:
+                            idle += 1
+                            if idle > self._IDLE_PARKS:
+                                with self._lock:
+                                    if not self._waiting and not any(self._slots):
+                                        self._thread = None
+                                        return
+                        park = True
+                    else:
+                        idle = 0
+                        self._step_active()
+                if park:
                     self._wake.wait(timeout=0.1)
                     self._wake.clear()
-                    continue
-                idle = 0
-                self._step_active()
             except BaseException as exc:  # noqa: BLE001
                 log.error("scheduler loop error: %r", exc)
                 if device_scoped(exc):
@@ -1020,10 +1071,10 @@ class PagedScheduler(AdmissionMixin, DecodeMixin, ConstraintMixin):
             t0 = time.perf_counter()
             with METRICS.span("kv_spill"):
                 arrays = gather_pages(self._pool, pages)
-            fp = pool_fingerprint(self._pool)
+            fp = pool_fingerprint(self._pool, self.engine.tp)
             entry = PageEntry(
                 key=seq.rid, n_tokens=n, page_size=self.engine.page_size,
-                fingerprint=fp, arrays=arrays, layout=shard_layout(fp["kv_heads"]),
+                fingerprint=fp, arrays=arrays, layout=shard_layout(fp["kv_heads"], self.engine.tp),
             )
             tier.put(seq.rid, entry)
             t1 = time.perf_counter()
@@ -1180,7 +1231,7 @@ class PagedScheduler(AdmissionMixin, DecodeMixin, ConstraintMixin):
 
         if self._cas_salt is None:
             self._cas_salt = content_salt(getattr(self.engine.cfg, "name", ""),
-                                          pool_fingerprint(self._pool))
+                                          pool_fingerprint(self._pool, self.engine.tp))
         return content_keys(ids, n_pages, self.engine.page_size, self._cas_salt)
 
     # -- the session journal ------------------------------------------------
@@ -1219,8 +1270,8 @@ class PagedScheduler(AdmissionMixin, DecodeMixin, ConstraintMixin):
 
     def _journal_admit(self, seq: _Seq) -> None:
         """The journal's admit record, written at the end of submit() after
-        every point that sheds. The mesh is provenance (the port serves
-        one device); page_size gates recovery."""
+        every point that sheds. The mesh is provenance (a session restores
+        onto any mesh); page_size gates recovery."""
         j = self._journal
         if j is None or seq.finished or not self._portable(seq):
             return
@@ -1231,7 +1282,7 @@ class PagedScheduler(AdmissionMixin, DecodeMixin, ConstraintMixin):
             "rid": seq.rid,
             "prompt_ids": [int(t) for t in seq.prompt_ids],
             "gen": self._gen_record(seq),
-            "mesh": dict(SINGLE_DEVICE_MESH),
+            "mesh": mesh_geometry(self.engine.mesh),
             "page_size": int(self.engine.page_size),
             "tenant": seq.tenant,
             "priority": seq.priority,
@@ -1361,7 +1412,7 @@ class PagedScheduler(AdmissionMixin, DecodeMixin, ConstraintMixin):
 
             try:
                 checkpoint.save_request_snapshots(
-                    self._drain_dir, snaps, mesh=dict(SINGLE_DEVICE_MESH),
+                    self._drain_dir, snaps, mesh=mesh_geometry(self.engine.mesh),
                     page_size=self.engine.page_size)
             except Exception as exc:  # noqa: BLE001
                 log.error("drain snapshot persistence failed: %r", exc)
@@ -1383,7 +1434,7 @@ class PagedScheduler(AdmissionMixin, DecodeMixin, ConstraintMixin):
             "prompt_ids": [int(t) for t in seq.prompt_ids],
             "generated": [int(t) for t in seq.generated],
             "resume_key": self._key_list(seq.resume_key),
-            "mesh": dict(SINGLE_DEVICE_MESH),
+            "mesh": mesh_geometry(self.engine.mesh),
             "gen": self._gen_record(seq),
             "route": "dense" if seq.dense_admitted else "chunked",
         }

@@ -1,5 +1,5 @@
 """Checkpoint loading: an HF safetensors directory -> the stacked param dict
-(counterpart of fei_tpu/engine/weights.py, eager unsharded path).
+(counterpart of fei_tpu/engine/weights.py).
 
 Maps per-layer HF Llama / Qwen2 / Mistral / Mixtral / Gemma / Phi tensor
 names onto
@@ -12,7 +12,16 @@ override the preset (``_merge_hf_config``). ``quantize="int8"|"int4"``
 quantizes the big linears while they are read, one layer at a time, from
 the checkpoint's stored values in fp32 (numpy copies of the JAX package's
 ``_quant_host`` / ``_quant4_host``, so the bytes are the JAX loader's).
-Sharded streaming is a later slice (C4).
+
+**Sharded streaming** (``mesh=`` with the ``sharded`` weights profile):
+each rank reads only its slice of each tensor (``safe_open(...).get_slice``,
+the slice given by parallel/sharding.py's tables) and quantizes it while
+it reads, so the whole tree never exists on one rank and each rank's
+device holds its share plus the one tensor in flight. Column shards
+quantize alone (scales are per output column); an int8 leaf sharded over
+its contraction axis (the row-parallel ``wo``/``w_down``) reads the whole
+tensor on the host, quantizes it and keeps its rows, since its scales
+span every row. The ``replicated`` profile reads everything on every rank.
 """
 
 from __future__ import annotations
@@ -198,6 +207,9 @@ def load_checkpoint(
     quantize: str | None = None,
     int4_lm_head: bool = False,
     quant_embed: bool = False,
+    mesh=None,
+    weights: str | None = None,
+    int4_exclude: frozenset = frozenset(),
 ) -> tuple[ModelConfig, dict]:
     """Load an unsharded HF safetensors dir into the stacked param dict on
     ``device``. Returns (merged config, params).
@@ -208,7 +220,10 @@ def load_checkpoint(
     ``QTensor4``, the rest as int8 ``QTensor``. ``quant_embed`` (with a
     mode) row-quantizes the embedding table. A Mixtral's experts load
     stacked [L, E, in, out], quantized one layer at a time (int8 under
-    either mode)."""
+    either mode). ``int4_exclude`` names leaves kept int8.
+
+    ``mesh`` with ``weights="sharded"``: this rank's slices only (see the
+    module docstring)."""
     if quantize not in QUANT_MODES:
         raise CheckpointError(f"unsupported quantize mode: {quantize!r}")
     from safetensors import safe_open
@@ -216,20 +231,42 @@ def load_checkpoint(
     cfg = _merge_hf_config(ckpt_dir, cfg)
     weight_map = _open_index(ckpt_dir)
     files: dict[str, object] = {}
+    shardings = None
+    if mesh is not None and weights == "sharded":
+        from fei_tpu_torch.parallel.sharding import param_shardings_from_cfg
 
-    def read(name: str, expect: tuple, transpose: bool) -> torch.Tensor:
+        shardings = param_shardings_from_cfg(cfg, mesh)
+
+    def cut(path: tuple, shape: tuple) -> tuple | None:
+        """This rank's per-layer slices of a leaf, or None for all of it."""
+        if shardings is None:
+            return None
+        sh = shardings[path[0]] if len(path) == 1 else shardings["layers"][path[1]]
+        if path[0] == "layers":
+            sl = sh.slices((cfg.num_layers, *shape))[1:]
+        else:
+            sl = sh.slices(shape)
+        return None if all(x == slice(None) for x in sl) else sl
+
+    def read(name: str, expect: tuple, transpose: bool, sl: tuple | None = None) -> torch.Tensor:
+        """The tensor ``name`` in our orientation, or its ``sl`` slice
+        (slices in our orientation; only those bytes are read)."""
         if name not in weight_map:
             raise CheckpointError(f"tensor {name!r} missing from checkpoint")
         shard = weight_map[name]
         if shard not in files:
             files[shard] = safe_open(os.path.join(ckpt_dir, shard), framework="pt")
-        t = files[shard].get_tensor(name)
+        view = files[shard].get_slice(name)
         hf_shape = tuple(reversed(expect)) if transpose else expect
-        if tuple(t.shape) != hf_shape:
+        if tuple(view.get_shape()) != hf_shape:
             raise CheckpointError(
-                f"tensor {name!r} has shape {tuple(t.shape)}, config expects "
+                f"tensor {name!r} has shape {tuple(view.get_shape())}, config expects "
                 f"{hf_shape} — wrong model config for this checkpoint?"
             )
+        if sl is None:
+            t = files[shard].get_tensor(name)
+        else:
+            t = view[tuple(reversed(sl)) if transpose else sl]
         return t.T if transpose else t
 
     def quantizer(key: str, shape: tuple):
@@ -239,36 +276,48 @@ def load_checkpoint(
             return _quant_embed_host, QTensor
         if quantize is None or key not in QUANT_KEYS:
             return None
-        if quantize == "int4" and _int4_ok(key, SimpleNamespace(shape=shape), cfg.is_moe,
-                                          int4_lm_head):
+        if (quantize == "int4" and key not in int4_exclude
+                and _int4_ok(key, SimpleNamespace(shape=shape), cfg.is_moe, int4_lm_head)):
             return _quant4_host, QTensor4
         return _quant_host, QTensor
 
-    def layer(tmpl: str, i: int, shape: tuple, transpose: bool) -> torch.Tensor:
+    def layer(tmpl: str, i: int, shape: tuple, transpose: bool, sl=None) -> torch.Tensor:
         if "{e}" in tmpl:  # one tensor per expert, stacked [E, in, out]
-            return torch.stack([read(tmpl.format(i=i, e=e), shape[1:], transpose)
-                                for e in range(shape[0])])
-        return read(tmpl.format(i=i), shape, transpose)
+            per = None if sl is None else sl[1:]
+            return torch.stack([read(tmpl.format(i=i, e=e), shape[1:], transpose, per)
+                                for e in range(shape[0])])[sl[0] if sl else slice(None)]
+        return read(tmpl.format(i=i), shape, transpose, sl)
 
-    def quantized(t: torch.Tensor, quant, kind):
-        fields = quant(t.float().numpy())
-        return kind(*(torch.from_numpy(f).to(device) for f in fields))
+    def quantized(get, sl, quant, kind):
+        """Quantize this rank's slice ``sl`` of the tensor ``get`` reads. An
+        int8 weight cut over its contraction axis (-2) is quantized whole,
+        its scales spanning every row, and then cut."""
+        if sl is not None and kind is QTensor and quant is _quant_host \
+                and sl[-2] != slice(None):
+            q, s = quant(get(None).float().numpy())
+            fields = (q[sl], s[(*sl[:-2], slice(None), sl[-1])])
+        else:
+            fields = quant(get(sl).float().numpy())
+        return kind(*(torch.from_numpy(np.ascontiguousarray(f)).to(device) for f in fields))
 
     params: dict = {"layers": {}}
     for path, (tmpl, shape, transpose) in _leaf_specs(cfg).items():
         how = quantizer(path[-1], shape)
+        sl = cut(path, shape)
         if path[0] == "layers" and how is None:
-            out = torch.empty((cfg.num_layers, *shape), dtype=dtype, device=device)
+            local = shape if sl is None else tuple(
+                len(range(*x.indices(n))) for x, n in zip(sl, shape))
+            out = torch.empty((cfg.num_layers, *local), dtype=dtype, device=device)
             for i in range(cfg.num_layers):
-                out[i].copy_(layer(tmpl, i, shape, transpose))
+                out[i].copy_(layer(tmpl, i, shape, transpose, sl))
             params["layers"][path[1]] = out
         elif path[0] == "layers":  # quantized one layer at a time
-            params["layers"][path[1]] = stack_layers(
-                cfg.num_layers, lambda i: quantized(layer(tmpl, i, shape, transpose), *how))
+            params["layers"][path[1]] = stack_layers(cfg.num_layers, lambda i: quantized(
+                lambda s_: layer(tmpl, i, shape, transpose, s_), sl, *how))
         elif how is None:
-            params[path[0]] = read(tmpl, shape, transpose).to(device=device, dtype=dtype)
+            params[path[0]] = read(tmpl, shape, transpose, sl).to(device=device, dtype=dtype)
         else:
-            params[path[0]] = quantized(read(tmpl, shape, transpose), *how)
+            params[path[0]] = quantized(lambda s_: read(tmpl, shape, transpose, s_), sl, *how)
     log.info("loaded checkpoint from %s (%d layers%s)", ckpt_dir, cfg.num_layers,
              f", {quantize}" if quantize else "")
     return cfg, params

@@ -68,9 +68,9 @@ def export_blob(scheduler, prompt_ids: list[int]) -> bytes | None:
         key="migrate",
         n_tokens=covered,
         page_size=ps,
-        fingerprint=pool_fingerprint(pool),
+        fingerprint=pool_fingerprint(pool, scheduler.engine.tp),
         arrays=arrays,
-        layout=shard_layout(pool.k_pages.shape[2]),
+        layout=shard_layout(scheduler.engine.cfg.num_kv_heads, scheduler.engine.tp),
     )
     blob = pack_entry(entry, extra={"prompt_ids": list(prompt_ids[:covered])})
     METRICS.incr("kv.migrations_out")
@@ -92,10 +92,10 @@ def import_blob(scheduler, blob: bytes) -> int:
     prefix = scheduler._prefix
     if prefix is None:
         raise KVTierError("target replica runs without a prefix cache")
-    want = pool_fingerprint(pool)
+    want = pool_fingerprint(pool, scheduler.engine.tp)
     check_fingerprint(want, entry.fingerprint, what="migration blob")
     arrays = canonicalize_arrays(entry.arrays, entry.layout, want["kv_heads"])
-    if entry.layout is not None and entry.layout.get("tp") != 1:
+    if entry.layout is not None and entry.layout.get("tp") != scheduler.engine.tp:
         METRICS.incr("kv.resharded_imports")
     alloc = scheduler.engine._allocator
     n = entry.n_pages

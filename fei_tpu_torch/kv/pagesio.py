@@ -27,9 +27,15 @@ The pool geometry splits in two, as in the JAX package:
   iff this matches, across packages too, and content-addressed keys salt
   with only this half.
 - ``shard_layout`` — the LAYOUT half (tp degree + per-shard head slices).
-  The port serves one device, so its own layout is ``tp: 1``; a blob from
-  a tp-sharded writer is resharded by ``canonicalize_arrays`` into the
-  canonical full-extent head order before it scatters.
+  Blobs travel in the canonical full-extent head order whatever the
+  writer's layout: on a tp mesh ``gather_pages`` gathers every rank's
+  heads, and ``scatter_pages`` hands each rank its own; a blob with a
+  permuted layout is resharded by ``canonicalize_arrays`` before it
+  scatters.
+
+Both are ``parallel.serving`` ops: on rank 0 of a mesh engine they run on
+every rank. A rank's pool holds its kv heads, so the per-page geometry is
+the rank's shapes with the head extent times tp.
 
 The JAX package pads page-id lists to bound its jit cache; eager torch
 needs no padding.
@@ -41,6 +47,7 @@ import numpy as np
 import torch
 
 from fei_tpu_torch.kv.tier import BF16_WORDS
+from fei_tpu_torch.parallel.serving import spmd_op
 
 _ARRAY_FIELDS = ("k_pages", "v_pages", "k_scales", "v_scales")
 
@@ -50,15 +57,16 @@ def dtype_name(dtype) -> str:
     return str(dtype).removeprefix("torch.")
 
 
-def pool_fingerprint(pool) -> dict:
+def pool_fingerprint(pool, tp: int = 1) -> dict:
     """The INVARIANT per-page geometry a spilled entry must match to
     scatter back: everything except the pool's total page count (two
     replicas with different memory budgets still exchange sessions) and
-    its shard layout."""
+    its shard layout. ``tp``: the pool is one of tp head shards, so the
+    total kv-head extent is its own times tp."""
     L, _, K, ps, D = pool.k_pages.shape
     return {
         "layers": int(L),
-        "kv_heads": int(K),
+        "kv_heads": int(K) * int(tp),
         "page_size": int(ps),
         "head_dim": int(D),
         "dtype": dtype_name(pool.k_pages.dtype),
@@ -84,8 +92,7 @@ def config_fingerprint(cfg, page_size: int, dtype, kv_quant: str | None = None) 
 
 def shard_layout(kv_heads: int, tp: int = 1) -> dict:
     """The LAYOUT half of the pool geometry: how the kv-head extent is
-    sliced over ``tp`` shards (the port's own pools: one device, ``tp``
-    1). Provenance, not a compatibility gate."""
+    sliced over ``tp`` shards. Provenance, not a compatibility gate."""
     hps = int(kv_heads) // max(tp, 1)
     return {
         "tp": int(tp),
@@ -166,9 +173,13 @@ def _from_host(a: np.ndarray, dtype: torch.dtype) -> torch.Tensor:
     return torch.from_numpy(a).to(dtype)
 
 
-def gather_pages(pool, pages: list[int]) -> dict[str, np.ndarray]:
+@spmd_op
+def gather_pages(pool, pages: list[int], kernel_mesh=None) -> dict[str, np.ndarray] | None:
     """Pool pages -> host numpy, page-axis-first ([n, L, K, ps, D] /
-    scales [n, L, K, 1, ps]). The pool is read, never changed."""
+    scales [n, L, K, 1, ps]). The pool is read, never changed. Under a
+    mesh each rank gathers its kv heads and they are all-gathered over tp
+    into the full extent; rank 0 returns the host arrays (the others
+    None)."""
     idx = torch.as_tensor(list(pages), dtype=torch.long, device=pool.k_pages.device)
     out = {}
     for name in _ARRAY_FIELDS:
@@ -176,14 +187,23 @@ def gather_pages(pool, pages: list[int]) -> dict[str, np.ndarray]:
         if src is None:
             continue
         # [L, P, ...] -index_select-> [L, n, ...] -> page-axis-first
-        out[name] = _to_host(src.index_select(1, idx).movedim(1, 0).contiguous())
-    return out
+        got = src.index_select(1, idx).movedim(1, 0).contiguous()
+        if kernel_mesh is not None:
+            got = kernel_mesh.all_gather(got, "tp", dim=2)
+        out[name] = got
+    if kernel_mesh is not None and kernel_mesh.rank != 0:
+        return None
+    return {name: _to_host(t) for name, t in out.items()}
 
 
-def scatter_pages(pool, pages: list[int], arrays: dict[str, np.ndarray]) -> None:
+@spmd_op
+def scatter_pages(pool, pages: list[int], arrays: dict[str, np.ndarray],
+                  kernel_mesh=None) -> None:
     """Host page arrays -> pool pages, in place (the JAX package donates
     the pool and returns it). ``arrays`` may hold MORE pages than
-    ``pages`` asks for: the leading ``len(pages)`` are written."""
+    ``pages`` asks for: the leading ``len(pages)`` are written. The arrays
+    hold the full kv-head extent; under a mesh each rank writes its own
+    heads."""
     n = len(pages)
     dev = pool.k_pages.device
     idx = torch.as_tensor(list(pages), dtype=torch.long, device=dev)
@@ -191,5 +211,10 @@ def scatter_pages(pool, pages: list[int], arrays: dict[str, np.ndarray]) -> None
         dst = getattr(pool, name)
         if dst is None or arrays.get(name) is None:
             continue
-        src = _from_host(np.asarray(arrays[name])[:n], dst.dtype).to(dev)
+        a = np.asarray(arrays[name])[:n]
+        if kernel_mesh is not None and a.shape[2] != dst.shape[2]:
+            k = dst.shape[2]
+            c = kernel_mesh.coords["tp"]
+            a = a[:, :, c * k:(c + 1) * k]
+        src = _from_host(a, dst.dtype).to(dev)
         dst.index_copy_(1, idx, src.movedim(0, 1))

@@ -22,6 +22,20 @@ linears (``ops.quant``: every big linear goes through ``mm``, int4 leaves
 through the K4 kernel), and Mixtral-style MoE layers (``_moe``: the dense
 oracle or the token-routed form of ``ops.moe``, int8 experts raw with their
 scales on the products).
+
+**On a tensor-parallel mesh** (``kernel_mesh``, parallel/mesh.py) each rank
+holds its kv heads of the caches and, per leaf, the whole weight or its
+slice (parallel/sharding.py); the shape of each leaf says which, as a
+GSPMD layout would. Every rank computes the rank's query and kv heads (a
+whole projection is computed whole and sliced, so each head is the
+one-device value), attends with its heads through the sharded kernel
+wrappers, whose outputs come back gathered, and continues with replicated
+activations. A row-sharded weight (``wo``, ``w_down``: the Megatron
+profile) multiplies the rank's slice of its input and the partial sums are
+all_reduced; a vocab-sharded embedding looks up its own rows and
+all_reduces, a vocab-sharded LM head all_gathers its logits. The public
+forwards are ``parallel.serving`` ops: on rank 0 of a mesh engine they
+broadcast their call to the follower ranks.
 """
 
 from __future__ import annotations
@@ -53,6 +67,7 @@ from fei_tpu_torch.ops.quant import (
 )
 from fei_tpu_torch.ops.rmsnorm import rms_norm
 from fei_tpu_torch.ops.rope import apply_rope, compute_rope_freqs
+from fei_tpu_torch.parallel.serving import spmd_op
 from fei_tpu_torch.utils.errors import TrainingError
 
 _FLASH_MIN_T = 64  # below this, the plain path (decode is T = 1)
@@ -70,8 +85,11 @@ class KVCache(NamedTuple):
     def create(
         cls, cfg: ModelConfig, batch: int, max_seq: int,
         dtype=torch.bfloat16, device: torch.device | str = "cpu",
+        shape: tuple | None = None,
     ) -> "KVCache":
-        shape = (cfg.num_layers, batch, max_seq, cfg.num_kv_heads, cfg.head_dim_)
+        """A zeroed cache; ``shape`` overrides the K/V shape (a rank's
+        shard: its rows and kv heads). ``length`` always covers ``batch``."""
+        shape = shape or (cfg.num_layers, batch, max_seq, cfg.num_kv_heads, cfg.head_dim_)
         return cls(
             k=torch.zeros(shape, dtype=dtype, device=device),
             v=torch.zeros(shape, dtype=dtype, device=device),
@@ -90,6 +108,7 @@ def init_params(
     quantize: str | None = None,
     int4_lm_head: bool = False,
     quant_embed: bool = False,
+    int4_exclude: frozenset = frozenset(),
 ) -> dict:
     """Random-init parameter dict (layers stacked on axis 0), made on
     ``device`` from ``seed``: normal(0, fan_in^-1/2) linears and embeddings,
@@ -100,7 +119,8 @@ def init_params(
     (drawn in fp32, rounded to ``dtype``, then quantized, one layer at a
     time so the fp32 transient stays one layer big): int4 where
     ``ops.quant._int4_ok`` allows it (``int4_lm_head`` opts the LM head
-    in), int8 elsewhere. ``quant_embed`` (with a mode) row-quantizes the
+    in), int8 elsewhere and for the leaves named in ``int4_exclude`` (a tp
+    mesh's row-parallel ``wo``/``w_down``). ``quant_embed`` (with a mode) row-quantizes the
     embedding table to int8. MoE configs draw ``router`` [L, h, E] and the
     stacked experts ``w_gate``/``w_up`` [L, E, h, I] and ``w_down``
     [L, E, I, h] (int8 under either mode), one layer's [E, in, out] at a
@@ -121,7 +141,7 @@ def init_params(
         set; the draws are the same in every mode."""
         quant = None
         if name is not None and quantize is not None:
-            int4 = quantize == "int4" and _int4_ok(
+            int4 = quantize == "int4" and name not in int4_exclude and _int4_ok(
                 name, SimpleNamespace(shape=shape), cfg.is_moe, int4_lm_head)
             quant = _quantize4 if int4 else _quantize8
         if quant is None or len(shape) == 2:
@@ -218,19 +238,68 @@ def _mlp_act(cfg: ModelConfig, gate):
     return F.silu(gate)
 
 
-def _mlp_dense(cfg: ModelConfig, y, lp):
+def _tp(mesh) -> tuple[int, int]:
+    """(tp size, this rank's tp coordinate); (1, 0) without a mesh."""
+    if mesh is None:
+        return 1, 0
+    return mesh.shape["tp"], mesh.coords["tp"]
+
+
+def _dims(w) -> tuple[int, int]:
+    """A linear leaf's (in, out) extent: plain, int8 or nibble-packed int4."""
+    if isinstance(w, QTensor4):
+        return 2 * w.p.shape[-2], w.p.shape[-1]
+    t = w.q if isinstance(w, QTensor) else w
+    return t.shape[-2], t.shape[-1]
+
+
+def _local(x, full: int, dim: int, mesh):
+    """The rank's 1/tp slice of ``x`` along ``dim`` when ``x`` is whole
+    there (extent ``full``); an already-local ``x`` passes."""
+    tp, r = _tp(mesh)
+    if tp == 1 or x.shape[dim] != full:
+        return x
+    step = full // tp
+    return x.narrow(dim, r * step, step)
+
+
+def _mm_k(x, w, kernel_mesh=None, full_out: int | None = None):
+    """``mm``, except that a whole int4 leaf under a tp mesh runs the
+    column-sharded K4 wrapper (each rank its columns, gathered): the
+    reference's ``_mm_k``. A leaf already sharded over its columns (the
+    Megatron profile) multiplies locally."""
+    if (kernel_mesh is not None and isinstance(w, QTensor4)
+            and _tp(kernel_mesh)[0] > 1 and w.p.shape[-1] == full_out):
+        from fei_tpu_torch.ops.kernels.int4_matmul import int4_mm_sharded
+
+        return int4_mm_sharded(x, w, kernel_mesh)
+    return mm(x, w)
+
+
+def _row_mm(x, w, full_in: int, mesh):
+    """A row-parallel linear (``wo``, ``w_down``): a whole weight multiplies
+    ``x`` whole; a weight sharded over its input rows (the Megatron
+    profile) multiplies the rank's slice of ``x``, and the partial sums are
+    all_reduced over tp."""
+    if _dims(w)[0] == full_in:
+        return mm(x, w)
+    return mesh.all_reduce(mm(_local(x, full_in, -1, mesh), w), "tp")
+
+
+def _mlp_dense(cfg: ModelConfig, y, lp, kernel_mesh=None):
     """Gated MLP (w_gate*w_up -> w_down), or Phi's fc1 -> act -> fc2 with
     biases (cfg.mlp_gated=False; fc1/fc2 live in the w_gate/w_down leaves)."""
+    I = cfg.intermediate_size
     if not cfg.mlp_gated:
-        a = mm(y, lp["w_gate"])
+        a = _mm_k(y, lp["w_gate"], kernel_mesh, I)
         if "b_gate" in lp:
             a = a + lp["b_gate"]
-        out = mm(_mlp_act(cfg, a.float()).to(y.dtype), lp["w_down"])
+        out = _row_mm(_mlp_act(cfg, a.float()).to(y.dtype), lp["w_down"], I, kernel_mesh)
         if "b_down" in lp:
             out = out + lp["b_down"]
         return out
-    act = _mlp_act(cfg, mm(y, lp["w_gate"]).float()).to(y.dtype)
-    return mm(act * mm(y, lp["w_up"]), lp["w_down"])
+    act = _mlp_act(cfg, _mm_k(y, lp["w_gate"], kernel_mesh, I).float()).to(y.dtype)
+    return _row_mm(act * _mm_k(y, lp["w_up"], kernel_mesh, I), lp["w_down"], I, kernel_mesh)
 
 
 def _moe(cfg: ModelConfig, y, lp, allow_routed: bool, moe_mesh=None):
@@ -239,8 +308,8 @@ def _moe(cfg: ModelConfig, y, lp, allow_routed: bool, moe_mesh=None):
     oracle everywhere, and the default ``auto`` routes when the caller
     allows it and the forward carries at least ``_ROUTED_MIN_TOKENS``
     tokens. ``moe_mesh`` is the JAX package's expert-parallel mesh: no
-    caller in the port passes one (it has no mesh), and a mesh raises,
-    since expert parallelism is roadmap module C4."""
+    caller in the port passes one, and a mesh raises, since expert
+    parallelism is the second half of roadmap module C4."""
     mode = os.environ.get("FEI_TPU_ROUTED_MOE", "auto")
     if moe_mesh is not None and mode != "0":
         raise NotImplementedError(
@@ -254,11 +323,16 @@ def _moe(cfg: ModelConfig, y, lp, allow_routed: bool, moe_mesh=None):
               cfg.num_experts_per_tok)
 
 
-def _mlp(cfg: ModelConfig, y, lp, allow_routed: bool):
-    """The block's MLP: the MoE layer or the dense one."""
+def _mlp(cfg: ModelConfig, y, lp, allow_routed: bool, kernel_mesh=None):
+    """The block's MLP: the MoE layer or the dense one. Experts sharded
+    over their intermediate dim (the Megatron profile) give partial sums,
+    all_reduced over tp."""
     if cfg.is_moe:
-        return _moe(cfg, y, lp, allow_routed)
-    return _mlp_dense(cfg, y, lp)
+        out = _moe(cfg, y, lp, allow_routed)
+        if _dims(lp["w_down"])[0] != cfg.intermediate_size:
+            out = kernel_mesh.all_reduce(out, "tp")
+        return out
+    return _mlp_dense(cfg, y, lp, kernel_mesh)
 
 
 def model_dtype(params: dict):
@@ -277,34 +351,72 @@ def layer_params(params: dict, i: int) -> dict:
     }
 
 
-def embed_tokens(params: dict, cfg: ModelConfig, tokens, dtype):
+def embed_tokens(params: dict, cfg: ModelConfig, tokens, dtype, kernel_mesh=None):
     """Embedding lookup (plain or row-quantized table); Gemma scales by
-    sqrt(hidden_size) in the compute dtype."""
-    x = embed_lookup(params["embed"], tokens, dtype)
+    sqrt(hidden_size) in the compute dtype. A vocab-sharded table (the
+    Megatron profile) looks up the ids in its own rows, zeros elsewhere,
+    and all_reduces over tp: one rank adds each row, so the sum is exact."""
+    table = params["embed"]
+    rows = (table.q if isinstance(table, QTensor) else table).shape[0]
+    if rows == cfg.vocab_size:
+        x = embed_lookup(table, tokens, dtype)
+    else:
+        idx = tokens - _tp(kernel_mesh)[1] * rows
+        own = (idx >= 0) & (idx < rows)
+        x = embed_lookup(table, idx.clamp(0, rows - 1), dtype)
+        x = kernel_mesh.all_reduce(torch.where(own[..., None], x, torch.zeros_like(x)), "tp")
     if cfg.embed_scale:
         x = x * torch.tensor(cfg.hidden_size ** 0.5, dtype=dtype)
     return x
 
 
-def qkv_proj(lp, y, Hq: int, K: int, d: int):
+def qkv_proj(lp, y, Hq: int, K: int, d: int, kernel_mesh=None):
     """y -> (q [B,T,Hq,d], k [B,T,K,d], v [B,T,K,d]) with the qkv biases
-    when the layer carries them."""
+    when the layer carries them. Under a tp mesh, the rank's Hq/tp query
+    and K/tp kv heads: a whole projection is computed whole and sliced,
+    so each head is the one-device value."""
     B, T, _ = y.shape
-    q, k, v = mm(y, lp["wq"]), mm(y, lp["wk"]), mm(y, lp["wv"])
+    q = _mm_k(y, lp["wq"], kernel_mesh, Hq * d)
+    k = _mm_k(y, lp["wk"], kernel_mesh, K * d)
+    v = _mm_k(y, lp["wv"], kernel_mesh, K * d)
     if "bq" in lp:
         q, k, v = q + lp["bq"], k + lp["bk"], v + lp["bv"]
-    return q.reshape(B, T, Hq, d), k.reshape(B, T, K, d), v.reshape(B, T, K, d)
+    q = _local(q, Hq * d, -1, kernel_mesh)
+    k, v = _local(k, K * d, -1, kernel_mesh), _local(v, K * d, -1, kernel_mesh)
+    return q.reshape(B, T, -1, d), k.reshape(B, T, -1, d), v.reshape(B, T, -1, d)
 
 
-def _attend(q, k, v, kv_length, positions, window: int = 0, flash: bool | None = None):
+def _among_zeros(x, mesh):
+    """[B, T, n, D] of this rank's heads -> [B, T, n*tp, D]: zeros with
+    ``x`` at the rank's block of heads."""
+    tp, r = _tp(mesh)
+    n = x.shape[2]
+    out = x.new_zeros(*x.shape[:2], n * tp, x.shape[3])
+    out[:, :, r * n:(r + 1) * n] = x
+    return out
+
+
+def _attend(q, k, v, kv_length, positions, window: int = 0, flash: bool | None = None,
+            mesh=None):
     """Pick the attention path: with ``flash`` None, the flash kernel for
     prefill-sized T on the card and the plain path otherwise; True forces
     the flash wrapper (on CPU tensors that is its plain version), False the
     plain path. ``kv_length`` is the pre-write cache length [B]; keys are
-    valid below kv_length + T."""
+    valid below kv_length + T. Under a tp mesh ``q``/``k``/``v`` hold the
+    rank's heads: the flash kernel computes each head alone, but the plain
+    path's einsums go to library GEMMs that pick their algorithm by shape,
+    so there the rank's heads sit among zeros at the one-device shapes,
+    which keeps each head's values the one-device values, and the rank's
+    heads are sliced back out."""
     T = q.shape[1]
     if flash or (flash is None and T >= _FLASH_MIN_T and q.is_cuda):
         return flash_attention(q, k, v, kv_length, kv_length + T, window=window)
+    tp, r = _tp(mesh)
+    if tp > 1:
+        n = q.shape[2]
+        out = attention(*(_among_zeros(x, mesh) for x in (q, k, v)), positions,
+                        kv_length + T, window=window)
+        return out[:, :, r * n:(r + 1) * n]
     return attention(q, k, v, positions, kv_length + T, window=window)
 
 
@@ -320,44 +432,56 @@ def _write_kv(buf, new, positions, live):
 
 
 def _layer(cfg: ModelConfig, x, lp, cache_k, cache_v, kv_length, positions,
-           cos, sin, live=None, flash=None, allow_routed=False):
+           cos, sin, live=None, flash=None, allow_routed=False, kernel_mesh=None):
     """One decoder block. x: [B,T,h]; cache_k/v: this layer's [B,S,K,D],
     written in place, or None for the cache-free training path (attention
     over the [B,T,K,D] projections themselves). ``allow_routed`` lets an
-    MoE layer take the token-routed form (``_moe``). Returns x_out."""
+    MoE layer take the token-routed form (``_moe``). Under a mesh the
+    cache holds the rank's kv heads (and, where the batch divides dp, its
+    rows): it attends with those, and the heads and rows are gathered.
+    Returns x_out."""
     B, T, _ = x.shape
     K, d, Hq = cfg.num_kv_heads, cfg.head_dim_, cfg.num_heads
 
     y = _norm(x, lp["attn_norm"], cfg, b=lp.get("attn_norm_b"))
-    q, k, v = qkv_proj(lp, y, Hq, K, d)
+    q, k, v = qkv_proj(lp, y, Hq, K, d, kernel_mesh)
     q = _rope(q, cos, sin, positions, cfg.rope_dim_)
     k = _rope(k, cos, sin, positions, cfg.rope_dim_)
+    rows = None
     if cache_k is None:
         cache_k, cache_v = k, v
     else:
+        if cache_k.shape[0] != B:  # the rank's dp rows of the batch
+            n = cache_k.shape[0]
+            rows = slice(kernel_mesh.coords["dp"] * n, (kernel_mesh.coords["dp"] + 1) * n)
+            q, k, v, kv_length, positions = (t[rows] for t in (q, k, v, kv_length, positions))
+            live = None if live is None else live[rows]
         _write_kv(cache_k, k, positions, live)
         _write_kv(cache_v, v, positions, live)
 
     attn = _attend(q, cache_k, cache_v, kv_length, positions,
-                   window=cfg.sliding_window or 0, flash=flash)
-    o = mm(attn.reshape(B, T, Hq * d), lp["wo"])
-    if "bo" in lp:
-        o = o + lp["bo"]
-    if cfg.parallel_block:  # Phi: x + attn(ln x) + mlp(ln x)
-        return x + o + _mlp(cfg, y, lp, allow_routed)
-    x = x + o
-    y = _norm(x, lp["mlp_norm"], cfg, b=lp.get("mlp_norm_b"))
-    return x + _mlp(cfg, y, lp, allow_routed)
+                   window=cfg.sliding_window or 0, flash=flash, mesh=kernel_mesh)
+    if kernel_mesh is not None:
+        attn = kernel_mesh.all_gather(attn, "tp", dim=2)
+        if rows is not None:
+            attn = kernel_mesh.all_gather(attn, "dp", dim=0)
+    return _block_tail(cfg, lp, x, y, attn, allow_routed, kernel_mesh)
 
 
-def _logits(x, params, cfg: ModelConfig) -> torch.Tensor:
+@spmd_op
+def _logits(x, params, cfg: ModelConfig, kernel_mesh=None) -> torch.Tensor:
     """LM head in fp32: tied (through the plain or row-quantized embed
-    table) or its own, biased for Phi."""
+    table) or its own, biased for Phi. A vocab-sharded head (the Megatron
+    profile) all_gathers each rank's logits."""
+    V = cfg.vocab_size
     if cfg.tie_embeddings:
-        return tied_logits(x, params["embed"])
-    out = mm(x, params["lm_head"]).float()
-    if "lm_head_b" in params:
-        out = out + params["lm_head_b"].float()
+        out = tied_logits(x, params["embed"])
+    else:
+        out = _mm_k(x, params["lm_head"], kernel_mesh, V).float()
+        if "lm_head_b" in params:
+            out = out + params["lm_head_b"].float()
+    if out.shape[-1] != V:
+        out = kernel_mesh.all_gather(out, "tp", dim=-1)
     return out
 
 
@@ -366,6 +490,7 @@ def _rope_tables(dim: int, max_seq: int, theta: float, device: str):
     return compute_rope_freqs(dim, max_seq, theta, device=device)
 
 
+@spmd_op
 @torch.no_grad()
 def forward(
     params: dict,
@@ -376,6 +501,7 @@ def forward(
     live: torch.Tensor | None = None,
     flash: bool | None = None,
     routed_moe: bool = False,
+    kernel_mesh=None,
 ) -> tuple[torch.Tensor, KVCache]:
     """Run T tokens through the model against the cache.
 
@@ -387,6 +513,7 @@ def forward(
     keep their contents and their length does not advance. ``flash``
     picks the attention path (``_attend``): None chooses by T and device.
     ``routed_moe`` lets MoE layers take the token-routed form (``_moe``).
+    ``kernel_mesh``: this rank's mesh (see the module docstring).
     """
     B, T = tokens.shape
     tokens = tokens.to(device=cache.k.device, dtype=torch.long)
@@ -397,17 +524,18 @@ def forward(
     cos, sin = _rope_tables(
         cfg.rope_dim_, cache.k.shape[2], float(cfg.rope_theta), str(cache.k.device)
     )
-    x = embed_tokens(params, cfg, tokens, cache.k.dtype)
+    x = embed_tokens(params, cfg, tokens, cache.k.dtype, kernel_mesh)
     for i in range(cfg.num_layers):
         lp = layer_params(params, i)
         x = _layer(cfg, x, lp, cache.k[i], cache.v[i], cache.length, positions,
-                   cos, sin, live=live, flash=flash, allow_routed=routed_moe)
+                   cos, sin, live=live, flash=flash, allow_routed=routed_moe,
+                   kernel_mesh=kernel_mesh)
     x = _norm(x, params["final_norm"], cfg, b=params.get("final_norm_b"))
     step = T if live is None else live.to(torch.int32) * T
     new_cache = KVCache(k=cache.k, v=cache.v, length=cache.length + step)
     if not lm_head:
         return x, new_cache
-    return _logits(x, params, cfg), new_cache
+    return _logits(x, params, cfg, kernel_mesh=kernel_mesh), new_cache
 
 
 def check_trainable(node, path: str = "params") -> None:
@@ -481,37 +609,49 @@ def _paged_rope_tables(cfg: ModelConfig, cache):
                         str(cache.k_pages.device))
 
 
-def _qkv_roped(cfg: ModelConfig, lp, x, positions, cos, sin):
+def _qkv_roped(cfg: ModelConfig, lp, x, positions, cos, sin, kernel_mesh=None):
     """attention norm, q/k/v projections and rope for one side's tokens."""
     y = _norm(x, lp["attn_norm"], cfg, b=lp.get("attn_norm_b"))
-    q, k, v = qkv_proj(lp, y, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim_)
+    q, k, v = qkv_proj(lp, y, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim_, kernel_mesh)
     q = _rope(q, cos, sin, positions, cfg.rope_dim_)
     k = _rope(k, cos, sin, positions, cfg.rope_dim_)
     return y, q, k, v
 
 
-def _block_tail(cfg: ModelConfig, lp, x, y, attn, allow_routed: bool = False):
-    """Output projection, residual and MLP of one decoder block."""
+def _block_tail(cfg: ModelConfig, lp, x, y, attn, allow_routed: bool = False,
+                kernel_mesh=None):
+    """Output projection, residual and MLP of one decoder block; ``attn``
+    holds every head."""
     B, T = x.shape[:2]
-    o = mm(attn.reshape(B, T, cfg.num_heads * cfg.head_dim_), lp["wo"])
+    HD = cfg.num_heads * cfg.head_dim_
+    o = _row_mm(attn.reshape(B, T, HD), lp["wo"], HD, kernel_mesh)
     if "bo" in lp:
         o = o + lp["bo"]
     if cfg.parallel_block:  # Phi: x + attn(ln x) + mlp(ln x)
-        return x + o + _mlp(cfg, y, lp, allow_routed)
+        return x + o + _mlp(cfg, y, lp, allow_routed, kernel_mesh)
     x = x + o
     y = _norm(x, lp["mlp_norm"], cfg, b=lp.get("mlp_norm_b"))
-    return x + _mlp(cfg, y, lp, allow_routed)
+    return x + _mlp(cfg, y, lp, allow_routed, kernel_mesh)
 
 
 @torch.no_grad()
 def forward_paged(params: dict, cfg: ModelConfig, tokens: torch.Tensor, cache,
-                  routed_moe: bool = False):
+                  routed_moe: bool = False, kernel_mesh=None):
     """Single-token decode against a paged KV cache (``PagedKVCache``,
     engine/paged_cache.py): the T = 1 case of ``forward_paged_block``.
     Returns (logits [B, 1, V], cache with lengths += 1)."""
-    return forward_paged_block(params, cfg, tokens, cache, routed_moe=routed_moe)
+    return forward_paged_block(params, cfg, tokens, cache, routed_moe=routed_moe,
+                               kernel_mesh=kernel_mesh)
 
 
+def _sharded_attention(kernel_mesh) -> bool:
+    """The paged forwards attend through the sharded wrappers when the
+    mesh splits kv heads (tp) or rows (dp)."""
+    return kernel_mesh is not None and (
+        kernel_mesh.shape["tp"] > 1 or kernel_mesh.shape["dp"] > 1)
+
+
+@spmd_op
 @torch.no_grad()
 def forward_paged_block(
     params: dict,
@@ -520,6 +660,7 @@ def forward_paged_block(
     cache,  # PagedKVCache
     lm_head: bool = True,
     routed_moe: bool = False,
+    kernel_mesh=None,
 ):
     """T tokens per row through the model against the paged pool: K/V of
     all T positions are written into the rows' pages (one indexed write
@@ -527,12 +668,16 @@ def forward_paged_block(
     the paged decode kernel (K2) with one query position for T = 1, its
     block form for T > 1. ``lm_head=False`` returns the final-normed
     hidden states [B, T, h] (the chunk body of paged-native prefill);
-    ``routed_moe`` lets MoE layers take the token-routed form.
+    ``routed_moe`` lets MoE layers take the token-routed form. Under a
+    mesh (``kernel_mesh``) the pool holds the rank's kv heads and the
+    attention goes through ``paged_attention[_block]_sharded``.
     Returns (out, cache with lengths += T); the pools change in place."""
     from fei_tpu_torch.engine.paged_cache import write_token_kv
     from fei_tpu_torch.ops.kernels.paged_attention import (
         paged_attention,
         paged_attention_block,
+        paged_attention_block_sharded,
+        paged_attention_sharded,
     )
 
     B, T = tokens.shape
@@ -545,24 +690,34 @@ def forward_paged_block(
                  + torch.arange(T, device=dev)[None, :]).clamp(max=cos.shape[0] - 1)
     win = cfg.sliding_window or 0
     limits = (cache.lengths + 1).to(torch.int32)
-    x = embed_tokens(params, cfg, tokens, _paged_dtype(params, cache))
+    sharded = _sharded_attention(kernel_mesh)
+    x = embed_tokens(params, cfg, tokens, _paged_dtype(params, cache), kernel_mesh)
     for i in range(cfg.num_layers):
         lp = layer_params(params, i)
         kp, vp, ks, vs = _layer_pools(cache, i)
-        y, q, k, v = _qkv_roped(cfg, lp, x, positions, cos, sin)
+        y, q, k, v = _qkv_roped(cfg, lp, x, positions, cos, sin, kernel_mesh)
         write_token_kv(kp, vp, k, v, cache.block_table, cache.lengths, ks, vs)
-        if T == 1:
+        if T == 1 and sharded:
+            attn = paged_attention_sharded(q[:, 0], kp, vp, cache.block_table, limits,
+                                           kernel_mesh, k_scales=ks, v_scales=vs,
+                                           window=win)[:, None]
+        elif T == 1:
             attn = paged_attention(q[:, 0], kp, vp, cache.block_table, limits,
                                    k_scales=ks, v_scales=vs, window=win)[:, None]
+        elif sharded:
+            attn = paged_attention_block_sharded(q, kp, vp, cache.block_table,
+                                                 cache.lengths, kernel_mesh, k_scales=ks,
+                                                 v_scales=vs, window=win)
         else:
             attn = paged_attention_block(q, kp, vp, cache.block_table, cache.lengths,
                                          k_scales=ks, v_scales=vs, window=win)
-        x = _block_tail(cfg, lp, x, y, attn, routed_moe)
+        x = _block_tail(cfg, lp, x, y, attn, routed_moe, kernel_mesh)
     x = _norm(x, params["final_norm"], cfg, b=params.get("final_norm_b"))
     new_cache = cache._replace(lengths=(cache.lengths + T).to(torch.int32))
-    return (_logits(x, params, cfg) if lm_head else x), new_cache
+    return (_logits(x, params, cfg, kernel_mesh=kernel_mesh) if lm_head else x), new_cache
 
 
+@spmd_op
 @torch.no_grad()
 def forward_paged_merged(
     params: dict,
@@ -574,6 +729,7 @@ def forward_paged_merged(
     cache,  # PagedKVCache under the LIVE table/lengths
     rows: int = 8,
     routed_moe: bool = False,
+    kernel_mesh=None,
 ):
     """One dispatch serves a prefill chunk AND a decode step. Per layer the
     chunk's [1, C] tokens and the decode batch's [B, 1] tokens each keep
@@ -590,12 +746,17 @@ def forward_paged_merged(
     armed slot's own pages. Returns ``(chunk_hidden [1, C, h] final-normed,
     dec_logits [B, 1, V], cache with lengths += 1)``."""
     from fei_tpu_torch.engine.paged_cache import write_token_kv
-    from fei_tpu_torch.ops.kernels.ragged_paged_attention import ragged_paged_attention
+    from fei_tpu_torch.ops.kernels.ragged_paged_attention import (
+        ragged_paged_attention,
+        ragged_paged_attention_sharded,
+    )
 
     B = dec_tokens.shape[0]
     C = chunk_toks.shape[1]
     dev = cache.k_pages.device
     Hq, d = cfg.num_heads, cfg.head_dim_
+    Hl = Hq // _tp(kernel_mesh)[0]  # the rank's query heads
+    sharded = _sharded_attention(kernel_mesh)
     R = rows
     nG = -(-C // R)  # chunk groups of R query positions
     Cp = nG * R
@@ -617,27 +778,34 @@ def forward_paged_merged(
                        torch.zeros(nG, dtype=torch.int32, device=dev)])
 
     dtype = _paged_dtype(params, cache)
-    xc = embed_tokens(params, cfg, chunk_toks.to(device=dev, dtype=torch.long), dtype)
-    xd = embed_tokens(params, cfg, dec_tokens.to(device=dev, dtype=torch.long), dtype)
+    xc = embed_tokens(params, cfg, chunk_toks.to(device=dev, dtype=torch.long), dtype,
+                      kernel_mesh)
+    xd = embed_tokens(params, cfg, dec_tokens.to(device=dev, dtype=torch.long), dtype,
+                      kernel_mesh)
     for i in range(cfg.num_layers):
         lp = layer_params(params, i)
         kp, vp, ks, vs = _layer_pools(cache, i)
-        yc, qc, kc, vc = _qkv_roped(cfg, lp, xc, chunk_positions, cos, sin)
-        yd, qd, kd, vd = _qkv_roped(cfg, lp, xd, dec_positions, cos, sin)
+        yc, qc, kc, vc = _qkv_roped(cfg, lp, xc, chunk_positions, cos, sin, kernel_mesh)
+        yd, qd, kd, vd = _qkv_roped(cfg, lp, xd, dec_positions, cos, sin, kernel_mesh)
         # chunk writes first, then the decode rows' — page-disjoint
         write_token_kv(kp, vp, kc, vc, chunk_row, chunk_start, ks, vs)
         write_token_kv(kp, vp, kd, vd, cache.block_table, cache.lengths, ks, vs)
         qv = torch.cat([
             F.pad(qd, (0, 0, 0, 0, 0, R - 1)),
-            F.pad(qc, (0, 0, 0, 0, 0, Cp - C)).reshape(nG, R, Hq, d),
-        ])  # [B + nG, R, Hq, d]
-        av = ragged_paged_attention(qv, kp, vp, btv, limits, q_lens, modes,
-                                    k_scales=ks, v_scales=vs, window=win)
+            F.pad(qc, (0, 0, 0, 0, 0, Cp - C)).reshape(nG, R, Hl, d),
+        ])  # [B + nG, R, Hl, d]
+        if sharded:
+            av = ragged_paged_attention_sharded(qv, kp, vp, btv, limits, q_lens, modes,
+                                                kernel_mesh, k_scales=ks, v_scales=vs,
+                                                window=win)
+        else:
+            av = ragged_paged_attention(qv, kp, vp, btv, limits, q_lens, modes,
+                                        k_scales=ks, v_scales=vs, window=win)
         dec_attn = av[:B, :1]
         chunk_attn = av[B:].reshape(1, Cp, Hq, d)[:, :C]
-        xc = _block_tail(cfg, lp, xc, yc, chunk_attn, routed_moe)
-        xd = _block_tail(cfg, lp, xd, yd, dec_attn, routed_moe)
+        xc = _block_tail(cfg, lp, xc, yc, chunk_attn, routed_moe, kernel_mesh)
+        xd = _block_tail(cfg, lp, xd, yd, dec_attn, routed_moe, kernel_mesh)
     xc = _norm(xc, params["final_norm"], cfg, b=params.get("final_norm_b"))
     xd = _norm(xd, params["final_norm"], cfg, b=params.get("final_norm_b"))
     new_cache = cache._replace(lengths=(cache.lengths + 1).to(torch.int32))
-    return xc, _logits(xd, params, cfg), new_cache
+    return xc, _logits(xd, params, cfg, kernel_mesh=kernel_mesh), new_cache

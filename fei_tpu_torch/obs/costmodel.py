@@ -14,29 +14,24 @@ power limit): 3350 GB/s of HBM3 and 989 TFLOP/s of bf16, the same bounds
 overrides the bandwidth, as in the reference (e.g. a card capped below
 its maximum, or a PCIe H100 at 2000 GB/s).
 
-The port serves on one device until C4 (``MESH_TAG``); ``chips_for_tag``
-keeps the reference's mesh-tag arithmetic (its own copy of the parser of
-fei_tpu/parallel/mesh.py) so a tag from a sharded reference run counts
-the same chips.
+The roofline is per engine mesh: ``chips_for_tag`` reads the engine's
+mesh tag (``ms1``, ``tp2``, ``tp2dp2``; parallel/mesh.py's parser), and
+the aggregate ceiling is that many cards. Ranks that share one card
+(gloo on a one-card host) still count one card each: the fraction then
+reads against a ceiling the card cannot reach.
 """
 
 from __future__ import annotations
 
 import os
-import re
 
 from fei_tpu_torch.obs.metrics import METRICS
+from fei_tpu_torch.parallel.mesh import parse_mesh_shape
 
 # H100 SXM HBM3 bandwidth (GB/s) — the default roofline ceiling
 H100_HBM_GBPS = 3350.0
 # H100 SXM dense bf16 tensor-core peak (FLOP/s)
 H100_BF16_FLOPS = 989e12
-
-# the serving-mesh tag of every port engine: one device (sharding is C4)
-MESH_TAG = "ms1"
-
-_AXES = ("dp", "tp", "ep", "sp", "pp")
-_COMPACT_RX = re.compile(r"(dp|tp|ep|sp|pp)(\d+)")
 
 
 def hbm_gbps() -> float:
@@ -71,7 +66,9 @@ def _active(engine, measure) -> float:
     """``measure`` of the weights one decoded token touches: every leaf but
     an untied embedding table (a gather reads one row; tied embeddings ARE
     the LM head and stream fully), MoE experts scaled to the routed
-    top-k."""
+    top-k. Counted over the whole model, as the reference counts a
+    sharded array's global size: a rank of the Megatron profile holds
+    about 1/tp of it."""
     cfg = engine.cfg
     p = engine.params
     n = measure(p)
@@ -83,6 +80,8 @@ def _active(engine, measure) -> float:
         for name in ("w_gate", "w_up", "w_down"):
             if name in layers:
                 n -= measure(layers[name]) * (1 - k / E)
+    if getattr(engine, "mesh_weights", None) == "sharded":
+        n *= engine.tp
     return n
 
 
@@ -153,28 +152,6 @@ def roofline_fraction(bytes_streamed: int, dt_s: float,
     return gbps / (hbm_gbps() * max(1, n_chips))
 
 
-def _parse_mesh_shape(spec: str) -> dict[str, int]:
-    """'tp2dp2' or 'dp=2,tp=2' -> {axis: size} (fei_tpu/parallel/mesh.py's
-    parser)."""
-    spec = spec.strip()
-    if "=" not in spec and spec:
-        matches = list(_COMPACT_RX.finditer(spec))
-        if not matches or "".join(m.group(0) for m in matches) != spec:
-            raise ValueError(f"unparseable mesh spec {spec!r}")
-        return {m.group(1): int(m.group(2)) for m in matches}
-    out: dict[str, int] = {}
-    for part in spec.split(","):
-        part = part.strip()
-        if not part:
-            continue
-        name, _, val = part.partition("=")
-        name = name.strip()
-        if name not in _AXES:
-            raise ValueError(f"unknown mesh axis {name!r}; valid: {_AXES}")
-        out[name] = int(val)
-    return out
-
-
 def chips_for_tag(tag: str | None) -> int:
     """Device count implied by a serving-mesh tag (``ms1`` → 1,
     ``tp2dp2`` → 4). Unparseable tags count as one chip — a wrong
@@ -183,7 +160,7 @@ def chips_for_tag(tag: str | None) -> int:
         return 1
     try:
         n = 1
-        for s in _parse_mesh_shape(tag).values():
+        for s in parse_mesh_shape(tag).values():
             n *= int(s)
         return max(1, n)
     except Exception:  # noqa: BLE001
@@ -212,7 +189,7 @@ def account_dispatch(engine, n_steps: int, total_ctx: int, slots: int,
     if dt_s <= 0:
         return
     est = dispatch_bytes(engine, n_steps, total_ctx, slots)
-    _roofline_gauges(est, n_steps * slots, dt_s, chips_for_tag(MESH_TAG))
+    _roofline_gauges(est, n_steps * slots, dt_s, chips_for_tag(engine.mesh_tag))
 
 
 def account_ragged_dispatch(
@@ -228,7 +205,7 @@ def account_ragged_dispatch(
     est = ragged_dispatch_bytes(
         engine, n_steps, total_ctx, slots, chunk_tokens, chunk_ctx
     )
-    _roofline_gauges(est, n_steps * slots, dt_s, chips_for_tag(MESH_TAG))
+    _roofline_gauges(est, n_steps * slots, dt_s, chips_for_tag(engine.mesh_tag))
 
 
 def _roofline_gauges(est_bytes: int, tokens: int, dt_s: float,

@@ -12,6 +12,8 @@ it and what the design does about it.
 shape or the type, where the kernel cannot take them — there is no
 fallback on the card. Tensors on the CPU take the plain version
 (``int4_mm_reference``). ``int4_mm.launches`` counts kernel launches.
+``int4_mm_sharded`` is the tensor-parallel wrapper (K4 on the rank's
+output columns, gathered).
 ``int4_mm_tolerance`` is the per-element bound the kernel is held to
 against the plain version. ``split_plan`` is the kernel's cut of the
 contraction into segments, summed in order, which depends on K alone.
@@ -176,3 +178,28 @@ def int4_mm(x: torch.Tensor, w: QTensor4) -> torch.Tensor:
 
 
 int4_mm.launches = 0
+
+
+def int4_mm_sharded(x: torch.Tensor, w: QTensor4, mesh, axis_name: str = "tp") -> torch.Tensor:
+    """Tensor-parallel int4 matmul for a whole (replicated) ``QTensor4``:
+    each rank runs K4 on its 1/tp of the output columns (packed bytes and
+    scales sliced alike; the contraction axis is never split, nibble
+    pairs span it), and the columns are all-gathered in rank order; the
+    rows of x split over dp where they divide. Returns every column."""
+    n = mesh.shape[axis_name]
+    N = w.p.shape[-1]
+    if N % n:
+        raise ValueError(f"int4_mm_sharded: {N} output columns do not divide over "
+                         f"{axis_name}={n}")
+    step = N // n
+    cols = slice(mesh.coords[axis_name] * step, (mesh.coords[axis_name] + 1) * step)
+    local = QTensor4(p=w.p[..., cols].contiguous(), s=w.s[..., cols].contiguous())
+    dp = mesh.shape["dp"]
+    split = dp > 1 and x.shape[0] % dp == 0
+    if split:
+        m = x.shape[0] // dp
+        x = x[mesh.coords["dp"] * m:(mesh.coords["dp"] + 1) * m]
+    out = mesh.all_gather(int4_mm(x, local), axis_name, dim=-1)
+    if split:
+        out = mesh.all_gather(out, "dp", dim=0)
+    return out

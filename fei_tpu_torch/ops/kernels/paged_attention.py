@@ -14,7 +14,10 @@ positions below ``limit_b + t`` (and, with a window W, above
 
 ``paged_attention`` / ``paged_attention_block`` launch the kernel for CUDA
 tensors and raise when they cannot; tensors on the CPU take the plain
-version (``paged_rows_plain``). ``paged_attention.launches`` counts kernel
+version (``paged_rows_plain``). ``paged_attention_sharded`` /
+``paged_attention_block_sharded`` are their tensor-parallel wrappers (the
+reference's ``_sharded_paged``): each rank runs the same kernel on its kv
+heads, and the heads (and dp rows) are gathered inside the wrapper. ``paged_attention.launches`` counts kernel
 launches of both (``int8_launches`` those over int8 pools,
 ``block_launches`` those of the block form).
 ``paged_rows_tolerance`` is the per-element bound the kernel is held to
@@ -389,3 +392,69 @@ def paged_attention_block(
 paged_attention.launches = 0
 paged_attention.int8_launches = 0
 paged_attention.block_launches = 0
+
+
+def _sharded_paged(local_fn, head_dim: int, q, k_pages, v_pages, block_table,
+                   row_arrays: list, mesh, axis_name: str, k_scales, v_scales,
+                   window: int, dp_axis: str = "dp"):
+    """Shared tensor-parallel wrapper: ``q`` holds this rank's query heads
+    (those of its ``k_pages.shape[1]`` kv heads) for every row, the pools
+    this rank's kv heads. Where the rows divide the ``dp_axis``, each dp
+    group attends its own rows (rows are independent, so the split is
+    numerics-neutral). The kernel's per-rank output heads are all-gathered
+    INSIDE the wrapper, in rank order, and the result is every head of
+    every row on every rank: the ``wo`` that follows keeps the one-device
+    summation order, and each head is the unsharded kernel's own value
+    (heads are computed independently), so sharded decode stays bitwise."""
+    if q.shape[head_dim] % k_pages.shape[1]:
+        raise ValueError(f"{q.shape[head_dim]} query heads do not group over this "
+                         f"rank's {k_pages.shape[1]} kv heads")
+    dp = mesh.shape[dp_axis]
+    split = dp > 1 and q.shape[0] % dp == 0
+    if split:
+        m = q.shape[0] // dp
+        rs = slice(mesh.coords[dp_axis] * m, (mesh.coords[dp_axis] + 1) * m)
+        q, block_table = q[rs], block_table[rs]
+        row_arrays = [a[rs] for a in row_arrays]
+    out = local_fn(q, k_pages, v_pages, block_table, *row_arrays,
+                   k_scales=k_scales, v_scales=v_scales, window=window)
+    out = mesh.all_gather(out, axis_name, dim=head_dim)
+    if split:
+        out = mesh.all_gather(out, dp_axis, dim=0)
+    return out
+
+
+def paged_attention_sharded(
+    q: torch.Tensor,  # [B, H/tp, D] this rank's heads
+    k_pages: torch.Tensor,  # [P, K/tp, ps, D] this rank's kv heads
+    v_pages: torch.Tensor,
+    block_table: torch.Tensor,
+    lengths: torch.Tensor,
+    mesh,
+    axis_name: str = "tp",
+    k_scales: torch.Tensor | None = None,
+    v_scales: torch.Tensor | None = None,
+    window: int = 0,
+) -> torch.Tensor:
+    """Tensor-parallel single-token paged attention (K2 on this rank's
+    heads, see ``_sharded_paged``). Returns [B, H, D], every head."""
+    return _sharded_paged(paged_attention, 1, q, k_pages, v_pages, block_table,
+                          [lengths], mesh, axis_name, k_scales, v_scales, window)
+
+
+def paged_attention_block_sharded(
+    q: torch.Tensor,  # [B, T, H/tp, D]
+    k_pages: torch.Tensor,
+    v_pages: torch.Tensor,
+    block_table: torch.Tensor,
+    lengths: torch.Tensor,
+    mesh,
+    axis_name: str = "tp",
+    k_scales: torch.Tensor | None = None,
+    v_scales: torch.Tensor | None = None,
+    window: int = 0,
+) -> torch.Tensor:
+    """Tensor-parallel multi-query paged attention (K2's block form on
+    this rank's heads). Returns [B, T, H, D]."""
+    return _sharded_paged(paged_attention_block, 2, q, k_pages, v_pages, block_table,
+                          [lengths], mesh, axis_name, k_scales, v_scales, window)

@@ -13,6 +13,8 @@ when it cannot; tensors on the CPU take the plain version
 (``ragged_paged_attention_plain``). ``ragged_paged_attention.launches``
 counts launches (``int8_launches`` those over int8 pools). The tolerance
 is K2's (``paged_rows_tolerance``) with the effective q_lens.
+``ragged_paged_attention_sharded`` is the tensor-parallel wrapper (K3 on
+the rank's kv heads, the heads gathered).
 """
 
 from __future__ import annotations
@@ -82,3 +84,32 @@ def ragged_paged_attention(
 
 ragged_paged_attention.launches = 0
 ragged_paged_attention.int8_launches = 0
+
+
+def ragged_paged_attention_sharded(
+    q: torch.Tensor,  # [Bv, R, H/tp, D] this rank's heads
+    k_pages: torch.Tensor,  # [P, K/tp, ps, D] this rank's kv heads
+    v_pages: torch.Tensor,
+    block_table: torch.Tensor,
+    limits: torch.Tensor,
+    q_lens: torch.Tensor,
+    modes: torch.Tensor | None = None,
+    mesh=None,
+    axis_name: str = "tp",
+    k_scales: torch.Tensor | None = None,
+    v_scales: torch.Tensor | None = None,
+    window: int = 0,
+) -> torch.Tensor:
+    """Tensor-parallel ragged attention: K3 on this rank's kv heads, the
+    heads gathered inside the wrapper (``paged_attention._sharded_paged``).
+    A dp axis splits the virtual rows only when they divide evenly (they
+    rarely do for a merged prefill + decode batch). Returns [Bv, R, H, D]."""
+    from fei_tpu_torch.ops.kernels.paged_attention import _sharded_paged
+
+    if mesh is None:
+        raise ValueError("ragged_paged_attention_sharded needs a mesh")
+    if modes is None:
+        modes = torch.zeros_like(q_lens)
+    return _sharded_paged(ragged_paged_attention, 2, q, k_pages, v_pages, block_table,
+                          [limits, q_lens, modes], mesh, axis_name, k_scales, v_scales,
+                          window)

@@ -21,7 +21,7 @@ pool), GET /kv/prefix (the content hashes the KV tier can serve), POST
 /kv/prefix/<hash>. A blob that is not base64 answers 400, one whose
 invariant pool geometry can never match 409 with ``{ours, theirs}``, a
 corrupt one 422. /health carries the reference's fields: ``mesh``
-(``ms1``: one device), ``role`` (``FEI_TPU_REPLICA_ROLE``, one of
+(the engine's tag: ``ms1`` for one device, ``tp2``, ``tp2dp2``), ``role`` (``FEI_TPU_REPLICA_ROLE``, one of
 ``REPLICA_ROLES``, read by the fleet router), ``queue_depth``/``running``
 /``slots`` (paged engines), ``kv_fingerprint`` and ``kv_layout``.
 
@@ -55,7 +55,6 @@ from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from urllib.parse import parse_qs, urlsplit
 
 from fei_tpu_torch.engine.faults import FAULTS
-from fei_tpu_torch.obs.costmodel import MESH_TAG
 from fei_tpu_torch.obs.flight import FLIGHT
 from fei_tpu_torch.obs.trace import TRACES
 from fei_tpu_torch.utils.errors import (
@@ -271,7 +270,7 @@ class ServeAPI:
         route, query = parts.path, parse_qs(parts.query)
         METRICS.incr("server.requests")
         if route == "/health":
-            base = {"model": self.model_name, "mesh": MESH_TAG, "role": self.role,
+            base = {"model": self.model_name, "mesh": self._mesh_tag(), "role": self.role,
                     **self._kv_geometry(), **self._load_fields()}
             sched = self._kv_scheduler()
             if sched is not None and sched.draining():
@@ -361,8 +360,11 @@ class ServeAPI:
         trace is Chrome-trace JSON in ``trace_dir``. Only the CUDA activity
         is recorded where there is a card: with CPU ops recorded from this
         handler's thread while the scheduler's threads dispatched, two of
-        three full smoke runs on an H100 died of SIGSEGV (unplaced), and
-        none of four since; a machine without a card records its CPU ops."""
+        three full smoke runs on an H100 died of SIGSEGV; a machine without
+        a card records its CPU ops. The profiler starts and stops with the
+        schedulers quiesced (``DEVICE_GATE``): a stop while a scheduler
+        thread launched kernels also died of SIGSEGV, inside CUPTI's
+        teardown."""
         try:
             seconds = float(body.get("seconds", 2.0))
         except (TypeError, ValueError):
@@ -376,16 +378,21 @@ class ServeAPI:
             import torch
             from torch.profiler import ProfilerActivity, profile
 
+            from fei_tpu_torch.engine.scheduler import DEVICE_GATE
+
             trace_dir = str(body.get("trace_dir") or tempfile.mkdtemp(prefix="fei-profile-"))
             os.makedirs(trace_dir, exist_ok=True)
             activities = [ProfilerActivity.CUDA if torch.cuda.is_available()
                           else ProfilerActivity.CPU]
             prof = profile(activities=activities)
-            prof.start()
+            # no scheduler launches a kernel while CUPTI sets up or tears down
+            with DEVICE_GATE.quiesce():
+                prof.start()
             try:
                 time.sleep(seconds)
             finally:
-                prof.stop()
+                with DEVICE_GATE.quiesce():
+                    prof.stop()
             prof.export_chrome_trace(os.path.join(trace_dir, "trace.json"))
             METRICS.incr("server.profile_captures")
             return 200, {"object": "profile", "trace_dir": trace_dir, "seconds": seconds}
@@ -409,6 +416,11 @@ class ServeAPI:
         if fp is None:
             return {}
         return {"kv_fingerprint": fp, "kv_layout": eng.kv_layout()}
+
+    def _mesh_tag(self) -> str:
+        """The serving engine's mesh tag ('ms1' for one device or a
+        provider without an engine)."""
+        return getattr(getattr(self.provider, "engine", None), "mesh_tag", "ms1")
 
     def _kv_scheduler(self):
         return getattr(getattr(self.provider, "engine", None), "_scheduler", None)
@@ -877,11 +889,14 @@ def main(argv: list[str] | None = None) -> int:
     p.add_argument("--model", default=None,
                    help="model config name (default: [torch_local] model)")
     p.add_argument("--api-key", default=os.environ.get("FEI_TPU_SERVER_API_KEY"))
+    p.add_argument("--device", default="cuda",
+                   help="where the engine runs: cuda (default) or cpu")
     args = p.parse_args(argv)
 
     from fei_tpu_torch.agent.providers import TorchLocalProvider
 
-    provider = TorchLocalProvider(model=args.model)
+    # under FEI_TPU_MESH the engine starts its follower ranks here
+    provider = TorchLocalProvider(model=args.model, device=args.device)
     api = ServeAPI(provider, model_name=provider.engine.cfg.name, api_key=args.api_key)
     server = ServingServer(api, host=args.host, port=args.port)
     server.start()
@@ -915,6 +930,7 @@ def main(argv: list[str] | None = None) -> int:
     server.stop()
     if sched is not None:
         sched.close_journal()
+    eng.close()  # on a mesh: stops the follower ranks
     return 0
 
 

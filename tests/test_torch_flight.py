@@ -336,6 +336,46 @@ def test_profile_route_validates_and_captures(tmp_path):
     assert "traceEvents" in json.loads((tmp_path / "trace.json").read_text())
 
 
+
+def test_profile_gate_waits_for_and_holds_back_scheduler_work():
+    """The profiler starts and stops under ``DEVICE_GATE.quiesce()``: it
+    waits for a scheduler iteration in flight, and one that comes while it
+    waits or runs starts only after it."""
+    import time
+
+    from fei_tpu_torch.engine.scheduler import DeviceGate
+
+    gate, order = DeviceGate(), []
+    inside, release = threading.Event(), threading.Event()
+
+    def step(name, hold=None):
+        with gate.shared():
+            order.append(name)
+            if hold is not None:
+                inside.set()
+                assert hold.wait(5)
+
+    def stop_profiler():
+        with gate.quiesce():
+            order.append("quiesce")
+
+    first = threading.Thread(target=step, args=("a", release))
+    first.start()
+    assert inside.wait(5)
+    q = threading.Thread(target=stop_profiler)
+    q.start()
+    deadline = time.time() + 5
+    while not gate._closed and time.time() < deadline:
+        time.sleep(0.001)
+    later = threading.Thread(target=step, args=("b",))
+    later.start()
+    time.sleep(0.05)
+    assert order == ["a"]  # the quiesce waits for a; b waits for the quiesce
+    release.set()
+    for t in (first, q, later):
+        t.join(5)
+    assert order == ["a", "quiesce", "b"]
+
 # -- the cost model against the reference's ----------------------------------
 
 

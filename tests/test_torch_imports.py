@@ -58,6 +58,9 @@ def test_port_imports_without_jax_or_fei_tpu():
         "fei_tpu_torch.engine.prng", "fei_tpu_torch.engine.journal",
         "fei_tpu_torch.utils.fsync",
         "fei_tpu_torch.kv", "fei_tpu_torch.kv.tier", "fei_tpu_torch.kv.pagesio",
+        "fei_tpu_torch.parallel", "fei_tpu_torch.parallel.mesh",
+        "fei_tpu_torch.parallel.distributed", "fei_tpu_torch.parallel.sharding",
+        "fei_tpu_torch.parallel.serving",
         "fei_tpu_torch.kv.migrate", "fei_tpu_torch.kv.content",
         "fei_tpu_torch.agent.mcp", "fei_tpu_torch.native", "fei_tpu_torch.native.build",
         "fei_tpu_torch.native.scan", "fei_tpu_torch.tools.memory_tools",

@@ -400,18 +400,31 @@ class TestCheckpoint:
             restore_checkpoint(str(tmp_path), target={"params": fewer}, device="cpu")
 
     def test_cache_shardings_and_quantized_leaves_wait(self, tmp_path, cfg_params):
-        """Quantized leaves and a KV cache no longer wait: they round-trip
-        bitwise, with and without a target. Sharded restore still raises,
-        naming its roadmap module, and a leaf of no known kind raises and
-        leaves nothing behind."""
+        """Quantized leaves, a KV cache and sharded restore no longer wait:
+        they round-trip bitwise, with and without a target; each tp2 rank's
+        sharded restore (Megatron slices) put back together is the saved
+        tree. A leaf of no known kind raises and leaves nothing behind."""
         _, params = cfg_params
         with pytest.raises(CheckpointError, match="not a tensor"):
             save_checkpoint(str(tmp_path), 0, params, cache=object())
         assert latest_step(str(tmp_path)) is None  # the failed save left nothing
         assert list(tmp_path.iterdir()) == []
         save_checkpoint(str(tmp_path), 0, params)
-        with pytest.raises(NotImplementedError, match="C4"):
-            restore_checkpoint(str(tmp_path), shardings={}, device="cpu")
+        from fei_tpu_torch.parallel.mesh import Mesh
+        from fei_tpu_torch.parallel.sharding import param_shardings
+
+        halves = []
+        for rank in range(2):
+            sh = param_shardings(params, Mesh({"tp": 2}, rank=rank), is_moe=False)
+            halves.append(restore_checkpoint(str(tmp_path), shardings={"params": sh},
+                                             device="cpu")["params"])
+        specs = flatten(param_shardings(params, Mesh({"tp": 2}), is_moe=False))
+        for path, leaf in flatten(params).items():
+            dims = [i for i, e in enumerate(specs[path].spec) if e == "tp"]
+            a, b = (flatten(h)[path] for h in halves)
+            got = torch.cat([a, b], dim=dims[0]) if dims else a
+            assert torch.equal(got, leaf), path
+            assert bool(dims) == (a.shape != leaf.shape), path
         pcfg = pt_get_model_config("tiny", hidden_size=512, intermediate_size=1024,
                                    num_heads=8, num_kv_heads=4)
         q = quantize_params(pt_llama.init_params(pcfg, seed=0, dtype=torch.float32),
