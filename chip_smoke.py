@@ -249,7 +249,8 @@ per block (largest and mean). After the quantized engines are released:
     a card each where there are two) and each prints its backend and
     device. The sharded wrappers of K2/K3/K4 equal the unsharded kernels
     bitwise at the paged cell's shapes, and a gather in the wrong head
-    order breaks that. On llama3-8b's widths at 16 layers: the paged
+    order breaks that. On llama3-8b's widths at 8 layers (``TP_LAYERS``,
+    cut for time when the parallel part joined the phase): the paged
     cell's eight prompts, a seeded stream and a dense chat turn on a tp2
     engine with replicated weights are bitwise one rank's; with Megatron
     weights the 1500-token logits are within rel_l2 3e-2 of one rank's,
@@ -262,13 +263,31 @@ per block (largest and mean). After the quantized engines are released:
     one rank's tok/s. Last, ``FEI_TPU_MESH=tp2`` makes ``from_config``
     start its own follower, the server's handler answers with ``/health``
     ``mesh: "tp2"``, and a drain and ``close`` stop the follower.
+20. The parallel part (roadmap C4's second half), in the same two ranks
+    after the tp engines are released, at full width and cut depth: sp2
+    ring and Ulysses prefill of an 8192-token prompt (llama3-8b and
+    mistral-7b with its 4096 window, 4 layers) within rel_l2 2e-2 of one
+    rank's K1 prefill, a ring that skips its last rotation breaking it,
+    and a paged sp2 engine admitting a 6000-token prompt through the sp
+    dispatch beside a decoding stream (both streams one rank's chunked
+    admission's, or first apart at <= 2 bf16 ulps; K1 and K2 launched);
+    ep2 mixtral-8x7b int8 at 2 layers (4 of 8 experts a rank): a dropless
+    1500-token prefill within the MoE phase's 0.25 of one rank's, a
+    return trip in the wrong source order breaking it, and a paged engine
+    at the default capacity serving four prompts through K1-K3; pp2
+    ``pipeline_forward_train`` (4 layers, B 4, T 1024, 2 and 4
+    microbatches) within 1e-2 of one rank's ``forward_train``; dp2 and
+    tp2 training steps (2 layers, T 2048) whose losses and parameter
+    changes after two steps match one rank's, each rank launching K1,
+    K5a and K5b; ``exchange_banks`` over the two ranks, bitwise on both.
 
 ``python3 chip_smoke.py --paged-times`` only builds K2/K3 and times them at
 every shape of phase 3 through their public wrappers; ``--bwd-times`` does
 the same for K5a, K5b and the pair at the training shape and at D = 64;
 ``--kv`` builds K1-K3 and runs phase 12 alone (on the seed's weights with
 the serve phase's LM head, cut to 8 layers as in the full run),
-``--fleet`` phase 13 likewise (16 layers), ``--tp`` phase 19 (K1-K4 built), ``--tools`` the serving controls and
+``--fleet`` phase 13 likewise (16 layers), ``--tp`` phase 19 (K1-K4 built), ``--parallel``
+phase 20 alone (every kernel built), ``--tools`` the serving controls and
 phase 9, ``--spec`` phase 11 (both on the same 16 layers) and ``--moe`` phase 17. ``--serve-rates`` logs only the dense
 decode tok/s (twice) and the paged aggregate tok/s of phases 4 and 6's
 traffic, straight into the scheduler and through the SSE path of
@@ -294,7 +313,9 @@ the two paged streams, the tool turn); every kernel carries
 ``launches_moe``, the sum over the MoE path's runs: the routed prefill,
 the dense decode, the paged traffic, the int4 prefill and the training
 step; K1-K4 carry ``launches_tp``, each rank's count over the tp path,
-its one-rank references not counted), the line before the last is the card,
+its one-rank references not counted; K1-K3, K5a and K5b carry
+``launches_parallel``, each rank's count over the parallel part's runs,
+its one-rank references and mutants not counted), the line before the last is the card,
 and the last line is the JSON verdict.
 """
 
@@ -3218,7 +3239,7 @@ def survival_phase(dense, paged, card: str) -> dict:
 
 KV_RAM_BYTES = "8g"  # holds every victim of the tight traffic and every publish
 # every bf16 serving phase after the engine phase (paged engine through
-# fleet) and the quantized and tp phases run on the first 16 of llama3-8b's
+# fleet) and the quantized phases run on the first 16 of llama3-8b's
 # 32 layers at its widths, the KV phase on the first 8 (cut: time, every
 # check kept; at 8 the survival drain finds no stream mid-decode and the
 # fleet's greedy stream too few frames to drop)
@@ -5360,6 +5381,9 @@ def train_phase(card: str) -> dict:
 # ------------------------------------------------------------------ tp phase
 
 TP_RANKS = 2
+# depth of the tp phase's llama3-8b (cut from SERVE_LAYERS' 16 for time when
+# the parallel part joined its ranks; every check kept)
+TP_LAYERS = 8
 TP_NEW = 32  # greedy tokens per stream of the tp phase
 TP_PAGES = 400  # pool pages of the tp phase's paged engines (the traffic needs ~190)
 TP_LOAD_LAYERS = 2  # depth of the checkpoint the sharded load reads
@@ -5369,14 +5393,14 @@ TP_TOL = 3e-2  # rel_l2 of the Megatron and int4 logits against one rank's
 
 def tp_params(quantize: str | None = None) -> dict:
     """The tp phase's weights, made identically on every rank: llama3-8b
-    at its published widths, SERVE_LAYERS layers deep, from the seed; a
+    at its published widths, TP_LAYERS layers deep, from the seed; a
     bf16 LM head zeroed past the byte tokenizer's ids (as the serve phases
     do); under int4, wo/w_down int8, as a tp mesh's engine keeps them."""
     from fei_tpu_torch.engine.tokenizer import load_tokenizer
     from fei_tpu_torch.models.configs import get_model_config
     from fei_tpu_torch.models.llama import init_params
 
-    cfg = get_model_config("llama3-8b", num_layers=SERVE_LAYERS)
+    cfg = get_model_config("llama3-8b", num_layers=TP_LAYERS)
     excl = frozenset({"wo", "w_down"}) if quantize == "int4" else frozenset()
     params = init_params(cfg, seed=SEED, dtype=torch.bfloat16, device="cuda",
                          quantize=quantize, int4_exclude=excl)
@@ -5493,7 +5517,7 @@ def tp_checkpoint(path: str) -> int:
     return max(t.numel() * t.element_size() for t in ts.values())
 
 
-def tp_rank_work(rank: int, workdir: str) -> dict:
+def tp_rank_work(rank: int, workdir: str, params: dict) -> dict:
     """One rank's share of the tp phase. Every mesh engine is built on both
     ranks in the same order; rank 0 leads each (its traffic, its checks)
     and closes it, and rank 1 follows inside ``from_config`` until then.
@@ -5522,14 +5546,13 @@ def tp_rank_work(rank: int, workdir: str) -> dict:
     if lead:
         res["largest_tensor"] = tp_checkpoint(ckpt)
     dist.barrier()
-    params = tp_params()
     kw = dict(dtype=torch.bfloat16, params=params, max_seq_len=8192, device="cuda",
-              num_layers=SERVE_LAYERS)
+              num_layers=TP_LAYERS)
     paged_kw = dict(kw, paged=True, batch_size=8, page_size=PAGE, num_pages=TP_PAGES,
                     prefix_cache=True)
     from fei_tpu_torch.models.configs import get_model_config
 
-    cfg = get_model_config("llama3-8b", num_layers=SERVE_LAYERS)
+    cfg = get_model_config("llama3-8b", num_layers=TP_LAYERS)
     prompts = tp_prompts(cfg)
     p1500 = prompts[len(SHORT_LENS) + 1]
     seeded = GenerationConfig(max_new_tokens=TP_NEW, temperature=0.8, top_k=40, seed=7,
@@ -5665,9 +5688,460 @@ def tp_rank_work(rank: int, workdir: str) -> dict:
     return res
 
 
-def tp_rank_main(rank: int, port: int, workdir: str) -> None:
+# ------------------------------------------------------------- parallel part
+#
+# Sequence, expert and pipeline parallelism, sharded training and the bank
+# exchange (roadmap C4, second half), in the tp phase's two ranks after its
+# engines are released: each check runs on both ranks (rank 0 leads the
+# engines and holds the one-rank references), at full width, cut in depth.
+
+PAR_LAYERS = 4  # llama3-8b / mistral-7b depth of the sp and pp checks (cut: time)
+PAR_SP_T = 8192  # the sp prompt: over long_prefill_min and mistral's 4096 window
+PAR_SP_PAGED = 6000  # the paged engine's long prompt (admitted through the sp dispatch)
+PAR_SP_SHORT = 200  # its short neighbour, decoding while the long one admits
+PAR_NEW = 32
+# rel_l2 of the ring / Ulysses logits against one rank's K1 prefill: the
+# fp32 block products against K1's bf16 P·V (measured 0.0113-0.0125)
+PAR_SP_TOL = 2e-2
+PAR_EP_LAYERS = 2  # mixtral-8x7b depth (cut: time and memory)
+PAR_EP_LENS = (96, 200, 700, 1500)
+PAR_EP_NEW = 16
+PAR_PP = (4, 1024)  # B, T of the pipeline check
+PAR_PP_TOL = 1e-2  # rel_l2 of the pipelined logits against one rank's forward_train
+PAR_TRAIN_LAYERS = 2
+PAR_TRAIN_T = 2048
+PAR_TRAIN_STEPS = 2
+PAR_LOSS_TOL = 1e-3  # relative
+PAR_UPDATE_TOL = 0.1  # rel_l2 of the parameters' change against one rank's
+PAR_BANK = (4, 1024, 256)
+
+
+def rel_l2(a, b) -> float:
+    return ((a.float() - b.float()).norm() / b.float().norm()).item()
+
+
+def layer_views(params: dict, layers: int) -> dict:
+    """The first ``layers`` layers of ``params`` (views, no copy)."""
+    return {**params, "layers": {k: v[:layers] for k, v in params["layers"].items()}}
+
+
+def tree_clone(params: dict) -> dict:
+    return {k: tree_clone(v) if isinstance(v, dict) else v.clone() for k, v in params.items()}
+
+
+class PathCounts:
+    """Kernel launches of the parallel path, summed over the sections it
+    counts (each read as the difference of the counts around it)."""
+
+    def __init__(self):
+        self.total = dict.fromkeys(read_counts(), 0)
+        self.by_part: dict[str, dict] = {}
+
+    @contextlib.contextmanager
+    def part(self, name: str):
+        before = read_counts()
+        yield
+        torch.cuda.synchronize()
+        got = {k: v - before[k] for k, v in read_counts().items()}
+        self.by_part[name] = got
+        for k, v in got.items():
+            self.total[k] += v
+
+
+def par_sp(rank: int, params: dict, counts: PathCounts, res: dict) -> None:
+    """sp2: ring and Ulysses prefill logits against one rank's dense
+    prefill (llama3-8b, then mistral-7b's window), a ring that skips its
+    last rotation, and the paged engine admitting a long prompt through the
+    sp dispatch beside a decoding stream."""
+    from fei_tpu_torch.engine import InferenceEngine
+    from fei_tpu_torch.models.configs import get_model_config
+    from fei_tpu_torch.models.llama import init_params
+    from fei_tpu_torch.parallel import ring as ring_mod
+    from fei_tpu_torch.parallel.long_prefill import prefill_ring_kv
+    from fei_tpu_torch.parallel.mesh import make_mesh
+
+    lead = rank == 0
+    dev = torch.device("cuda", torch.cuda.current_device())
+    mesh = make_mesh({"sp": 2}, device=dev)
+    rng = np.random.default_rng(SEED + 11)
+    for name, p in (("llama3-8b", layer_views(params, PAR_LAYERS)), ("mistral-7b", None)):
+        cfg = get_model_config(name, num_layers=PAR_LAYERS)
+        if p is None:
+            p = init_params(cfg, seed=SEED, dtype=torch.bfloat16, device=dev)
+        toks = torch.tensor([rng.integers(8, cfg.vocab_size, size=PAR_SP_T).tolist()],
+                            device=dev)
+        ref = ref_s = None
+        if lead:  # one rank's dense prefill (K1), not counted; timed warm
+            one = InferenceEngine.from_config(name, mesh="ms1", params=p, dtype=torch.bfloat16,
+                                              device="cuda", num_layers=PAR_LAYERS,
+                                              max_seq_len=PAR_SP_T)
+            for _ in range(2):
+                t0 = time.perf_counter()
+                ref = one.prefill([toks[0].tolist()], one.new_cache(1))[0]
+                torch.cuda.synchronize()
+                ref_s = time.perf_counter() - t0
+            del one
+        out = {}
+        for attend in ("ring", "ulysses"):
+            with counts.part(f"sp {name} {attend}"):
+                t0 = time.perf_counter()
+                out[attend] = prefill_ring_kv(p, cfg, toks, mesh, attend=attend)[0]
+                torch.cuda.synchronize()
+                out[attend + "_s"] = time.perf_counter() - t0
+        real_steps = ring_mod.ring_steps
+        ring_mod.ring_steps = lambda n, C, w: real_steps(n, C, w) - 1  # the mutant
+        try:
+            mutant = prefill_ring_kv(p, cfg, toks, mesh, attend="ring")[0]
+        finally:
+            ring_mod.ring_steps = real_steps
+        if lead:
+            res[f"sp_{name}"] = {
+                "ring": rel_l2(out["ring"], ref), "ulysses": rel_l2(out["ulysses"], ref),
+                "mutant": rel_l2(mutant, ref), "ring_s": out["ring_s"],
+                "ulysses_s": out["ulysses_s"], "one_rank_s": ref_s,
+                "window": cfg.sliding_window or 0,
+            }
+        del p, out, mutant, ref
+        torch.cuda.empty_cache()
+    res["sp_stats"] = {k: list(v) for k, v in mesh.stats.items()}
+
+    # the paged engine on sp2: the long prompt admits through the sp dispatch
+    cfg = get_model_config("llama3-8b", num_layers=PAR_LAYERS)
+    p = layer_views(params, PAR_LAYERS)
+    prompts = [rng.integers(8, cfg.vocab_size, size=n).tolist()
+               for n in (PAR_SP_SHORT, PAR_SP_PAGED)]
+    kw = dict(dtype=torch.bfloat16, params=p, max_seq_len=PAR_SP_T, device="cuda",
+              num_layers=PAR_LAYERS)
+    paged = dict(kw, paged=True, batch_size=2, page_size=PAGE)
+    if lead:  # one rank's chunked admission, not counted
+        one = InferenceEngine.from_config("llama3-8b", mesh="ms1", **paged)
+        one_run = traffic(one, prompts, PAR_NEW)
+        want = one_run["streams"]
+        res["sp_paged_ttft_one_rank"] = one_run["ttft"]
+        one.close()
+        del one
+    sp0 = counter("engine.sp_prefills")
+    with counts.part("sp paged"):
+        eng = InferenceEngine.from_config("llama3-8b", mesh="sp2", mesh_weights="replicated",
+                                          long_prefill_min=2048, **paged)
+        if lead:
+            # one sp dispatch covers the 6000-token prompt (8 x 256 x 2 would not)
+            eng.scheduler.sp_admit_factor = -(-PAR_SP_PAGED // (eng.scheduler.prefill_chunk * 2))
+            run = traffic(eng, prompts, PAR_NEW)
+            res["sp_paged_tok_s"] = sum(map(len, run["streams"])) / run["wall"]
+            res["sp_paged_ttft"] = run["ttft"]
+            eng.close()
+        del eng
+    if lead:
+        res["sp_prefills"] = counter("engine.sp_prefills") - sp0
+        dense = InferenceEngine.from_config("llama3-8b", mesh="ms1", **kw)
+        gaps = []
+        for prompt, a, b in zip(prompts, want, run["streams"]):
+            if a == b:
+                gaps.append(None)
+                continue
+            j, gap, ulp = first_divergence(dense, prompt, a, b)
+            gaps.append((j, gap / ulp))
+        res["sp_paged_gaps"] = gaps
+        del dense
+    torch.cuda.empty_cache()
+
+
+def par_ep(rank: int, counts: PathCounts, res: dict) -> None:
+    """ep2: mixtral-8x7b (int8, two layers, 4 of 8 experts a rank): the
+    dropless routed prefill against one rank's forward, a return trip in
+    the wrong source-rank order, and a paged engine at the default capacity
+    serving four prompts."""
+    from fei_tpu_torch.engine import InferenceEngine
+    from fei_tpu_torch.models.configs import get_model_config
+    from fei_tpu_torch.models.llama import KVCache, forward, init_params
+    from fei_tpu_torch.parallel.expert import expert_flops_share
+
+    lead = rank == 0
+    dev = torch.device("cuda", torch.cuda.current_device())
+    cfg = get_model_config("mixtral-8x7b", num_layers=PAR_EP_LAYERS)
+    mp = init_params(cfg, seed=SEED, dtype=torch.bfloat16, device=dev, quantize="int8")
+    rng = np.random.default_rng(SEED + 13)
+    prompt = rng.integers(8, cfg.vocab_size, size=PAR_EP_LENS[-1]).tolist()
+    prompts = [rng.integers(8, cfg.vocab_size, size=n).tolist() for n in PAR_EP_LENS]
+    kw = dict(dtype=torch.bfloat16, params=mp, max_seq_len=MOE_SEQ, device="cuda",
+              num_layers=PAR_EP_LAYERS)
+    if lead:  # one rank's routed prefill, not counted; timed warm
+        one = InferenceEngine.from_config("mixtral-8x7b", mesh="ms1", **kw)
+        for _ in range(2):
+            t0 = time.perf_counter()
+            ref = one.prefill([prompt], one.new_cache(1))[0]
+            torch.cuda.synchronize()
+            res["ep_one_rank_s"] = time.perf_counter() - t0
+        del one
+    with env_vars(FEI_TPU_EP_CAPACITY="dropless", FEI_TPU_ROUTED_MOE=None):
+        with counts.part("ep dropless"):
+            eng = InferenceEngine.from_config("mixtral-8x7b", mesh="ep2",
+                                              mesh_weights="sharded", **kw)
+            mine = eng.params
+            res["ep_experts_a_rank"] = mine["layers"]["w_up"].q.shape[1]
+            if lead:  # timed warm, as the reference
+                for _ in range(2):
+                    t0 = time.perf_counter()
+                    got = eng.prefill([prompt], eng.new_cache(1))[0]
+                    torch.cuda.synchronize()
+                    res["ep_prefill_s"] = time.perf_counter() - t0
+                res["ep_rel"] = rel_l2(got, ref)
+                eng.close()
+        mesh = eng.mesh
+        del eng
+        # the mutant on both ranks: the return trip's chunks in the wrong
+        # source-rank order (a library call on each rank's own shard)
+        real = mesh.all_to_all
+
+        def wrong_order(t, axis, split_dim, concat_dim):
+            out = real(t, axis, split_dim, concat_dim)
+            if split_dim == 1:
+                out = torch.cat(list(reversed(out.chunk(mesh.shape[axis], concat_dim))),
+                                concat_dim)
+            return out
+
+        mesh.all_to_all = wrong_order
+        try:
+            cache = KVCache.create(cfg, 1, 2048, dtype=torch.bfloat16, device=dev)
+            toks = torch.tensor([prompt], device=dev)
+            lg, _ = forward(mine, cfg, toks, cache, lm_head=True, moe_mesh=mesh,
+                            kernel_mesh=mesh)
+        finally:
+            mesh.all_to_all = real
+        if lead:
+            res["ep_mutant_rel"] = rel_l2(lg[:, -1], ref)
+        del mine, lg, cache
+    torch.cuda.empty_cache()
+    # the paged engine at the default capacity (2.0)
+    with env_vars(FEI_TPU_EP_CAPACITY=None, FEI_TPU_ROUTED_MOE=None):
+        with counts.part("ep paged"):
+            eng = InferenceEngine.from_config("mixtral-8x7b", mesh="ep2", mesh_weights="sharded",
+                                              paged=True, batch_size=4, page_size=PAGE, **kw)
+            if lead:
+                run = traffic(eng, prompts, PAR_EP_NEW)
+                res["ep_streams_ok"] = all(
+                    len(s) == PAR_EP_NEW and all(0 <= t < cfg.vocab_size for t in s)
+                    for s in run["streams"])
+                res["ep_paged_tok_s"] = sum(map(len, run["streams"])) / run["wall"]
+                res["ep_stats"] = {k: list(v) for k, v in eng.mesh.stats.items()}
+                eng.close()
+            del eng
+    res["ep_flops_share"] = [expert_flops_share(n, cfg.num_experts, cfg.num_experts_per_tok, 2)
+                             for n in PAR_EP_LENS]
+    del mp
+    torch.cuda.empty_cache()
+
+
+def par_pp(rank: int, params: dict, counts: PathCounts, res: dict) -> None:
+    """pp2: pipeline_forward_train with 2 and 4 microbatches against one
+    rank's forward_train (K1) on the same weights."""
+    from fei_tpu_torch.models.configs import get_model_config
+    from fei_tpu_torch.models.llama import forward_train
+    from fei_tpu_torch.parallel.mesh import make_mesh
+    from fei_tpu_torch.parallel.pipeline import pipeline_forward_train
+
+    dev = torch.device("cuda", torch.cuda.current_device())
+    mesh = make_mesh({"pp": 2}, device=dev)
+    cfg = get_model_config("llama3-8b", num_layers=PAR_LAYERS)
+    p = layer_views(params, PAR_LAYERS)
+    B, T = PAR_PP
+    g = torch.Generator(device="cuda").manual_seed(SEED + 17)
+    toks = torch.randint(8, cfg.vocab_size, (B, T), generator=g, device="cuda")
+    with torch.no_grad():
+        ref = forward_train(p, cfg, toks, remat=False) if rank == 0 else None
+        for m in (2, 4):
+            with counts.part(f"pp micro {m}"):
+                t0 = time.perf_counter()
+                got = pipeline_forward_train(p, cfg, toks, mesh, m)
+                torch.cuda.synchronize()
+            if rank == 0:
+                res[f"pp_rel_m{m}"] = rel_l2(got, ref)
+                res[f"pp_s_m{m}"] = time.perf_counter() - t0
+            del got
+    res["pp_stats"] = {k: list(v) for k, v in mesh.stats.items()}
+    del ref
+    torch.cuda.empty_cache()
+
+
+def par_train(rank: int, params: dict, counts: PathCounts, res: dict) -> None:
+    """dp2 (two sequences, one a rank) and tp2 (one sequence, Megatron
+    shards): loss and parameters after two steps against one rank's steps
+    on the same batch; each rank launches K1, K5a and K5b."""
+    from fei_tpu_torch.engine.train import TrainConfig, make_train_step
+    from fei_tpu_torch.models.configs import get_model_config
+    from fei_tpu_torch.parallel.mesh import make_mesh
+    from fei_tpu_torch.parallel.sharding import shard_params
+    from fei_tpu_torch.utils.tree import flatten
+
+    lead = rank == 0
+    dev = torch.device("cuda", torch.cuda.current_device())
+    cfg = get_model_config("llama3-8b", num_layers=PAR_TRAIN_LAYERS)
+    base = layer_views(params, PAR_TRAIN_LAYERS)
+    g = torch.Generator(device="cuda").manual_seed(SEED + 19)
+    toks = torch.randint(8, cfg.vocab_size, (2, PAR_TRAIN_T + 1), generator=g, device="cuda")
+    tc = TrainConfig()
+    for spec, batch in (("dp2", toks), ("tp2", toks[:1])):
+        mesh = make_mesh(spec, device=dev)
+        ref = None
+        if lead:  # one rank's steps on the same batch, not counted
+            p1 = tree_clone(base)
+            opt, step = make_train_step(cfg, tc, device="cuda")
+            st = opt.init(p1)
+            losses1 = []
+            for _ in range(PAR_TRAIN_STEPS):
+                p1, st, loss = step(p1, st, batch)
+                losses1.append(float(loss))
+            ref = shard_params(p1, mesh, False)
+            del p1, st
+            torch.cuda.empty_cache()
+        mine = shard_params(tree_clone(base), mesh, False)
+        start = shard_params(base, mesh, False)
+        opt, step = make_train_step(cfg, tc, device="cuda", mesh=mesh)
+        st = opt.init(mine)
+        losses = []
+        with counts.part(f"train {spec}"):
+            t0 = time.perf_counter()
+            for _ in range(PAR_TRAIN_STEPS):
+                mine, st, loss = step(mine, st, batch)
+                losses.append(float(loss))
+            step_s = (time.perf_counter() - t0) / PAR_TRAIN_STEPS
+        res[f"train_{spec}_launches"] = counts.by_part[f"train {spec}"]
+        if lead:
+            num = den = 0.0
+            for k, a in flatten(mine).items():
+                b, s0 = flatten(ref)[k], flatten(start)[k]
+                num += ((a.float() - s0.float()) - (b.float() - s0.float())).square().sum().item()
+                den += (b.float() - s0.float()).square().sum().item()
+            res[f"train_{spec}"] = {"losses": losses, "losses_one": losses1,
+                                    "update_rel": (num / den) ** 0.5, "step_s": step_s}
+        del mine, st, ref, start
+        torch.cuda.empty_cache()
+
+
+def par_banks(rank: int, res: dict) -> None:
+    """exchange_banks of PAR_BANK fp32 over the two ranks, on the card."""
+    import torch.distributed as dist
+
+    from fei_tpu_torch.memory.memorychain.embedding_exchange import exchange_banks
+
+    banks = np.random.default_rng(SEED + 23).standard_normal(PAR_BANK).astype(np.float32)
+    t0 = time.perf_counter()
+    out = exchange_banks(banks, group=dist.group.WORLD, device="cuda")
+    torch.cuda.synchronize()
+    res["bank_s"] = time.perf_counter() - t0
+    res["bank_device"] = str(out.device)
+    res["bank_bitwise"] = out[0].cpu().numpy().tobytes() == banks.tobytes()
+
+
+def parallel_rank_work(rank: int, params: dict) -> dict:
+    """One rank's share of the parallel part (both ranks run every check;
+    rank 0 holds the one-rank references). Returns the rank's results and
+    its kernel launches on the parallel path (``launches_parallel``)."""
+    res: dict = {}
+    counts = PathCounts()
+    t0 = time.perf_counter()
+    for name, part in (("sp", lambda: par_sp(rank, params, counts, res)),
+                       ("ep", lambda: par_ep(rank, counts, res)),
+                       ("pp", lambda: par_pp(rank, params, counts, res)),
+                       ("train", lambda: par_train(rank, params, counts, res)),
+                       ("banks", lambda: par_banks(rank, res))):
+        t1 = time.perf_counter()
+        part()
+        gc.collect()
+        torch.cuda.empty_cache()
+        res[f"{name}_s"] = time.perf_counter() - t1
+        log(f"parallel part, rank {rank}: {name} in {res[name + '_s']:.1f} s")
+    res["launches_parallel"] = counts.total
+    res["launches_by_part"] = counts.by_part
+    res["parallel_s"] = time.perf_counter() - t0
+    return res
+
+
+def parallel_report(ranks: list, card: str) -> dict:
+    """Checks and logs the parallel part's results; returns each kernel's
+    launches per rank on the parallel path."""
+    r0 = ranks[0]
+    for name in ("llama3-8b", "mistral-7b"):
+        s = r0[f"sp_{name}"]
+        log(f"parallel sp2 {name} ({PAR_LAYERS} layers, {PAR_SP_T} tokens, window "
+            f"{s['window']}): last logits rel_l2 against one rank's K1 prefill: ring "
+            f"{s['ring']:.6g}, ulysses {s['ulysses']:.6g} (tol {PAR_SP_TOL}); a ring that "
+            f"skips its last rotation {s['mutant']:.6g}; ring {s['ring_s']:.3f} s, "
+            f"ulysses {s['ulysses_s']:.3f} s (first call each), one rank's prefill "
+            f"{s['one_rank_s']:.3f} s (warm) on {card}")
+        check(s["ring"] <= PAR_SP_TOL and s["ulysses"] <= PAR_SP_TOL,
+              f"sp2 {name} logits: {s}")
+        check(s["mutant"] > PAR_SP_TOL, f"the ring mutant stays within {PAR_SP_TOL}: {s}")
+    log(f"parallel sp2: collectives (seconds, calls; staged bytes, calls) {r0['sp_stats']}")
+    bad = [g for g in r0["sp_paged_gaps"] if g is not None and abs(g[1]) > TP_GAP_ULPS]
+    log(f"parallel sp2 paged engine: {r0['sp_prefills']:.0f} sp prefills; streams of "
+        f"{PAR_SP_SHORT} and {PAR_SP_PAGED} tokens against one rank's chunked admission, "
+        f"(first split, ulps) or None where equal: {r0['sp_paged_gaps']}; "
+        f"{r0['sp_paged_tok_s']:.2f} tok/s, TTFT {[round(x, 3) for x in r0['sp_paged_ttft']]} s "
+        f"(one rank, chunked: {[round(x, 3) for x in r0['sp_paged_ttft_one_rank']]} s)")
+    check(r0["sp_prefills"] > 0, "the sp2 paged engine never took the sp dispatch")
+    check(not bad, f"sp2 paged streams split above {TP_GAP_ULPS} bf16 ulps: {bad}")
+    for r, res in enumerate(ranks):
+        c = res["launches_by_part"]["sp paged"]
+        check(c["paged_attention"] > 0 and c["flash_attention_fwd"] > 0,
+              f"rank {r}'s sp paged run launched {c}")
+    log(f"parallel ep2 (mixtral-8x7b int8, {PAR_EP_LAYERS} layers, "
+        f"{r0['ep_experts_a_rank']} experts a rank): dropless prefill of "
+        f"{PAR_EP_LENS[-1]} tokens rel_l2 {r0['ep_rel']:.6g} against one rank's routed "
+        f"prefill (tol {MOE_TOL}) in {r0['ep_prefill_s']:.3f} s (one rank's routed prefill "
+        f"{r0['ep_one_rank_s']:.3f} s; both warm); wrong source order "
+        f"{r0['ep_mutant_rel']:.6g}; paged at capacity 2.0: {r0['ep_paged_tok_s']:.2f} tok/s, "
+        f"expert rows (routed, dense-local) a rank {r0['ep_flops_share']}; collectives "
+        f"{r0['ep_stats']}")
+    check(r0["ep_experts_a_rank"] == 4, "ep2 ranks do not hold 4 of 8 experts each")
+    check(r0["ep_rel"] <= MOE_TOL, f"ep2 dropless logits rel_l2 {r0['ep_rel']}")
+    check(r0["ep_mutant_rel"] > MOE_TOL, f"the ep2 wrong-order mutant stays within {MOE_TOL}")
+    check(r0["ep_streams_ok"], "the ep2 paged streams did not complete")
+    for r, res in enumerate(ranks):
+        c = res["launches_by_part"]["ep paged"]
+        for k in ("flash_attention_fwd", "paged_attention", "ragged_paged_attention"):
+            check(c[k] > 0, f"rank {r}'s ep paged run never launched {k}: {c}")
+    log(f"parallel pp2 ({PAR_LAYERS} layers, B, T = {PAR_PP}): logits rel_l2 against one "
+        f"rank's forward_train: 2 microbatches {r0['pp_rel_m2']:.6g} ({r0['pp_s_m2']:.2f} s), "
+        f"4 microbatches {r0['pp_rel_m4']:.6g} ({r0['pp_s_m4']:.2f} s) (tol {PAR_PP_TOL}); "
+        f"collectives {r0['pp_stats']}")
+    check(max(r0["pp_rel_m2"], r0["pp_rel_m4"]) <= PAR_PP_TOL, "pp2 logits")
+    for r, res in enumerate(ranks):
+        for m in (2, 4):
+            check(res["launches_by_part"][f"pp micro {m}"]["flash_attention_fwd"] > 0,
+                  f"rank {r}'s pipeline never launched K1")
+    for spec in ("dp2", "tp2"):
+        t = r0[f"train_{spec}"]
+        loss_rel = max(abs(a - b) / b for a, b in zip(t["losses"], t["losses_one"]))
+        log(f"parallel training {spec} (llama3-8b, {PAR_TRAIN_LAYERS} layers, T = "
+            f"{PAR_TRAIN_T}): losses {t['losses']} vs one rank's {t['losses_one']} (rel "
+            f"{loss_rel:.3g}, tol {PAR_LOSS_TOL}); parameter change rel_l2 "
+            f"{t['update_rel']:.6g} (tol {PAR_UPDATE_TOL}); {t['step_s']:.2f} s a step")
+        check(loss_rel <= PAR_LOSS_TOL, f"{spec} loss {t}")
+        check(t["update_rel"] <= PAR_UPDATE_TOL, f"{spec} parameter change {t}")
+        for r, res in enumerate(ranks):
+            c = res[f"train_{spec}_launches"]
+            for k in ("flash_attention_fwd", "flash_attention_bwd_dq", "flash_attention_bwd_dkv"):
+                check(c[k] > 0, f"rank {r}'s {spec} training never launched {k}: {c}")
+    for r, res in enumerate(ranks):
+        check(res["bank_bitwise"] and res["bank_device"].startswith("cuda"),
+              f"rank {r}'s exchanged bank is not bitwise the whole bank")
+    log(f"parallel bank exchange {PAR_BANK} fp32 over 2 ranks: bitwise on both "
+        f"({r0['bank_s'] * 1e3:.1f} ms)")
+    secs = {k: round(r0[f"{k}_s"], 1) for k in ("sp", "ep", "pp", "train", "banks")}
+    log(f"parallel part: {r0['parallel_s']:.1f} s on rank 0 ({secs}) on {card}")
+    launches = [res["launches_parallel"] for res in ranks]
+    for r, c in enumerate(launches):
+        log(f"parallel part: rank {r} launches {c}")
+    return {k: [c[k] for c in launches] for k in launches[0]}
+
+
+def tp_rank_main(rank: int, port: int, workdir: str, parts: tuple) -> None:
     """A spawned rank of the tp phase: NCCL on card ``rank`` when the
-    machine has a card per rank, else gloo with both ranks on card 0."""
+    machine has a card per rank, else gloo with both ranks on card 0. It
+    runs the tp work, then (its engines released) the parallel part, on
+    the same weights; ``parts`` names which."""
     import os
     import pickle
     import traceback
@@ -5682,7 +6156,15 @@ def tp_rank_main(rank: int, port: int, workdir: str) -> None:
     try:
         dist.init_process_group(backend, init_method=f"tcp://127.0.0.1:{port}",
                                 world_size=TP_RANKS, rank=rank)
-        out = {"ok": tp_rank_work(rank, workdir)}
+        params = tp_params()
+        got = {}
+        if "tp" in parts:
+            got["tp"] = tp_rank_work(rank, workdir, params)
+        if "parallel" in parts:
+            gc.collect()
+            torch.cuda.empty_cache()
+            got["parallel"] = parallel_rank_work(rank, params)
+        out = {"ok": got}
     except BaseException:  # noqa: BLE001 — the parent reports it
         out = {"error": traceback.format_exc()}
     with open(os.path.join(workdir, f"rank{rank}.pkl"), "wb") as f:
@@ -5727,10 +6209,12 @@ def tp_serve_check(card: str) -> None:
         f"follower exited 0 ({time.perf_counter() - t0:.1f} s on {card})")
 
 
-def tp_phase(card: str) -> dict:
-    """The tensor-parallel path (roadmap C4, first half) on the card: two
-    ranks spawned here share it over gloo (one rank per card over NCCL
-    where there are two cards). Returns each rank's K1-K4 launches."""
+def tp_phase(card: str, parts: tuple = ("tp", "parallel")) -> tuple[dict, dict]:
+    """The tensor-parallel path (roadmap C4, first half), then the parallel
+    part (sp, ep, pp, sharded training, the bank exchange: its second half)
+    on the card: two ranks spawned here share it over gloo (one rank per
+    card over NCCL where there are two cards). ``parts`` names which run.
+    Returns each rank's launches on the tp path and on the parallel path."""
     import pickle
 
     import torch.multiprocessing as mp
@@ -5740,12 +6224,12 @@ def tp_phase(card: str) -> dict:
     try:
         ctx = mp.get_context("spawn")
         port = free_port()
-        procs = [ctx.Process(target=tp_rank_main, args=(r, port, work))
+        procs = [ctx.Process(target=tp_rank_main, args=(r, port, work, parts))
                  for r in range(TP_RANKS)]
         for p in procs:
             p.start()
         for p in procs:
-            p.join(600)
+            p.join(900)
         for p in procs:
             if p.is_alive():
                 p.kill()
@@ -5758,7 +6242,17 @@ def tp_phase(card: str) -> dict:
             ranks.append(got["ok"])
     finally:
         shutil.rmtree(work, ignore_errors=True)
-    r0, r1 = ranks
+    launches_tp = tp_report([res["tp"] for res in ranks], card) if "tp" in parts else {}
+    launches_par = ({} if "parallel" not in parts
+                    else parallel_report([res["parallel"] for res in ranks], card))
+    log(f"tp phase: {time.perf_counter() - t0:.1f} s")
+    return launches_tp, launches_par
+
+
+def tp_report(ranks: list, card: str) -> dict:
+    """Checks and logs the tp work's results (and runs the server check);
+    returns each kernel's launches per rank on the tp path."""
+    r0 = ranks[0]
     for r, res in enumerate(ranks):
         check(res["device"].startswith("cuda"), f"tp rank {r} ran on {res['device']}")
         check((res["backend"] == "gloo") == (res["cards"] < TP_RANKS),
@@ -5825,7 +6319,6 @@ def tp_phase(card: str) -> dict:
             check(c[k] > 0, f"tp rank {r} never launched {k}")
     log(f"tp phase: wrappers {r0['wrapper_s']:.1f} s, tp path {r0['tp_path_s']:.1f} s")
     tp_serve_check(card)
-    log(f"tp phase: {time.perf_counter() - t0:.1f} s")
     return {k: [c[k] for c in launches] for k in launches[0]}
 
 
@@ -5884,7 +6377,12 @@ def main() -> int:
     if sys.argv[1:] == ["--tp"]:
         with ThreadPoolExecutor(4) as pool:
             list(pool.map(build.build, KERNELS[:1] + KERNELS[2:]))
-        log(f"tp path: launches per rank {tp_phase(card)}")
+        log(f"tp path: launches per rank {tp_phase(card, ('tp',))[0]}")
+        return 0
+    if sys.argv[1:] == ["--parallel"]:
+        with ThreadPoolExecutor(len(KERNELS)) as pool:
+            list(pool.map(build.build, KERNELS))
+        log(f"parallel path: launches per rank {tp_phase(card, ('parallel',))[1]}")
         return 0
     if sys.argv[1:] == ["--tools"]:
         from fei_tpu_torch.engine import InferenceEngine
@@ -6055,11 +6553,17 @@ def main() -> int:
     # the tensor-parallel path: two ranks of its own (each counts from 0)
     gc.collect()
     torch.cuda.empty_cache()
-    launches_tp = tp_phase(card)
+    launches_tp, launches_par = tp_phase(card)
     for rec in records:
         if rec["name"] in launches_tp:
             rec["launches_tp"] = launches_tp[rec["name"]]
-    stamp("tp")
+        # per rank: sp (K1 in the short stream's admission, K2 decode), ep
+        # (K1-K3), pp (K1) and training (K1, K5a, K5b); K4 runs on none
+        if rec["name"] in launches_par and rec["name"] != "int4_matmul":
+            rec["launches_parallel"] = launches_par[rec["name"]]
+            check(all(n > 0 for n in rec["launches_parallel"]),
+                  f"the parallel path never launched {rec['name']} on a rank")
+    stamp("tp, parallel")
     log(f"phase seconds on {card}: {json.dumps(phase_s)}; "
         f"in all {time.perf_counter() - t0:.1f} s")
 

@@ -112,6 +112,24 @@ def _flat_shardings(tree: Any) -> dict:
     return flat
 
 
+def _gather_whole(tree: Any, cuts: dict) -> Any:
+    """``tree`` with each leaf that ``cuts`` ({path: Sharding}) slices
+    gathered whole over its axes (every rank calls this, in the same leaf
+    order)."""
+    if not cuts:
+        return tree
+    flat, types = _encode("gather", tree)
+    for path, t in flat.items():
+        sh = cuts.get(path)
+        if sh is None:
+            continue
+        for dim, ax in enumerate(sh.spec):
+            if ax is not None and sh.mesh.shape[ax] > 1:
+                t = sh.mesh.all_gather(t, ax, dim=dim)
+        flat[path] = t
+    return _decode(flat, types)
+
+
 def _decode(flat: dict, types: dict) -> Any:
     """The tree ``_encode`` flattened: NamedTuples rebuilt at their paths."""
     known = _named_types()
@@ -135,12 +153,32 @@ def save_checkpoint(
     opt_state: Any = None,
     cache: Any = None,
     max_to_keep: int | None = 3,
+    shardings: Any = None,
 ) -> None:
     """Atomically save a composite checkpoint at ``step``. Only non-None
     components are written; ``restore_checkpoint`` returns the same
-    composite shape. Steps beyond the newest ``max_to_keep`` are removed."""
+    composite shape. Steps beyond the newest ``max_to_keep`` are removed.
+
+    ``shardings`` (the composite ``restore_checkpoint`` takes): the trees
+    hold this rank's slices; every rank of the mesh calls this, each
+    sharded leaf is gathered whole (exact: the bytes move as words), rank 0
+    writes the whole tensors and the others wait for it, so the files are
+    those of one device and restore onto any mesh."""
     from safetensors.torch import save_file
 
+    if shardings:
+        cuts = {name: _flat_shardings(tree) for name, tree in shardings.items()}
+        mesh = next(sh.mesh for flat in cuts.values() for sh in flat.values())
+        trees = {"params": params, "opt_state": opt_state, "cache": cache}
+        whole = {name: _gather_whole(tree, cuts.get(name, {}))
+                 for name, tree in trees.items() if tree is not None}
+        if mesh.rank == 0:
+            save_checkpoint(directory, step, whole["params"], whole.get("opt_state"),
+                            whole.get("cache"), max_to_keep)
+        import torch.distributed as dist
+
+        dist.barrier(group=mesh.control)
+        return
     directory = os.path.abspath(directory)
     final = os.path.join(directory, str(int(step)))
     if os.path.exists(final):

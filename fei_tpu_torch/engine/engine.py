@@ -28,20 +28,26 @@
   followed it, one forward of ``1 + draft_len`` tokens verifies them, and
   the cache's length is cut back to the accepted ones.
 
-- **MoE** (Mixtral): every dense forward lets its MoE layers take the
-  token-routed form (``routed_moe=True``: the JAX engine's ``routed =
-  mesh is None``, and the port has no expert-parallel mesh), which
-  ``models.llama._moe`` takes from ``_ROUTED_MIN_TOKENS`` tokens
-  (prefill, verify blocks of 16+).
+- **MoE** (Mixtral): the JAX engine's rule, ``routed = mesh is None``:
+  on one device every dense forward lets its MoE layers take the
+  token-routed form (``routed_moe=True``), which ``models.llama._moe``
+  takes from ``_ROUTED_MIN_TOKENS`` tokens (prefill, verify blocks of
+  16+); on a mesh they take the dense oracle, and on an ``ep`` mesh the
+  expert-parallel route (``_moe_mesh``: ``parallel.expert.
+  moe_mlp_ep_routed``, at ``FEI_TPU_EP_CAPACITY``).
 
-- **Mesh** (``FEI_TPU_MESH=tp2|dp2|tp2dp2|auto`` or ``mesh=``): the engine
-  spans ranks, one process each (parallel/serving.py). Rank 0 is this
-  engine; ``from_config`` starts the followers, and each device call rank
-  0 makes runs on every rank's shard. ``FEI_TPU_MESH_WEIGHTS`` picks the
-  weights profile: ``replicated`` (the environment mesh's default; streams
-  bitwise the one-device engine's) or ``sharded`` (Megatron; an explicit
-  mesh's default). A paged engine's slots multiply by dp. A mesh with an
-  sp, ep or pp axis raises: those are the second half of roadmap C4.
+- **Mesh** (``FEI_TPU_MESH=tp2|dp2|sp2|ep2|pp2|tp2ep2|auto`` or
+  ``mesh=``): the engine spans ranks, one process each
+  (parallel/serving.py). Rank 0 is this engine; ``from_config`` starts the
+  followers, and each device call rank 0 makes runs on every rank's shard.
+  ``FEI_TPU_MESH_WEIGHTS`` picks the weights profile: ``replicated`` (the
+  environment mesh's default; streams bitwise the one-device engine's) or
+  ``sharded`` (Megatron, experts over ep; an explicit mesh's default). A
+  paged engine's slots multiply by dp. On an ``sp`` axis a prompt of at
+  least ``long_prefill_min`` tokens (``FEI_TPU_LONG_PREFILL_MIN``, 2048)
+  prefills sequence-sharded (``parallel.long_prefill``, ring or Ulysses
+  by ``FEI_TPU_SP_ATTEND``); the pool and decode replicate over sp and pp,
+  which no sharding table names.
 
 - **Constrained tool calls** (``generate_constrained``,
   ``generate_stream_toolcalls``): the grammar's DFA steps on the device
@@ -58,6 +64,7 @@ raises ``EngineError`` when CUDA is asked for and missing.
 from __future__ import annotations
 
 import functools
+import os
 import time
 from dataclasses import dataclass
 from typing import Callable, Iterator, Sequence
@@ -83,7 +90,7 @@ from fei_tpu_torch.models.llama import (
     init_params,
 )
 from fei_tpu_torch.obs.flight import FLIGHT, CompileObserver
-from fei_tpu_torch.parallel.mesh import axis_size, mesh_geometry, mesh_tag
+from fei_tpu_torch.parallel.mesh import axis_size, has_axis, mesh_geometry, mesh_tag
 from fei_tpu_torch.parallel.serving import spmd_op
 from fei_tpu_torch.utils.errors import EngineError
 from fei_tpu_torch.utils.logging import get_logger
@@ -196,6 +203,27 @@ def new_page_pool(eng, num_pages: int, batch: int, table_width: int, kernel_mesh
     )
 
 
+@spmd_op
+@torch.no_grad()
+def sp_prefill(eng, padded, true_len, cache, attend: str = "ring", kernel_mesh=None):
+    """Sequence-sharded prefill into ``cache`` (this rank's shard of it):
+    every rank runs ``prefill_ring_kv`` on its chunk of ``padded`` [B, T],
+    and the gathered K/V land in its cache. Returns (last-valid logits
+    [B, V] fp32, the cache with length ``true_len``)."""
+    from fei_tpu_torch.parallel.long_prefill import prefill_ring_kv
+
+    logits, k_all, v_all = prefill_ring_kv(eng.params, eng.cfg, padded, kernel_mesh,
+                                           true_len=true_len, attend=attend)
+    T = padded.shape[1]
+    if cache.k.shape[1] != k_all.shape[1]:  # the rank's dp rows of the batch
+        n, r = cache.k.shape[1], kernel_mesh.coords["dp"]
+        k_all, v_all = k_all[:, r * n:(r + 1) * n], v_all[:, r * n:(r + 1) * n]
+    cache.k[:, :, :T] = k_all.to(cache.k.dtype)
+    cache.v[:, :, :T] = v_all.to(cache.v.dtype)
+    return logits, cache._replace(length=true_len.to(device=cache.length.device,
+                                                      dtype=torch.int32))
+
+
 def _resolve_mesh(mesh, cfg, device):
     """``(mesh or None, from_env)``: ``mesh=None`` reads ``FEI_TPU_MESH``;
     a spec string is parsed; a ``Mesh`` passes. One rank is no mesh. With
@@ -214,12 +242,6 @@ def _resolve_mesh(mesh, cfg, device):
         raise EngineError(f"mesh must be a Mesh, a spec or None, not {type(mesh).__name__}")
     if mesh is None or mesh.size == 1:
         return None, from_env
-    idle = [ax for ax in ("sp", "ep", "pp") if mesh.shape[ax] > 1]
-    if idle:
-        raise EngineError(
-            f"mesh {mesh_tag(mesh)}: the {'/'.join(idle)} axis is not ported yet — "
-            "sequence, expert and pipeline parallelism are the second half of "
-            "roadmap C4; serve with tp and dp axes only")
     if mesh.shape["tp"] > 1 and cfg.num_kv_heads % mesh.shape["tp"]:
         raise EngineError(f"tp={mesh.shape['tp']} must divide the model's "
                           f"{cfg.num_kv_heads} kv heads")
@@ -246,6 +268,7 @@ class InferenceEngine:
         kv_quant: str | None = None,
         prefix_cache: bool = False,
         mesh=None,
+        long_prefill_min: int | None = None,
     ):
         self.cfg = model_cfg
         self.params = params
@@ -280,6 +303,11 @@ class InferenceEngine:
         self.prefix_cache = prefix_cache
         self._pool = None  # lazy PagedKVCache
         self._allocator = None
+        # prompts at least this long prefill sequence-sharded over the
+        # mesh's sp axis (parallel.long_prefill) instead of in one forward
+        self.long_prefill_min = long_prefill_min if long_prefill_min is not None \
+            else int(os.environ.get("FEI_TPU_LONG_PREFILL_MIN", "2048"))
+        self._sp_prefill_call = None  # the sp prefill op with its attend resolved
         self._scheduler = None
         if paged and (mesh is None or mesh.rank == 0):
             from fei_tpu_torch.engine.scheduler import PagedScheduler
@@ -290,6 +318,19 @@ class InferenceEngine:
     def tp(self) -> int:
         """The tensor-parallel degree (1 without a mesh)."""
         return axis_size(self.mesh, "tp")
+
+    def _moe_mesh(self):
+        """The mesh for token-routed expert parallelism inside the model
+        forward, or None without an ep axis (one device, tp/dp meshes)."""
+        if self.cfg.is_moe and has_axis(self.mesh, "ep"):
+            return self.mesh
+        return None
+
+    def _fwd_kw(self) -> dict:
+        """The MoE routing of this engine's dense forwards: the JAX
+        engine's ``routed = mesh is None`` (an ep mesh owns its routing,
+        any other mesh takes the oracle) and its ``_moe_mesh``."""
+        return dict(routed_moe=self.mesh is None, moe_mesh=self._moe_mesh())
 
     # -- construction -------------------------------------------------------
 
@@ -316,6 +357,7 @@ class InferenceEngine:
         quant_embed: bool = False,
         mesh=None,
         mesh_weights: str | None = None,
+        long_prefill_min: int | None = None,
         **overrides,
     ) -> "InferenceEngine":
         """Random-init (from ``seed``, on ``device``) or checkpoint weights;
@@ -365,7 +407,8 @@ class InferenceEngine:
                     num_pages=num_pages, quantize=quantize, kv_quant=kv_quant,
                     prefix_cache=prefix_cache, params=params,
                     int4_lm_head=int4_lm_head, quant_embed=quant_embed,
-                    mesh_weights=weights, **overrides))
+                    mesh_weights=weights, long_prefill_min=long_prefill_min,
+                    **overrides))
             dev = mesh.device
         qkw = dict(quantize=quantize, int4_lm_head=int4_lm_head, quant_embed=quant_embed)
         if quantize == "int4" and axis_size(mesh, "tp") > 1:
@@ -392,7 +435,7 @@ class InferenceEngine:
             cfg, params, tok, max_seq_len=max_seq_len, batch_size=slots,
             dtype=dtype, device=dev, paged=paged, page_size=page_size,
             num_pages=num_pages, kv_quant=kv_quant, prefix_cache=prefix_cache,
-            mesh=mesh,
+            mesh=mesh, long_prefill_min=long_prefill_min,
         )
         if mesh is None:
             return engine
@@ -576,7 +619,7 @@ class InferenceEngine:
     def _step(self, gen: GenerationConfig, cache, token, key, logit_mask=None):
         """One decode step: forward T=1, optional mask, split the key and
         sample on device. Returns (next_token [B] int32, cache, key)."""
-        logits, cache = forward(self.params, self.cfg, token, cache, routed_moe=True)
+        logits, cache = forward(self.params, self.cfg, token, cache, **self._fwd_kw())
         logits = logits[:, -1, :]
         if logit_mask is not None:
             logits = torch.where(logit_mask, logits, float("-inf"))
@@ -589,7 +632,7 @@ class InferenceEngine:
 
     def _free_fused_fn(self, gen: GenerationConfig, n_steps: int) -> Callable:
         """The N-step fused free-decode function (fused_decode)."""
-        return build_fused_decode(functools.partial(forward, routed_moe=True),
+        return build_fused_decode(functools.partial(forward, **self._fwd_kw()),
                                   self.cfg, gen, n_steps)
 
     def _grammar_fused_fn(self, gen: GenerationConfig, n_steps: int) -> Callable:
@@ -610,11 +653,12 @@ class InferenceEngine:
             gen.temperature, gen.top_k, gen.top_p, gen.min_p
         )
         cfg = self.cfg
+        fwd_kw = self._fwd_kw()
 
         def fused(params, cache, token, key, gstate, remaining, table, min_dist):
             toks = []
             for _ in range(n_steps):
-                logits, cache = forward(params, cfg, token, cache, routed_moe=True)
+                logits, cache = forward(params, cfg, token, cache, **fwd_kw)
                 logits, advance = grammar_step(
                     logits[:, -1, :], table, min_dist, gstate, remaining)
                 key, sub = _split_if_sampled(gen, key)
@@ -645,6 +689,40 @@ class InferenceEngine:
             return set()
         return set(gen.stop_token_ids) | set(self.tokenizer.stop_token_ids)
 
+    def _sp_prefill_eligible(self, n_tokens: int) -> bool:
+        """True when this prompt WILL prefill sequence-sharded: the mesh has
+        a real sp axis, the prompt meets ``long_prefill_min`` and the padded
+        bucket divides over the axis. One guard shared by ``prefill`` and
+        the scheduler's admission, so the two never disagree."""
+        if not has_axis(self.mesh, "sp") or n_tokens < self.long_prefill_min:
+            return False
+        bucket = min(_next_bucket(n_tokens), self.max_seq_len)
+        return bucket % self.mesh.shape["sp"] == 0
+
+    def _sp_prefill_fn(self):
+        """The sequence-sharded prefill op (``sp_prefill``), with
+        ``FEI_TPU_SP_ATTEND`` resolved once: ``ring`` (default: K/V chunks
+        rotate) or ``ulysses`` (head↔seq all_to_all). An unknown value, or
+        Ulysses over heads that do not divide sp, logs a warning and takes
+        ring. Registered with the engine's compile observer as
+        ``engine.sp_prefill``."""
+        if self._sp_prefill_call is None:
+            cfg = self.cfg
+            attend = os.environ.get("FEI_TPU_SP_ATTEND", "ring").strip().lower()
+            if attend not in ("ring", "ulysses"):
+                log.warning("unknown FEI_TPU_SP_ATTEND=%r (ring | ulysses); using ring",
+                            attend)
+                attend = "ring"
+            n, tp = self.mesh.shape["sp"], self.tp  # a rank scatters its tp heads
+            if attend == "ulysses" and ((cfg.num_heads // tp) % n
+                                        or (cfg.num_kv_heads // tp) % n):
+                log.warning("FEI_TPU_SP_ATTEND=ulysses needs heads divisible by sp=%d "
+                            "(H=%d, K=%d); using ring", n, cfg.num_heads, cfg.num_kv_heads)
+                attend = "ring"
+            self._sp_prefill_call = self._compiles.wrap(
+                "engine.sp_prefill", "sp", functools.partial(sp_prefill, attend=attend))
+        return self._sp_prefill_call
+
     def prefill(
         self, prompt_ids: Sequence[Sequence[int]], cache: KVCache,
         flash: bool | None = None,
@@ -652,7 +730,12 @@ class InferenceEngine:
         """Pad prompts to a bucket, run one forward, fix cache lengths.
         Returns (last_valid_logits [B, V] float32, cache). Only the last
         valid position goes through the LM head. ``flash`` picks the
-        attention path (None: the kernel for prompt-sized T on the card)."""
+        attention path (None: the kernel for prompt-sized T on the card).
+
+        Long prompts (>= ``long_prefill_min``) on a mesh with an sp axis
+        prefill sequence-sharded: the whole model over ring or Ulysses
+        attention (``parallel.long_prefill``), each rank holding T/n
+        tokens; the cache it returns has the same contract."""
         B = len(prompt_ids)
         lengths = [len(p) for p in prompt_ids]
         max_len = max(lengths)
@@ -666,9 +749,13 @@ class InferenceEngine:
             dtype=torch.long, device=self.device,
         )
         true_len = torch.tensor(lengths, dtype=torch.int32, device=self.device)
+        if self._sp_prefill_eligible(max_len) and cache.k.shape[2] >= bucket:
+            METRICS.incr("engine.sp_prefills")
+            with METRICS.span("prefill_sp", nvtx=True):
+                return self._sp_prefill_fn()(self, padded, true_len, cache)
         hidden, cache = forward(
             self.params, self.cfg, padded, cache, lm_head=False, flash=flash,
-            routed_moe=True,
+            **self._fwd_kw(),
         )
         # padding wrote garbage kv beyond each true length; resetting the
         # length masks it out of attention and decode overwrites it
@@ -1133,7 +1220,7 @@ class InferenceEngine:
             toks = torch.tensor([[last] + draft], dtype=torch.long, device=self.device)
             with METRICS.span("spec_step"):
                 logits, cache = forward(self.params, self.cfg, toks, cache,
-                                        routed_moe=True)
+                                        **self._fwd_kw())
                 greedy = torch.argmax(logits[0], dim=-1).tolist()
             # greedy[i] is the model's token after toks[:i + 1]: accept the
             # draft while it matches the model's own argmax

@@ -31,9 +31,14 @@ fetches its longest published prefix by content hash
 prompt's full-page prefix is published (``_cas_publish``). Any tier miss or
 failure falls through to the routes above.
 
-The JAX package's dense-staging chunked route, its sp admission and its
-fallbacks for a kernel Mosaic rejects have no counterpart here: a kernel
-failure fails the requests, it is never rerouted.
+On a mesh with an sp axis a fresh prompt of at least ``long_prefill_min``
+tokens (and at most ``sp_admit_factor`` x ``prefill_chunk`` x sp) admits
+through the dense route, whose ``engine.prefill`` runs it sequence-sharded
+in one dispatch; a prefix hit and a resumed sequence keep the chunks.
+
+The JAX package's dense-staging chunked route and its fallbacks for a
+kernel Mosaic rejects have no counterpart here: a kernel failure fails the
+requests, it is never rerouted.
 """
 
 from __future__ import annotations
@@ -50,6 +55,7 @@ from fei_tpu_torch.engine.sampling import sample_logits
 from fei_tpu_torch.utils.errors import DeadlineExceededError, EngineError, PoolPressure
 from fei_tpu_torch.utils.logging import get_logger
 from fei_tpu_torch.obs.costmodel import account_kv_transfer
+from fei_tpu_torch.parallel.mesh import axis_size
 from fei_tpu_torch.obs.flight import FLIGHT
 from fei_tpu_torch.utils.metrics import METRICS
 
@@ -157,7 +163,20 @@ class AdmissionMixin:
                     cas = self._try_cas_admit(seq, slot, prefix)
                     if cas:
                         seq.prefix_match = prefix = cas
-                if prefix or len(ids) > self.prefill_chunk or seq.generated:
+                # a long prompt on an sp mesh admits sequence-sharded in one
+                # dispatch (engine.prefill's route). That dispatch stalls
+                # live decode for its whole duration, so it is capped at
+                # sp_admit_factor x prefill_chunk tokens a rank; a prefix
+                # hit and a resumed sequence keep the chunked path
+                n_tok = len(ids)
+                sp_long = (
+                    not prefix
+                    and not seq.generated
+                    and self.engine._sp_prefill_eligible(n_tok)
+                    and n_tok <= self.sp_admit_factor * self.prefill_chunk
+                    * axis_size(self.engine.mesh, "sp")
+                )
+                if (prefix or n_tok > self.prefill_chunk or seq.generated) and not sp_long:
                     self._start_chunked_paged(seq, slot, prefix)
                     return  # one chunked admission at a time
                 self._admit(seq, slot)
@@ -503,7 +522,8 @@ class AdmissionMixin:
             lengths=torch.tensor([pos], dtype=torch.int32, device=dev),
         )
         hidden, _ = forward_paged_block(
-            eng.params, eng.cfg, torch.as_tensor(toks).to(dev), view, lm_head=False)
+            eng.params, eng.cfg, torch.as_tensor(toks).to(dev), view, lm_head=False,
+            moe_mesh=eng._moe_mesh())
         if not final:
             return None
         return _logits(hidden[:, last_idx:last_idx + 1], eng.params, eng.cfg)[:, 0]

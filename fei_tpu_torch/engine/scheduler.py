@@ -287,6 +287,10 @@ class PagedScheduler(AdmissionMixin, DecodeMixin, ConstraintMixin):
         # the serving knobs, read as the JAX package reads them
         # (fei_tpu/engine/scheduler.py:195-301)
         self.prefill_chunk = int(os.environ.get("FEI_TPU_PREFILL_CHUNK", "256"))
+        # the sp admission's cap: one sequence-sharded dispatch covers at
+        # most this many prefill_chunks a rank before the chunked path,
+        # with its bounded stall of live decode, takes over
+        self.sp_admit_factor = int(os.environ.get("FEI_TPU_SP_ADMIT_FACTOR", "8"))
         # ragged merged dispatch: a pending prefill chunk rides the decode
         # step as one program; "paged" keeps the two-program shape
         attn = os.environ.get("FEI_TPU_ATTENTION", "ragged")

@@ -29,6 +29,19 @@ and rounds the moments and the parameters to their own dtype.
 The optimizer state is a dict shaped like the parameters — ``mu`` and
 ``nu`` trees and a 0-d int32 ``count`` — so it converts
 (``models.convert.opt_state_from_jax``) and checkpoints leaf by leaf.
+
+**Over a mesh** (``make_train_step(..., mesh=)``, the engine's mesh) the
+step trains what the reference's GSPMD step trains: each rank holds its
+Megatron shards (``parallel.sharding.shard_params``: heads and the MLP's
+intermediate dim over tp, experts over ep), the batch splits over dp, and
+the forward's collectives carry the gradient (``parallel.mesh``), so each
+rank's backward yields its shards' gradients and every replicated leaf's
+whole gradient. The gradients are averaged over dp; the clip's global
+norm sums each sharded leaf's squares over its axes and each replicated
+leaf's once; AdamW updates each rank's shards in place; the loss returned
+is the global batch mean. ``save_checkpoint(..., shardings=
+train_shardings(...))`` writes the whole tensors, which
+``restore_checkpoint(shardings=)`` reads back as any rank's slices.
 """
 
 from __future__ import annotations
@@ -81,20 +94,34 @@ class AdamW:
         }
 
     @torch.no_grad()
-    def global_norm(self, grads: dict) -> torch.Tensor:
-        """sqrt of the sum of squares over every leaf, fp32, on the device."""
-        leaves = list(flatten(grads).values())
-        total = torch.zeros((), dtype=torch.float32, device=leaves[0].device)
-        for g in leaves:
+    def global_norm(self, grads: dict, axes: dict | None = None, mesh=None) -> torch.Tensor:
+        """sqrt of the sum of squares over every leaf, fp32, on the device.
+        ``axes`` maps a leaf's name to the mesh axes it is sharded over:
+        each group of leaves sharded alike sums its squares over its axes
+        (a replicated leaf counts once)."""
+        flat = flatten(grads)
+        dev = next(iter(flat.values())).device
+        groups: dict[tuple, torch.Tensor] = {}
+        for name, g in flat.items():
+            key = tuple((axes or {}).get(name, ()))
+            total = groups.setdefault(key, torch.zeros((), dtype=torch.float32, device=dev))
             for part in _slices(g):
                 total += torch.linalg.vector_norm(part, dtype=torch.float32).square()
+        total = torch.zeros((), dtype=torch.float32, device=dev)
+        for key in sorted(groups):
+            sq = groups[key]
+            for ax in key:
+                sq = mesh.all_reduce(sq, ax)
+            total += sq
         return total.sqrt()
 
     @torch.no_grad()
-    def update(self, params: dict, grads: dict, opt_state: dict) -> None:
+    def update(self, params: dict, grads: dict, opt_state: dict,
+               gnorm: torch.Tensor | None = None) -> None:
         """One step, in place in ``params`` and ``opt_state``; ``grads`` is
         left as it is. No host synchronisation: the clip factor and the bias
-        corrections stay 0-d tensors on the device."""
+        corrections stay 0-d tensors on the device. ``gnorm``: the global
+        norm when the caller took it over a mesh."""
         tc = self.tc
         p_flat, g_flat = flatten(params), flatten(grads)
         mu_flat, nu_flat = flatten(opt_state["mu"]), flatten(opt_state["nu"])
@@ -102,7 +129,8 @@ class AdamW:
             for other in (g_flat, mu_flat, nu_flat):
                 if name not in other or other[name].shape != p.shape:
                     raise TrainingError(f"gradient or optimizer state does not fit leaf {name}")
-        gnorm = self.global_norm(grads)
+        if gnorm is None:
+            gnorm = self.global_norm(grads)
         clip = gnorm < tc.grad_clip  # optax: leave the gradients when inside the ball
         opt_state["count"] += 1
         count = opt_state["count"].to(torch.float32)
@@ -157,30 +185,87 @@ def _check_on_device(params: dict, device: torch.device) -> None:
                 f"move the parameters there, or pass device={str(leaf.device.type)!r}")
 
 
+def train_axes(params: dict, cfg: ModelConfig, mesh) -> dict:
+    """{leaf name: the mesh axes (size > 1) it is sharded over} under the
+    Megatron tables; raises ``TrainingError`` when a leaf is not this
+    rank's Megatron shard (a replicated profile's whole leaf under tp
+    would take a partial gradient)."""
+    from fei_tpu_torch.models.llama import init_params
+    from fei_tpu_torch.parallel.sharding import param_shardings
+
+    whole = init_params(cfg, dtype=torch.float32, device="meta")
+    sh = flatten(param_shardings(whole, mesh, cfg.is_moe))
+    want, got = flatten(whole), flatten(params)
+    if want.keys() != got.keys():
+        raise TrainingError(f"params do not have {cfg.name}'s leaves: "
+                            f"{sorted(want.keys() ^ got.keys())[:4]}")
+    axes = {}
+    for name, s in sh.items():
+        local = s.local_shape(tuple(want[name].shape))
+        if tuple(got[name].shape) != local:
+            raise TrainingError(
+                f"params[{name}] is {tuple(got[name].shape)}, not this rank's Megatron "
+                f"shard {local} on {mesh!r}: train on shard_params(..., mesh)'s leaves")
+        axes[name] = tuple(ax for ax in s.spec if ax is not None and mesh.shape[ax] > 1)
+    return axes
+
+
+def train_shardings(params: dict, cfg: ModelConfig, mesh) -> dict:
+    """The ``shardings`` composite of a sharded training run's checkpoint:
+    the params' Megatron shardings, and the same for the optimizer's
+    moments (its count restores whole)."""
+    from fei_tpu_torch.parallel.sharding import param_shardings
+
+    ps = param_shardings(params, mesh, cfg.is_moe)
+    return {"params": ps, "opt_state": {"mu": ps, "nu": ps}}
+
+
+def _dp_rows(tokens: torch.Tensor, mesh) -> torch.Tensor:
+    """This rank's rows of the global batch (the batch splits over dp)."""
+    dp = mesh.shape["dp"]
+    if tokens.shape[0] % dp:
+        raise TrainingError(f"batch {tokens.shape[0]} does not split over dp={dp}")
+    n = tokens.shape[0] // dp
+    c = mesh.coords["dp"]
+    return tokens[c * n:(c + 1) * n]
+
+
 def loss_and_grads(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
                    remat: bool = True, flash: bool | None = None,
-                   device: torch.device | str = "cuda"):
+                   device: torch.device | str = "cuda", mesh=None):
     """``(loss, grads)``: the mean next-token cross-entropy (fp32) of
     ``tokens`` [B, T] and its gradient, a new tree shaped like ``params``.
     ``device`` is where the step runs (the card unless the caller asks for
     the CPU): without a card the default raises, and so do parameters that
-    lie elsewhere."""
+    lie elsewhere. ``mesh``: ``params`` are this rank's Megatron shards;
+    every rank passes the same global ``tokens``, takes its dp rows, and
+    gets the global loss and its shards' gradients averaged over dp."""
     device = resolve_device(device)
     check_trainable(params)
     _check_on_device(params, device)
     tokens = tokens.to(device=params["final_norm"].device, dtype=torch.long)
+    if mesh is not None:
+        tokens = _dp_rows(tokens, mesh)
     grads = tree_map(torch.zeros_like, params)
     top, layer_leaves = _autograd_leaves(params, grads, cfg.num_layers)
     logits = forward_train(top, cfg, tokens[:, :-1], remat=remat, flash=flash,
-                           layer_leaves=layer_leaves)
+                           layer_leaves=layer_leaves, kernel_mesh=mesh)
     loss = F.cross_entropy(logits.reshape(-1, logits.shape[-1]), tokens[:, 1:].reshape(-1))
     del logits
     loss.backward()
-    return loss.detach(), grads
+    loss = loss.detach()
+    if mesh is not None and mesh.shape["dp"] > 1:
+        dp = mesh.shape["dp"]
+        loss = mesh.all_reduce(loss, "dp") / dp
+        with torch.no_grad():
+            for g in flatten(grads).values():
+                g.copy_(mesh.all_reduce(g, "dp") / dp)
+    return loss, grads
 
 
 def make_train_step(cfg: ModelConfig, tc: TrainConfig | None = None,
-                    flash: bool | None = None, device: torch.device | str = "cuda"):
+                    flash: bool | None = None, device: torch.device | str = "cuda",
+                    mesh=None):
     """Return ``(optimizer, train_step)``.
 
     ``train_step(params, opt_state, tokens[B, T]) -> (params, opt_state,
@@ -189,15 +274,27 @@ def make_train_step(cfg: ModelConfig, tc: TrainConfig | None = None,
     T >= 64 on the card). ``device`` is where the step runs: the card by
     default, which raises ``EngineError`` here when there is none;
     ``train_step`` raises ``TrainingError`` for parameters that lie
-    elsewhere (pass ``device="cpu"`` to train on the CPU)."""
+    elsewhere (pass ``device="cpu"`` to train on the CPU). ``mesh`` (a
+    bound mesh; every rank calls the step with the same global batch):
+    train this rank's Megatron shards (see the module docstring)."""
     device = resolve_device(device)
     tc = tc or TrainConfig()
     opt = make_optimizer(tc)
+    if mesh is not None and mesh.size == 1:
+        mesh = None
+
+    axes_of: dict = {}
 
     def train_step(params, opt_state, tokens):
+        axes = None
+        if mesh is not None:  # the leaves' axes, checked once
+            if "axes" not in axes_of:
+                axes_of["axes"] = train_axes(params, cfg, mesh)
+            axes = axes_of["axes"]
         loss, grads = loss_and_grads(params, cfg, tokens, remat=tc.remat, flash=flash,
-                                     device=device)
-        opt.update(params, grads, opt_state)
+                                     device=device, mesh=mesh)
+        gnorm = None if mesh is None else opt.global_norm(grads, axes, mesh)
+        opt.update(params, grads, opt_state, gnorm=gnorm)
         return params, opt_state, loss
 
     return opt, train_step

@@ -9,9 +9,10 @@ all-gather over the nodes gives every node the federation-wide bank. The
 chain (small JSON blocks, consensus votes) stays on the HTTP control plane.
 
 The JAX package gathers over a mesh axis with ``shard_map``; here the
-gather is ``torch.distributed.all_gather_into_tensor`` over a process
-group (NCCL between cards, gloo on the CPU), and with no group one process
-holds every node and the stacked bank simply lands on the device.
+gather is ``torch.distributed.all_gather`` over a process group (NCCL
+between cards, gloo on the CPU or between ranks sharing a card), and with
+no group one process holds every node and the stacked bank simply lands on
+the device.
 
 Embeddings come from a deterministic hashed-feature embedder by default —
 dependency-free, identical across nodes without coordination, and bitwise
@@ -55,7 +56,7 @@ def exchange_banks(all_banks, group=None, device="cuda") -> torch.Tensor:
     device as it is. With a ``torch.distributed`` process group, rank r
     contributes its contiguous share of the nodes (n_nodes must be a
     multiple of the group size; each rank may host several nodes) and one
-    ``all_gather_into_tensor`` assembles the whole bank on every rank.
+    ``all_gather`` assembles the whole bank on every rank, in rank order.
     Returns ``[1, n_nodes, N, D]`` on ``device``, the reference's leading
     axis; read row 0.
     """
@@ -73,9 +74,11 @@ def exchange_banks(all_banks, group=None, device="cuda") -> torch.Tensor:
     share = banks.shape[0] // n
     rank = dist.get_rank(group)
     local = banks[rank * share:(rank + 1) * share].contiguous()
-    gathered = torch.empty_like(banks)
-    dist.all_gather_into_tensor(gathered, local, group=group)
-    return gathered[None]
+    # one part per rank, in rank order (gloo gathers device tensors this
+    # way; its all_gather_into_tensor may refuse them)
+    parts = [torch.empty_like(local) for _ in range(n)]
+    dist.all_gather(parts, local, group=group)
+    return torch.cat(parts)[None]
 
 
 class EmbeddingFederation:

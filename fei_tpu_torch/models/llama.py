@@ -36,6 +36,14 @@ all_reduced; a vocab-sharded embedding looks up its own rows and
 all_reduces, a vocab-sharded LM head all_gathers its logits. The public
 forwards are ``parallel.serving`` ops: on rank 0 of a mesh engine they
 broadcast their call to the follower ranks.
+
+**On an expert-parallel mesh** a forward given ``moe_mesh`` routes each
+MoE layer's tokens to the ranks owning their experts
+(``parallel.expert.moe_mlp_ep_routed``); without it, experts a rank holds
+a slice of run the dense-local ``moe_mlp_ep``. Sequence parallelism
+(parallel/long_prefill.py) and the pipeline (parallel/pipeline.py) reuse
+the layer pieces here over their own axes. The collectives carry
+autograd, so ``forward_train`` trains a rank's Megatron shards.
 """
 
 from __future__ import annotations
@@ -127,7 +135,9 @@ def init_params(
     time."""
     if quantize not in QUANT_MODES:
         raise ValueError(f"unsupported quantize mode {quantize!r}; one of {QUANT_MODES}")
-    gen = torch.Generator(device=device).manual_seed(seed)
+    # the meta device (shapes only) draws nothing and has no generator
+    gen = (None if torch.device(device).type == "meta"
+           else torch.Generator(device=device).manual_seed(seed))
     h, d = cfg.hidden_size, cfg.head_dim_
     H, K, I, L = cfg.num_heads, cfg.num_kv_heads, cfg.intermediate_size, cfg.num_layers
 
@@ -146,7 +156,7 @@ def init_params(
             quant = _quantize4 if int4 else _quantize8
         if quant is None or len(shape) == 2:
             out = torch.empty(shape, dtype=dtype, device=device)
-            for i in range(shape[0]):
+            for i in range(shape[0] if gen is not None else 0):
                 out[i] = draw(shape[1:], fan_in)
             return out if quant is None else quant(out)
         return stack_layers(shape[0], lambda i: quant(draw(shape[1:], fan_in)))
@@ -290,6 +300,8 @@ def _mlp_dense(cfg: ModelConfig, y, lp, kernel_mesh=None):
     """Gated MLP (w_gate*w_up -> w_down), or Phi's fc1 -> act -> fc2 with
     biases (cfg.mlp_gated=False; fc1/fc2 live in the w_gate/w_down leaves)."""
     I = cfg.intermediate_size
+    if kernel_mesh is not None and _dims(lp["w_gate"])[1] != I:
+        y = kernel_mesh.sum_grad(y, "tp")  # column-sharded: each rank its share of dy
     if not cfg.mlp_gated:
         a = _mm_k(y, lp["w_gate"], kernel_mesh, I)
         if "b_gate" in lp:
@@ -303,36 +315,61 @@ def _mlp_dense(cfg: ModelConfig, y, lp, kernel_mesh=None):
 
 
 def _moe(cfg: ModelConfig, y, lp, allow_routed: bool, moe_mesh=None):
-    """Pick the MoE formulation, as the JAX package does:
-    ``FEI_TPU_ROUTED_MOE=1`` forces the token-routed form, ``0`` the dense
-    oracle everywhere, and the default ``auto`` routes when the caller
-    allows it and the forward carries at least ``_ROUTED_MIN_TOKENS``
-    tokens. ``moe_mesh`` is the JAX package's expert-parallel mesh: no
-    caller in the port passes one, and a mesh raises, since expert
-    parallelism is the second half of roadmap module C4."""
+    """Pick the MoE formulation, as the JAX package does. With an ``ep``
+    mesh (``moe_mesh``), tokens route to the ranks that own their experts
+    (``parallel.expert.moe_mlp_ep_routed``: dispatch and combine masks, two
+    all_to_alls, tp-composed), at ``FEI_TPU_EP_CAPACITY`` — ``dropless``
+    (exact, worst-case buffers) or a capacity factor (default 2.0: assignments
+    beyond twice the balanced load are dropped, GShard's serving trade).
+    On one device ``FEI_TPU_ROUTED_MOE=1`` forces the token-routed form,
+    ``0`` the dense oracle everywhere (on an ep mesh too), and the default
+    ``auto`` routes when the caller allows it and the forward carries at
+    least ``_ROUTED_MIN_TOKENS`` tokens."""
     mode = os.environ.get("FEI_TPU_ROUTED_MOE", "auto")
-    if moe_mesh is not None and mode != "0":
-        raise NotImplementedError(
-            "expert-parallel MoE over a mesh (fei_tpu/parallel/expert.py) is "
-            "not ported yet — roadmap module C4")
+    args = (y, lp["router"], lp["w_gate"], lp["w_up"], lp["w_down"],
+            cfg.num_experts_per_tok)
+    if mode != "0" and moe_mesh is not None and moe_mesh.shape.get("ep", 1) > 1:
+        from fei_tpu_torch.parallel.expert import moe_mlp_ep_routed
+
+        tp = "tp" if moe_mesh.shape.get("tp", 1) > 1 else None
+        cap = os.environ.get("FEI_TPU_EP_CAPACITY", "2.0")
+        kw = dict(tp_axis=tp, intermediate_size=cfg.intermediate_size)
+        if cap == "dropless":
+            return moe_mlp_ep_routed(*args, moe_mesh, dropless=True, **kw)
+        return moe_mlp_ep_routed(*args, moe_mesh, capacity_factor=float(cap), **kw)
     N = y.shape[0] * y.shape[1]
     use_routed = mode == "1" or (
         mode == "auto" and allow_routed and N >= _ROUTED_MIN_TOKENS)
     fn = moe_mlp_routed if use_routed else moe_mlp
-    return fn(y, lp["router"], lp["w_gate"], lp["w_up"], lp["w_down"],
-              cfg.num_experts_per_tok)
+    return fn(*args)
 
 
-def _mlp(cfg: ModelConfig, y, lp, allow_routed: bool, kernel_mesh=None):
-    """The block's MLP: the MoE layer or the dense one. Experts sharded
-    over their intermediate dim (the Megatron profile) give partial sums,
-    all_reduced over tp."""
-    if cfg.is_moe:
-        out = _moe(cfg, y, lp, allow_routed)
-        if _dims(lp["w_down"])[0] != cfg.intermediate_size:
-            out = kernel_mesh.all_reduce(out, "tp")
-        return out
-    return _mlp_dense(cfg, y, lp, kernel_mesh)
+def _experts_split(cfg: ModelConfig, lp) -> bool:
+    """True when this rank holds a slice of the experts: some of them (ep)
+    or part of each one's intermediate dim (tp, the Megatron profile)."""
+    w = lp["w_down"]
+    t = w.q if isinstance(w, QTensor) else w
+    return t.shape[0] != cfg.num_experts or t.shape[1] != cfg.intermediate_size
+
+
+def _mlp(cfg: ModelConfig, y, lp, allow_routed: bool, kernel_mesh=None, moe_mesh=None):
+    """The block's MLP: the MoE layer or the dense one. An ep mesh routes
+    tokens (``_moe``); without one, experts that this rank holds a slice
+    of (ep-sliced, or tp-split over their intermediate dim) run the
+    dense-local expert-parallel form, ``parallel.expert.moe_mlp_ep``: the
+    reference's oracle over sharded leaves, its partial sums all_reduced."""
+    if not cfg.is_moe:
+        return _mlp_dense(cfg, y, lp, kernel_mesh)
+    routes = (moe_mesh is not None and moe_mesh.shape.get("ep", 1) > 1
+              and os.environ.get("FEI_TPU_ROUTED_MOE", "auto") != "0")
+    mesh = kernel_mesh if kernel_mesh is not None else moe_mesh
+    if not routes and mesh is not None and _experts_split(cfg, lp):
+        from fei_tpu_torch.parallel.expert import moe_mlp_ep
+
+        return moe_mlp_ep(y, lp["router"], lp["w_gate"], lp["w_up"], lp["w_down"],
+                          cfg.num_experts_per_tok, mesh,
+                          intermediate_size=cfg.intermediate_size)
+    return _moe(cfg, y, lp, allow_routed, moe_mesh)
 
 
 def model_dtype(params: dict):
@@ -432,19 +469,23 @@ def _write_kv(buf, new, positions, live):
 
 
 def _layer(cfg: ModelConfig, x, lp, cache_k, cache_v, kv_length, positions,
-           cos, sin, live=None, flash=None, allow_routed=False, kernel_mesh=None):
+           cos, sin, live=None, flash=None, allow_routed=False, kernel_mesh=None,
+           moe_mesh=None):
     """One decoder block. x: [B,T,h]; cache_k/v: this layer's [B,S,K,D],
     written in place, or None for the cache-free training path (attention
     over the [B,T,K,D] projections themselves). ``allow_routed`` lets an
     MoE layer take the token-routed form (``_moe``). Under a mesh the
     cache holds the rank's kv heads (and, where the batch divides dp, its
     rows): it attends with those, and the heads and rows are gathered.
-    Returns x_out."""
+    ``moe_mesh`` is ``_moe``'s expert-parallel mesh. Under autograd on a
+    tp mesh the gradient of the attention input sums over tp (each rank
+    attends with its own heads). Returns x_out."""
     B, T, _ = x.shape
     K, d, Hq = cfg.num_kv_heads, cfg.head_dim_, cfg.num_heads
 
     y = _norm(x, lp["attn_norm"], cfg, b=lp.get("attn_norm_b"))
-    q, k, v = qkv_proj(lp, y, Hq, K, d, kernel_mesh)
+    yq = y if kernel_mesh is None else kernel_mesh.sum_grad(y, "tp")
+    q, k, v = qkv_proj(lp, yq, Hq, K, d, kernel_mesh)
     q = _rope(q, cos, sin, positions, cfg.rope_dim_)
     k = _rope(k, cos, sin, positions, cfg.rope_dim_)
     rows = None
@@ -465,7 +506,7 @@ def _layer(cfg: ModelConfig, x, lp, cache_k, cache_v, kv_length, positions,
         attn = kernel_mesh.all_gather(attn, "tp", dim=2)
         if rows is not None:
             attn = kernel_mesh.all_gather(attn, "dp", dim=0)
-    return _block_tail(cfg, lp, x, y, attn, allow_routed, kernel_mesh)
+    return _block_tail(cfg, lp, x, y, attn, allow_routed, kernel_mesh, moe_mesh)
 
 
 @spmd_op
@@ -474,6 +515,8 @@ def _logits(x, params, cfg: ModelConfig, kernel_mesh=None) -> torch.Tensor:
     table) or its own, biased for Phi. A vocab-sharded head (the Megatron
     profile) all_gathers each rank's logits."""
     V = cfg.vocab_size
+    if kernel_mesh is not None and _head_rows(params, cfg) != V:
+        x = kernel_mesh.sum_grad(x, "tp")  # vocab-sharded: each rank its share of dx
     if cfg.tie_embeddings:
         out = tied_logits(x, params["embed"])
     else:
@@ -483,6 +526,15 @@ def _logits(x, params, cfg: ModelConfig, kernel_mesh=None) -> torch.Tensor:
     if out.shape[-1] != V:
         out = kernel_mesh.all_gather(out, "tp", dim=-1)
     return out
+
+
+def _head_rows(params: dict, cfg: ModelConfig) -> int:
+    """The vocab rows of the LM head this rank holds (all V unless the
+    Megatron profile split them over tp)."""
+    if cfg.tie_embeddings:
+        t = params["embed"]
+        return (t.q if isinstance(t, QTensor) else t).shape[0]
+    return _dims(params["lm_head"])[1]
 
 
 @functools.lru_cache(maxsize=16)
@@ -501,6 +553,7 @@ def forward(
     live: torch.Tensor | None = None,
     flash: bool | None = None,
     routed_moe: bool = False,
+    moe_mesh=None,
     kernel_mesh=None,
 ) -> tuple[torch.Tensor, KVCache]:
     """Run T tokens through the model against the cache.
@@ -512,7 +565,8 @@ def forward(
     ``live`` ([B] bool, optional) freezes finished rows: their KV slots
     keep their contents and their length does not advance. ``flash``
     picks the attention path (``_attend``): None chooses by T and device.
-    ``routed_moe`` lets MoE layers take the token-routed form (``_moe``).
+    ``routed_moe`` lets MoE layers take the token-routed form and
+    ``moe_mesh`` (an ep mesh) the expert-parallel one (``_moe``).
     ``kernel_mesh``: this rank's mesh (see the module docstring).
     """
     B, T = tokens.shape
@@ -529,7 +583,7 @@ def forward(
         lp = layer_params(params, i)
         x = _layer(cfg, x, lp, cache.k[i], cache.v[i], cache.length, positions,
                    cos, sin, live=live, flash=flash, allow_routed=routed_moe,
-                   kernel_mesh=kernel_mesh)
+                   kernel_mesh=kernel_mesh, moe_mesh=moe_mesh)
     x = _norm(x, params["final_norm"], cfg, b=params.get("final_norm_b"))
     step = T if live is None else live.to(torch.int32) * T
     new_cache = KVCache(k=cache.k, v=cache.v, length=cache.length + step)
@@ -557,6 +611,7 @@ def forward_train(
     remat: bool = True,
     flash: bool | None = None,
     layer_leaves=None,
+    kernel_mesh=None,
 ) -> torch.Tensor:
     """Cache-free forward for training and fine-tuning: full causal
     attention over the sequence at positions ``arange(T)``, differentiable
@@ -567,7 +622,11 @@ def forward_train(
     ``layer_leaves`` (a sequence of one dict per layer) stands in for
     ``layer_params(params, i)``: the train step passes each layer's leaves
     as autograd leaves of their own over the stacked storage.
-    MoE layers take the dense oracle unless ``FEI_TPU_ROUTED_MOE=1``.
+    MoE layers take the dense oracle unless ``FEI_TPU_ROUTED_MOE=1``;
+    experts sliced over ep (or tp) take its expert-parallel form,
+    ``parallel.expert.moe_mlp_ep``. ``kernel_mesh``: this rank's mesh when
+    ``params`` hold its Megatron shards (training on tp and ep meshes;
+    the collectives carry the gradient, ``parallel.mesh``).
     Returns logits [B, T, V] fp32."""
     check_trainable(params)
     B, T = tokens.shape
@@ -577,16 +636,17 @@ def forward_train(
     positions = torch.arange(T, device=dev)[None, :].expand(B, T)
     cos, sin = _rope_tables(cfg.rope_dim_, T, float(cfg.rope_theta), str(dev))
     kv_length = torch.zeros((B,), dtype=torch.int32, device=dev)
-    x = embed_tokens(params, cfg, tokens, dtype)
+    x = embed_tokens(params, cfg, tokens, dtype, kernel_mesh)
     for i in range(cfg.num_layers):
         lp = layer_params(params, i) if layer_leaves is None else layer_leaves[i]
-        args = (cfg, x, lp, None, None, kv_length, positions, cos, sin, None, flash)
+        args = (cfg, x, lp, None, None, kv_length, positions, cos, sin, None, flash,
+                False, kernel_mesh)
         if remat:  # the layer draws no random numbers: no generator state to carry
             x = checkpoint(_layer, *args, use_reentrant=False, preserve_rng_state=False)
         else:
             x = _layer(*args)
     x = _norm(x, params["final_norm"], cfg, b=params.get("final_norm_b"))
-    return _logits(x, params, cfg)
+    return _logits(x, params, cfg, kernel_mesh=kernel_mesh)
 
 
 # ---------------------------------------------------------------- paged
@@ -619,7 +679,7 @@ def _qkv_roped(cfg: ModelConfig, lp, x, positions, cos, sin, kernel_mesh=None):
 
 
 def _block_tail(cfg: ModelConfig, lp, x, y, attn, allow_routed: bool = False,
-                kernel_mesh=None):
+                kernel_mesh=None, moe_mesh=None):
     """Output projection, residual and MLP of one decoder block; ``attn``
     holds every head."""
     B, T = x.shape[:2]
@@ -628,20 +688,20 @@ def _block_tail(cfg: ModelConfig, lp, x, y, attn, allow_routed: bool = False,
     if "bo" in lp:
         o = o + lp["bo"]
     if cfg.parallel_block:  # Phi: x + attn(ln x) + mlp(ln x)
-        return x + o + _mlp(cfg, y, lp, allow_routed, kernel_mesh)
+        return x + o + _mlp(cfg, y, lp, allow_routed, kernel_mesh, moe_mesh)
     x = x + o
     y = _norm(x, lp["mlp_norm"], cfg, b=lp.get("mlp_norm_b"))
-    return x + _mlp(cfg, y, lp, allow_routed, kernel_mesh)
+    return x + _mlp(cfg, y, lp, allow_routed, kernel_mesh, moe_mesh)
 
 
 @torch.no_grad()
 def forward_paged(params: dict, cfg: ModelConfig, tokens: torch.Tensor, cache,
-                  routed_moe: bool = False, kernel_mesh=None):
+                  routed_moe: bool = False, moe_mesh=None, kernel_mesh=None):
     """Single-token decode against a paged KV cache (``PagedKVCache``,
     engine/paged_cache.py): the T = 1 case of ``forward_paged_block``.
     Returns (logits [B, 1, V], cache with lengths += 1)."""
     return forward_paged_block(params, cfg, tokens, cache, routed_moe=routed_moe,
-                               kernel_mesh=kernel_mesh)
+                               moe_mesh=moe_mesh, kernel_mesh=kernel_mesh)
 
 
 def _sharded_attention(kernel_mesh) -> bool:
@@ -660,6 +720,7 @@ def forward_paged_block(
     cache,  # PagedKVCache
     lm_head: bool = True,
     routed_moe: bool = False,
+    moe_mesh=None,
     kernel_mesh=None,
 ):
     """T tokens per row through the model against the paged pool: K/V of
@@ -668,7 +729,8 @@ def forward_paged_block(
     the paged decode kernel (K2) with one query position for T = 1, its
     block form for T > 1. ``lm_head=False`` returns the final-normed
     hidden states [B, T, h] (the chunk body of paged-native prefill);
-    ``routed_moe`` lets MoE layers take the token-routed form. Under a
+    ``routed_moe`` lets MoE layers take the token-routed form, ``moe_mesh``
+    the expert-parallel one. Under a
     mesh (``kernel_mesh``) the pool holds the rank's kv heads and the
     attention goes through ``paged_attention[_block]_sharded``.
     Returns (out, cache with lengths += T); the pools change in place."""
@@ -711,7 +773,7 @@ def forward_paged_block(
         else:
             attn = paged_attention_block(q, kp, vp, cache.block_table, cache.lengths,
                                          k_scales=ks, v_scales=vs, window=win)
-        x = _block_tail(cfg, lp, x, y, attn, routed_moe, kernel_mesh)
+        x = _block_tail(cfg, lp, x, y, attn, routed_moe, kernel_mesh, moe_mesh)
     x = _norm(x, params["final_norm"], cfg, b=params.get("final_norm_b"))
     new_cache = cache._replace(lengths=(cache.lengths + T).to(torch.int32))
     return (_logits(x, params, cfg, kernel_mesh=kernel_mesh) if lm_head else x), new_cache
@@ -729,6 +791,7 @@ def forward_paged_merged(
     cache,  # PagedKVCache under the LIVE table/lengths
     rows: int = 8,
     routed_moe: bool = False,
+    moe_mesh=None,
     kernel_mesh=None,
 ):
     """One dispatch serves a prefill chunk AND a decode step. Per layer the
@@ -803,8 +866,8 @@ def forward_paged_merged(
                                         k_scales=ks, v_scales=vs, window=win)
         dec_attn = av[:B, :1]
         chunk_attn = av[B:].reshape(1, Cp, Hq, d)[:, :C]
-        xc = _block_tail(cfg, lp, xc, yc, chunk_attn, routed_moe, kernel_mesh)
-        xd = _block_tail(cfg, lp, xd, yd, dec_attn, routed_moe, kernel_mesh)
+        xc = _block_tail(cfg, lp, xc, yc, chunk_attn, routed_moe, kernel_mesh, moe_mesh)
+        xd = _block_tail(cfg, lp, xd, yd, dec_attn, routed_moe, kernel_mesh, moe_mesh)
     xc = _norm(xc, params["final_norm"], cfg, b=params.get("final_norm_b"))
     xd = _norm(xd, params["final_norm"], cfg, b=params.get("final_norm_b"))
     new_cache = cache._replace(lengths=(cache.lengths + 1).to(torch.int32))

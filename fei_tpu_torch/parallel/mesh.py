@@ -110,6 +110,48 @@ def _words(t: torch.Tensor) -> torch.Tensor:
     return t.view(torch.uint8)
 
 
+class _AllReduce(torch.autograd.Function):
+    """Sum over an axis forward, identity backward (Megatron's g)."""
+
+    @staticmethod
+    def forward(ctx, t, mesh, axis):
+        return mesh._all_reduce(t, axis)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad, None, None
+
+
+class _AllGather(torch.autograd.Function):
+    """Gather over an axis forward; backward, the rank's own chunk of the
+    replicated gradient."""
+
+    @staticmethod
+    def forward(ctx, t, mesh, axis, dim):
+        ctx.mesh, ctx.axis, ctx.dim = mesh, axis, dim
+        return mesh._all_gather(t, axis, dim)
+
+    @staticmethod
+    def backward(ctx, grad):
+        mesh = ctx.mesh
+        part = grad.chunk(mesh.shape[ctx.axis], dim=ctx.dim)[mesh.coords[ctx.axis]]
+        return part.contiguous(), None, None, None
+
+
+class _SumGrad(torch.autograd.Function):
+    """Identity forward, sum of the gradient over an axis backward
+    (Megatron's f)."""
+
+    @staticmethod
+    def forward(ctx, t, mesh, axis):
+        ctx.mesh, ctx.axis = mesh, axis
+        return t.view_as(t)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return ctx.mesh._all_reduce(grad.contiguous(), ctx.axis), None, None
+
+
 class Mesh:
     """One rank's view of the serving mesh (see the module docstring).
 
@@ -161,10 +203,18 @@ class Mesh:
 
     def all_gather(self, t: torch.Tensor, axis: str, dim: int) -> torch.Tensor:
         """Concatenate every rank's ``t`` of this rank's ``axis`` group along
-        ``dim``, in coordinate order. Exact: the bytes move as words."""
+        ``dim``, in coordinate order. Exact: the bytes move as words.
+        Autograd goes through it: backward, each rank keeps its own
+        chunk of the (replicated) gradient."""
         n = self.shape[axis]
         if n == 1:
             return t
+        if t.requires_grad and torch.is_grad_enabled():
+            return _AllGather.apply(t, self, axis, dim)
+        return self._all_gather(t, axis, dim)
+
+    def _all_gather(self, t: torch.Tensor, axis: str, dim: int) -> torch.Tensor:
+        n = self.shape[axis]
         import torch.distributed as dist
 
         t0 = time.perf_counter()
@@ -178,9 +228,16 @@ class Mesh:
 
     def all_reduce(self, t: torch.Tensor, axis: str) -> torch.Tensor:
         """Sum ``t`` over this rank's ``axis`` group in fp32 (the
-        Megatron partial sums), returned in ``t``'s dtype."""
+        Megatron partial sums), returned in ``t``'s dtype. Autograd goes
+        through it (Megatron's g: the gradient passes unchanged to each
+        partial, as every rank holds the whole loss)."""
         if self.shape[axis] == 1:
             return t
+        if t.requires_grad and torch.is_grad_enabled():
+            return _AllReduce.apply(t, self, axis)
+        return self._all_reduce(t, axis)
+
+    def _all_reduce(self, t: torch.Tensor, axis: str) -> torch.Tensor:
         import torch.distributed as dist
 
         t0 = time.perf_counter()
@@ -188,6 +245,103 @@ class Mesh:
         dist.all_reduce(x, group=self.groups[axis])
         self._timed(axis, t0)
         return x.to(t.dtype)
+
+    def _staged(self, t: torch.Tensor) -> bool:
+        """True when ``t``'s bytes go through host memory: gloo moves
+        point-to-point and all_to_all traffic between host buffers only,
+        so a device tensor is staged through a pinned copy (counted in
+        ``stats`` under ``<axis>.staged``). NCCL moves device tensors."""
+        return self.backend != "nccl" and t.device.type != "cpu"
+
+    def _host(self, w: torch.Tensor) -> torch.Tensor:
+        out = torch.empty(w.shape, dtype=w.dtype, pin_memory=True)
+        out.copy_(w)
+        return out
+
+    def _count_staged(self, axis: str, nbytes: int) -> None:
+        s = self.stats.setdefault(f"{axis}.staged", [0, 0])
+        s[0] += nbytes
+        s[1] += 1
+
+    def _peer(self, axis: str, coord: int) -> int:
+        """The global rank at ``coord`` on ``axis``, the others as mine."""
+        import torch.distributed as dist
+
+        return dist.get_global_rank(self.groups[axis], coord)
+
+    def ppermute(self, t: torch.Tensor, axis: str, perm) -> torch.Tensor:
+        """``lax.ppermute`` over ``axis``: ``perm`` lists (source, dest)
+        coordinates; this rank sends ``t`` to its dest and returns what its
+        source sent, or zeros where no pair names it as a dest (the
+        pipeline's ``[(i, i + 1)]``; the ring's ``[(i, (i + 1) % n)]``
+        rotates). Exact: the bytes move as words."""
+        n = self.shape[axis]
+        me = self.coords[axis]
+        dst = [d for s, d in perm if s == me]
+        src = [s for s, d in perm if d == me]
+        if n == 1:
+            return t.clone() if src else torch.zeros_like(t)
+        import torch.distributed as dist
+
+        t0 = time.perf_counter()
+        w = _words(t)
+        staged = self._staged(t)
+        send = self._host(w) if staged and dst else w
+        recv = torch.empty(w.shape, dtype=w.dtype,
+                           device="cpu" if staged else w.device,
+                           pin_memory=staged)
+        ops = [dist.P2POp(dist.isend, send, self._peer(axis, d), self.groups[axis])
+               for d in dst]
+        ops += [dist.P2POp(dist.irecv, recv, self._peer(axis, s), self.groups[axis])
+                for s in src]
+        if ops:
+            for work in dist.batch_isend_irecv(ops):
+                work.wait()
+        if staged:
+            self._count_staged(axis, send.numel() * send.element_size() * len(dst)
+                               + recv.numel() * recv.element_size() * len(src))
+        self._timed(axis, t0)
+        if not src:
+            return torch.zeros_like(t)
+        return recv.to(t.device, non_blocking=False).view(t.dtype).reshape(t.shape)
+
+    def all_to_all(self, t: torch.Tensor, axis: str, split_dim: int,
+                   concat_dim: int) -> torch.Tensor:
+        """``lax.all_to_all(..., tiled=True)`` over ``axis``: ``t`` splits
+        into n chunks along ``split_dim``, chunk j goes to coordinate j, and
+        the chunks received concatenate along ``concat_dim`` in source
+        order. Exact: the bytes move as words."""
+        n = self.shape[axis]
+        if n == 1:
+            return t
+        import torch.distributed as dist
+
+        split_dim %= t.dim()
+        if t.shape[split_dim] % n:
+            raise ValueError(f"all_to_all: dimension {split_dim} ({t.shape[split_dim]}) "
+                             f"does not split over {axis}={n}")
+        t0 = time.perf_counter()
+        x = t.movedim(split_dim, 0).contiguous()
+        w = _words(x)
+        staged = self._staged(t)
+        send = self._host(w) if staged else w
+        recv = torch.empty_like(send, pin_memory=staged) if staged else torch.empty_like(w)
+        dist.all_to_all_single(recv, send, group=self.groups[axis])
+        if staged:
+            self._count_staged(axis, 2 * send.numel() * send.element_size())
+        self._timed(axis, t0)
+        got = recv.to(t.device).view(t.dtype).reshape(x.shape)
+        parts = [p.movedim(0, split_dim) for p in got.chunk(n, dim=0)]
+        return torch.cat(parts, dim=concat_dim % t.dim())
+
+    def sum_grad(self, t: torch.Tensor, axis: str) -> torch.Tensor:
+        """Identity forward; backward, the gradient all_reduced over
+        ``axis``: where a replicated activation enters a rank's own slice
+        of the work (its heads, its columns, its experts), each rank's
+        backward holds that slice's share of the gradient."""
+        if self.shape[axis] == 1 or not t.requires_grad:
+            return t
+        return _SumGrad.apply(t, self, axis)
 
     def broadcast_header(self, obj=None):
         """Rank 0 sends ``obj`` to every rank over the control group; the

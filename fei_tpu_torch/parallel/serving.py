@@ -13,7 +13,8 @@ scatter — is registered with ``@spmd_op``. Called on rank 0 with an
 argument that belongs to a mesh engine (its params, its engine, a cache
 or pool it allocated), the wrapper broadcasts a header — the op's name,
 its arguments with device tensors copied to the host, and handles in
-place of the sharded state — and then runs the op itself with
+place of the sharded state and of the mesh itself (``moe_mesh``) — and
+then runs the op itself with
 ``kernel_mesh``. A follower decodes the header against its own engine and
 shard store and runs the same op. Called with ``kernel_mesh`` (as the ops
 call each other, and as followers call them), it runs directly. Called on
@@ -134,6 +135,8 @@ class Leader:
             return ("E",)
         if a is self.engine.params:
             return ("P",)
+        if a is self.mesh:
+            return ("M",)
         if _is_state(a):
             key = getattr(a[0], "_spmd_key", None)
             if key is None:
@@ -221,6 +224,8 @@ def follow(engine, mesh) -> int:
             return engine
         if kind == "P":
             return engine.params
+        if kind == "M":
+            return mesh
         if kind == "S":
             base = store[e[1]]
             return base._replace(**{f: decode(v) for f, v in e[2].items()})

@@ -1,8 +1,13 @@
 """The embedding federation of fei_tpu_torch against fei_tpu's:
 ``hash_embed`` bitwise, the federation's recall on the same texts, and
-``exchange_banks`` on CPU tensors with no process group and with a
-one-rank gloo group (the JAX package's runs on its CPU mesh)."""
+``exchange_banks`` on CPU tensors with no process group, with a one-rank
+gloo group, and over two gloo ranks (tests/torch_mesh_ranks.py's two-rank
+group) against fei_tpu's on a two-device CPU mesh (its row 0)."""
 
+import sys
+from pathlib import Path
+
+import jax
 import numpy as np
 import pytest
 import torch
@@ -11,6 +16,9 @@ import torch.distributed as dist
 from fei_tpu.memory.memorychain import embedding_exchange as ref
 from fei_tpu_torch.memory.memorychain import embedding_exchange as port
 from fei_tpu_torch.memory.memorychain.embedding_exchange import exchange_banks, hash_embed
+
+sys.path.insert(0, str(Path(__file__).resolve().parent))
+from torch_mesh_ranks import BANKS, parallel_results  # noqa: E402
 
 TEXTS = [
     "ring attention rotates kv blocks", "paged kv cache block tables",
@@ -107,3 +115,17 @@ def test_the_card_is_the_default_and_never_falls_back_to_the_cpu():
         pytest.skip("checks the refusal where there is no card")
     with pytest.raises((RuntimeError, AssertionError)):
         exchange_banks(np.zeros((2, 4, 8), np.float32))
+
+
+def test_exchange_over_two_gloo_ranks_equals_the_reference(tmp_path_factory):
+    """Each rank contributes its contiguous share of the nodes; both end
+    with every bank in rank order, bitwise fei_tpu's gathered row 0."""
+    from fei_tpu.parallel.mesh import make_mesh
+
+    two = parallel_results(tmp_path_factory)["two"]
+    banks = np.random.default_rng(12).standard_normal(BANKS).astype(np.float32)
+    want = np.asarray(ref.exchange_banks(banks, make_mesh({"dp": 2},
+                                                          devices=jax.devices()[:2]))[0])
+    assert want.tobytes() == banks.tobytes()
+    for r in two:
+        assert r["banks"].shape == BANKS and r["banks"].tobytes() == want.tobytes()

@@ -169,12 +169,16 @@ def test_cuda_default_raises_without_card():
         InferenceEngine.from_config("tiny")
 
 
-def test_later_slices_raise():
+def test_later_slices_raise(monkeypatch):
     """Weight quantization is ported (int8/int4) and only a mode that does
     not exist raises. MoE is ported (C2): a ``tiny-moe`` engine builds and
-    decodes on the CPU; only expert parallelism over a mesh is a later
-    slice (C4)."""
+    decodes on the CPU; expert parallelism over a mesh is ported too (C4):
+    ``_moe`` given an ep mesh takes the routed ep form at the default
+    capacity, and ``FEI_TPU_ROUTED_MOE=0`` still takes the oracle."""
     from fei_tpu_torch.models import llama as pt_llama
+    from fei_tpu_torch.ops.moe import moe_mlp
+    from fei_tpu_torch.parallel import expert as pt_expert
+    from fei_tpu_torch.parallel.mesh import Mesh
 
     with pytest.raises(EngineError, match="unsupported quantize mode"):
         InferenceEngine.from_config("tiny", device="cpu", quantize="int2")
@@ -184,9 +188,18 @@ def test_later_slices_raise():
     gen = GenerationConfig(max_new_tokens=5, ignore_eos=True)
     assert len(eng.generate([1, 2, 3], gen).token_ids) == 5
     lp = pt_llama.layer_params(eng.params, 0)
-    with pytest.raises(NotImplementedError, match="C4"):
-        pt_llama._moe(eng.cfg, torch.zeros((1, 2, eng.cfg.hidden_size)), lp, True,
-                      moe_mesh=object())
+    seen = []
+    monkeypatch.setattr(pt_expert, "moe_mlp_ep_routed",
+                        lambda *a, **kw: seen.append(kw) or torch.zeros_like(a[0]))
+    y = torch.randn((1, 2, eng.cfg.hidden_size))
+    pt_llama._moe(eng.cfg, y, lp, True, moe_mesh=Mesh({"ep": 2}))
+    assert seen == [dict(capacity_factor=2.0, tp_axis=None,
+                         intermediate_size=eng.cfg.intermediate_size)]
+    monkeypatch.setenv("FEI_TPU_ROUTED_MOE", "0")
+    got = pt_llama._moe(eng.cfg, y, lp, True, moe_mesh=Mesh({"ep": 2}))
+    want = moe_mlp(y, lp["router"], lp["w_gate"], lp["w_up"], lp["w_down"],
+                   eng.cfg.num_experts_per_tok)
+    assert len(seen) == 1 and torch.equal(got, want)
 
 
 def test_torch_local_config_section(tmp_path):

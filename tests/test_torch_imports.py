@@ -175,3 +175,23 @@ def test_fleet_and_obs_modules_load_neither_jax_nor_fei_tpu():
         timeout=120, check=True, cwd=REPO,
     )
     assert json.loads(out.stdout.strip().splitlines()[-1]) == []
+
+
+_PARALLEL_PROBE = r"""
+import json, sys
+import fei_tpu_torch.parallel.ring, fei_tpu_torch.parallel.long_prefill
+import fei_tpu_torch.parallel.expert, fei_tpu_torch.parallel.pipeline
+loaded = sorted(sys.modules)
+print(json.dumps([m for m in loaded if m in ("jax", "fei_tpu")
+                  or m.startswith(("jax.", "fei_tpu."))]))
+"""
+
+
+def test_parallel_modules_load_neither_jax_nor_fei_tpu():
+    """Sequence, expert and pipeline parallelism import no module of the
+    JAX package."""
+    out = subprocess.run(
+        [sys.executable, "-c", _PARALLEL_PROBE], capture_output=True, text=True,
+        timeout=120, check=True, cwd=REPO,
+    )
+    assert json.loads(out.stdout.strip().splitlines()[-1]) == []

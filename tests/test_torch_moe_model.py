@@ -251,10 +251,25 @@ def test_engine_builds_on_the_cpu_and_defaults_to_the_card():
 
 
 def test_expert_parallel_raises_naming_c4(shared, monkeypatch):
+    """Expert parallelism (C4) is ported: given an ep mesh, ``_moe`` takes
+    the reference's branch, ``moe_mlp_ep_routed`` at
+    ``FEI_TPU_EP_CAPACITY`` (default 2.0); ``FEI_TPU_ROUTED_MOE=0`` still
+    takes the dense oracle, on the mesh too."""
+    from fei_tpu_torch.parallel import expert as pt_expert
+    from fei_tpu_torch.parallel.mesh import Mesh
+
     _, _, cfg, tparams = shared
     lp = tl.layer_params(tparams, 0)
-    y = torch.zeros((1, 4, cfg.hidden_size))
-    with pytest.raises(NotImplementedError, match="C4"):
-        tl._moe(cfg, y, lp, True, moe_mesh=object())
+    y = torch.randn((1, 4, cfg.hidden_size), generator=torch.Generator().manual_seed(3))
+    seen = []
+    monkeypatch.setattr(pt_expert, "moe_mlp_ep_routed",
+                        lambda *a, **kw: seen.append(kw) or torch.zeros_like(a[0]))
+    monkeypatch.setenv("FEI_TPU_EP_CAPACITY", "1.25")
+    tl._moe(cfg, y, lp, True, moe_mesh=Mesh({"ep": 2}))
+    assert seen == [dict(capacity_factor=1.25, tp_axis=None,
+                         intermediate_size=cfg.intermediate_size)]
     monkeypatch.setenv("FEI_TPU_ROUTED_MOE", "0")  # the oracle needs no mesh
-    assert tl._moe(cfg, y, lp, True, moe_mesh=object()).shape == y.shape
+    got = tl._moe(cfg, y, lp, True, moe_mesh=Mesh({"ep": 2}))
+    assert len(seen) == 1 and got.shape == y.shape
+    _close(got, jl.moe_mlp(jnp.asarray(y.numpy()), *(jnp.asarray(lp[k].numpy()) for k in (
+        "router", "w_gate", "w_up", "w_down")), cfg.num_experts_per_tok))

@@ -123,16 +123,31 @@ def test_mlp_activations_match():
         )
 
 
-def test_unported_families_raise():
+def test_unported_families_raise(monkeypatch):
     """Every model family is ported: MoE configs (C2) draw the router and
-    the stacked experts, also on a dense preset given experts; only
-    expert parallelism over a mesh raises, naming roadmap module C4."""
+    the stacked experts, also on a dense preset given experts; expert
+    parallelism over a mesh is ported (C4): ``_moe`` given a mesh with an
+    ep axis takes the routed ep form (tp-composed on tp2ep2,
+    ``FEI_TPU_EP_CAPACITY=dropless`` exact), a mesh without one the
+    single-device forms."""
     params = pt_llama.init_params(pt_get_model_config("tiny-moe"))
     assert params["layers"]["router"].shape == (2, 64, 4)
     assert params["layers"]["w_down"].shape == (2, 4, 128, 64)
     cfg = replace(pt_get_model_config("tiny"), num_experts=2)
     lay = pt_llama.init_params(cfg, dtype=torch.float32)["layers"]
     assert lay["w_gate"].shape == (cfg.num_layers, 2, cfg.hidden_size, cfg.intermediate_size)
-    with pytest.raises(NotImplementedError, match="C4"):
-        pt_llama._moe(cfg, torch.zeros((1, 2, cfg.hidden_size)),
-                      pt_llama.layer_params({"layers": lay}, 0), True, moe_mesh=object())
+    from fei_tpu_torch.parallel import expert as pt_expert
+    from fei_tpu_torch.parallel.mesh import Mesh
+
+    seen = []
+    monkeypatch.setattr(pt_expert, "moe_mlp_ep_routed",
+                        lambda *a, **kw: seen.append((a[-1].shape, kw)) or torch.zeros_like(a[0]))
+    monkeypatch.setenv("FEI_TPU_EP_CAPACITY", "dropless")
+    lp = pt_llama.layer_params({"layers": lay}, 0)
+    y = torch.zeros((1, 2, cfg.hidden_size))
+    pt_llama._moe(cfg, y, lp, True, moe_mesh=Mesh({"tp": 2, "ep": 2}))
+    assert seen == [({"dp": 1, "tp": 2, "ep": 2, "sp": 1, "pp": 1},
+                     dict(dropless=True, tp_axis="tp",
+                          intermediate_size=cfg.intermediate_size))]
+    assert pt_llama._moe(cfg, y, lp, True, moe_mesh=Mesh({"tp": 2})).shape == y.shape
+    assert len(seen) == 1

@@ -1,21 +1,33 @@
 """The port's mesh (fei_tpu_torch/parallel/mesh.py) against fei_tpu's:
 the same spellings parse to the same shapes, the same errors, tags and
 geometry; a rank's coordinates follow the reference's row-major device
-layout; and the engine refuses what the port does not
-serve (an sp/ep/pp axis, an unknown weights profile, a tp that does not
-divide the kv heads) at construction. Mirrors tests/test_sharded_serving.py
-(TestMeshEnv) and tests/test_parallel.py's mesh cases."""
+layout; the engine refuses what the reference refuses (an unknown
+weights profile, a tp that does not divide the kv heads) at construction;
+and the sp2, tp2ep2 and pp2 engines build on gloo ranks and serve what the
+reference serves (tests/torch_mesh_ranks.py's parallel groups). Mirrors
+tests/test_sharded_serving.py (TestMeshEnv) and tests/test_parallel.py's
+mesh cases."""
+
+import sys
+from pathlib import Path
 
 import jax
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+from fei_tpu.engine.engine import GenerationConfig as JaxGen
+from fei_tpu.engine.engine import InferenceEngine as JaxEngine
 from fei_tpu.parallel import mesh as jmesh
 from fei_tpu_torch.engine.engine import InferenceEngine
 from fei_tpu_torch.obs.costmodel import chips_for_tag
 from fei_tpu_torch.parallel import mesh as pmesh
-from fei_tpu_torch.utils.errors import EngineError
+
+sys.path.insert(0, str(Path(__file__).resolve().parent))
+from torch_mesh_ranks import (  # noqa: E402
+    EP_PROMPT, LONG_MIN, MAX_SEQ, N_NEW, PROMPTS, SP_PROMPT, parallel_results,
+)
 
 SPECS = ["tp2", "dp2tp2", "tp2dp2", "dp=2,tp=4", "tp4dp2", "ep4", "dp1tp2", "tp1",
          "dp=2, tp=2", "sp2pp2"]
@@ -104,13 +116,24 @@ def test_chips_for_tag(tag, n):
 
 
 @pytest.mark.parametrize("spec", ["sp2", "tp2ep2", "pp2"])
-def test_engine_refuses_unported_axes(spec):
-    """Sequence, expert and pipeline parallelism are C4's second half: a
-    mesh with one of their axes raises at construction, never falls back
-    to a smaller mesh."""
-    with pytest.raises(EngineError, match="C4"):
-        InferenceEngine.from_config("tiny", device="cpu", dtype=torch.float32,
-                                    num_layers=1, mesh=spec)
+def test_engine_refuses_unported_axes(spec, tmp_path_factory):
+    """An engine on a mesh with an sp, ep or pp axis builds on its gloo
+    ranks (it refused these axes before they were ported) and streams the
+    greedy tokens of fei_tpu's single-chip engine: sp2 through its
+    sequence-sharded prefill, tp2ep2 through the routed experts
+    (dropless), pp2 with every layer on every rank."""
+    groups = parallel_results(tmp_path_factory)
+    name, prompt = {"sp2": ("tiny", SP_PROMPT), "tp2ep2": ("tiny-moe", EP_PROMPT),
+                    "pp2": ("tiny", PROMPTS[0])}[spec]
+    n = 8 if spec == "sp2" else N_NEW
+    ref = JaxEngine.from_config(name, dtype=jnp.float32, max_seq_len=MAX_SEQ, num_layers=2)
+    want = ref.generate(prompt, JaxGen(max_new_tokens=n, ignore_eos=True)).token_ids
+    r0 = groups["four"][0] if spec == "tp2ep2" else groups["two"][0]
+    tag, got = {"sp2": ("sp_tag", "sp_dense"), "tp2ep2": ("tag", "stream"),
+                "pp2": ("pp_tag", "pp_stream")}[spec]
+    assert r0[tag] == spec and r0[got] == want
+    if spec == "sp2":
+        assert r0["sp_dense_prefills"] == 1 and len(SP_PROMPT) >= LONG_MIN
 
 
 def test_engine_validates_weights_profile(monkeypatch):

@@ -305,10 +305,11 @@ def test_params_off_the_step_device_raise(tmp_path):
         restore_checkpoint(str(tmp_path), target={"params": elsewhere}, device="cpu")
 
 
-def test_moe_raises_naming_its_roadmap_module():
+def test_moe_raises_naming_its_roadmap_module(monkeypatch):
     """MoE training is ported (C2): ``forward_train`` on ``tiny-moe``
-    matches the JAX package's logits. Only expert parallelism over a mesh
-    is a later slice, and raises naming it (C4)."""
+    matches the JAX package's logits. Expert parallelism is ported too
+    (C4): ``_moe`` given an ep mesh takes the routed ep form; its training
+    over a mesh is tests/test_torch_sharded_train.py's."""
     jparams, host = _shared_params("tiny-moe")
     jcfg, pcfg = get_model_config("tiny-moe"), pt_get_model_config("tiny-moe")
     toks = _tokens(jcfg, 2, 20)
@@ -317,9 +318,16 @@ def test_moe_raises_naming_its_roadmap_module():
     with torch.no_grad():
         got = pt_llama.forward_train(pparams, pcfg, torch.from_numpy(toks))
     np.testing.assert_allclose(got.numpy(), want, atol=LOGITS_ATOL, rtol=0)
-    with pytest.raises(NotImplementedError, match="C4"):
-        pt_llama._moe(pcfg, torch.zeros((1, 2, pcfg.hidden_size)),
-                      pt_llama.layer_params(pparams, 0), False, moe_mesh=object())
+    from fei_tpu_torch.parallel import expert as pt_expert
+    from fei_tpu_torch.parallel.mesh import Mesh
+
+    seen = []
+    monkeypatch.setattr(pt_expert, "moe_mlp_ep_routed",
+                        lambda *a, **kw: seen.append(kw) or torch.zeros_like(a[0]))
+    y = torch.zeros((1, 2, pcfg.hidden_size))
+    out = pt_llama._moe(pcfg, y, pt_llama.layer_params(pparams, 0), False,
+                        moe_mesh=Mesh({"ep": 2}))
+    assert len(seen) == 1 and torch.equal(out, torch.zeros_like(y))
 
 
 def test_optimizer_refuses_a_state_that_does_not_fit():

@@ -17,6 +17,7 @@ import pickle
 import socket
 import threading
 import traceback
+from pathlib import Path
 
 N_NEW = 12
 MAX_SEQ = 128
@@ -325,10 +326,372 @@ def case_initialize(rank: int, world: int, args: dict) -> dict:
             "sum": float(total[0])}
 
 
+# -- sequence, expert and pipeline parallelism, sharded training, the bank
+# exchange (tests/test_torch_{ring,expert_parallel,pipeline,sharded_train,
+# parallel,embedding_exchange}.py read these results)
+
+LONG_MIN = 64  # long_prefill_min of the sp engines
+SP_PROMPT = [(17 * i + 3) % 200 + 10 for i in range(96)]  # bucket 128: sp-eligible
+LIVE_PROMPT = list(range(40, 72))  # decoding while SP_PROMPT admits
+SP_CHUNK = 32  # the paged engines' prefill_chunk: SP_PROMPT would chunk without sp
+ATT_CASES = [(4, 2, 0), (4, 1, 0), (4, 2, 5)]  # (H, K, window): GQA, MQA, a window
+ATT_SHAPE = (2, 16, 8)  # B, T, D
+PREFILL_T = 32
+PREFILL_LENS = [32, 27]
+MOE_X = (2, 9)  # tokens [B, T] of the expert-parallel layer checks
+DROP_CF = 0.5  # a capacity factor that drops assignments
+PP_SHAPE = (4, 12)
+TRAIN_SHAPE = (4, 17)
+TRAIN_STEPS = 2
+FALL_STEPS = 5
+BANKS = (4, 8, 16)
+EP_PROMPT = [109, 105, 120, 116, 114, 97, 108, 32, 101, 120, 112, 101, 114, 116]
+
+
+def att_inputs(H: int, K: int, seed: int = 5):
+    """Global q [B, T, H, D], k/v [B, T, K, D] (fp32 numpy) of a ring case."""
+    import numpy as np
+
+    B, T, D = ATT_SHAPE
+    rng = np.random.default_rng(seed + 10 * H + K)
+    return (rng.standard_normal((B, T, H, D)).astype(np.float32),
+            rng.standard_normal((B, T, K, D)).astype(np.float32),
+            rng.standard_normal((B, T, K, D)).astype(np.float32))
+
+
+def tokens(shape, seed: int, vocab: int = 512):
+    import numpy as np
+
+    return np.random.default_rng(seed).integers(0, vocab, size=shape).astype(np.int64)
+
+
+def moe_x(seed: int = 6):
+    import numpy as np
+
+    return np.random.default_rng(seed).standard_normal(MOE_X + (64,)).astype(np.float32)
+
+
+def _err(fn) -> str:
+    """The ValueError message ``fn`` raises ("" when it does not)."""
+    try:
+        fn()
+    except ValueError as exc:
+        return str(exc)
+    return ""
+
+
+def _flat_np(params) -> dict:
+    from fei_tpu_torch.utils.tree import flatten
+
+    return {k: v.detach().numpy().copy() for k, v in flatten(params).items()}
+
+
+def _train(params, cfg, mesh, steps: int, lr: float, toks):
+    """``steps`` of the port's train step on ``mesh`` from the rank's
+    Megatron shards of ``params``: (losses, the rank's params and
+    optimizer state after)."""
+    import torch
+
+    from fei_tpu_torch.engine.train import TrainConfig, make_train_step
+    from fei_tpu_torch.parallel.sharding import shard_params
+
+    mine = shard_params({k: v for k, v in params.items()}, mesh, cfg.is_moe)
+    mine = {k: ({a: b.clone() for a, b in v.items()} if isinstance(v, dict) else v.clone())
+            for k, v in mine.items()}
+    opt, step = make_train_step(cfg, TrainConfig(learning_rate=lr), device="cpu", mesh=mesh)
+    state = opt.init(mine)
+    losses = []
+    for _ in range(steps):
+        mine, state, loss = step(mine, state, torch.from_numpy(toks))
+        losses.append(float(loss))
+    return losses, mine, state
+
+
+def _sp_paged(eng) -> dict:
+    """LIVE_PROMPT decoding, SP_PROMPT admitted once it has five tokens."""
+    import threading
+
+    from fei_tpu_torch.engine.engine import GenerationConfig
+
+    out: dict = {}
+    started = threading.Event()
+
+    def live():
+        got = []
+        for i, tok in enumerate(eng.scheduler.stream(
+                LIVE_PROMPT, GenerationConfig(max_new_tokens=48, ignore_eos=True))):
+            got.append(tok)
+            if i == 4:
+                started.set()
+        out["live"] = got
+
+    def long():
+        started.wait(timeout=60)
+        out["long"] = list(eng.scheduler.stream(
+            SP_PROMPT, GenerationConfig(max_new_tokens=12, ignore_eos=True)))
+
+    ts = [threading.Thread(target=live), threading.Thread(target=long)]
+    [t.start() for t in ts]
+    [t.join() for t in ts]
+    return out
+
+
+def _counter(name: str) -> float:
+    from fei_tpu_torch.utils.metrics import METRICS
+
+    return METRICS.snapshot()["counters"].get(name, 0.0)
+
+
+def _load_params(paths: dict, timeout: float = 120.0) -> dict:
+    """The weights the parent writes while the ranks start (each file
+    appears whole: written aside, then renamed)."""
+    import time
+
+    import torch
+
+    out = {}
+    for name, path in paths.items():
+        t0 = time.monotonic()
+        while not os.path.exists(path):
+            if time.monotonic() - t0 > timeout:
+                raise TimeoutError(f"{path} did not appear in {timeout} s")
+            time.sleep(0.05)
+        out[name] = torch.load(path, weights_only=False)
+    return out
+
+
+def case_parallel2(rank: int, world: int, args: dict) -> dict:
+    """Every two-rank case of the sp, ep, pp, training and bank-exchange
+    tests, in one group."""
+    import numpy as np
+    import torch
+
+    from fei_tpu_torch.engine.engine import InferenceEngine
+    from fei_tpu_torch.memory.memorychain.embedding_exchange import exchange_banks
+    from fei_tpu_torch.models.configs import get_model_config
+    from fei_tpu_torch.parallel.expert import moe_mlp_ep, moe_mlp_ep_routed
+    from fei_tpu_torch.parallel.long_prefill import prefill_ring, prefill_ring_kv
+    from fei_tpu_torch.parallel.mesh import make_mesh
+    from fei_tpu_torch.parallel.pipeline import pipeline_forward_train
+    from fei_tpu_torch.parallel.ring import ring_attention, ulysses_attention
+
+    res: dict = {}
+    P = _load_params(args["params"])
+    t = torch.from_numpy
+    kw = dict(device="cpu", dtype=torch.float32, num_layers=2, max_seq_len=MAX_SEQ)
+
+    # -- sp: ring and Ulysses on this rank's chunk
+    sp = make_mesh({"sp": world})
+    B, T, D = ATT_SHAPE
+    C = T // world
+    mine = slice(rank * C, (rank + 1) * C)
+    for H, K, w in ATT_CASES:
+        q, k, v = (t(a[:, mine].copy()) for a in att_inputs(H, K))
+        res[f"ring {H} {K} {w}"] = ring_attention(q, k, v, sp, window=w).numpy()
+        try:
+            res[f"ulysses {H} {K} {w}"] = ulysses_attention(q, k, v, sp, window=w).numpy()
+        except ValueError as exc:
+            res[f"ulysses {H} {K} {w}"] = f"ValueError: {exc}"
+    for name in ("tiny", "tiny-swa"):
+        cfg = get_model_config(name, num_layers=2)
+        toks = t(tokens((2, PREFILL_T), 7))
+        for attend in ("ring", "ulysses"):
+            lg, ka, va = prefill_ring_kv(P[name], cfg, toks, sp, attend=attend,
+                                         true_len=torch.tensor(PREFILL_LENS))
+            res[f"prefill {name} {attend}"] = (lg.numpy(), ka.numpy(), va.numpy())
+        lg, cache = prefill_ring(P[name], cfg, toks[:1], sp, max_seq_len=48)
+        res[f"prefill_ring {name}"] = (lg.numpy(), cache.k.numpy(), cache.length.numpy())
+    cfg = get_model_config("tiny", num_layers=2)
+    res["err T % n"] = _err(lambda: prefill_ring_kv(P["tiny"], cfg, t(tokens((1, 31), 1)), sp))
+    res["err attend"] = _err(lambda: prefill_ring_kv(P["tiny"], cfg, t(tokens((1, 32), 1)), sp,
+                                                     attend="spiral"))
+    mqa = get_model_config("tiny", num_layers=2, num_kv_heads=1)
+    res["err ulysses heads"] = _err(lambda: prefill_ring_kv(
+        P["tiny"], mqa, t(tokens((1, 32), 1)), sp, attend="ulysses"))
+
+    # -- the sp engines: dense prefill and the scheduler's admission
+    if rank == 0:
+        res["sp_prefills_before"] = _counter("engine.sp_prefills")
+    eng = InferenceEngine.from_config("tiny", params=P["tiny"], mesh="sp2",
+                                      long_prefill_min=LONG_MIN, **kw)
+    if rank == 0:
+        from fei_tpu_torch.engine.engine import GenerationConfig
+
+        gen = GenerationConfig(max_new_tokens=8, ignore_eos=True)
+        res["sp_dense"] = eng.generate(SP_PROMPT, gen).token_ids
+        res["sp_dense_prefills"] = _counter("engine.sp_prefills") - res["sp_prefills_before"]
+        res["sp_short"] = eng.generate(LIVE_PROMPT, gen).token_ids
+        res["sp_short_prefills"] = (_counter("engine.sp_prefills")
+                                    - res["sp_prefills_before"] - res["sp_dense_prefills"])
+        res["sp_tag"] = eng.mesh_tag
+        eng.close()
+    eng = InferenceEngine.from_config("tiny", params=P["tiny"], mesh="sp2", paged=True,
+                                      batch_size=2, long_prefill_min=LONG_MIN, **kw)
+    if rank == 0:
+        eng.scheduler.prefill_chunk = SP_CHUNK
+        before = _counter("engine.sp_prefills")
+        res["sp_paged"] = _sp_paged(eng)
+        res["sp_paged_prefills"] = _counter("engine.sp_prefills") - before
+        eng.close()
+
+    # -- ep: the layer functions and the engine (dropless)
+    ep = make_mesh({"ep": world})
+    moe = get_model_config("tiny-moe", num_layers=2)
+    lay = {k: v[0] for k, v in P["tiny-moe"]["layers"].items()}
+    x = t(moe_x())
+    wts = (lay["router"], lay["w_gate"], lay["w_up"], lay["w_down"])
+    k_ = moe.num_experts_per_tok
+    res["ep"] = moe_mlp_ep(x, *wts, k_, ep).numpy()
+    res["ep dropless"] = moe_mlp_ep_routed(x, *wts, k_, ep, dropless=True).numpy()
+    res["ep capacity"] = moe_mlp_ep_routed(x, *wts, k_, ep, capacity_factor=DROP_CF).numpy()
+    res["err E % n"] = _err(lambda: moe_mlp_ep(x, lay["router"][:, :3], *wts[1:], k_, ep))
+    res["err E % n routed"] = _err(lambda: moe_mlp_ep_routed(
+        x, lay["router"][:, :3], *wts[1:], k_, ep))
+    os.environ["FEI_TPU_EP_CAPACITY"] = "dropless"
+    try:
+        eng = InferenceEngine.from_config("tiny-moe", params=P["tiny-moe"], mesh="ep2", **kw)
+        res["ep_experts"] = eng.params["layers"]["w_up"].shape[1]
+        if rank == 0:
+            res["ep_stream"] = eng.generate(EP_PROMPT, _gen()).token_ids
+            eng.close()
+        eng = InferenceEngine.from_config("tiny-moe", params=P["tiny-moe"], mesh="ep2",
+                                          paged=True, batch_size=2, **kw)
+        if rank == 0:
+            res["ep_paged"] = _streams(eng)
+            eng.close()
+    finally:
+        del os.environ["FEI_TPU_EP_CAPACITY"]
+
+    # -- the routing rule on a tp mesh: a tiny-moe tp2 engine's prefill of
+    # 20 tokens (past the routed form's threshold) takes the dense oracle
+    # (whole experts: the replicated profile's)
+    from fei_tpu_torch.models import llama as pt_llama
+
+    calls = {"routed": 0, "oracle": 0}
+    real = (pt_llama.moe_mlp_routed, pt_llama.moe_mlp)
+
+    def spy(key, fn):
+        def wrapped(*a):
+            calls[key] += 1
+            return fn(*a)
+        return wrapped
+
+    pt_llama.moe_mlp_routed, pt_llama.moe_mlp = spy("routed", real[0]), spy("oracle", real[1])
+    try:
+        eng = InferenceEngine.from_config("tiny-moe", params=P["tiny-moe"], mesh="tp2",
+                                          mesh_weights="replicated", **kw)
+        if rank == 0:
+            eng.prefill([list(range(20, 40))], eng.new_cache(1))
+            eng.close()
+    finally:
+        pt_llama.moe_mlp_routed, pt_llama.moe_mlp = real
+    res["tp2_moe_calls"] = calls
+
+    # -- pp: the pipelined forward and a pp2 engine
+    pp = make_mesh({"pp": world})
+    for name in ("tiny", "tiny-phi"):
+        cfg = get_model_config(name, num_layers=2)
+        toks = t(tokens(PP_SHAPE, 8))
+        for m in (2, 4):
+            res[f"pp {name} {m}"] = pipeline_forward_train(P[name], cfg, toks, pp, m).detach().numpy()
+    cfg3 = get_model_config("tiny", num_layers=3)
+    res["err L % n"] = _err(lambda: pipeline_forward_train(P["tiny"], cfg3, t(tokens(PP_SHAPE, 8)),
+                                                           pp, 2))
+    res["err B % micro"] = _err(lambda: pipeline_forward_train(
+        P["tiny"], get_model_config("tiny", num_layers=2), t(tokens(PP_SHAPE, 8)), pp, 3))
+    eng = InferenceEngine.from_config("tiny", params=P["tiny"], mesh="pp2", **kw)
+    if rank == 0:
+        res["pp_stream"] = eng.generate(PROMPTS[0], _gen()).token_ids
+        res["pp_tag"] = eng.mesh_tag
+        eng.close()
+
+    # -- training on dp2 and tp2 (the Megatron shards), two steps
+    cfg = get_model_config("tiny", num_layers=2)
+    toks = tokens(TRAIN_SHAPE, 9)
+    for spec in ("dp2", "tp2"):
+        losses, mine, _ = _train(P["tiny"], cfg, make_mesh(spec), TRAIN_STEPS, 1e-4, toks)
+        res[f"train {spec}"] = (losses, _flat_np(mine))
+
+    # -- the bank exchange over both ranks
+    import torch.distributed as dist
+
+    banks = np.random.default_rng(12).standard_normal(BANKS).astype(np.float32)
+    res["banks"] = exchange_banks(banks, group=dist.group.WORLD, device="cpu")[0].numpy()
+    return res
+
+
+def case_parallel4(rank: int, world: int, args: dict) -> dict:
+    """The four-rank cases: tp2ep2 (the routed layer with tp-split experts,
+    the engine's dense and paged streams) and dp2tp2 training."""
+    import numpy as np
+    import torch
+
+    from fei_tpu_torch.engine.engine import InferenceEngine
+    from fei_tpu_torch.models.configs import get_model_config
+    from fei_tpu_torch.parallel.expert import moe_mlp_ep_routed
+    from fei_tpu_torch.parallel.mesh import make_mesh
+    from fei_tpu_torch.parallel.sharding import shard_params
+    from fei_tpu_torch.utils.tree import flatten
+
+    res: dict = {}
+    P = _load_params(args["params"])
+    kw = dict(device="cpu", dtype=torch.float32, num_layers=2, max_seq_len=MAX_SEQ)
+    mesh = make_mesh("tp2ep2")
+    moe = get_model_config("tiny-moe", num_layers=2)
+    lay = shard_params(P["tiny-moe"], mesh, True)["layers"]
+    lay = {k: v[0] for k, v in lay.items()}
+    x = torch.from_numpy(moe_x())
+    res["tp2ep2 dropless"] = moe_mlp_ep_routed(
+        x, lay["router"], lay["w_gate"], lay["w_up"], lay["w_down"], moe.num_experts_per_tok,
+        mesh, dropless=True, tp_axis="tp", intermediate_size=moe.intermediate_size).numpy()
+    os.environ["FEI_TPU_EP_CAPACITY"] = "dropless"
+    try:
+        eng = InferenceEngine.from_config("tiny-moe", params=P["tiny-moe"], mesh="tp2ep2", **kw)
+        res["w_up"] = tuple(eng.params["layers"]["w_up"].shape)
+        if rank == 0:
+            res["stream"] = eng.generate(EP_PROMPT, _gen()).token_ids
+            res["tag"] = eng.mesh_tag
+            eng.close()
+        eng = InferenceEngine.from_config("tiny-moe", params=P["tiny-moe"], mesh="tp2ep2",
+                                          paged=True, batch_size=2, **kw)
+        if rank == 0:
+            res["paged"] = _streams(eng)
+            eng.close()
+    finally:
+        del os.environ["FEI_TPU_EP_CAPACITY"]
+    cfg = get_model_config("tiny", num_layers=2)
+    dp2tp2 = make_mesh("dp2tp2")
+    losses, mine, state = _train(P["tiny"], cfg, dp2tp2, TRAIN_STEPS, 1e-4,
+                                 tokens(TRAIN_SHAPE, 9))
+    res["train"] = (losses, _flat_np(mine))
+    res["coords"] = dict(dp2tp2.coords)
+    # saved whole from the shards; each rank restores its own slices
+    from fei_tpu_torch.engine.checkpoint import restore_checkpoint, save_checkpoint
+    from fei_tpu_torch.engine.train import train_shardings
+
+    ckpt = args["ckpt"]
+    save_checkpoint(ckpt, TRAIN_STEPS, mine, state,
+                    shardings=train_shardings(mine, cfg, dp2tp2))
+    back = restore_checkpoint(ckpt, shardings=train_shardings(mine, cfg, dp2tp2),
+                              device="cpu")
+    res["restored_bitwise"] = _flat_np(back["params"]).keys() == _flat_np(mine).keys() and all(
+        np.array_equal(a, b) for a, b in zip(_flat_np(back["params"]).values(),
+                                             _flat_np(mine).values())) and all(
+        torch.equal(a, b) for a, b in zip(flatten(back["opt_state"]["mu"]).values(),
+                                          flatten(state["mu"]).values()))
+    if rank == 0:
+        res["saved_whole"] = _flat_np(restore_checkpoint(ckpt, device="cpu")["params"])
+    res["fall"] = _train(P["tiny"], get_model_config("tiny"), dp2tp2, FALL_STEPS, 1e-2,
+                         tokens((4, 16), 3))[0]
+    return res
+
+
 CASES = {
     "serving": case_serving,
     "tp2dp2": case_tp2dp2,
     "initialize": case_initialize,
+    "parallel2": case_parallel2,
+    "parallel4": case_parallel4,
 }
 
 
@@ -405,3 +768,53 @@ def run_ranks(world: int, case: str, args: dict, tmpdir: str, timeout: float = 2
               env_init: bool = False) -> list:
     """Spawn ``world`` ranks of ``case`` and return each rank's result."""
     return RankRun(world, case, args, tmpdir, env_init).result(timeout)
+
+
+def parallel_results(tmp_path_factory) -> dict:
+    """The two- and four-rank parallel groups' results, run once per test
+    session and shared by the test files (and xdist workers) that read
+    them: the first caller makes the inputs (fei_tpu's tiny weights through
+    ``params_from_jax``) and runs both groups, under a file lock; the
+    others read its results, or its error."""
+    import fcntl
+
+    base = Path(tmp_path_factory.getbasetemp())
+    uid = os.environ.get("PYTEST_XDIST_TESTRUNUID")
+    root = base.parent / f"parallel-{uid}" if uid else base / "parallel"
+    root.mkdir(parents=True, exist_ok=True)
+    out = root / "results.pkl"
+    with open(root / "lock", "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        if not out.exists():
+            try:
+                got = {"ok": _run_parallel(root)}
+            except BaseException:  # noqa: BLE001 — every reader reports it
+                got = {"error": traceback.format_exc()}
+            out.write_bytes(pickle.dumps(got))
+    got = pickle.loads(out.read_bytes())
+    if "error" in got:
+        raise RuntimeError(f"the parallel rank groups failed:\n{got['error']}")
+    return got["ok"]
+
+
+def _run_parallel(root: Path) -> dict:
+    import jax
+    import jax.numpy as jnp
+    import numpy as np
+    import torch
+
+    from fei_tpu.models.configs import get_model_config as jax_config
+    from fei_tpu.models.llama import init_params
+    from fei_tpu_torch.models.convert import params_from_jax
+
+    names = ("tiny", "tiny-swa", "tiny-moe", "tiny-phi")
+    paths = {name: str(root / f"{name}.pt") for name in names}
+    # the ranks start first and wait for the weights (_load_params)
+    two = RankRun(2, "parallel2", {"params": paths}, str(root))
+    four = RankRun(4, "parallel4", {"params": paths, "ckpt": str(root / "ckpt")}, str(root))
+    for name in names:
+        params = init_params(jax_config(name, num_layers=2), jax.random.PRNGKey(0),
+                             dtype=jnp.float32)
+        torch.save(params_from_jax(jax.tree.map(np.asarray, params)), paths[name] + ".tmp")
+        os.replace(paths[name] + ".tmp", paths[name])
+    return {"two": two.result(), "four": four.result()}
