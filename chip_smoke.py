@@ -30,7 +30,11 @@ Phases (each raises on failure, so the script exits non-zero):
    h=4096, 32/8 heads, vocab 128256), bf16, random weights from a seed,
    max_seq_len 8192. A ~1500-token prefill must launch the flash kernel
    once per layer; its last-position logits are held against the same
-   engine on the plain attention; 128 greedy tokens decode chunked.
+   engine on the plain attention; 128 greedy tokens decode chunked; the
+   same request with ``FEI_TPU_KERNEL_LOOP=2`` (chunks of 2 x 16 steps)
+   gives the same tokens in fewer ``engine.decode_dispatches`` and sets
+   ``engine.kernel_loop_depth`` to steps x layers (in this eager port the
+   factor saves host syncs, not launches).
    Phases 5-13 run on the first 16 of these 32 layers (views of the same
    tensors, ``SERVE_LAYERS``; cut for time, every check kept), the KV
    phase on the first 8 (``KV_LAYERS``).
@@ -182,18 +186,29 @@ Phases (each raises on failure, so the script exits non-zero):
    seconds.
 
 Phase 3 also holds the int4 matmul kernel (K4) against its plain version
-at llama3-8b's four linear shapes and M = 1/8/256/2048, shows that two
-mutants (lo and hi planes swapped; each group read with the next group's
-scale) break that bound, that two runs are bitwise equal and that row 0 is
-bitwise the same at every M (the decode split of K and the prefill
-pipeline sum in one order).
+at llama3-8b's four linear shapes and M = 1/8/256/2048 and at its LM head
+(K = 4096, N = 128256, the head under ``FEI_TPU_INT4_LM_HEAD=1``) at M =
+1/8, shows that two mutants (lo and hi planes swapped; each group read
+with the next group's scale) break that bound, that two runs are bitwise
+equal and that every row is bitwise the same at every M (the decode split
+of K and the prefill pipeline sum in one order), and that split scratch
+one segment short is refused at the main shape and at the head's.
 After the bf16 engines are released:
 
 14. Quantized dense path: llama3-8b at 16 layers (cut for time) with int4
    weights (random, the same seed): ``param_bytes``; a ~1500-token prefill launches K4 exactly 7
    times per layer and its logits are held against the same weights
    dequantized to bf16 and multiplied plainly; 128 greedy tokens. Then
-   int8 weights: ``param_bytes``, 32 greedy tokens, no K4 launch.
+   int8 weights: ``param_bytes``, 32 greedy tokens, no K4 launch. Then the
+   JAX package's two switches as ``from_config`` reads them: an int4
+   engine built with ``FEI_TPU_INT4_LM_HEAD=1`` and ``FEI_TPU_QUANT_EMBED=1``
+   in the environment holds an int4 LM head and an int8 embedding
+   (``param_bytes`` printed), launches K4 7 x 16 + 1 times a forward (the
+   head on the last row), and its logits and 64 greedy tokens are held
+   against the same weights dequantized (rel_l2 3e-2; the streams equal or
+   first apart at a tie within 2 bf16 ulps, F1); its whole tree goes
+   through ``engine.weights.save_checkpoint`` / ``restore_checkpoint`` on
+   the card and comes back bitwise.
 15. Quantized paged path: the int4 weights behind the paged engine, four
    requests from threads; each stream must equal the dense int4 engine's,
    and must not change with the merged dispatch off or in a tight pool
@@ -260,9 +275,14 @@ per block (largest and mean). After the quantized engines are released:
     load of a 2-layer checkpoint peaks under a rank's share plus one
     tensor; the tp2 engine's exported prefix is one rank's bytes and
     lands on one rank. It prints the collectives' times and tp2 against
-    one rank's tok/s. Last, ``FEI_TPU_MESH=tp2`` makes ``from_config``
-    start its own follower, the server's handler answers with ``/health``
-    ``mesh: "tp2"``, and a drain and ``close`` stop the follower.
+    one rank's tok/s. A dp2 paged engine (four rows a rank) sets the
+    scheduler's mesh and replica gauges (``engine.mesh_shape``,
+    ``engine.mesh.<axis>``, ``scheduler.replica.<g>.slots`` /
+    ``.queue_depth``), held to its mesh parked with rows placed by hand
+    and read at every update under the eight prompts. Last,
+    ``FEI_TPU_MESH=tp2`` makes ``from_config`` start its own follower,
+    the server's handler answers with ``/health`` ``mesh: "tp2"``, and a
+    drain and ``close`` stop the follower.
 20. The parallel part (roadmap C4's second half), in the same two ranks
     after the tp engines are released, at full width and cut depth: sp2
     ring and Ulysses prefill of an 8192-token prompt (llama3-8b and
@@ -286,7 +306,8 @@ every shape of phase 3 through their public wrappers; ``--bwd-times`` does
 the same for K5a, K5b and the pair at the training shape and at D = 64;
 ``--kv`` builds K1-K3 and runs phase 12 alone (on the seed's weights with
 the serve phase's LM head, cut to 8 layers as in the full run),
-``--fleet`` phase 13 likewise (16 layers), ``--tp`` phase 19 (K1-K4 built), ``--parallel``
+``--fleet`` phase 13 likewise (16 layers), ``--quant`` K4's kernel phase and
+phase 14's int4 and int4-head engines (K1-K4 built), ``--tp`` phase 19 (K1-K4 built), ``--parallel``
 phase 20 alone (every kernel built), ``--tools`` the serving controls and
 phase 9, ``--spec`` phase 11 (both on the same 16 layers) and ``--moe`` phase 17. ``--serve-rates`` logs only the dense
 decode tok/s (twice) and the paged aggregate tok/s of phases 4 and 6's
@@ -298,7 +319,9 @@ root times that tree's kernels.
 Every kernel count is set to 0 just before a path is driven and read just
 after. The line before the last two is the kernels' JSON record (launches
 from the paged paths: K1-K3 from the bf16 run, K4 from the int4 run, K5a and
-K5b from the three training steps; K1-K3 also carry ``launches_agent``, the
+K5b from the three training steps; K4 also carries ``launches_int4_head``,
+the int4-head engine's generate, and ``lm_head``, its kernel rows at the
+head's shape; K1-K3 also carry ``launches_agent``, the
 sum over the agent path's own runs, each counted from 0: the provider turn,
 the paged turns, the paged turn beside its free neighbours and the
 ``--message`` round; ``launches_tools``, the sum over the agent tools
@@ -1413,6 +1436,10 @@ INT4_LINEARS = (("wq/wo", 4096, 4096), ("wk/wv", 4096, 1024),
                 ("w_gate/w_up", 4096, 14336), ("w_down", 14336, 4096))
 INT4_MS = (1, 8, 256, 2048)
 INT4_MAIN = ("w_gate/w_up", 8)  # the record's shape: the paged decode batch
+# llama3-8b's LM head under FEI_TPU_INT4_LM_HEAD=1 and its rows: a dense
+# decode step (and a prefill's last row) and the paged decode batch
+INT4_HEAD = ("lm_head", 4096, 128256)
+INT4_HEAD_MS = (1, 8)
 L2_BYTES = 128 * 2 ** 20  # more than the card's 50 MB L2: timed weights arrive cold
 
 
@@ -1447,16 +1474,19 @@ def split_scratch_refused(x, w) -> None:
              short.data_ptr(), short.numel(), M, N, K, w.group_size,
              torch.cuda.current_stream().cuda_stream)
     check(err != 0, "int4_matmul took split scratch one segment short of its plan")
-    log(f"kernel int4_matmul: scratch one segment short of the plan refused (error {err})")
+    log(f"kernel int4_matmul [K={K} N={N}]: scratch one segment short of the plan refused "
+        f"(error {err})")
 
 
 def int4_kernel_phase(card: str) -> dict:
-    """K4 at llama3-8b's four linear shapes x M in {1, 8, 256, 2048}: held
-    element by element against its plain version within
-    ``int4_mm_tolerance``, two mutants shown to break that bound, row 0
-    bitwise the same at every M, and timed beside the plain version, one
-    ``torch.matmul`` on the dequantized weight (a yardstick the port never
-    calls) and the bound. Returns the main shape's record."""
+    """K4 at llama3-8b's four linear shapes x M in {1, 8, 256, 2048} and at
+    its LM head (K = 4096, N = 128256) x M in {1, 8}: held element by
+    element against its plain version within ``int4_mm_tolerance``, two
+    mutants shown to break that bound, every row bitwise the same at every
+    M, and timed beside the plain version, one ``torch.matmul`` on the
+    dequantized weight (a yardstick the port never calls) and the bound.
+    Returns the main shape's record, with the LM head's rows under
+    ``lm_head``."""
     from fei_tpu_torch.ops.kernels.int4_matmul import (
         int4_mm,
         int4_mm_reference,
@@ -1465,10 +1495,11 @@ def int4_kernel_phase(card: str) -> dict:
     from fei_tpu_torch.ops.quant import QTensor4, dequantize, quantize4
 
     gen = torch.Generator(device="cuda").manual_seed(SEED)
-    record = None
-    for label, K, N in INT4_LINEARS:
+    record, head = None, []
+    shapes = [(*shape, INT4_MS) for shape in INT4_LINEARS] + [(*INT4_HEAD, INT4_HEAD_MS)]
+    for label, K, N, row_counts in shapes:
         w = quantize4((torch.randn(K, N, generator=gen, device="cuda") * K ** -0.5).bfloat16())
-        x_all = torch.randn(max(INT4_MS), K, generator=gen, device="cuda").bfloat16()
+        x_all = torch.randn(max(row_counts), K, generator=gen, device="cuda").bfloat16()
         # the mutants: lo and hi planes swapped; each group read with the
         # next group's scale
         mutants = {
@@ -1480,7 +1511,7 @@ def int4_kernel_phase(card: str) -> dict:
         deq = dequantize(w, torch.bfloat16)
         deq_copies = copies(deq.clone, 2 * deq.numel())
         outs = {}
-        for M in INT4_MS:
+        for M in row_counts:
             x = x_all[:M]
             out = int4_mm(x, w)
             torch.cuda.synchronize()
@@ -1530,19 +1561,26 @@ def int4_kernel_phase(card: str) -> dict:
                     # wgmma in both
                     "design": "wgmma",
                 }
+            if label == INT4_HEAD[0]:
+                head.append({"M": M, "K": K, "N": N, "max_abs_err": err, "worst_err_over_tol":
+                             worst, "ms": ms, "device_ms": device_ms, "plain_ms": plain_ms,
+                             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": lib_ms,
+                             "library_device_ms": lib_device_ms,
+                             "mutants_caught": caught})
             del out, ref, tol, diff
         # row invariance: a row's k-order does not follow M or the kernel
         # (M <= 16 splits K; larger M runs the pipeline): every row of each
         # call equals the same row of every larger call
-        for a, b in itertools.combinations(INT4_MS, 2):
+        for a, b in itertools.combinations(row_counts, 2):
             same = (outs[b][:a] == outs[a]).all(dim=1)
             check(bool(same.all()), f"int4 {label}: rows {(~same).nonzero().flatten()[:8].tolist()} "
                   f"of the M={a} call differ from the M={b} call's")
-        log(f"kernel int4_matmul [{label}]: every row bitwise equal across M = {INT4_MS}")
-        if label == INT4_MAIN[0]:
+        log(f"kernel int4_matmul [{label}]: every row bitwise equal across M = {row_counts}")
+        if label in (INT4_MAIN[0], INT4_HEAD[0]):
             split_scratch_refused(x_all[:1], w)
         del w, x_all, mutants, w_copies, deq, deq_copies, outs
         torch.cuda.empty_cache()
+    record["lm_head"] = head
     return record
 
 
@@ -1627,7 +1665,9 @@ def engine_phase(card: str):
     check(rel <= 3e-2, f"flash vs plain prefill logits rel_l2 {rel} > 3e-2")
 
     gen = GenerationConfig(max_new_tokens=128, ignore_eos=True, chunk=16)
+    d0 = counter("engine.decode_dispatches")
     res = engine.generate(prompt, gen)
+    dispatches = counter("engine.decode_dispatches") - d0
     check(len(res.token_ids) == 128, f"decoded {len(res.token_ids)} tokens, expected 128")
     check(all(0 <= t < cfg.vocab_size for t in res.token_ids), "token id out of range")
     ttft_bound, tok_s_bound = serving_bounds(cfg, len(prompt), 128)
@@ -1641,7 +1681,30 @@ def engine_phase(card: str):
     check(ref == res.token_ids[:32],
           "per-token decode diverged from chunked decode")
     log("engine: per-token (chunk 1) == chunked (chunk 16) for 32 tokens")
+    kernel_loop_check(engine, prompt, gen, res, dispatches, card)
     return engine
+
+
+def kernel_loop_check(engine, prompt, gen, res, dispatches: float, card: str) -> None:
+    """``FEI_TPU_KERNEL_LOOP=2`` beside the factor-1 run ``res`` of the same
+    request: the same greedy tokens, fewer ``engine.decode_dispatches``
+    (chunks of 2 x 16 steps, one host sync each), and the
+    ``engine.kernel_loop_depth`` gauge at steps x layers. In the eager port
+    the factor saves host syncs, not launches."""
+    d0 = counter("engine.decode_dispatches")
+    with env_vars(FEI_TPU_KERNEL_LOOP="2"):
+        looped = engine.generate(prompt, gen)
+    looped_dispatches = counter("engine.decode_dispatches") - d0
+    depth = gauge("engine.kernel_loop_depth")
+    want_depth = 2 * gen.chunk * engine.cfg.num_layers
+    log(f"engine: FEI_TPU_KERNEL_LOOP=2 on {card}: {looped_dispatches:.0f} decode dispatches "
+        f"against {dispatches:.0f} at factor 1, engine.kernel_loop_depth {depth} (expected "
+        f"{want_depth}), decode {looped.decode_tokens_per_s:.2f} tok/s against "
+        f"{res.decode_tokens_per_s:.2f}; tokens equal: {looped.token_ids == res.token_ids}")
+    check(looped.token_ids == res.token_ids, "kernel looping changed the greedy tokens")
+    check(looped_dispatches < dispatches,
+          f"kernel looping did not cut the dispatches ({looped_dispatches} vs {dispatches})")
+    check(depth == want_depth, f"engine.kernel_loop_depth {depth}, expected {want_depth}")
 
 
 # ------------------------------------------------------------------ serve
@@ -1777,6 +1840,12 @@ def counter(name: str) -> float:
     from fei_tpu_torch.utils.metrics import METRICS
 
     return METRICS.snapshot()["counters"].get(name, 0.0)
+
+
+def gauge(name: str):
+    from fei_tpu_torch.utils.metrics import METRICS
+
+    return METRICS.snapshot()["gauges"].get(name)
 
 
 def traffic(engine, prompts, new_tokens: int, gens=None) -> dict:
@@ -4489,6 +4558,138 @@ def quant_dense_phase(card: str, bf16_bytes: int):
     return eng
 
 
+QUANT_SWITCH_NEW = 64  # greedy tokens of the int4-head engine and its dequantized twin
+
+
+def quant_switches_phase(dense4, card: str) -> dict:
+    """The JAX package's two quantization switches as ``from_config`` reads
+    them: an int4 engine built with ``FEI_TPU_INT4_LM_HEAD=1`` and
+    ``FEI_TPU_QUANT_EMBED=1`` in the environment (no argument passed) holds
+    an int4 ``QTensor4`` LM head and an int8 ``QTensor`` embedding, and its
+    layers are ``dense4``'s draws. Its prefill launches K4 once more than
+    seven times a layer (the head on the last row) and every decode step
+    likewise; its logits and greedy stream are held against the same
+    weights dequantized to bf16 (rel_l2 3e-2; the streams equal or first
+    apart at a tie within 2 bf16 ulps, F1). Then its whole tree goes
+    through ``engine.weights.save_checkpoint`` / ``restore_checkpoint`` on
+    the card and comes back bitwise. Returns the K4 launches of its
+    generate (prefill and decode) and the steps they cover."""
+    from fei_tpu_torch.engine import GenerationConfig, InferenceEngine
+    from fei_tpu_torch.engine.weights import restore_checkpoint, save_checkpoint
+    from fei_tpu_torch.ops.quant import QTensor, QTensor4, dequantize_params, param_bytes
+
+    t0 = time.perf_counter()
+    with env_vars(FEI_TPU_INT4_LM_HEAD="1", FEI_TPU_QUANT_EMBED="1"):
+        eng = InferenceEngine.from_config(
+            "llama3-8b", dtype=torch.bfloat16, seed=SEED, max_seq_len=8192, device="cuda",
+            quantize="int4", num_layers=SERVE_LAYERS)
+    torch.cuda.synchronize()
+    cfg, L = eng.cfg, eng.cfg.num_layers
+    head, embed = eng.params["lm_head"], eng.params["embed"]
+    nbytes = param_bytes(eng.params)
+    log(f"int4 engine, FEI_TPU_INT4_LM_HEAD=1 FEI_TPU_QUANT_EMBED=1: lm_head "
+        f"{type(head).__name__} {tuple(head.p.shape) if isinstance(head, QTensor4) else ''}, "
+        f"embed {type(embed).__name__}; param_bytes {nbytes / 1e9:.6f} GB against "
+        f"{param_bytes(dense4.params) / 1e9:.6f} GB with both off; weights a decode step reads "
+        f"{weight_stream_bytes(eng.params) / 1e9:.6f} GB; random init in "
+        f"{time.perf_counter() - t0:.1f} s")
+    check(isinstance(head, QTensor4), f"FEI_TPU_INT4_LM_HEAD=1 left the LM head {type(head)}")
+    check(isinstance(embed, QTensor), f"FEI_TPU_QUANT_EMBED=1 left the embedding {type(embed)}")
+    check(torch.equal(eng.params["layers"]["w_down"].p, dense4.params["layers"]["w_down"].p),
+          "the switches changed the layers' draws")
+    check(nbytes < param_bytes(dense4.params), "the switches did not shrink param_bytes")
+    prompt = np.random.default_rng(SEED).integers(8, cfg.vocab_size, size=1500).tolist()
+
+    # this engine's path: every count from 0
+    reset_counts()
+    logits, _ = eng.prefill([prompt], eng.new_cache(1))
+    torch.cuda.synchronize()
+    prefill_k4 = read_counts()["int4_matmul"]
+    check(prefill_k4 == 7 * L + 1, f"the int4-head prefill launched int4_matmul {prefill_k4} "
+          f"times, expected {7 * L + 1} (7 linears x {L} layers + the head)")
+    check(torch.isfinite(logits).all().item(), "int4-head prefill logits not finite")
+    gen = GenerationConfig(max_new_tokens=QUANT_SWITCH_NEW, ignore_eos=True, chunk=16)
+    reset_counts()
+    d0 = counter("engine.decode_dispatches")
+    res = eng.generate(prompt, gen)
+    launches = read_counts()["int4_matmul"]
+    steps = int(counter("engine.decode_dispatches") - d0) * gen.chunk
+    check(launches == (7 * L + 1) * (1 + steps),
+          f"the int4-head generate launched int4_matmul {launches} times, expected "
+          f"{(7 * L + 1) * (1 + steps)} ((7 x {L} + 1) x (the prefill + {steps} decode steps))")
+    check(len(res.token_ids) == QUANT_SWITCH_NEW, "int4-head engine: wrong token count")
+    log(f"int4 engine, int4 LM head: {len(prompt)}-token prompt, {QUANT_SWITCH_NEW} greedy "
+        f"tokens on {card}: TTFT {res.ttft_s * 1e3:.1f} ms, decode "
+        f"{res.decode_tokens_per_s:.2f} tok/s; int4_matmul launches {launches} = "
+        f"(7 x {L} + 1) x {1 + steps} forwards (the head's {1 + steps} beside the linears' "
+        f"{7 * L * (1 + steps)})")
+
+    deq = InferenceEngine.from_config(
+        "llama3-8b", dtype=torch.bfloat16, max_seq_len=8192, device="cuda", num_layers=L,
+        params=dequantize_params(eng.params, torch.bfloat16, only=(QTensor4,)))
+    reset_counts()
+    plain, _ = deq.prefill([prompt], deq.new_cache(1))
+    want = deq.generate(prompt, gen).token_ids
+    check(read_counts()["int4_matmul"] == 0, "the dequantized engine launched int4_matmul")
+    rel = ((logits - plain).norm() / plain.norm()).item()
+    log(f"int4 engine, int4 LM head: last-position prefill logits vs the dequantized weights: "
+        f"max_abs_diff={(logits - plain).abs().max().item():.6g}, rel_l2={rel:.6g} (tol 3e-2), "
+        f"argmax {int(logits.argmax())} vs {int(plain.argmax())}")
+    check(rel <= 3e-2, f"int4-head vs dequantized prefill logits rel_l2 {rel} > 3e-2")
+    if want == res.token_ids:
+        log(f"int4 engine, int4 LM head: {QUANT_SWITCH_NEW} greedy tokens equal the "
+            f"dequantized weights'")
+    else:
+        j, gap, ulp = first_divergence(deq, prompt, want, res.token_ids)
+        log(f"int4 engine, int4 LM head: the stream first differs from the dequantized "
+            f"weights' at token {j}; their logit gap there {gap:.6g} ({gap / ulp:.3g} bf16 ulps)")
+        check(abs(gap) <= 2 * ulp, f"the int4-head stream leaves the dequantized one at token "
+              f"{j} with a logit gap of {gap / ulp:.3g} bf16 ulps, not a tie")
+    del deq, plain
+    torch.cuda.empty_cache()
+
+    # the engine-native weight checkpoint of this tree, on the card
+    tmp = tempfile.mkdtemp(prefix="fei_weights_")
+    try:
+        path = str(Path(tmp) / "int4")
+        t0 = time.perf_counter()
+        save_checkpoint(eng.params, path)
+        t_save = time.perf_counter() - t0
+        on_disk = sum(f.stat().st_size for f in Path(path).iterdir())
+        t0 = time.perf_counter()
+        back = restore_checkpoint(path)
+        torch.cuda.synchronize()
+        t_restore = time.perf_counter() - t0
+
+        def fields(tree, prefix=""):
+            for k, v in tree.items():
+                if isinstance(v, dict):
+                    yield from fields(v, f"{prefix}{k}/")
+                elif isinstance(v, tuple):
+                    for f in v._fields:
+                        yield f"{prefix}{k}.{f}", type(v), getattr(v, f)
+                else:
+                    yield f"{prefix}{k}", type(v), v
+
+        got = {name: (kind, t) for name, kind, t in fields(back)}
+        mine = list(fields(eng.params))
+        check(set(got) == {name for name, _, _ in mine}, "the restored tree has other leaves")
+        for name, kind, t in mine:
+            k2, t2 = got[name]
+            check(k2 is kind and t2.is_cuda and t2.dtype == t.dtype and torch.equal(t2, t),
+                  f"weights round trip: {name} did not come back bitwise as a {kind.__name__}")
+        log(f"weights: save_checkpoint / restore_checkpoint of the int4-head tree "
+            f"({len(mine)} tensors, {on_disk / 1e9:.6f} GB on disk) on {card}: save "
+            f"{t_save:.2f} s, restore to the card {t_restore:.2f} s; every tensor bitwise, "
+            f"lm_head a QTensor4 and embed a QTensor again")
+        del back, got
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    del eng
+    torch.cuda.empty_cache()
+    return {"int4_matmul": launches, "forwards": 1 + steps, "prefill": prefill_k4}
+
+
 def quant_paged_phase(dense4, card: str) -> dict:
     """The int4 weights behind the paged engine: four requests from
     threads, each stream held against the dense int4 engine's greedy
@@ -5517,6 +5718,82 @@ def tp_checkpoint(path: str) -> int:
     return max(t.numel() * t.element_size() for t in ts.values())
 
 
+TP_DP_ROWS = 4  # paged rows of each dp group of the dp2 engine (8 in all)
+
+
+def dp2_gauges(eng, prompts) -> dict:
+    """The scheduler gauges of a dp2 paged engine (rank 0), against its
+    mesh. Parked, with rows and queued requests placed by hand, one
+    ``_update_sched_gauges`` call must set ``engine.mesh_shape`` 2,
+    ``engine.mesh.dp`` 2 and every other axis 1, and each group's
+    ``scheduler.replica.<g>.slots`` / ``.queue_depth`` to its block's rows
+    and its share of the queue, as the JAX scheduler does. Then the tp
+    phase's prompts run through it, every gauge update is read as it
+    happens, and each group must have held rows, never more than its
+    block. Returns what was read."""
+    from types import SimpleNamespace
+
+    from fei_tpu_torch.parallel.mesh import AXES
+    from fei_tpu_torch.utils.metrics import METRICS
+
+    sched, mesh = eng.scheduler, eng.mesh
+    dp, rows = mesh.shape["dp"], sched.B
+    per = rows // dp
+    check(dp == 2 and rows == dp * TP_DP_ROWS, f"dp2 engine: dp {dp}, {rows} rows")
+    want_mesh = {"engine.mesh_shape": math.prod(mesh.shape.values()),
+                 **{f"engine.mesh.{ax}": mesh.shape[ax] for ax in AXES}}
+
+    def read() -> dict:
+        g = METRICS.snapshot()["gauges"]
+        return {k: v for k, v in g.items()
+                if k.startswith(("engine.mesh", "scheduler.replica."))
+                or k in ("scheduler.queue_depth", "scheduler.running_slots")}
+
+    # parked: rows 0, 2, 3 of the first block and row 0 of the second
+    # occupied, three requests queued
+    placed = [i % per in (0, 2, 3) if i < per else i % per == 0 for i in range(rows)]
+    for i, taken in enumerate(placed):
+        sched._slots[i] = SimpleNamespace(tenant="default", finished=False) if taken else None
+    sched._waiting.extend(SimpleNamespace(tenant="default", finished=False) for _ in range(3))
+    try:
+        sched._update_sched_gauges()
+        parked = read()
+    finally:
+        sched._slots[:] = [None] * rows
+        sched._waiting.clear()
+    want = dict(want_mesh, **{"scheduler.queue_depth": 3, "scheduler.running_slots": 4})
+    for g in range(dp):
+        want[f"scheduler.replica.{g}.slots"] = sum(placed[g * per:(g + 1) * per])
+        want[f"scheduler.replica.{g}.queue_depth"] = 3 // dp + (1 if g < 3 % dp else 0)
+    check(parked == want, f"dp2 parked gauges {parked}, expected {want}")
+
+    most = [0] * dp
+    wrong = []
+    real = sched._update_sched_gauges
+
+    def watched():
+        real()
+        now = read()
+        if any(now.get(k) != v for k, v in want_mesh.items()):
+            wrong.append(now)
+        for g in range(dp):
+            most[g] = max(most[g], now.get(f"scheduler.replica.{g}.slots", 0))
+
+    sched._update_sched_gauges = watched
+    try:
+        run = traffic(eng, prompts, TP_NEW)
+    finally:
+        del sched._update_sched_gauges
+    sched._update_sched_gauges()
+    idle = read()
+    check(not wrong, f"dp2 mesh gauges left the mesh's shape: {wrong[:2]}")
+    check(all(0 < m <= per for m in most), f"dp2 replica rows at most {most}, block {per}")
+    check(all(idle[f"scheduler.replica.{g}.{k}"] == 0 for g in range(dp)
+              for k in ("slots", "queue_depth")), f"dp2 gauges after the traffic: {idle}")
+    return {"parked": parked, "most_rows": most, "idle": idle,
+            "tok_s": sum(map(len, run["streams"])) / run["wall"]}
+
+
 def tp_rank_work(rank: int, workdir: str, params: dict) -> dict:
     """One rank's share of the tp phase. Every mesh engine is built on both
     ranks in the same order; rank 0 leads each (its traffic, its checks)
@@ -5606,6 +5883,14 @@ def tp_rank_work(rank: int, workdir: str, params: dict) -> dict:
         res["tp2_dispatches"] = eng._spmd_leader.dispatches
         eng.close()
     del eng
+    # dp2: each rank serves its block of the paged rows; the scheduler's
+    # mesh and replica gauges (F10) are held to the mesh
+    dp2 = InferenceEngine.from_config("llama3-8b", mesh="dp2", mesh_weights="replicated",
+                                      **dict(paged_kw, batch_size=TP_DP_ROWS))
+    if lead:
+        res["dp2"] = dp2_gauges(dp2, prompts)
+        dp2.close()
+    del dp2
     dense = InferenceEngine.from_config("llama3-8b", mesh="tp2", mesh_weights="replicated", **kw)
     if lead:
         res["turn_equal"] = dense.chat(turn, turn_gen).token_ids == ref_turn
@@ -6283,6 +6568,11 @@ def tp_report(ranks: list, card: str) -> dict:
         log(f"tp phase: rank {r} param_bytes {res['sharded_bytes']} (Megatron) vs "
             f"{res['replicated_bytes']} (replicated): {ratio:.4f}")
         check(0.45 <= ratio <= 0.55, f"rank {r}'s Megatron share is {ratio:.4f}")
+    d = r0["dp2"]
+    log(f"tp phase (dp2, {2 * TP_DP_ROWS} rows): scheduler gauges parked with placed rows "
+        f"{json.dumps(d['parked'], sort_keys=True)}; under the {len(SHORT_LENS + LONG_LENS)} "
+        f"prompts each group held at most {d['most_rows']} rows (block {TP_DP_ROWS}); after "
+        f"{json.dumps(d['idle'], sort_keys=True)}; {d['tok_s']:.2f} tok/s")
     log(f"tp phase (int4, wo/w_down int8): logits vs one rank on the same weights "
         f"bitwise {r0['int4_bitwise']}, rel_l2 {r0['int4_rel']:.6g} (tol {TP_TOL})")
     check(r0["int4_rel"] <= TP_TOL, f"int4 tp2 logits rel_l2 {r0['int4_rel']}")
@@ -6383,6 +6673,20 @@ def main() -> int:
         with ThreadPoolExecutor(len(KERNELS)) as pool:
             list(pool.map(build.build, KERNELS))
         log(f"parallel path: launches per rank {tp_phase(card, ('parallel',))[1]}")
+        return 0
+    if sys.argv[1:] == ["--quant"]:
+        with ThreadPoolExecutor(4) as pool:
+            list(pool.map(build.build, KERNELS[:1] + KERNELS[2:]))
+        from fei_tpu_torch.models.configs import get_model_config
+        from fei_tpu_torch.models.llama import init_params
+        from fei_tpu_torch.ops.quant import param_bytes
+
+        log(f"int4 kernel: {json.dumps(int4_kernel_phase(card))}")
+        # the bf16 tree's bytes at the same depth, from shapes alone
+        bf16_bytes = param_bytes(init_params(
+            get_model_config("llama3-8b", num_layers=SERVE_LAYERS), device="meta"))
+        dense4 = quant_dense_phase(card, bf16_bytes)
+        log(f"int4-head path: launches {quant_switches_phase(dense4, card)}")
         return 0
     if sys.argv[1:] == ["--tools"]:
         from fei_tpu_torch.engine import InferenceEngine
@@ -6513,9 +6817,12 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     dense4 = quant_dense_phase(card, bf16_bytes)
+    launches_head = quant_switches_phase(dense4, card)
     launches4 = quant_paged_phase(dense4, card)
     quant_provider_phase(dense4, card)
     int4_record["launches"] = launches4["int4_matmul"]
+    # the int4-head engine's generate: K4 on every linear and on the head
+    int4_record["launches_int4_head"] = launches_head
     records.append(int4_record)
     log(f"int4 paged path (main run): launches {launches4}")
     stamp("quantized")

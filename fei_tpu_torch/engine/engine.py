@@ -353,8 +353,8 @@ class InferenceEngine:
         kv_quant: str | None = None,
         prefix_cache: bool = False,
         params: dict | None = None,
-        int4_lm_head: bool = False,
-        quant_embed: bool = False,
+        int4_lm_head: bool | None = None,
+        quant_embed: bool | None = None,
         mesh=None,
         mesh_weights: str | None = None,
         long_prefill_min: int | None = None,
@@ -364,7 +364,9 @@ class InferenceEngine:
         ``params`` hands over an existing parameter dict instead (engines
         sharing weights). ``quantize`` ("int8" or "int4") quantizes the big
         linears as they are made or read; ``int4_lm_head`` puts the LM head
-        in int4 too and ``quant_embed`` row-quantizes the embedding table.
+        in int4 too and ``quant_embed`` row-quantizes the embedding table
+        (None, the default: as ``FEI_TPU_INT4_LM_HEAD`` /
+        ``FEI_TPU_QUANT_EMBED`` say, read where the JAX package reads them).
 
         ``mesh``: None reads ``FEI_TPU_MESH``; a spec ("tp2", "tp2dp2",
         "dp=2,tp=2") or a ``parallel.mesh.Mesh``. A mesh of more than one

@@ -22,8 +22,15 @@
   phase shares (the dense ``generate_stream_toolcalls`` and the paged
   scheduler's ``_grammar_advance``).
 
-The JAX package's kernel looping (``FEI_TPU_KERNEL_LOOP``) has no
-counterpart here.
+- ``resolve_kernel_loop`` reads the reference's kernel-looping factor
+  (``FEI_TPU_KERNEL_LOOP``, default 1): ``ChunkDecoder`` dispatches
+  ``chunk × factor`` steps at a time and sets the
+  ``engine.kernel_loop_depth`` gauge to steps × layers. The tokens do not
+  change (a stop still latches ``done`` on the device and the host
+  truncates at stops and the budget). The JAX package compiles the longer
+  chunk into one program; in this eager port each step still launches its
+  own kernels, so the factor saves host syncs (one per dispatched chunk),
+  not launches.
 """
 
 from __future__ import annotations
@@ -69,6 +76,18 @@ def resolve_chunk(gen_chunk: int = 0) -> int:
         return max(1, int(os.environ.get("FEI_TPU_DECODE_CHUNK", str(DEFAULT_CHUNK))))
     except ValueError:
         return DEFAULT_CHUNK
+
+
+def resolve_kernel_loop() -> int:
+    """Kernel-looping factor of the fused free-phase chunk
+    (``FEI_TPU_KERNEL_LOOP``, default 1 = off; 0, a negative number or
+    anything that is not an integer reads as 1). A factor of L makes each
+    dispatched chunk ``chunk × L`` steps long: L× fewer host syncs, at
+    the cost of up to L× the steps computed past a stop."""
+    try:
+        return max(1, int(os.environ.get("FEI_TPU_KERNEL_LOOP", "1")))
+    except ValueError:
+        return 1
 
 
 def build_fused_decode(fwd: Callable, cfg, gen, n_steps: int) -> Callable:
@@ -151,7 +170,9 @@ class ChunkDecoder:
         self._done = torch.zeros((self._token.shape[0],), dtype=torch.bool, device=device)
         self._stop_ids = torch.tensor(sorted(stops), dtype=torch.int32, device=device)
         self._fed = fed
-        self._chunk = max(1, int(chunk))
+        # kernel looping: each dispatch runs chunk × factor steps; its
+        # tokens are read back once, as one chunk
+        self._chunk = max(1, int(chunk)) * resolve_kernel_loop()
         self._want = want
         self._sched = 0
         self._slots_left = engine.max_seq_len - fed - 1
@@ -164,6 +185,7 @@ class ChunkDecoder:
                 n = min(self._chunk, self._slots_left)
                 fused = self._engine._free_fused_fn(self._gen, n)
                 METRICS.incr("engine.decode_dispatches")
+                METRICS.gauge("engine.kernel_loop_depth", n * self._engine.cfg.num_layers)
                 t0 = time.perf_counter()
                 toks, self._cache, self._token, self._key, self._done, keys = fused(
                     self._engine.params, self._cache, self._token,

@@ -432,6 +432,7 @@ class DecodeMixin:
                         n_steps=n, slots=len(active), **extra)
         ctx = sum(len(s.prompt_ids) + len(s.generated) for _, s in active)
         if pc is not None:
+            METRICS.gauge("engine.kernel_loop_depth", n * eng.cfg.num_layers)
             costmodel.account_ragged_dispatch(eng, n, ctx, len(active),
                                               pc["hi"] - pc["lo"], pc["lo"], t1 - t0)
         else:

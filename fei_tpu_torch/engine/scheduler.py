@@ -95,6 +95,7 @@ speculation off (the JAX package's ``scheduler.spec_disabled``) either.
 
 from __future__ import annotations
 
+import math
 import os
 import queue
 import threading
@@ -114,7 +115,7 @@ from fei_tpu_torch.engine.sched_decode import DecodeMixin
 from fei_tpu_torch.engine.tenancy import TenantBook, clamp_priority, sanitize_tenant
 from fei_tpu_torch.obs.flight import FLIGHT
 from fei_tpu_torch.obs.trace import TRACES
-from fei_tpu_torch.parallel.mesh import mesh_geometry
+from fei_tpu_torch.parallel.mesh import AXES, axis_size, mesh_geometry
 from fei_tpu_torch.utils.errors import (
     DeadlineExceededError,
     DeviceError,
@@ -902,8 +903,27 @@ class PagedScheduler(AdmissionMixin, DecodeMixin, ConstraintMixin):
         METRICS.incr(f"scheduler.requests_{status}")
 
     def _update_sched_gauges(self) -> None:
+        """Occupancy gauges: queue depth, running slots, the page pool, the
+        mesh's shape and each dp replica group's occupancy (the reference's
+        names and values), and the tenants' shares."""
         METRICS.gauge("scheduler.queue_depth", len(self._waiting))
         METRICS.gauge("scheduler.running_slots", sum(1 for s in self._slots if s is not None))
+        mesh = self.engine.mesh
+        sizes = {ax: axis_size(mesh, ax) for ax in AXES}
+        METRICS.gauge("engine.mesh_shape", math.prod(sizes.values()))
+        for ax, n in sizes.items():
+            METRICS.gauge(f"engine.mesh.{ax}", n)
+        dp = sizes["dp"]
+        if dp > 1 and self.B % dp == 0:
+            # the batch rows stripe over the dp groups in contiguous blocks
+            # (the rows each rank's kernels take)
+            per = self.B // dp
+            waiting = len(self._waiting)
+            for g in range(dp):
+                METRICS.gauge(f"scheduler.replica.{g}.slots",
+                              sum(1 for s in self._slots[g * per:(g + 1) * per] if s is not None))
+                METRICS.gauge(f"scheduler.replica.{g}.queue_depth",
+                              waiting // dp + (1 if g < waiting % dp else 0))
         alloc = getattr(self.engine, "_allocator", None)
         if alloc is not None:
             total = alloc.num_pages - 1

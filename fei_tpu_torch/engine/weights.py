@@ -22,12 +22,18 @@ quantize alone (scales are per output column); an int8 leaf sharded over
 its contraction axis (the row-parallel ``wo``/``w_down``) reads the whole
 tensor on the host, quantizes it and keeps its rows, since its scales
 span every row. The ``replicated`` profile reads everything on every rank.
+
+``save_checkpoint(params, path)`` / ``restore_checkpoint(path)`` persist and
+restore a whole stacked parameter tree, quantized leaves included, in the
+port's safetensors format (the JAX package writes the same pair with
+orbax); see the section at the end of this module.
 """
 
 from __future__ import annotations
 
 import json
 import os
+import shutil
 from dataclasses import replace
 from types import SimpleNamespace
 
@@ -42,10 +48,13 @@ from fei_tpu_torch.ops.quant import (
     QTensor,
     QTensor4,
     _int4_ok,
+    quant_embed_from_env,
     stack_layers,
 )
 from fei_tpu_torch.utils.errors import CheckpointError
+from fei_tpu_torch.utils.fsync import fsync_dir, fsync_file
 from fei_tpu_torch.utils.logging import get_logger
+from fei_tpu_torch.utils.tree import SEP, unflatten
 
 log = get_logger("engine.weights")
 
@@ -205,8 +214,8 @@ def load_checkpoint(
     dtype=torch.bfloat16,
     device: torch.device | str = "cpu",
     quantize: str | None = None,
-    int4_lm_head: bool = False,
-    quant_embed: bool = False,
+    int4_lm_head: bool | None = None,
+    quant_embed: bool | None = None,
     mesh=None,
     weights: str | None = None,
     int4_exclude: frozenset = frozenset(),
@@ -218,14 +227,19 @@ def load_checkpoint(
     ``quantize="int4"``: the leaves ``ops.quant._int4_ok`` allows (not
     lm_head unless ``int4_lm_head``; contraction divisible by 256) land as
     ``QTensor4``, the rest as int8 ``QTensor``. ``quant_embed`` (with a
-    mode) row-quantizes the embedding table. A Mixtral's experts load
-    stacked [L, E, in, out], quantized one layer at a time (int8 under
-    either mode). ``int4_exclude`` names leaves kept int8.
+    mode) row-quantizes the embedding table. Either switch left None
+    reads the JAX loader's variable where it reads it
+    (``FEI_TPU_QUANT_EMBED`` here, ``FEI_TPU_INT4_LM_HEAD`` in ``_int4_ok``).
+    A Mixtral's experts load stacked [L, E, in, out], quantized one layer
+    at a time (int8 under either mode). ``int4_exclude`` names leaves kept
+    int8.
 
     ``mesh`` with ``weights="sharded"``: this rank's slices only (see the
     module docstring)."""
     if quantize not in QUANT_MODES:
         raise CheckpointError(f"unsupported quantize mode: {quantize!r}")
+    if quant_embed is None:
+        quant_embed = quant_embed_from_env()
     from safetensors import safe_open
 
     cfg = _merge_hf_config(ckpt_dir, cfg)
@@ -405,3 +419,170 @@ def _merge_hf_config(ckpt_dir: str, cfg: ModelConfig) -> ModelConfig:
                 "mis-window layers"
             )
     return replace(cfg, **fields)
+
+
+# -- the engine-native weight checkpoint ----------------------------------
+#
+# ``save_checkpoint(params, path)`` / ``restore_checkpoint(path)`` persist a
+# whole stacked parameter tree, quantized leaves included (counterpart of
+# fei_tpu/engine/weights.py's pair, which writes with orbax). The port keeps
+# its own format: ``<path>/params.safetensors`` (one tensor per leaf, a
+# quantized leaf field by field under ``<leaf>/q`` or ``/p`` and ``/s``) beside
+# ``<path>/meta.json``, which records the leaves' order and which of them are
+# ``QTensor``/``QTensor4``. Both files are fsynced in a temporary directory
+# that is then renamed into place.
+
+_PARAMS_FILE = "params.safetensors"
+_PARAMS_META = "meta.json"
+_PARAMS_FORMAT = "fei_tpu_torch.params/1"
+
+
+def _is_qtensor_shaped(q, s) -> bool:
+    """True iff ``s``'s shape is ``q``'s with exactly one axis collapsed to 1
+    (or none: a contraction axis of size 1), the layout ``quantize`` makes
+    (fei_tpu.engine.weights._is_qtensor_shaped)."""
+    qs, ss = tuple(q.shape), tuple(s.shape)
+    if len(qs) != len(ss):
+        return False
+    mismatch = [i for i, (a, b) in enumerate(zip(qs, ss)) if a != b]
+    return len(mismatch) == 0 or (len(mismatch) == 1 and ss[mismatch[0]] == 1)
+
+
+def _is_qtensor4_shaped(p, s) -> bool:
+    """The ``QTensor4`` layout: packed [.., K/2, N] beside grouped scales
+    [.., K/g, N] whose group divides K into an even number of rows
+    (fei_tpu.engine.weights._is_qtensor4_shaped)."""
+    ps, ss = tuple(p.shape), tuple(s.shape)
+    if len(ps) != len(ss) or len(ps) < 2 or ps[:-2] != ss[:-2] or ps[-1] != ss[-1]:
+        return False
+    K, G = 2 * ps[-2], ss[-2]
+    return G > 1 and K % G == 0 and (K // G) % 2 == 0
+
+
+def _check_quantized(path: str, leaf) -> None:
+    """Refuse a ``QTensor``/``QTensor4`` whose fields are not that layout:
+    int8 values beside fp32 scales of the shape the quantizer makes."""
+    if isinstance(leaf, QTensor4):
+        values, shaped = leaf.p, _is_qtensor4_shaped(leaf.p, leaf.s)
+    else:
+        values, shaped = leaf.q, _is_qtensor_shaped(leaf.q, leaf.s)
+    if values.dtype != torch.int8 or leaf.s.dtype != torch.float32 or not shaped:
+        raise CheckpointError(
+            f"{path}: a {type(leaf).__name__} of {values.dtype} {tuple(values.shape)} with "
+            f"{leaf.s.dtype} scales {tuple(leaf.s.shape)} is not that layout")
+
+
+def _own(t: torch.Tensor) -> torch.Tensor:
+    """``t`` as a tensor that owns its storage (the file format refuses
+    tensors that share memory, such as layer views of a deeper tree)."""
+    whole = t.untyped_storage().nbytes() == t.numel() * t.element_size()
+    return t if t.is_contiguous() and t.storage_offset() == 0 and whole else t.clone()
+
+
+def save_checkpoint(params: dict, path: str) -> None:
+    """Persist the stacked parameter dict ``params`` (plain tensors,
+    ``QTensor`` and ``QTensor4`` leaves, nested dicts) under the directory
+    ``path``, replacing what is there. Any other leaf, or a quantized leaf
+    of another layout, raises ``CheckpointError`` and writes nothing."""
+    from safetensors.torch import save_file
+
+    flat: dict[str, torch.Tensor] = {}
+    types: dict[str, str] = {}
+
+    def walk(node, prefix: str) -> None:
+        for key, value in node.items():
+            if not isinstance(key, str) or SEP in key:
+                raise CheckpointError(f"parameter key {key!r} under {prefix or 'the root'!r} "
+                                      f"is not a name without {SEP!r}")
+            name = f"{prefix}{SEP}{key}" if prefix else key
+            if isinstance(value, dict):
+                walk(value, name)
+            elif isinstance(value, (QTensor, QTensor4)):
+                _check_quantized(name, value)
+                types[name] = type(value).__name__
+                for field in value._fields:
+                    flat[f"{name}{SEP}{field}"] = _own(getattr(value, field).detach())
+            elif isinstance(value, torch.Tensor):
+                flat[name] = _own(value.detach())
+            else:
+                raise CheckpointError(f"{name}: a {type(value).__name__} is not a parameter "
+                                      "leaf (tensor, QTensor or QTensor4)")
+
+    walk(params, "")
+    path = os.path.abspath(path)
+    parent = os.path.dirname(path)
+    os.makedirs(parent, exist_ok=True)
+    tmp = f"{path}.tmp-{os.getpid()}"
+    old = f"{path}.old-{os.getpid()}"
+    shutil.rmtree(tmp, ignore_errors=True)
+    os.makedirs(tmp)
+    try:
+        file = os.path.join(tmp, _PARAMS_FILE)
+        save_file(flat, file)
+        fsync_file(file)
+        meta = os.path.join(tmp, _PARAMS_META)
+        with open(meta, "w", encoding="utf-8") as f:
+            # the file format sorts its tensors; the tree comes back in the
+            # order it was saved in
+            json.dump({"format": _PARAMS_FORMAT, "order": list(flat), "types": types}, f)
+        fsync_file(meta)
+        fsync_dir(tmp)
+        if os.path.exists(path):
+            os.replace(path, old)
+        os.replace(tmp, path)
+        fsync_dir(parent)
+    except BaseException:
+        shutil.rmtree(tmp, ignore_errors=True)
+        if os.path.exists(old) and not os.path.exists(path):
+            os.replace(old, path)
+        raise
+    shutil.rmtree(old, ignore_errors=True)
+    log.info("saved %d parameter tensors (%d quantized leaves) -> %s", len(flat), len(types),
+             path)
+
+
+def restore_checkpoint(path: str, device: torch.device | str = "cuda") -> dict:
+    """The parameter dict ``save_checkpoint`` wrote under ``path``, on
+    ``device`` (the card unless the caller asks for the CPU; without a
+    card the default raises), each tensor bitwise as it was saved and each
+    quantized leaf rebuilt as its ``QTensor``/``QTensor4``. A directory
+    that is not this format, or a quantized leaf whose fields are not that
+    layout, raises ``CheckpointError``."""
+    from safetensors.torch import load_file
+
+    from fei_tpu_torch.engine.engine import resolve_device
+
+    device = resolve_device(device)
+    path = os.path.abspath(path)
+    meta_path = os.path.join(path, _PARAMS_META)
+    try:
+        with open(meta_path, encoding="utf-8") as f:
+            meta = json.load(f)
+        loaded = load_file(os.path.join(path, _PARAMS_FILE))
+    except (OSError, ValueError) as exc:
+        raise CheckpointError(f"no parameter checkpoint readable under {path}: {exc}") from exc
+    if meta.get("format") != _PARAMS_FORMAT or set(meta.get("order", ())) != set(loaded):
+        raise CheckpointError(f"{path} is not a {_PARAMS_FORMAT} checkpoint, or its tensors "
+                              "are not the ones its meta.json lists")
+    kinds = {"QTensor": QTensor, "QTensor4": QTensor4}
+    flat = {}
+    for name in meta["order"]:
+        t = loaded[name]
+        # a copy into memory of the device's allocator: the loaded tensor
+        # may sit unaligned in the file's buffer
+        flat[name] = torch.empty(t.shape, dtype=t.dtype, device=device).copy_(t)
+    tree = unflatten(flat)
+    for name, kind in meta.get("types", {}).items():
+        cls = kinds.get(kind)
+        *parents, key = name.split(SEP)
+        node = tree
+        for part in parents:
+            node = node.get(part) if isinstance(node, dict) else None
+        fields = node.get(key) if isinstance(node, dict) else None
+        if cls is None or not isinstance(fields, dict) or set(fields) != set(cls._fields):
+            raise CheckpointError(f"{path}: leaf {name} is recorded as {kind} but holds "
+                                  f"{sorted(fields) if isinstance(fields, dict) else fields!r}")
+        leaf = cls(**fields)
+        _check_quantized(name, leaf)
+        node[key] = leaf
+    return tree

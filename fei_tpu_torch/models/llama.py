@@ -69,6 +69,7 @@ from fei_tpu_torch.ops.quant import (
     mm,
     quantize as _quantize8,
     quantize4 as _quantize4,
+    quant_embed_from_env,
     quantize_embed,
     stack_layers,
     tied_logits,
@@ -114,8 +115,8 @@ def init_params(
     dtype=torch.bfloat16,
     device: torch.device | str = "cpu",
     quantize: str | None = None,
-    int4_lm_head: bool = False,
-    quant_embed: bool = False,
+    int4_lm_head: bool | None = None,
+    quant_embed: bool | None = None,
     int4_exclude: frozenset = frozenset(),
 ) -> dict:
     """Random-init parameter dict (layers stacked on axis 0), made on
@@ -128,13 +129,17 @@ def init_params(
     time so the fp32 transient stays one layer big): int4 where
     ``ops.quant._int4_ok`` allows it (``int4_lm_head`` opts the LM head
     in), int8 elsewhere and for the leaves named in ``int4_exclude`` (a tp
-    mesh's row-parallel ``wo``/``w_down``). ``quant_embed`` (with a mode) row-quantizes the
-    embedding table to int8. MoE configs draw ``router`` [L, h, E] and the
+    mesh's row-parallel ``wo``/``w_down``). ``quant_embed`` (with a mode)
+    row-quantizes the embedding table to int8. Either switch left None
+    reads the JAX package's variable, as its ``init_params`` does
+    (``FEI_TPU_QUANT_EMBED`` here, ``FEI_TPU_INT4_LM_HEAD`` in ``_int4_ok``). MoE configs draw ``router`` [L, h, E] and the
     stacked experts ``w_gate``/``w_up`` [L, E, h, I] and ``w_down``
     [L, E, I, h] (int8 under either mode), one layer's [E, in, out] at a
     time."""
     if quantize not in QUANT_MODES:
         raise ValueError(f"unsupported quantize mode {quantize!r}; one of {QUANT_MODES}")
+    if quant_embed is None:
+        quant_embed = quant_embed_from_env()
     # the meta device (shapes only) draws nothing and has no generator
     gen = (None if torch.device(device).type == "meta"
            else torch.Generator(device=device).manual_seed(seed))

@@ -26,6 +26,7 @@ to their results (``scale_expert_out``, ``scale_rows``).
 
 from __future__ import annotations
 
+import os
 from typing import NamedTuple
 
 import torch
@@ -219,11 +220,21 @@ def scale_rows(out: torch.Tensor, w, expert_ids: torch.Tensor) -> torch.Tensor:
     return out * w.s.squeeze(-2)[expert_ids].to(out.dtype)
 
 
-def _int4_ok(key: str, w, moe: bool, int4_lm_head: bool = False) -> bool:
+def quant_embed_from_env() -> bool:
+    """``FEI_TPU_QUANT_EMBED == "1"``: the JAX package's opt-in to an int8
+    embedding table with per-row scales under a quantize mode
+    (fei_tpu/models/llama.py::init_params, fei_tpu/engine/weights.py)."""
+    return os.environ.get("FEI_TPU_QUANT_EMBED") == "1"
+
+
+def _int4_ok(key: str, w, moe: bool, int4_lm_head: bool | None = None) -> bool:
     """Whether a big-linear leaf takes int4 in mixed int4/int8 mode:
     lm_head stays int8 unless ``int4_lm_head`` (the most scale-sensitive
-    linear), stacked MoE experts stay int8, and the contraction must
-    divide by 2*INT4_GROUP. ``w`` needs only a ``.shape``."""
+    linear; None reads ``FEI_TPU_INT4_LM_HEAD``, as the JAX package does),
+    stacked MoE experts stay int8, and the contraction must divide by
+    2*INT4_GROUP. ``w`` needs only a ``.shape``."""
+    if int4_lm_head is None:
+        int4_lm_head = os.environ.get("FEI_TPU_INT4_LM_HEAD") == "1"
     if key == "lm_head" and not int4_lm_head:
         return False
     if moe and key in ("w_gate", "w_up", "w_down"):
@@ -231,10 +242,11 @@ def _int4_ok(key: str, w, moe: bool, int4_lm_head: bool = False) -> bool:
     return w.shape[-2] % (2 * INT4_GROUP) == 0
 
 
-def quantize_params(params: dict, bits: int = 8, int4_lm_head: bool = False) -> dict:
+def quantize_params(params: dict, bits: int = 8, int4_lm_head: bool | None = None) -> dict:
     """Quantize the big linear weights of a stacked param dict in place of
     their float leaves; norms, router and embed are left as they are.
-    ``bits=4``: int4 where ``_int4_ok`` allows it, int8 elsewhere."""
+    ``bits=4``: int4 where ``_int4_ok`` allows it, int8 elsewhere
+    (``int4_lm_head`` None: as ``FEI_TPU_INT4_LM_HEAD`` says)."""
     moe = isinstance(params.get("layers"), dict) and "router" in params["layers"]
 
     def leaf(k, v):

@@ -13,6 +13,8 @@
   prints what ``python -m fei_tpu`` prints; what the port lacks exits
   non-zero naming its roadmap module."""
 
+import torch_threads  # noqa: F401  (first: one torch thread per test process)
+
 import asyncio
 import http.server
 import json

@@ -10,6 +10,8 @@ exercised end-to-end against MemdirServer / MemorychainNode threads.
 
 from __future__ import annotations
 
+import torch_threads  # noqa: F401  (first: one torch thread per test process)
+
 import pytest
 
 from fei_tpu_torch.memory.memdir.server import MemdirServer

@@ -14,6 +14,8 @@
   stream whose trigger lands mid-chunk equals the per-token stream, dense
   and paged."""
 
+import torch_threads  # noqa: F401  (first: one torch thread per test process)
+
 import concurrent.futures as cf
 import dataclasses
 

@@ -5,6 +5,8 @@ FEI_TPU_PROCESS_ID) join one group through ``initialize()``, see each other
 in ``process_info()`` and run collectives over a mesh bound to the group;
 without the variables ``initialize`` is a no-op, and half of them raise."""
 
+import torch_threads  # noqa: F401  (first: one torch thread per test process)
+
 import sys
 from pathlib import Path
 

@@ -4,6 +4,8 @@
 gloo group, and over two gloo ranks (tests/torch_mesh_ranks.py's two-rank
 group) against fei_tpu's on a two-device CPU mesh (its row 0)."""
 
+import torch_threads  # noqa: F401  (first: one torch thread per test process)
+
 import sys
 from pathlib import Path
 

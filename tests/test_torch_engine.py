@@ -8,6 +8,8 @@ streams of the two engines are held against each other in
 tests/test_torch_seeded_parity.py.
 """
 
+import torch_threads  # noqa: F401  (first: one torch thread per test process)
+
 import jax
 import jax.numpy as jnp
 import numpy as np

@@ -21,6 +21,8 @@ same fp32 formulas in another summation order).
   as the reference's ``routed = mesh is None`` does.
 """
 
+import torch_threads  # noqa: F401  (first: one torch thread per test process)
+
 import itertools
 import sys
 from pathlib import Path

@@ -10,6 +10,8 @@ jax is imported inside the parity test only, so that the ``cuda`` test
 also runs where jax is not installed (``pytest -m cuda --noconftest``).
 """
 
+import torch_threads  # noqa: F401  (first: one torch thread per test process)
+
 import numpy as np
 import pytest
 import torch

@@ -14,6 +14,8 @@ reports; ``tests/test_torch_flash_bwd.py`` and chip_smoke.py hold the
 kernels against the plain backward.
 """
 
+import torch_threads  # noqa: F401  (first: one torch thread per test process)
+
 import numpy as np
 import pytest
 import torch

@@ -20,6 +20,8 @@
 
 from __future__ import annotations
 
+import torch_threads  # noqa: F401  (first: one torch thread per test process)
+
 import io
 import json
 import threading

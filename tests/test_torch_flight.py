@@ -19,6 +19,8 @@ fei_tpu's.
 
 from __future__ import annotations
 
+import torch_threads  # noqa: F401  (first: one torch thread per test process)
+
 import json
 import threading
 

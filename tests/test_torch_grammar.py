@@ -6,6 +6,8 @@ tokenizer, the lifted tables (``table``, ``min_dist``, ``accepting_states``,
 ``toolcall_stream_mask_fn`` agree on the same streams; the device tables
 pad with -1, keep int16 and are memoized per (vocab, device)."""
 
+import torch_threads  # noqa: F401  (first: one torch thread per test process)
+
 import numpy as np
 import pytest
 import torch

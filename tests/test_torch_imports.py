@@ -1,6 +1,8 @@
 """fei_tpu_torch stands alone: importing it and every submodule loads
 neither jax nor any module of the JAX package (fei_tpu, fei_tpu.*)."""
 
+import torch_threads  # noqa: F401  (first: one torch thread per test process)
+
 import json
 import subprocess
 import sys

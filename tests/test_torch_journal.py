@@ -20,6 +20,8 @@ closed.
 
 from __future__ import annotations
 
+import torch_threads  # noqa: F401  (first: one torch thread per test process)
+
 import os
 import shutil
 import struct

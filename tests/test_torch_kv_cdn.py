@@ -25,6 +25,8 @@ prefix hit's stream equals the JAX package's paged stream.
 
 from __future__ import annotations
 
+import torch_threads  # noqa: F401  (first: one torch thread per test process)
+
 import base64
 import json
 import os

@@ -23,6 +23,8 @@ single pool as the canonical pages and serves a prefix hit.
 
 from __future__ import annotations
 
+import torch_threads  # noqa: F401  (first: one torch thread per test process)
+
 import base64
 import json
 import struct

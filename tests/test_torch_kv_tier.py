@@ -28,6 +28,8 @@ and ``fei_tpu_torch.kv.tier`` round-trips a bf16 entry in a process where
 
 from __future__ import annotations
 
+import torch_threads  # noqa: F401  (first: one torch thread per test process)
+
 import base64
 import os
 import subprocess

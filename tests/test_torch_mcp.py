@@ -11,6 +11,8 @@ exercising the actual pipe/reader-thread/process-group machinery.
 
 from __future__ import annotations
 
+import torch_threads  # noqa: F401  (first: one torch thread per test process)
+
 import json
 import sys
 import threading

@@ -4,6 +4,8 @@ cross-package checks at the end of this file.
 Memdir subsystem tests: store atomicity, search QL, filters, archiver,
 folders, HTTP server (in-process), CLI."""
 
+import torch_threads  # noqa: F401  (first: one torch thread per test process)
+
 import json
 import os
 import time

@@ -6,6 +6,8 @@ in-process Memdir server, plus MemoryManager fan-out over both stores."""
 
 from __future__ import annotations
 
+import torch_threads  # noqa: F401  (first: one torch thread per test process)
+
 import pytest
 
 from fei_tpu_torch.memory.memdir.server import MemdirServer

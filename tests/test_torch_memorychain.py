@@ -5,6 +5,8 @@ Memorychain tests: blocks/PoW, wallet, multi-node loopback consensus,
 task lifecycle with rewards, chain sync, HTTP node federation — the
 hermetic distributed tests the reference lacks (SURVEY.md §4)."""
 
+import torch_threads  # noqa: F401  (first: one torch thread per test process)
+
 import json
 import urllib.request
 

@@ -7,6 +7,8 @@ follow on the JAX oracle path. Norm and bias leaves are randomized (init
 makes them 1 and 0, which would hide their math). Tolerance: atol 2e-4 on fp32 logits of magnitude
 ~1 — summation order through a few layers."""
 
+import torch_threads  # noqa: F401  (first: one torch thread per test process)
+
 import jax
 import jax.numpy as jnp
 import numpy as np

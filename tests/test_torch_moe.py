@@ -14,6 +14,8 @@ mixture, ties in the router take the lower expert first as
 and under int4 the experts stay int8.
 """
 
+import torch_threads  # noqa: F401  (first: one torch thread per test process)
+
 import jax
 import jax.numpy as jnp
 import numpy as np

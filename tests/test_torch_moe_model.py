@@ -16,6 +16,8 @@ fei_tpu's, on the CPU in fp32 with the same weights (``params_from_jax``).
   expert-parallel branch raises naming roadmap module C4.
 """
 
+import torch_threads  # noqa: F401  (first: one torch thread per test process)
+
 import jax
 import jax.numpy as jnp
 import numpy as np

@@ -4,6 +4,8 @@ cross-package checks at the end of this file.
 Native C++ scan engine: build, correctness vs the Python scan path, and
 the fallback contract (regex patterns and disabled-native return None)."""
 
+import torch_threads  # noqa: F401  (first: one torch thread per test process)
+
 import os
 
 import pytest

@@ -6,6 +6,8 @@ counterpart of scripts/metrics_lint.py, with a negative case)."""
 
 from __future__ import annotations
 
+import torch_threads  # noqa: F401  (first: one torch thread per test process)
+
 import json
 import re
 import types

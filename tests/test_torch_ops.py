@@ -4,6 +4,8 @@ partial rotary) and the plain GQA attention (ragged kv_length, window).
 Tolerance: atol 1e-5 — both sides compute in fp32 and differ only in
 summation order."""
 
+import torch_threads  # noqa: F401  (first: one torch thread per test process)
+
 from dataclasses import replace
 
 import jax.numpy as jnp

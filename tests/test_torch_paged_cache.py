@@ -6,6 +6,8 @@ operations to the same state. Inputs come from numpy with a fixed seed;
 pools must be bitwise equal (the writes are copies, and the int8 rule is
 the same IEEE arithmetic on both sides)."""
 
+import torch_threads  # noqa: F401  (first: one torch thread per test process)
+
 import jax.numpy as jnp
 import numpy as np
 import pytest

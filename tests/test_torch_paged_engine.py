@@ -9,6 +9,8 @@ mid-chunk that does not wedge the loop. Failure domains: a kernel
 failure fails the in-flight requests through ``_fail_all`` and is never
 rerouted; a host fault at delivery fails only its own request."""
 
+import torch_threads  # noqa: F401  (first: one torch thread per test process)
+
 import concurrent.futures as cf
 import dataclasses
 import time

@@ -12,6 +12,8 @@ and a rope away from the embeddings); int8 pools may differ by one
 quantization step where a value sits on a rounding boundary after those
 fp32 differences, and their scales by 1e-5 relative."""
 
+import torch_threads  # noqa: F401  (first: one torch thread per test process)
+
 import jax
 import jax.numpy as jnp
 import numpy as np

@@ -22,6 +22,8 @@ same position (what a resumed sequence relies on).
 jax is imported inside the parity tests only.
 """
 
+import torch_threads  # noqa: F401  (first: one torch thread per test process)
+
 import numpy as np
 import pytest
 import torch

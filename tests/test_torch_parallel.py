@@ -8,6 +8,8 @@ reference serves (tests/torch_mesh_ranks.py's parallel groups). Mirrors
 tests/test_sharded_serving.py (TestMeshEnv) and tests/test_parallel.py's
 mesh cases."""
 
+import torch_threads  # noqa: F401  (first: one torch thread per test process)
+
 import sys
 from pathlib import Path
 

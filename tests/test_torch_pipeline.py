@@ -15,6 +15,8 @@ reference's own tests hold it (tests/test_pipeline.py, tests/test_phi.py).
   and streams fei_tpu's single-chip greedy tokens.
 """
 
+import torch_threads  # noqa: F401  (first: one torch thread per test process)
+
 import sys
 from pathlib import Path
 

@@ -8,6 +8,8 @@ sampled tokens are held equal and a mismatch reports the winning
 noise-plus-logit gap instead of passing under a tolerance.
 """
 
+import torch_threads  # noqa: F401  (first: one torch thread per test process)
+
 import jax
 import jax.numpy as jnp
 import numpy as np

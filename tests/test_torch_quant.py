@@ -18,6 +18,8 @@ jax is imported inside the parity tests only, so that the ``cuda`` tests
 also run where jax is not installed (``pytest -m cuda --noconftest``).
 """
 
+import torch_threads  # noqa: F401  (first: one torch thread per test process)
+
 import numpy as np
 import pytest
 import torch

@@ -14,6 +14,8 @@ layers, so every linear's contraction divides by 256 and takes int4.
 - Checkpoint loads: packed bytes bit-equal, scales rtol 1e-6.
 """
 
+import torch_threads  # noqa: F401  (first: one torch thread per test process)
+
 import concurrent.futures as cf
 
 import jax

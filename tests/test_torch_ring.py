@@ -21,6 +21,8 @@ formulas in another summation order.
   tests/test_long_prefill_engine.py).
 """
 
+import torch_threads  # noqa: F401  (first: one torch thread per test process)
+
 import sys
 from pathlib import Path
 

@@ -14,6 +14,8 @@ the CPU, tests/test_torch_model.py), the streams must be token-identical:
 Each JAX stream is computed once per module.
 """
 
+import torch_threads  # noqa: F401  (first: one torch thread per test process)
+
 import dataclasses
 
 import jax

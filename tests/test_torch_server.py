@@ -4,6 +4,8 @@ and as SSE, with completion text identical to the JAX server's. A tools
 request with constrain_tools on (the default) takes the tool grammar's
 route in both servers and returns the same tool call."""
 
+import torch_threads  # noqa: F401  (first: one torch thread per test process)
+
 import json
 
 import jax

@@ -7,6 +7,8 @@ whose propagated deadline has passed and counting a labelled tenant."""
 
 from __future__ import annotations
 
+import torch_threads  # noqa: F401  (first: one torch thread per test process)
+
 import dataclasses
 
 import pytest

@@ -28,6 +28,8 @@ each claim still counts on its own:
   ``mesh: "tp2"`` on /health and stops both ranks on SIGTERM.
 """
 
+import torch_threads  # noqa: F401  (first: one torch thread per test process)
+
 import json
 import os
 import signal

@@ -15,6 +15,8 @@ at the default learning rate; then the loss falls over five dp2tp2 steps,
 the twin of tests/test_parallel.py's sharded training test.
 """
 
+import torch_threads  # noqa: F401  (first: one torch thread per test process)
+
 import sys
 from pathlib import Path
 

@@ -6,6 +6,8 @@ the reference's, a rank's slices put back together give the whole tensor,
 and ``restore_checkpoint(shardings=)`` restores each rank's slice bitwise.
 No ranks run here: an unbound ``Mesh`` has a rank's coordinates."""
 
+import torch_threads  # noqa: F401  (first: one torch thread per test process)
+
 import functools
 
 import jax

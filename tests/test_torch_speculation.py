@@ -15,6 +15,8 @@ scheduler's speculation variables, and the provider's route under
 ``FEI_TPU_SPECULATE=1``.
 """
 
+import torch_threads  # noqa: F401  (first: one torch thread per test process)
+
 import json
 import threading
 import types

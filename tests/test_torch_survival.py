@@ -30,6 +30,8 @@ its own (ROADMAP.md §3).
 
 from __future__ import annotations
 
+import torch_threads  # noqa: F401  (first: one torch thread per test process)
+
 import os
 import shutil
 

@@ -5,6 +5,8 @@ TUI smoke tests (reference test_textual.py:1-68): construct the app,
 drive message/command dispatch headlessly, verify graceful degradation when
 the memdir server is unavailable."""
 
+import torch_threads  # noqa: F401  (first: one torch thread per test process)
+
 import asyncio
 
 import pytest

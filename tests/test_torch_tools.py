@@ -4,6 +4,8 @@ the same arguments on the same temporary tree, gives the same result
 (and leaves the same files); the registries hold the same schemas and
 validate the same way; the system-info tool names the CUDA devices."""
 
+import torch_threads  # noqa: F401  (first: one torch thread per test process)
+
 import shutil
 
 import pytest

@@ -19,6 +19,8 @@ the card is in tests/test_torch_flash_bwd.py, which imports no jax at
 module level.
 """
 
+import torch_threads  # noqa: F401  (first: one torch thread per test process)
+
 import subprocess
 import sys
 from pathlib import Path

@@ -3,6 +3,8 @@ HF LlamaForCausalLM (GQA; untied, tied, and with attention biases)
 written with save_pretrained, loaded by both packages, forward logits
 compared in fp32 (atol 1e-4: summation order through three layers)."""
 
+import torch_threads  # noqa: F401  (first: one torch thread per test process)
+
 import jax.numpy as jnp
 import numpy as np
 import pytest

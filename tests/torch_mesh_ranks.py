@@ -12,6 +12,8 @@ closes the engine. One-rank reference engines are built on rank 0 alone.
 
 from __future__ import annotations
 
+import torch_threads  # noqa: F401  (first: one torch thread per test process)
+
 import os
 import pickle
 import socket
@@ -60,6 +62,43 @@ def _streams(eng) -> dict:
     [t.join() for t in ts]
     out["seeded"] = list(eng.scheduler.stream(PROMPTS[0], _gen(seeded=True)))
     return out
+
+
+# a parked scheduler's occupancy, placed by hand for the gauge checks: the
+# slots (tiled over the scheduler's rows) and the queued requests
+GAUGE_SLOTS = (True, False, True, True)
+GAUGE_WAITING = 3
+
+
+def sched_gauges(sched, metrics) -> dict:
+    """The gauges one ``_update_sched_gauges`` call sets on a parked
+    scheduler (either package's; ``metrics`` is its registry) holding
+    GAUGE_SLOTS and GAUGE_WAITING placeholder requests; the scheduler is
+    emptied again after. Only what the call itself sets is returned, so
+    gauges other tests left in the process do not count."""
+    from types import SimpleNamespace
+
+    def placeholder():
+        return SimpleNamespace(tenant="default", finished=False)
+
+    set_now: dict = {}
+    real = metrics.gauge
+
+    def gauge(name, value, *a, **kw):
+        set_now[name] = value
+        return real(name, value, *a, **kw)
+
+    for i in range(sched.B):
+        sched._slots[i] = placeholder() if GAUGE_SLOTS[i % len(GAUGE_SLOTS)] else None
+    sched._waiting.extend(placeholder() for _ in range(GAUGE_WAITING))
+    metrics.gauge = gauge
+    try:
+        sched._update_sched_gauges()
+    finally:
+        del metrics.gauge
+        sched._slots[:] = [None] * sched.B
+        sched._waiting.clear()
+    return set_now
 
 
 def _param_bytes(params) -> int:
@@ -611,6 +650,16 @@ def case_parallel2(rank: int, world: int, args: dict) -> dict:
     for spec in ("dp2", "tp2"):
         losses, mine, _ = _train(P["tiny"], cfg, make_mesh(spec), TRAIN_STEPS, 1e-4, toks)
         res[f"train {spec}"] = (losses, _flat_np(mine))
+
+    # -- the mesh and replica gauges of a parked dp2 paged scheduler
+    eng = InferenceEngine.from_config("tiny", params=P["tiny"], mesh="dp2", paged=True,
+                                      batch_size=2, **kw)
+    if rank == 0:
+        from fei_tpu_torch.utils.metrics import METRICS
+
+        res["dp2_gauges"] = sched_gauges(eng.scheduler, METRICS)
+        res["dp2_slots"] = eng.scheduler.B
+        eng.close()
 
     # -- the bank exchange over both ranks
     import torch.distributed as dist
