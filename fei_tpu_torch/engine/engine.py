@@ -737,7 +737,17 @@ class InferenceEngine:
         Long prompts (>= ``long_prefill_min``) on a mesh with an sp axis
         prefill sequence-sharded: the whole model over ring or Ulysses
         attention (``parallel.long_prefill``), each rank holding T/n
-        tokens; the cache it returns has the same contract."""
+        tokens; the cache it returns has the same contract. While the
+        flight recorder captures, the call is an ``engine.prefill`` range."""
+        if not FLIGHT.capturing:
+            return self._prefill(prompt_ids, cache, flash)
+        r = FLIGHT.open("engine.prefill", rows=len(prompt_ids))
+        try:
+            return self._prefill(prompt_ids, cache, flash)
+        finally:
+            FLIGHT.close(r)
+
+    def _prefill(self, prompt_ids, cache: KVCache, flash: bool | None):
         B = len(prompt_ids)
         lengths = [len(p) for p in prompt_ids]
         max_len = max(lengths)
@@ -771,7 +781,7 @@ class InferenceEngine:
         ``PRNGKey(seed)`` after the first token's split. The flight record
         of the prefill waits for the caller's host copy of the token
         (``_host_first``): the prologue adds no sync of its own."""
-        t0 = time.perf_counter()
+        t0 = time.time()
         with METRICS.span("prefill", nvtx=True):
             last_logits, cache = self.prefill([list(prompt_ids)], self.new_cache(1))
             if mask is not None:
@@ -781,7 +791,7 @@ class InferenceEngine:
                 last_logits, sub, temperature=gen.temperature,
                 top_k=gen.top_k, top_p=gen.top_p, min_p=gen.min_p,
             )
-        self._pending_prefill = (t0, time.perf_counter(), len(prompt_ids))
+        self._pending_prefill = (t0, time.time(), len(prompt_ids))
         return tok, cache, key
 
     def _host_first(self, tok) -> int:
@@ -791,7 +801,7 @@ class InferenceEngine:
         pending, self._pending_prefill = self._pending_prefill, None
         if pending is not None:
             t0, t_issue, n = pending
-            FLIGHT.dispatch("dispatch.prefill", t0, t_issue, time.perf_counter(),
+            FLIGHT.dispatch("dispatch.prefill", t0, t_issue, time.time(),
                             mesh=self.mesh_tag, tokens=n)
         return first
 
@@ -859,16 +869,16 @@ class InferenceEngine:
             if i == budget - 1:
                 break  # cache full: no step whose KV slot does not exist
             mask = self._pad_mask(logit_mask_fn(generated)) if logit_mask_fn else None
-            t0 = time.perf_counter()
+            t0 = time.time()
             with METRICS.span("decode_step"):
                 METRICS.incr("engine.decode_dispatches")
                 tok, cache, key = self._step(
                     gen, cache, tok.reshape(1, 1), key,
                     None if mask is None else mask[None, :],
                 )
-                t_issue = time.perf_counter()
+                t_issue = time.time()
                 tok_host = int(tok[0])  # host sync inside the span
-            FLIGHT.dispatch("dispatch.decode", t0, t_issue, time.perf_counter(),
+            FLIGHT.dispatch("dispatch.decode", t0, t_issue, time.time(),
                             mesh=self.mesh_tag, n_steps=1, slots=1)
 
     def _stream_chunked(
@@ -1082,13 +1092,13 @@ class InferenceEngine:
                     METRICS.incr("engine.grammar_trigger_suffix_rejected")
                 if i >= budget:
                     return
-                t0 = time.perf_counter()
+                t0 = time.time()
                 with METRICS.span("decode_step"):
                     METRICS.incr("engine.decode_dispatches")
                     tok, cache, key = self._step(gen, cache, tok.reshape(1, 1), key)
-                    t_issue = time.perf_counter()
+                    t_issue = time.time()
                     tok_host = int(tok[0])
-                FLIGHT.dispatch("dispatch.decode", t0, t_issue, time.perf_counter(),
+                FLIGHT.dispatch("dispatch.decode", t0, t_issue, time.time(),
                                 mesh=self.mesh_tag, n_steps=1, slots=1)
             token = tok.reshape(1, 1)
         if gstate < 0 or i >= budget:

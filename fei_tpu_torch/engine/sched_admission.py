@@ -73,7 +73,34 @@ class AdmissionMixin:
         """Fill free slots while the pool has pages. A chunked admission in
         flight gets exactly one chunk per call, so the loop interleaves it
         with decode. Head-of-line blocking on the chosen candidate is
-        deliberate: a too-big-for-now request eventually runs."""
+        deliberate: a too-big-for-now request eventually runs. Each call's
+        wall time adds to ``scheduler.admit_seconds``, in parts: before
+        each first token it delivers (``_admit_split``) and at its end, so
+        a window that opens or closes on such a token splits the call
+        there. While the flight recorder captures, the call is a
+        ``sched.admit`` range."""
+        self._admit_t = time.perf_counter()
+        cap = FLIGHT.capturing
+        if cap:
+            r = FLIGHT.open("sched.admit")
+        try:
+            self._admit_queued()
+        finally:
+            if cap:
+                FLIGHT.close(r)
+                FLIGHT.resolve()  # its prefills' device times: their first tokens synced
+            METRICS.incr("scheduler.admit_seconds", time.perf_counter() - self._admit_t)
+            self._admit_t = None
+
+    def _admit_split(self) -> None:
+        """Add the admission call's time so far to
+        ``scheduler.admit_seconds`` (before a first token goes out)."""
+        if self._admit_t is not None:
+            now = time.perf_counter()
+            METRICS.incr("scheduler.admit_seconds", now - self._admit_t)
+            self._admit_t = now
+
+    def _admit_queued(self) -> None:
         if self._admitting is not None:
             seq, slot = self._admitting["seq"], self._admitting["slot"]
             try:
@@ -284,11 +311,16 @@ class AdmissionMixin:
         if self._alloc_pages(seq, slot, need) is None:
             raise PoolPressure(f"no viable victim could free {need} pages for "
                                f"{seq.rid} at admission")
-        t0 = time.perf_counter()
+        cap = FLIGHT.capturing
+        if cap:
+            r = FLIGHT.open("admit.dense", tokens=len(ids))
+        t0 = time.time()
         last_logits, dense = self._dense_prefill(ids)
         seq.dense_admitted = True
         self._complete_admission(seq, slot, dense, last_logits,
-                                 flight=(t0, time.perf_counter()))
+                                 flight=(t0, time.time()))
+        if cap:
+            FLIGHT.close(r)
 
     def _dense_prefill(self, ids: list[int]):
         """One bucketed dense forward of ``ids``: (last logits, the dense
@@ -313,7 +345,7 @@ class AdmissionMixin:
         n = len(ids)
         tok0, key = self._first_token(seq, last_logits)
         if flight is not None:
-            FLIGHT.dispatch("dispatch.prefill", *flight, time.perf_counter(),
+            FLIGHT.dispatch("dispatch.prefill", *flight, time.time(),
                             rid=seq.rid, mesh=self.engine.mesh_tag, slot=slot, tokens=n)
         pages = alloc.pages_for(slot)
         n_prompt_pages = alloc.pages_needed(n)
@@ -332,6 +364,7 @@ class AdmissionMixin:
         if seq.budget <= 0:
             self._finish(seq)
             return
+        self._admit_split()
         self._deliver(seq, tok0, key=key if self._wants_key(seq) else None)
 
     @staticmethod
@@ -388,7 +421,18 @@ class AdmissionMixin:
 
     def _admit_chunk(self) -> None:
         """Run (or defer for merging) ONE prefill chunk of the in-flight
-        chunked admission."""
+        chunked admission (an ``admit.chunk`` range while the flight
+        recorder captures)."""
+        if not FLIGHT.capturing:
+            self._admit_one_chunk()
+            return
+        r = FLIGHT.open("admit.chunk")
+        try:
+            self._admit_one_chunk()
+        finally:
+            FLIGHT.close(r)
+
+    def _admit_one_chunk(self) -> None:
         if self._pending_chunk is not None:
             # a deferred chunk no decode dispatch consumed: its solo
             # dispatch is this call's one-chunk budget
@@ -427,10 +471,10 @@ class AdmissionMixin:
             if lo >= end:
                 if lo < n:
                     hi = min(lo + max(1, self.multistep), n)
-                    t0 = time.perf_counter()
+                    t0 = time.time()
                     with METRICS.span("prefill_chunk", nvtx=True):
                         self._replay(prompt[lo:hi], st["row"], st["slot"], lo)
-                    t1 = time.perf_counter()
+                    t1 = time.time()
                     FLIGHT.dispatch("dispatch.prefill_chunk", t0, t1, t1, rid=seq.rid,
                                     mesh=self.engine.mesh_tag, slot=st["slot"], tokens=hi - lo,
                                     replay=True)
@@ -461,12 +505,12 @@ class AdmissionMixin:
         """Run one paged-native prefill chunk as its own forward. Its result
         is read at the admission's first token, so its record carries no
         sync time (the dispatch itself adds no sync)."""
-        t0 = time.perf_counter()
+        t0 = time.time()
         with METRICS.span("prefill_chunk", nvtx=True):
             # a resume's prompt chunks need no logits: it samples nothing
             last_logits = self._paged_chunk(toks, st["row"], lo, end - 1 - lo,
                                             final and not seq.generated)
-        t1 = time.perf_counter()
+        t1 = time.time()
         FLIGHT.dispatch("dispatch.prefill_chunk", t0, t1, t1, rid=seq.rid,
                         mesh=self.engine.mesh_tag, slot=st["slot"], tokens=hi - lo,
                         paged=True)
@@ -580,6 +624,7 @@ class AdmissionMixin:
         if seq.budget <= 0:
             self._finish(seq)
             return
+        self._admit_split()
         self._deliver(seq, tok0, key=key if self._wants_key(seq) else None)
 
     def _resume_delivered(self, seq, n: int, prefix_pages: int,
@@ -660,7 +705,7 @@ class AdmissionMixin:
         # commits pages to the slot; PoolPressure propagates to the
         # caller's requeue handler exactly like the replay routes
         m = self._reserve_admission(seq, slot, prefix)
-        t0 = time.perf_counter()
+        t0 = time.time()
         pages = alloc.pages_for(slot)
         with METRICS.span("kv_fetch"):
             # blocking host -> device copies: the entry may go right after
@@ -668,7 +713,7 @@ class AdmissionMixin:
         row = self._slot_row(slot)
         self._arm(slot, row, n)
         self._keys[slot] = seq.resume_key
-        t1 = time.perf_counter()
+        t1 = time.time()
         seq.prefilling = False
         seq.row = row
         if seq.trace is not None:
@@ -743,11 +788,11 @@ class AdmissionMixin:
                 if got is None:
                     return []  # no room even after eviction: prefill
                 try:
-                    t0 = time.perf_counter()
+                    t0 = time.time()
                     with METRICS.span("kv_fetch"):
                         scatter_pages(self._pool, got,
                                       {k: v[have:m] for k, v in cas_arrays.items()})
-                    t1 = time.perf_counter()
+                    t1 = time.time()
                     full = list(prefix) + list(got)
                     self._prefix.register(ids[: m * ps], full)
                     alloc.share(slot, got)

@@ -121,13 +121,13 @@ class DecodeMixin:
         lengths[b] = L0
         # idle rows at length 0: their writes land in the null page
         pool = replace_lengths(self._pool, lengths)
-        t0 = time.perf_counter()
+        t0 = time.time()
         with METRICS.span("spec_step"):
             greedy_dev, pool = self._spec_fn(T)(eng.params, pool, tokens.to(dev))
-            t_issue = time.perf_counter()
+            t_issue = time.time()
             greedy = greedy_dev[b].tolist()  # the host sync, inside the span
         self._pool = pool
-        FLIGHT.dispatch("dispatch.spec", t0, t_issue, time.perf_counter(),
+        FLIGHT.dispatch("dispatch.spec", t0, t_issue, time.time(),
                         rid=s.rid, mesh=self.engine.mesh_tag, slot=b, draft=T - 1)
         accept = 0
         while accept < self.spec_draft_len and draft[accept] == greedy[accept]:
@@ -178,7 +178,12 @@ class DecodeMixin:
         # a deferred admission chunk this iteration's dispatch did not
         # consume still makes progress now: bounded-stall admission is a
         # guarantee, not a fast path
+        cap = FLIGHT.capturing and self._pending_chunk is not None
+        if cap:
+            r = FLIGHT.open("admit.chunk", deferred=True)
         self._flush_pending_chunk()
+        if cap:
+            FLIGHT.close(r)
 
     def _step_active_impl(self) -> None:
         if self._maybe_spec_step():
@@ -210,9 +215,14 @@ class DecodeMixin:
                 mask[b] = m
             METRICS.incr("scheduler.host_mask_uploads", len(masks))
         toks, keys_h, active = self._dispatch_steps(active, 1, mask=mask)
+        cap = FLIGHT.capturing
+        if cap:
+            r = FLIGHT.open("sched.deliver")
         for b, s in active:
             if self._slots[b] is s:
                 self._deliver(s, int(toks[b, 0]), key=None if keys_h is None else keys_h[0, b])
+        if cap:
+            FLIGHT.close(r)
 
     def _try_multi_step(self) -> bool:
         """Run up to ``multistep`` decode steps in ONE dispatch (one host
@@ -246,6 +256,9 @@ class DecodeMixin:
         METRICS.incr("scheduler.multi_tokens", n)
         if under_admission:
             METRICS.incr("scheduler.turbo_under_admission")
+        cap = FLIGHT.capturing
+        if cap:
+            r = FLIGHT.open("sched.deliver")
         rollback: dict[int, int] = {}
         for b, s in active:
             for i in range(n):
@@ -260,6 +273,8 @@ class DecodeMixin:
                     # re-enter constrained decode from the exact token
                     rollback[b] = i
                     break
+        if cap:
+            FLIGHT.close(r)
         if rollback:
             self._rollback_slots(rollback, n)
         return True
@@ -332,12 +347,29 @@ class DecodeMixin:
         slot samples, the keys after each step stay on the device in
         ``self._step_keys`` (the rollback's restore points). Slots
         preempted by the growth pass drop out before anything is sampled
-        for them."""
+        for them. The issue time of each dispatch (the call until its
+        launches are queued) adds to ``scheduler.dispatch_issue_seconds``;
+        while the flight recorder captures, the call is a ``sched.decode``
+        range holding ``decode.prepare``, each step's ``model.forward`` and
+        ``decode.sample``, and ``decode.sync``."""
+        if not FLIGHT.capturing:
+            return self._run_steps(active, n, mask, False)
+        r = FLIGHT.open("sched.decode", n_steps=n)
+        try:
+            return self._run_steps(active, n, mask, True)
+        finally:
+            FLIGHT.close(r)
+
+    def _run_steps(self, active, n: int, mask, cap: bool):
         from fei_tpu_torch.models.llama import _logits, forward_paged, forward_paged_merged
 
+        if cap:
+            rp = FLIGHT.open("decode.prepare")
         self._grow_for_steps(active, n)
         active = [(b, s) for b, s in active if self._slots[b] is s]
         if not active:
+            if cap:
+                FLIGHT.close(rp)
             return None, None, []
         FAULTS.check("decode.dispatch")
         eng = self.engine
@@ -370,6 +402,8 @@ class DecodeMixin:
             gstates, gremain = gs.to(dev), gr.to(dev)
             table, mind = self._gtable, self._gmind
         sample = _make_sampler(active, self.B, eng.cfg.vocab_size, dev, table, mind)
+        if cap:
+            FLIGHT.close(rp)
         METRICS.incr("scheduler.decode_steps", n)
         METRICS.incr("scheduler.decode_slot_steps", len(active) * n)
         METRICS.gauge("scheduler.batch_slots_active", len(active))
@@ -380,7 +414,7 @@ class DecodeMixin:
         # per-step keys
         sampled = any(s.gen.temperature > 0.0 for _, s in active)
         outs, step_keys = [], []
-        t0 = time.perf_counter()
+        t0 = time.time()
         with METRICS.span("decode_step"):
             for i in range(n):
                 if i == 0 and pc is not None:
@@ -396,8 +430,12 @@ class DecodeMixin:
                                                eng.params, eng.cfg)[:, 0]
                 else:
                     logits, pool = forward_paged(eng.params, eng.cfg, tok, pool)
+                if cap:
+                    rs = FLIGHT.open("decode.sample")
                 nxt, keys, gstates, gremain = sample(
                     logits[:, -1, :], keys, mask, gstates, gremain)
+                if cap:
+                    FLIGHT.close(rs)
                 outs.append(nxt)
                 if sampled:
                     step_keys.append(keys)
@@ -406,7 +444,10 @@ class DecodeMixin:
             self._keys = keys
             self._step_keys = torch.stack(step_keys) if sampled else None
             toks = torch.stack(outs, dim=1).long()
-            t_issue = time.perf_counter()
+            t_issue = time.time()
+            if cap:
+                FLIGHT.resolve()  # earlier dispatches' device times, while this one runs
+                rc = FLIGHT.open("decode.sync")
             keys_h = None
             if self._want_token_keys():
                 # journaled slots record each delivered token's key: the
@@ -417,9 +458,12 @@ class DecodeMixin:
                 keys_h = both[toks.numel():].reshape(steps.shape).numpy()
             else:
                 out = toks.cpu().numpy()  # the one host sync
-        t1 = time.perf_counter()
+            if cap:
+                FLIGHT.close(rc)
+        t1 = time.time()
         self._record_collective_time(t1 - t0)
         METRICS.timing("dispatch_issue", t_issue - t0)
+        METRICS.incr("scheduler.dispatch_issue_seconds", t_issue - t0)
         METRICS.timing("dispatch_sync", t1 - t_issue)
         extra = {}
         if pc is not None:

@@ -107,6 +107,7 @@ from typing import Callable, Iterator, Sequence
 
 import numpy as np
 import torch
+import torch.autograd.profiler as torch_profiler
 
 from fei_tpu_torch.engine.faults import FAULTS
 from fei_tpu_torch.engine.sched_admission import AdmissionMixin
@@ -283,6 +284,7 @@ class PagedScheduler(AdmissionMixin, DecodeMixin, ConstraintMixin):
         self._prefix = None  # PrefixCache when engine.prefix_cache
         self._admitting: dict | None = None  # in-flight chunked admission
         self._pending_chunk: dict | None = None  # deferred merge chunk
+        self._admit_t: float | None = None  # admission time counted up to here
         self._ctl: deque = deque()  # closures for the loop thread (run_ctl)
         self._closed = False
         # the serving knobs, read as the JAX package reads them
@@ -716,6 +718,10 @@ class PagedScheduler(AdmissionMixin, DecodeMixin, ConstraintMixin):
                         continue
                     self._reap_cancelled()
                     self._run_ctl_pending()
+                    # the flight recorder captures ranges while a profiler runs
+                    on = torch_profiler._is_profiler_enabled
+                    if on or FLIGHT.capturing:
+                        FLIGHT.follow_profiler(on)
                     if self._draining:
                         if self._admitting is not None:
                             # an accepted chunked admission finishes its
@@ -1092,7 +1098,7 @@ class PagedScheduler(AdmissionMixin, DecodeMixin, ConstraintMixin):
             if int(self._pool.lengths[slot]) != n:
                 METRICS.incr("kv.spill_skipped_length")
                 return
-            t0 = time.perf_counter()
+            t0 = time.time()
             with METRICS.span("kv_spill"):
                 arrays = gather_pages(self._pool, pages)
             fp = pool_fingerprint(self._pool, self.engine.tp)
@@ -1101,7 +1107,7 @@ class PagedScheduler(AdmissionMixin, DecodeMixin, ConstraintMixin):
                 fingerprint=fp, arrays=arrays, layout=shard_layout(fp["kv_heads"], self.engine.tp),
             )
             tier.put(seq.rid, entry)
-            t1 = time.perf_counter()
+            t1 = time.time()
             METRICS.incr("kv.spills")
             METRICS.incr("kv.pages_spilled", need)
             account_kv_transfer("spilled", entry.nbytes, t1 - t0)

@@ -58,6 +58,7 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from fei_tpu_torch.models.configs import ModelConfig
+from fei_tpu_torch.obs.flight import FLIGHT
 from fei_tpu_torch.ops.attention import attention
 from fei_tpu_torch.ops.kernels.flash_attention import flash_attention
 from fei_tpu_torch.ops.moe import moe_mlp, moe_mlp_routed
@@ -362,7 +363,18 @@ def _mlp(cfg: ModelConfig, y, lp, allow_routed: bool, kernel_mesh=None, moe_mesh
     tokens (``_moe``); without one, experts that this rank holds a slice
     of (ep-sliced, or tp-split over their intermediate dim) run the
     dense-local expert-parallel form, ``parallel.expert.moe_mlp_ep``: the
-    reference's oracle over sharded leaves, its partial sums all_reduced."""
+    reference's oracle over sharded leaves, its partial sums all_reduced.
+    While the flight recorder captures, a ``model.mlp`` range, or a
+    device-timed ``model.moe`` one."""
+    if not FLIGHT.capturing:
+        return _mlp_block(cfg, y, lp, allow_routed, kernel_mesh, moe_mesh)
+    r = FLIGHT.open("model.moe" if cfg.is_moe else "model.mlp", device=cfg.is_moe)
+    out = _mlp_block(cfg, y, lp, allow_routed, kernel_mesh, moe_mesh)
+    FLIGHT.close(r)
+    return out
+
+
+def _mlp_block(cfg: ModelConfig, y, lp, allow_routed: bool, kernel_mesh, moe_mesh):
     if not cfg.is_moe:
         return _mlp_dense(cfg, y, lp, kernel_mesh)
     routes = (moe_mesh is not None and moe_mesh.shape.get("ep", 1) > 1
@@ -488,6 +500,9 @@ def _layer(cfg: ModelConfig, x, lp, cache_k, cache_v, kv_length, positions,
     B, T, _ = x.shape
     K, d, Hq = cfg.num_kv_heads, cfg.head_dim_, cfg.num_heads
 
+    cap = FLIGHT.capturing
+    if cap:
+        ra = FLIGHT.open("model.attn")
     y = _norm(x, lp["attn_norm"], cfg, b=lp.get("attn_norm_b"))
     yq = y if kernel_mesh is None else kernel_mesh.sum_grad(y, "tp")
     q, k, v = qkv_proj(lp, yq, Hq, K, d, kernel_mesh)
@@ -511,6 +526,8 @@ def _layer(cfg: ModelConfig, x, lp, cache_k, cache_v, kv_length, positions,
         attn = kernel_mesh.all_gather(attn, "tp", dim=2)
         if rows is not None:
             attn = kernel_mesh.all_gather(attn, "dp", dim=0)
+    if cap:
+        FLIGHT.close(ra)
     return _block_tail(cfg, lp, x, y, attn, allow_routed, kernel_mesh, moe_mesh)
 
 
@@ -573,8 +590,13 @@ def forward(
     ``routed_moe`` lets MoE layers take the token-routed form and
     ``moe_mesh`` (an ep mesh) the expert-parallel one (``_moe``).
     ``kernel_mesh``: this rank's mesh (see the module docstring).
+    While the flight recorder captures, the call is a ``model.forward``
+    range, its final norm and head a ``model.head`` one.
     """
     B, T = tokens.shape
+    cap = FLIGHT.capturing
+    if cap:
+        rf = FLIGHT.open("model.forward", tokens=B * T)
     tokens = tokens.to(device=cache.k.device, dtype=torch.long)
     positions = (
         cache.length.to(torch.long)[:, None]
@@ -589,12 +611,16 @@ def forward(
         x = _layer(cfg, x, lp, cache.k[i], cache.v[i], cache.length, positions,
                    cos, sin, live=live, flash=flash, allow_routed=routed_moe,
                    kernel_mesh=kernel_mesh, moe_mesh=moe_mesh)
+    if cap:
+        rh = FLIGHT.open("model.head")
     x = _norm(x, params["final_norm"], cfg, b=params.get("final_norm_b"))
     step = T if live is None else live.to(torch.int32) * T
     new_cache = KVCache(k=cache.k, v=cache.v, length=cache.length + step)
-    if not lm_head:
-        return x, new_cache
-    return _logits(x, params, cfg, kernel_mesh=kernel_mesh), new_cache
+    out = _logits(x, params, cfg, kernel_mesh=kernel_mesh) if lm_head else x
+    if cap:
+        FLIGHT.close(rh)
+        FLIGHT.close(rf)
+    return out, new_cache
 
 
 def check_trainable(node, path: str = "params") -> None:
@@ -738,7 +764,10 @@ def forward_paged_block(
     the expert-parallel one. Under a
     mesh (``kernel_mesh``) the pool holds the rank's kv heads and the
     attention goes through ``paged_attention[_block]_sharded``.
-    Returns (out, cache with lengths += T); the pools change in place."""
+    Returns (out, cache with lengths += T); the pools change in place.
+    While the flight recorder captures, the call is a ``model.forward``
+    range holding each layer's ``model.attn`` (projections, K/V write,
+    attention) and MLP range, and ``model.head``."""
     from fei_tpu_torch.engine.paged_cache import write_token_kv
     from fei_tpu_torch.ops.kernels.paged_attention import (
         paged_attention,
@@ -748,6 +777,9 @@ def forward_paged_block(
     )
 
     B, T = tokens.shape
+    cap = FLIGHT.capturing
+    if cap:
+        rf = FLIGHT.open("model.forward", tokens=B * T)
     dev = cache.k_pages.device
     tokens = tokens.to(device=dev, dtype=torch.long)
     cos, sin = _paged_rope_tables(cfg, cache)
@@ -762,6 +794,8 @@ def forward_paged_block(
     for i in range(cfg.num_layers):
         lp = layer_params(params, i)
         kp, vp, ks, vs = _layer_pools(cache, i)
+        if cap:
+            ra = FLIGHT.open("model.attn")
         y, q, k, v = _qkv_roped(cfg, lp, x, positions, cos, sin, kernel_mesh)
         write_token_kv(kp, vp, k, v, cache.block_table, cache.lengths, ks, vs)
         if T == 1 and sharded:
@@ -778,10 +812,18 @@ def forward_paged_block(
         else:
             attn = paged_attention_block(q, kp, vp, cache.block_table, cache.lengths,
                                          k_scales=ks, v_scales=vs, window=win)
+        if cap:
+            FLIGHT.close(ra)
         x = _block_tail(cfg, lp, x, y, attn, routed_moe, kernel_mesh, moe_mesh)
+    if cap:
+        rh = FLIGHT.open("model.head")
     x = _norm(x, params["final_norm"], cfg, b=params.get("final_norm_b"))
     new_cache = cache._replace(lengths=(cache.lengths + T).to(torch.int32))
-    return (_logits(x, params, cfg, kernel_mesh=kernel_mesh) if lm_head else x), new_cache
+    out = _logits(x, params, cfg, kernel_mesh=kernel_mesh) if lm_head else x
+    if cap:
+        FLIGHT.close(rh)
+        FLIGHT.close(rf)
+    return out, new_cache
 
 
 @spmd_op
@@ -812,7 +854,10 @@ def forward_paged_merged(
     Writes commute: chunk K/V land in the admitting slot's pages (its LIVE
     row is still zero, so no decode row reads them), decode K/V in each
     armed slot's own pages. Returns ``(chunk_hidden [1, C, h] final-normed,
-    dec_logits [B, 1, V], cache with lengths += 1)``."""
+    dec_logits [B, 1, V], cache with lengths += 1)``. While the flight
+    recorder captures, the call is a ``model.forward`` range holding each
+    layer's ``model.attn`` (both sides' projections and K/V writes, the
+    merged attention) and two MLP ranges, and ``model.head``."""
     from fei_tpu_torch.engine.paged_cache import write_token_kv
     from fei_tpu_torch.ops.kernels.ragged_paged_attention import (
         ragged_paged_attention,
@@ -821,6 +866,9 @@ def forward_paged_merged(
 
     B = dec_tokens.shape[0]
     C = chunk_toks.shape[1]
+    cap = FLIGHT.capturing
+    if cap:
+        rf = FLIGHT.open("model.forward", tokens=B + C, merged=True)
     dev = cache.k_pages.device
     Hq, d = cfg.num_heads, cfg.head_dim_
     Hl = Hq // _tp(kernel_mesh)[0]  # the rank's query heads
@@ -853,6 +901,8 @@ def forward_paged_merged(
     for i in range(cfg.num_layers):
         lp = layer_params(params, i)
         kp, vp, ks, vs = _layer_pools(cache, i)
+        if cap:
+            ra = FLIGHT.open("model.attn")
         yc, qc, kc, vc = _qkv_roped(cfg, lp, xc, chunk_positions, cos, sin, kernel_mesh)
         yd, qd, kd, vd = _qkv_roped(cfg, lp, xd, dec_positions, cos, sin, kernel_mesh)
         # chunk writes first, then the decode rows' — page-disjoint
@@ -871,9 +921,17 @@ def forward_paged_merged(
                                         k_scales=ks, v_scales=vs, window=win)
         dec_attn = av[:B, :1]
         chunk_attn = av[B:].reshape(1, Cp, Hq, d)[:, :C]
+        if cap:
+            FLIGHT.close(ra)
         xc = _block_tail(cfg, lp, xc, yc, chunk_attn, routed_moe, kernel_mesh, moe_mesh)
         xd = _block_tail(cfg, lp, xd, yd, dec_attn, routed_moe, kernel_mesh, moe_mesh)
+    if cap:
+        rh = FLIGHT.open("model.head")
     xc = _norm(xc, params["final_norm"], cfg, b=params.get("final_norm_b"))
     xd = _norm(xd, params["final_norm"], cfg, b=params.get("final_norm_b"))
     new_cache = cache._replace(lengths=(cache.lengths + 1).to(torch.int32))
-    return xc, _logits(xd, params, cfg, kernel_mesh=kernel_mesh), new_cache
+    logits = _logits(xd, params, cfg, kernel_mesh=kernel_mesh)
+    if cap:
+        FLIGHT.close(rh)
+        FLIGHT.close(rf)
+    return xc, logits, new_cache

@@ -447,6 +447,13 @@ METRIC_REGISTRY: dict[str, tuple[str, str]] = {
     "scheduler.replayed_tokens": (
         "counter", "Delivered tokens re-emitted to a fresh consumer by a "
                    "restored request (warm restart, resurrection)."),
+    "scheduler.dispatch_issue_seconds": (
+        "counter", "Seconds the paged scheduler spent issuing decode "
+                   "dispatches (each dispatch's call until its launches "
+                   "were queued: the dispatch_issue span's interval)."),
+    "scheduler.admit_seconds": (
+        "counter", "Wall seconds of the paged scheduler's admission calls "
+                   "(one a loop iteration; prefills included)."),
     "provider.torch_local": ("span", "One local-engine provider call "
                                      "(the port's provider.jax_local)."),
 }

@@ -31,6 +31,8 @@ from typing import NamedTuple
 
 import torch
 
+from fei_tpu_torch.obs.flight import FLIGHT
+
 # stacked-dict keys that hold big linear weights (contraction axis -2)
 QUANT_KEYS = frozenset(
     {"wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down", "lm_head"}
@@ -177,12 +179,23 @@ def mm(x: torch.Tensor, w) -> torch.Tensor:
     a dense copy of the weight on every call; the JAX package's XLA fuses it
     into the product."""
     if isinstance(w, QTensor):
-        return (x @ w.q.to(x.dtype)) * w.s.squeeze(-2).to(x.dtype)
+        return (x @ _cast(w.q, x.dtype)) * w.s.squeeze(-2).to(x.dtype)
     if isinstance(w, QTensor4):
         from fei_tpu_torch.ops.kernels.int4_matmul import int4_mm
 
         return int4_mm(x, w)
     return x @ w
+
+
+def _cast(q: torch.Tensor, dtype) -> torch.Tensor:
+    """An int8 weight's dense copy in ``dtype``: the ``quant.cast`` range,
+    device-timed, while the flight recorder captures."""
+    if not FLIGHT.capturing:
+        return q.to(dtype)
+    r = FLIGHT.open("quant.cast", device=True)
+    out = q.to(dtype)
+    FLIGHT.close(r)
+    return out
 
 
 def wcast(w, dtype) -> torch.Tensor:
@@ -192,7 +205,7 @@ def wcast(w, dtype) -> torch.Tensor:
     writes a dense copy of the weight each call; the JAX package's XLA fuses
     it into the product."""
     if isinstance(w, QTensor):
-        return w.q.to(dtype)
+        return _cast(w.q, dtype)
     if isinstance(w, QTensor4):  # MoE experts are kept int8 (_int4_ok)
         raise TypeError("QTensor4 has no raw-operand form; use mm/dequantize")
     return w

@@ -30,8 +30,10 @@ first; limit clamped to 1–1000), GET /v1/traces/<id> (one trace with its
 slice of the flight recorder), GET /debug/timeline (the flight recorder as
 Chrome-trace JSON, for ui.perfetto.dev) and POST /debug/profile
 (``seconds`` in (0, 60]: a torch.profiler capture of the card's kernels
-under live traffic, written as Chrome-trace JSON into ``trace_dir``; 409
-while another capture runs in the process). A streamed completion's content frames carry
+under live traffic, written as Chrome-trace JSON into ``trace_dir``, and
+the flight recorder's ranges of the same seconds beside it in
+``ranges.json``, on the same timeline; 409 while another capture runs in
+the process). A streamed completion's content frames carry
 an ``fei`` extension (the token ids delivered since the last frame and
 the threefry key after them) so the fleet router can resurrect the stream
 on another replica.
@@ -364,7 +366,8 @@ class ServeAPI:
         a card records its CPU ops. The profiler starts and stops with the
         schedulers quiesced (``DEVICE_GATE``): a stop while a scheduler
         thread launched kernels also died of SIGSEGV, inside CUPTI's
-        teardown."""
+        teardown. The flight recorder captures its ranges for the same
+        seconds; they go beside the trace in ``ranges.json``."""
         try:
             seconds = float(body.get("seconds", 2.0))
         except (TypeError, ValueError):
@@ -388,12 +391,17 @@ class ServeAPI:
             # no scheduler launches a kernel while CUPTI sets up or tears down
             with DEVICE_GATE.quiesce():
                 prof.start()
+                FLIGHT.follow_profiler(True)
+                since = time.time_ns()
             try:
                 time.sleep(seconds)
             finally:
                 with DEVICE_GATE.quiesce():
+                    FLIGHT.follow_profiler(False)
                     prof.stop()
-            prof.export_chrome_trace(os.path.join(trace_dir, "trace.json"))
+            trace = os.path.join(trace_dir, "trace.json")
+            prof.export_chrome_trace(trace)
+            self._write_ranges(trace, trace_dir, since)
             METRICS.incr("server.profile_captures")
             return 200, {"object": "profile", "trace_dir": trace_dir, "seconds": seconds}
         except Exception as exc:  # noqa: BLE001 — profiler issues -> JSON
@@ -401,6 +409,20 @@ class ServeAPI:
             return _server_error(exc)
         finally:
             self._profile_lock.release()
+
+    @staticmethod
+    def _write_ranges(trace: str, trace_dir: str, since_ns: int) -> None:
+        """The flight recorder's ranges of the capture as Chrome-trace JSON
+        in ``ranges.json``, on ``trace.json``'s timeline: the profiler
+        writes its events in µs after ``baseTimeNanoseconds`` of the wall
+        clock, and the ranges are placed after the same base."""
+        with open(trace, encoding="utf-8") as f:
+            base = int(json.load(f).get("baseTimeNanoseconds", 0))
+        out = {"traceEvents": FLIGHT.chrome_ranges(base, since_ns),
+               "displayTimeUnit": "ms", "baseTimeNanoseconds": base,
+               "rangesDropped": FLIGHT.ranges_dropped}
+        with open(os.path.join(trace_dir, "ranges.json"), "w", encoding="utf-8") as f:
+            json.dump(out, f)
 
     # -- the KV control plane -------------------------------------------------
 

@@ -316,7 +316,15 @@ def test_timeline_and_traces_endpoints(flown):
     status, listing = api.handle("GET", "/v1/traces?limit=0", {}, {})[:2]
     assert status == 200 and len(listing["data"]) == 1  # clamped to 1..1000
     assert api.handle("GET", "/v1/traces?limit=x", {}, {})[0] == 400
-    assert api.handle("GET", "/debug/timeline", {}, {})[0] == 200
+    status, served = api.handle("GET", "/debug/timeline", {}, {})[:2]
+    assert status == 200
+    # one clock: the timeline is on the wall clock of the request traces,
+    # so each dispatch that served a request lies inside its trace
+    stamps = dict(seqs[0].trace.events)
+    mine = [e for e in json.loads(json.dumps(served))["traceEvents"]
+            if e["ph"] == "X" and seqs[0].rid in (e["args"].get("rids") or ())]
+    assert mine and all(stamps["queued"] * 1e6 <= e["ts"] <= stamps["completed"] * 1e6
+                        for e in mine)
 
 
 def test_profile_route_validates_and_captures(tmp_path):
@@ -335,7 +343,12 @@ def test_profile_route_validates_and_captures(tmp_path):
                              {"seconds": 0.05, "trace_dir": str(tmp_path)}, {})[:2]
     assert status == 200 and out == {"object": "profile", "trace_dir": str(tmp_path),
                                      "seconds": 0.05}
-    assert "traceEvents" in json.loads((tmp_path / "trace.json").read_text())
+    trace = json.loads((tmp_path / "trace.json").read_text())
+    assert "traceEvents" in trace
+    # the flight recorder's ranges of the capture, on the trace's timeline
+    ranges = json.loads((tmp_path / "ranges.json").read_text())
+    assert ranges["baseTimeNanoseconds"] == trace["baseTimeNanoseconds"]
+    assert isinstance(ranges["traceEvents"], list) and ranges["rangesDropped"] == 0
 
 
 

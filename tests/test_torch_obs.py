@@ -200,7 +200,8 @@ def test_registry_is_the_reference_plus_the_ports_own_names():
     ref, port = jax_obs.METRIC_REGISTRY, torch_obs.METRIC_REGISTRY
     own = set(port) - set(ref)
     assert own == {"kv.spill_skipped_length", "scheduler.replayed_tokens",
-                   "provider.torch_local"}
+                   "provider.torch_local", "scheduler.dispatch_issue_seconds",
+                   "scheduler.admit_seconds"}
     assert set(ref) <= set(port)
     differ = {k for k in ref if port[k] != ref[k]}
     # the one help text that names the port's profiler
